@@ -1,0 +1,629 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                 # every phase, as a check of the port
+
+Phases, in order; any failed check exits non-zero before the last line:
+  1. card     print the card's name and power limit; build the four CUDA
+              kernels from `src/repro_torch/csrc` (one nvcc per source,
+              all at once)
+  2. kernels  hold each kernel against its plain PyTorch version on the
+              card at llama3.1-8b's shapes, and time kernel, plain version
+              and one library call (yardstick only) with cold weights
+  3. slice    llama3.1-8b at full width, 2 layers, one planted exception
+              tensor: `paged_step` logits on the card against the plain
+              versions on the CPU, fp16 and fp8, planar KV
+  4. serve    llama3.1-8b at full width and depth through `Engine`: 8
+              requests of 128 prompt tokens and 32 new tokens in forced
+              fp16, forced fp8 and dual mode; every kernel must launch
+The second-to-last line is the kernels JSON, the last line
+{"ok": true, "device": {...}}. Exits non-zero without a result when no
+GPU is present or the port is missing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM published peaks (dense), the card's memory rate
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {"f16": 989e12, "fp8": 1979e12, "f32": 67e12}
+L2_BYTES = 50 * 2**20
+GEMM_RTOL, GEMM_ATOL = 1e-3, 1e-2     # f32 outputs of f16 inputs, K <= 14336
+ATTN_TOL = 2e-4
+LLAMA_KN = [(4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
+            (4096, 14336), (4096, 14336), (14336, 4096)]  # q k v o gate up down
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def bound(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
+    tb = nbytes / PEAK_BYTES_S * 1e3
+    tf = flops / PEAK_FLOPS[kind] * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def time_ms(torch, fn, n_sets: int, iters: int) -> float:
+    """Mean ms per call over `iters` calls cycling through `n_sets` input
+    sets (cold in L2), after warm-up, by CUDA events."""
+    for i in range(min(n_sets, 3)):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i % n_sets)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(torch, got, want, rtol, atol) -> float:
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), "non-finite kernel output")
+    err = (got - want).abs()
+    lim = atol + rtol * want.abs()
+    check(bool((err <= lim).all()),
+          f"kernel vs plain: max err {err.max().item():.3g} beyond "
+          f"atol {atol} + rtol {rtol}")
+    return float(err.max())
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def gemm_phase(torch, iters: int) -> list[dict]:
+    from repro_torch.core import nestedfp as nf
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.f16_matmul import f16_matmul
+    from repro_torch.kernels.nestedfp16_matmul import nestedfp16_matmul
+    from repro_torch.kernels.nestedfp8_matmul import nestedfp8_matmul
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = [(m, k, n) for m in (8, 256) for k, n in dict.fromkeys(LLAMA_KN)]
+    shapes += [(37, 999, 1001), (5, 4096, 1000)]     # ragged M, N and K
+    rows = {"nestedfp16_matmul": [], "nestedfp8_matmul": [], "f16_matmul": []}
+    for m, k, n in shapes:
+        wbytes = k * n
+        n_sets = max(2, math.ceil(2 * L2_BYTES / wbytes) + 1)
+        ws = [(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+               ).half() for _ in range(n_sets)]
+        planes = [nf.encode(w) for w in ws]
+        x = torch.randn((m, k), generator=gen, device=dev)
+        x16 = x.half()
+        xq, xs = quant.quantize_act_per_token(x)
+        flops = 2.0 * m * k * n
+        out_b = m * n * 4
+
+        def f16_lib(i):
+            return torch.matmul(x16, ws[i])
+
+        cases = {
+            "nestedfp16_matmul": (
+                lambda i: nestedfp16_matmul(x16, *planes[i]),
+                lambda i: ref.nestedfp16_matmul_ref(x16, *planes[i]),
+                f16_lib, m * k * 2 + 2 * k * n + out_b, "f16"),
+            "nestedfp8_matmul": (
+                lambda i: nestedfp8_matmul(xq, planes[i][0], xs),
+                lambda i: ref.nestedfp8_matmul_ref(xq, planes[i][0], xs),
+                None, m * k + k * n + m * 4 + out_b, "fp8"),
+            "f16_matmul": (
+                lambda i: f16_matmul(x16, ws[i]),
+                lambda i: ref.matmul_f16_ref(x16, ws[i]),
+                f16_lib, m * k * 2 + 2 * k * n + out_b, "f16"),
+        }
+        lib8 = scaled_mm_yardstick(torch, xq, xs, [p[0] for p in planes])
+        for name, (kern, plain, lib, nbytes, kind) in cases.items():
+            err = max_err(torch, kern(0), plain(0), GEMM_RTOL, GEMM_ATOL)
+            if name == "nestedfp8_matmul":
+                lib = lib8
+            b_ms, b_kind = bound(nbytes, flops, kind)
+            row = {"m": m, "k": k, "n": n, "max_abs_err": err,
+                   "ms": time_ms(torch, kern, n_sets, iters),
+                   "plain_ms": time_ms(torch, plain, n_sets, iters),
+                   "library_ms": None if lib is None
+                   else time_ms(torch, lib, n_sets, iters),
+                   "bound_ms": b_ms, "bound_by": b_kind}
+            rows[name].append(row)
+            log(f"  {name:18s} M={m:4d} K={k:5d} N={n:5d} err={err:.2e} "
+                f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+                f"lib={row['library_ms'] if lib is None else round(row['library_ms'], 4)} "
+                f"bound={b_ms:.4f} ({b_kind})")
+        del ws, planes
+    return rows
+
+
+def scaled_mm_yardstick(torch, xq, xs, uppers):
+    """torch._scaled_mm on the same e4m3 operands (weights copied to the
+    column-major layout it requires, M padded to 16; row-wise scales need
+    a bf16 output), or None where it refuses the inputs. A yardstick
+    only; the port never calls it."""
+    m = xq.shape[0]
+    mp = -(-m // 16) * 16
+    if mp != m:
+        pad = torch.zeros((mp - m, xq.shape[1]), device=xq.device,
+                          dtype=torch.uint8)
+        xq = torch.cat([xq.view(torch.uint8), pad]).view(torch.float8_e4m3fn)
+        xs = torch.cat([xs, torch.ones((mp - m, 1), device=xs.device)])
+    w8 = [u.t().contiguous().t().view(torch.float8_e4m3fn) for u in uppers]
+    sb = torch.full((1, uppers[0].shape[1]), 2.0 ** -8, device=xq.device)
+    fn = (lambda i: torch._scaled_mm(xq, w8[i], scale_a=xs, scale_b=sb,
+                                     out_dtype=torch.bfloat16))
+    try:
+        fn(0)
+    except (RuntimeError, TypeError, ValueError) as e:
+        log(f"  _scaled_mm refused the inputs ({type(e).__name__}: "
+            f"{str(e).splitlines()[0][:120]}); library_ms null")
+        return None
+    return fn
+
+
+def attention_phase(torch, iters: int) -> list[dict]:
+    import torch.nn.functional as F
+
+    from repro_torch.core import nestedfp as nf
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.planar_decode_attention import (
+        paged_planar_decode_attention)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, h, hkv, d, bs, mb = 8, 32, 8, 128, 16, 16
+    nb = 1 + b * mb
+    lens = torch.tensor([160, 129, 17, 1, 256, 0, 100, 33], dtype=torch.int32,
+                        device=dev)
+    # shuffled physical blocks; rows 1 and 6 share their first 2 blocks
+    # (COW prefix aliasing); holes past each row's length are trash
+    perm = torch.randperm(nb - 1, generator=gen, device=dev).to(torch.int32) + 1
+    tables = perm[: b * mb].reshape(b, mb).clone()
+    tables[6, :2] = tables[1, :2]
+    for r in range(b):
+        used = -(-int(lens[r]) // bs)
+        tables[r, used:] = 0
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    rows = []
+    for fp8 in (False, True):
+        for window in (None, 0, 40):
+            n_sets = 4
+            pools = []
+            for _ in range(n_sets):
+                kv = (torch.randn((2, nb, bs, hkv, d), generator=gen,
+                                  device=dev)).half()
+                k_hi, k_lo = nf.split_bytes(kv[0])
+                v_hi, v_lo = nf.split_bytes(kv[1])
+                pools.append((k_hi, k_lo, v_hi, v_lo))
+
+            def kern(i):
+                return paged_planar_decode_attention(
+                    q, *pools[i], tables, lens, fp8=fp8, window=window)
+
+            def plain(i):
+                return ref.paged_planar_decode_attention_ref(
+                    q, *pools[i], tables, lens, fp8=fp8, window=window)
+
+            live = lens > 0
+            err = max_err(torch, kern(0)[live], plain(0)[live], ATTN_TOL,
+                          ATTN_TOL)
+            check(bool(torch.isfinite(kern(0)).all()), "len=0 row not finite")
+            # bytes this data needs: the keys each row attends to
+            w = window if window and window > 0 else None
+            keys = sum(min(int(n), w) if w else int(n) for n in lens.tolist())
+            plane_b = 1 if fp8 else 2
+            nbytes = (keys * hkv * d * 2 * plane_b + q.numel() * 4
+                      + tables.numel() * 4 + b * 4 + b * h * d * 4)
+            flops = 4.0 * keys * (h // hkv) * hkv * d
+            b_ms, b_kind = bound(nbytes, flops, "f32")
+            lib = sdpa_yardstick(torch, F, q, pools, tables, lens, fp8, w)
+            row = {"fp8": fp8, "window": window, "max_abs_err": err,
+                   "ms": time_ms(torch, kern, n_sets, iters),
+                   "plain_ms": time_ms(torch, plain, n_sets, iters),
+                   "library_ms": time_ms(torch, lib, n_sets, iters),
+                   "bound_ms": b_ms, "bound_by": b_kind}
+            rows.append(row)
+            log(f"  paged_planar_decode_attention fp8={fp8} window={window} "
+                f"err={err:.2e} ms={row['ms']:.4f} plain={row['plain_ms']:.4f}"
+                f" lib={row['library_ms']:.4f} bound={b_ms:.5f} ({b_kind})")
+    return rows
+
+
+def sdpa_yardstick(torch, F, q, pools, tables, lens, fp8, window):
+    """scaled_dot_product_attention over K/V gathered (outside the timed
+    call) from the pool and joined to f16, with the same masks."""
+    from repro_torch.core import nestedfp as nf
+    b, h, d = q.shape
+    bs, hkv = pools[0][0].shape[1], pools[0][0].shape[2]
+    mb = tables.shape[1]
+    cap = mb * bs
+    idx = (tables.long()[..., None] * bs
+           + torch.arange(bs, device=q.device)).reshape(b, cap)
+    kpos = torch.arange(cap, device=q.device)[None]
+    keep = kpos < lens[:, None]
+    if window:
+        keep &= kpos > lens[:, None] - 1 - window
+    mask = keep[:, None, None, :]
+    qh = q.half()[:, :, None, :]
+    gathered = []
+    for k_hi, k_lo, v_hi, v_lo in pools:
+        def g(hi, lo):
+            hi = hi.reshape(-1, hkv, d)[idx]
+            if fp8:
+                return nf.e5m2_view(hi, torch.float16)
+            return nf.join_bytes(hi, lo.reshape(-1, hkv, d)[idx])
+        gathered.append((g(k_hi, k_lo).transpose(1, 2),
+                         g(v_hi, v_lo).transpose(1, 2)))
+
+    def fn(i):
+        k, v = gathered[i]
+        return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    return fn
+
+
+def summarize(rows: list[dict], weight) -> dict:
+    """The line's numbers for one kernel: times summed over the calls that
+    `weight(row)` counts (0 = not counted), max error over every check."""
+    sel = [(r, weight(r)) for r in rows if weight(r)]
+    lib = [r["library_ms"] for r, _ in sel]
+
+    def tot(key):
+        return sum(r[key] * w for r, w in sel)
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": tot("bound_ms"),
+            "bound_by": sel[0][0]["bound_by"],
+            "library_ms": None if any(x is None for x in lib)
+            else tot("library_ms")}
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: the slice
+# ---------------------------------------------------------------------------
+
+def make_serving_params(torch, cfg, seed, device, plant_layer):
+    """Random llama params from a seeded generator on `device`, nested
+    layer by layer (keeps the f32 originals of one layer at a time), with
+    one exception tensor planted: wo[0, 0] = 2.0 in layer `plant_layer`."""
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import to_serving
+    params = M.init_params(cfg, seed=seed, device=device)
+    params["layers"][plant_layer]["attn"]["wo"]["w"][0, 0] = 2.0
+    for i, layer in enumerate(params["layers"]):
+        params["layers"][i] = to_serving(layer, path="layers")
+    sp = to_serving(params)
+    check(sp["layers"][plant_layer]["attn"]["wo"].weight.is_exception,
+          "planted exception tensor was nested")
+    return sp
+
+
+def slice_phase(torch, cfg) -> dict:
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.layers import Runtime
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    t0 = time.time()
+    sp_cpu = make_serving_params(torch, cfg2, 0, "cpu", plant_layer=1)
+    sp_gpu = params_to(sp_cpu, "cuda")
+    log(f"  2-layer full-width params made on the CPU in "
+        f"{time.time() - t0:.1f} s")
+    bs, mb = 16, 4
+    tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
+    rng = torch.Generator().manual_seed(3)
+    plens = [32, 20]
+    prompt = torch.randint(1, cfg.vocab_size, (2, 32), generator=rng,
+                           dtype=torch.int32)
+    prompt[1, plens[1]:] = 0
+    out = {}
+    for mode in ("fp16", "fp8"):
+        rt = Runtime(mode=mode, dtype=torch.float32, act_quant="per_token")
+        caches = {dev: M.init_paged_cache(cfg2, 9, bs, planar=True, device=dev)
+                  for dev in ("cpu", "cuda")}
+        params = {"cpu": sp_cpu, "cuda": sp_gpu}
+
+        def step(dev, toks, qo, kvl, lp=None):
+            return M.paged_step(
+                rt, params[dev], cfg2, toks.to(dev), caches[dev],
+                tables.to(dev), q_offset=qo.to(dev), kv_len=kvl.to(dev),
+                block_size=bs, return_logits=True,
+                logit_position=None if lp is None else lp.to(dev))
+
+        lens = torch.tensor(plens, dtype=torch.int32)
+        args = (prompt, torch.zeros(2, dtype=torch.int32), lens,
+                lens - 1)
+        errs, agree, n_tok = [], 0, 0
+        for s in range(5):
+            before = ops.all_launch_counters()
+            want = step("cpu", *args)
+            got = step("cuda", *args)
+            after = ops.all_launch_counters()
+            torch.cuda.synchronize()
+            got = got.cpu()
+            check(bool(torch.isfinite(got).all()), "non-finite logits")
+            errs.append(float((got - want).abs().max()))
+            top2 = want.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            same = got.argmax(-1) == want.argmax(-1)
+            check(bool((same | (margin <= 2 * errs[-1])).all()),
+                  f"{mode} step {s}: greedy token differs with a clear "
+                  f"margin")
+            agree += int(same.sum())
+            n_tok += 2
+            if s > 0:   # decode steps go through K4
+                check(after["paged_planar_decode_attention"]
+                      > before["paged_planar_decode_attention"],
+                      "decode step did not launch K4")
+            nxt = want.argmax(-1).to(torch.int32)[:, None]  # teacher forcing
+            args = (nxt, lens.clone(), lens + 1)
+            lens = lens + 1
+        tol = SLICE_TOL[mode]
+        log(f"  slice {mode}: max |logit err| per step "
+            f"{[f'{e:.2e}' for e in errs]} (tol {tol}); greedy agree "
+            f"{agree}/{n_tok}")
+        check(max(errs) <= tol, f"{mode} logits beyond tolerance {tol}")
+        out[mode] = {"max_logit_err": max(errs), "tol": tol,
+                     "greedy_agree": agree, "greedy_total": n_tok}
+    return out
+
+
+# logits of a 2-layer full-width llama, card vs CPU plain versions. The
+# f32 sums run in other orders on the two devices, and each nested GEMM
+# re-rounds its input activations to f16 (fp16 mode) or e4m3 (fp8 mode),
+# so values next to a rounding boundary land on neighbouring codes:
+# frequent one-ulp f16 steps move logits by a few 1e-3; a rare e4m3 step
+# (1/16 of one value) moves a row by up to ~0.1. Greedy tokens must agree
+# wherever the CPU top-2 margin is above twice the error.
+SLICE_TOL = {"fp16": 1e-2, "fp8": 0.25}
+
+
+def serve_phase(torch, cfg, n_layers: int) -> dict:
+    import dataclasses
+
+    from repro_torch.core.policy import DualPrecisionController, SLOConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.convert import serving_memory_bytes
+    from repro_torch.serving.engine import Engine, Request
+
+    cfgn = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sp = make_serving_params(torch, cfgn, 0, "cuda", plant_layer=0)
+    torch.cuda.synchronize()
+    mem = serving_memory_bytes(sp)
+    log(f"  {n_layers}-layer params on the card in {time.time() - t0:.1f} s: "
+        f"{mem['nested_bytes'] / 1e9:.2f} GB nested, "
+        f"{mem['other_bytes'] / 1e9:.2f} GB other")
+    rng = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (128,), generator=rng).tolist()
+               for _ in range(8)]
+    results = {}
+    ops.reset_launch_counters()          # the main path's run starts here
+    for policy in ("fp16", "fp8", "dual"):
+        ctrl = None
+        if policy == "dual":
+            ctrl = DualPrecisionController(SLOConfig(), fp16_ms_per_token=0.5,
+                                           fp8_ms_per_token=0.25)
+        eng = Engine(cfgn, sp, n_slots=8, capacity=256, kv_planar=True,
+                     controller=ctrl,
+                     forced_mode=None if policy == "dual" else policy,
+                     device="cuda")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(f"r{i}", list(p), max_new=32))
+        before = ops.all_launch_counters()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        step_ms, decode_ms = [], []
+        while eng.queue or eng.active or eng.prefilling:
+            n_pre = eng.stats["prefill_dispatches"]
+            eng.step()
+            step_ms.append(eng._last_step_ms)
+            if eng.stats["prefill_dispatches"] == n_pre:
+                decode_ms.append(eng._last_step_ms)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: v - before[k] for k, v in ops.all_launch_counters().items()}
+        fin = eng.finished
+        check(len(fin) == 8, f"{policy}: {len(fin)}/8 requests finished")
+        check(all(len(r.output) == 32 and all(0 <= t < cfg.vocab_size
+                                               for t in r.output) for r in fin),
+              f"{policy}: outputs of the wrong length or out of vocab")
+        modes = [m for r in fin for m in r.modes]
+        n_tok = sum(len(r.output) for r in fin)
+        res = {"wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+               "steps": eng.iteration,
+               "step_ms_mean": sum(step_ms) / len(step_ms),
+               "step_ms_median": sorted(step_ms)[len(step_ms) // 2],
+               "decode_step_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
+               "ttft_ms_mean": 1e3 * sum(r.first_token_s - t0 for r in fin) / 8,
+               "tpot_ms_mean": 1e3 * sum((r.finished_s - r.first_token_s)
+                                         / (len(r.output) - 1)
+                                         for r in fin) / 8,
+               "fp16_fraction": modes.count("fp16") / len(modes),
+               "launches": launches, "stats": dict(eng.stats)}
+        results[policy] = res
+        log(f"  serve {policy}: {n_tok} tokens in {wall:.2f} s "
+            f"({res['tokens_per_s']:.1f} tok/s), {eng.iteration} steps, "
+            f"step ms mean {res['step_ms_mean']:.1f} median "
+            f"{res['step_ms_median']:.1f}, decode-only step ms median "
+            f"{res['decode_step_ms_median']:.1f}, TTFT mean "
+            f"{res['ttft_ms_mean']:.0f} ms, TPOT mean "
+            f"{res['tpot_ms_mean']:.1f} ms, fp16 fraction "
+            f"{res['fp16_fraction']:.2f}, launches {launches}")
+        del eng
+    need = {"fp16": ("nestedfp16_matmul", "f16_matmul",
+                     "paged_planar_decode_attention"),
+            "fp8": ("nestedfp8_matmul", "f16_matmul",
+                    "paged_planar_decode_attention")}
+    for policy, names in need.items():
+        for name in names:
+            check(results[policy]["launches"][name] > 0,
+                  f"serve {policy}: {name} never launched")
+    results["launches_total"] = ops.all_launch_counters()
+    for mode in ("fp16", "fp8"):
+        results[f"profile_{mode}"] = profile_decode(
+            torch, Engine, Request, cfgn, sp, prompts, mode,
+            results[mode]["decode_step_ms_median"])
+    results["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  peak device memory {results['peak_mem_gb']:.1f} GB")
+    return results
+
+
+def profile_decode(torch, Engine, Request, cfg, sp, prompts, mode,
+                   step_ms: float, n_steps: int = 4) -> dict:
+    """Device time by kernel over `n_steps` decode-only steps (torch
+    profiler), after the run's prefill is done; run after the main path's
+    launch counts were read, and outside the timed runs. The idle share
+    is taken against `step_ms`, the unprofiled decode-only step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = Engine(cfg, sp, n_slots=8, capacity=256, kv_planar=True,
+                 forced_mode=mode, device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(f"p{i}", list(p), max_new=32))
+    while eng.queue or eng.prefilling or eng.iteration < 8:
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3 / n_steps
+    by_name = {}
+    for ev in prof.key_averages():
+        # device-side kernel events only: an aten op's own entry repeats
+        # the time of the kernels it launched
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0))
+        by_name[ev.key] = by_name.get(ev.key, 0.0) + t / 1e3 / n_steps
+    dev_ms = sum(by_name.values())
+    check(dev_ms > 0, "the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    log(f"  profile {mode}: {n_steps} decode steps, wall {wall_ms:.1f} ms/step"
+        f" profiled, {step_ms:.1f} unprofiled; device busy {dev_ms:.1f} "
+        f"ms/step, idle share {1 - dev_ms / step_ms:.2f}")
+    for k, v in top:
+        log(f"    {v:8.3f} ms/step  {k[:90]}")
+    return {"profiled_wall_ms_per_step": wall_ms,
+            "device_ms_per_step": dev_ms, "idle_share": 1 - dev_ms / step_ms,
+            "top_kernels_ms_per_step": top}
+
+
+SOURCES = {
+    "nestedfp16_matmul": ("src/repro_torch/csrc/nestedfp16_matmul.cu",
+                          "src/repro/kernels/nestedfp16_matmul.py:81"),
+    "nestedfp8_matmul": ("src/repro_torch/csrc/nestedfp8_matmul.cu",
+                         "src/repro/kernels/nestedfp8_matmul.py:67"),
+    "f16_matmul": ("src/repro_torch/csrc/f16_matmul.cu",
+                   "src/repro/kernels/f16_matmul.py:48"),
+    "paged_planar_decode_attention": (
+        "src/repro_torch/csrc/paged_planar_decode_attention.cu",
+        "src/repro/kernels/planar_decode_attention.py:193"),
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="card,kernels,slice,serve")
+    ap.add_argument("--iters", type=int, default=20,
+                    help="timed calls per kernel measurement")
+    ap.add_argument("--serve-layers", type=int, default=32)
+    ap.add_argument("--out", default="",
+                    help="also write the full results as JSON to this file")
+    args = ap.parse_args()
+    phases = set(args.phases.split(","))
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)         # the card's name and power limit, as nvidia-smi says
+    log(f"== torch {torch.__version__}, CUDA {torch.version.cuda}")
+    results: dict = {"card": smi}
+
+    t0 = time.time()
+    _build.build_all()
+    results["build_s"] = time.time() - t0
+    log(f"== built {len(_build.KERNELS)} kernels in {results['build_s']:.1f} s")
+    for name in _build.KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    rows = {}
+    if "kernels" in phases:
+        log("== kernels vs plain versions (llama3.1-8b shapes)")
+        rows = gemm_phase(torch, args.iters)
+        rows["paged_planar_decode_attention"] = attention_phase(torch, args.iters)
+        results["kernel_rows"] = rows
+    cfg = get_arch("llama3.1-8b")
+    if "slice" in phases:
+        log("== slice: 2-layer llama3.1-8b, card vs CPU plain versions")
+        results["slice"] = slice_phase(torch, cfg)
+    if "serve" in phases:
+        log(f"== serve: llama3.1-8b, {args.serve_layers} layers")
+        results["serve"] = serve_phase(torch, cfg, args.serve_layers)
+    results["total_s"] = time.time() - t_start
+    log(f"== done in {results['total_s']:.1f} s")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(results, indent=1))
+
+    if rows:
+        launches = results.get("serve", {}).get("launches_total", {})
+        kernels = []
+        for name, (src, replaces) in SOURCES.items():
+            if name == "paged_planar_decode_attention":
+                # one fp16-mode decode call of one layer
+                s = summarize(rows[name], lambda r: int(
+                    not r["fp8"] and r["window"] is None))
+            else:
+                # the seven GEMMs of one layer in one decode step (M = 8)
+                s = summarize(rows[name], lambda r: LLAMA_KN.count(
+                    (r["k"], r["n"])) if r["m"] == 8 else 0)
+            kernels.append({"name": name, "route": "cuda", "source": src,
+                            "replaces": replaces,
+                            "launches": launches.get(name, 0), **s})
+        print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,37 @@
+"""Dynamic FP8 (E4M3) activation quantization for NestedFP's FP8 mode.
+
+Per-tensor absmax is the paper's scheme; per-token absmax gives every
+activation row its own scale, which the serving engine uses so that a
+token's FP8 result does not depend on what else shares the batch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.nestedfp import E4M3_MAX
+
+_EPS = 1e-12
+
+
+def _to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, -E4M3_MAX, E4M3_MAX).to(torch.float8_e4m3fn)
+
+
+def quantize_act_per_tensor(x: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-tensor absmax E4M3 quant. Returns (q, dequant scale ())."""
+    xf = x.to(torch.float32)
+    amax = torch.clamp(xf.abs().max(), min=_EPS)
+    scale = amax / E4M3_MAX
+    return _to_e4m3(xf / scale), scale
+
+
+def quantize_act_per_token(x: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-token absmax E4M3 quant. x: (..., tokens, features);
+    returns (q, dequant scale (..., tokens, 1))."""
+    xf = x.to(torch.float32)
+    amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=_EPS)
+    scale = amax / E4M3_MAX
+    return _to_e4m3(xf / scale), scale

@@ -1,0 +1,74 @@
+"""Public wrappers over the kernels: leading-dim flattening and scales.
+
+The device of the inputs picks the route: each kernel wrapper launches
+its CUDA kernel for CUDA tensors and takes its plain version for CPU
+tensors (`kernels/ref.py`). There is no backend switch and no fallback.
+The CUDA kernels mask ragged M, N and K themselves, so nothing is padded
+here (the JAX package padded to the Pallas block shape).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.f16_matmul import f16_matmul
+from repro_torch.kernels.nestedfp16_matmul import nestedfp16_matmul
+from repro_torch.kernels.nestedfp8_matmul import nestedfp8_matmul
+from repro_torch.kernels.planar_decode_attention import (
+    paged_planar_decode_attention)
+
+
+def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
+    return x.reshape(-1, k).contiguous()
+
+
+def matmul_nested_f16(x: torch.Tensor, upper: torch.Tensor,
+                      lower: torch.Tensor) -> torch.Tensor:
+    """FP16-mode GEMM: x (..., K) f16 @ nested[(K, N)] -> (..., N) f32."""
+    k, n = upper.shape
+    out = nestedfp16_matmul(_rows(x, k), upper, lower)
+    return out.reshape(*x.shape[:-1], n)
+
+
+def matmul_nested_fp8(x_q: torch.Tensor, upper: torch.Tensor,
+                      x_scale: torch.Tensor) -> torch.Tensor:
+    """FP8-mode GEMM: x_q (..., K) e4m3 @ upper (K, N) -> (..., N) f32.
+    x_scale: a scalar per-tensor dequant scale, or (M, 1) per-token row
+    scales (M = prod of x_q's leading dims), folded into the kernel's
+    epilogue."""
+    k, n = upper.shape
+    scale = x_scale.to(torch.float32).contiguous()
+    if scale.dim() >= 2:
+        scale = scale.reshape(-1, 1)
+    out = nestedfp8_matmul(_rows(x_q, k), upper, scale)
+    return out.reshape(*x_q.shape[:-1], n)
+
+
+def matmul_f16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain f16 GEMM (exception tensors): (..., K) @ (K, N) -> (..., N)."""
+    k, n = w.shape
+    out = f16_matmul(_rows(x, k), w)
+    return out.reshape(*x.shape[:-1], n)
+
+
+def paged_decode_attention(q, planes: dict, tables, lens, *, fp8: bool,
+                           window=None) -> torch.Tensor:
+    """Single-query decode over a paged planar pool: q (B, H, D); planes
+    {"k_hi","k_lo","v_hi","v_lo"} of (NB, BS, Hkv, D) -> (B, H, D) f32."""
+    return paged_planar_decode_attention(
+        q.contiguous(), planes["k_hi"], planes["k_lo"], planes["v_hi"],
+        planes["v_lo"], tables.contiguous(), lens.contiguous(), fp8=fp8,
+        window=window)
+
+
+def all_launch_counters() -> dict[str, int]:
+    """Launch count of every kernel wrapper (CUDA launches only)."""
+    return {f.__name__: f.launches for f in (
+        nestedfp16_matmul, nestedfp8_matmul, f16_matmul,
+        paged_planar_decode_attention)}
+
+
+def reset_launch_counters() -> None:
+    for f in (nestedfp16_matmul, nestedfp8_matmul, f16_matmul,
+              paged_planar_decode_attention):
+        f.launches = 0

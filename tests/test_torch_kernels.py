@@ -1,0 +1,210 @@
+"""The four kernels of the PyTorch port's serving path, against the JAX
+package's Pallas kernels run in interpret mode on the CPU.
+
+On the CPU each kernel wrapper takes its plain PyTorch version, so these
+tests hold the plain versions to the Pallas kernels on seeded inputs.
+The CUDA kernels themselves are held to the plain versions on the card
+by tests/test_torch_gpu.py (and by chip_smoke.py)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import nestedfp as jnf  # noqa: E402
+from repro.core import quant as jquant  # noqa: E402
+from repro.core.linear import NestedLinearParams as JNLP  # noqa: E402
+from repro.core.linear import nested_linear as j_nested_linear  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.planar_decode_attention import (  # noqa: E402
+    paged_planar_decode_attention as j_paged_attn)
+from repro_torch.core import nestedfp as tnf  # noqa: E402
+from repro_torch.core import quant as tquant  # noqa: E402
+from repro_torch.core.linear import NestedLinearParams as TNLP  # noqa: E402
+from repro_torch.core.linear import nested_linear as t_nested_linear  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+
+GEMM_TOL = dict(rtol=1e-5, atol=1e-4)
+ATTN_TOL = dict(rtol=2e-4, atol=2e-4)
+BLOCK = (64, 128, 128)
+GEMM_SHAPES = [(16, 256, 128), (100, 200, 90), (1, 300, 77), (33, 64, 128)]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _gemm_inputs(seed, m, k, n, lead=()):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, 2, lead + (m, k)).astype(np.float32)
+    w = rng.uniform(-1.6, 1.6, (k, n)).astype(np.float16)
+    return x, w
+
+
+class TestNestedFP16:
+    @pytest.mark.parametrize("shape", GEMM_SHAPES)
+    def test_plain_matches_pallas(self, shape):
+        x, w = _gemm_inputs(0, *shape)
+        ju, jl = jnf.encode(jnp.asarray(w))
+        want = jops.matmul_nested_f16(jnp.asarray(x, jnp.float16), ju, jl,
+                                      backend="pallas_interpret", block=BLOCK)
+        tu, tl = tnf.encode(_t(w))
+        got = tops.matmul_nested_f16(_t(x).half(), tu, tl)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GEMM_TOL)
+
+    def test_leading_dims_flatten(self):
+        x, w = _gemm_inputs(1, 5, 256, 128, lead=(2,))
+        ju, jl = jnf.encode(jnp.asarray(w))
+        want = jops.matmul_nested_f16(jnp.asarray(x, jnp.float16), ju, jl,
+                                      backend="pallas_interpret", block=BLOCK)
+        got = tops.matmul_nested_f16(_t(x).half(), *tnf.encode(_t(w)))
+        assert got.shape == (2, 5, 128)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GEMM_TOL)
+
+    def test_equals_plain_f16_on_original_weights(self):
+        x, w = _gemm_inputs(2, 24, 128, 64)
+        a = tops.matmul_nested_f16(_t(x).half(), *tnf.encode(_t(w)))
+        b = tops.matmul_f16(_t(x).half(), _t(w))
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+class TestNestedFP8:
+    @pytest.mark.parametrize("shape", GEMM_SHAPES)
+    @pytest.mark.parametrize("act_quant", ["per_tensor", "per_token"])
+    def test_plain_matches_pallas(self, shape, act_quant):
+        x, w = _gemm_inputs(3, *shape)
+        jq_fn = getattr(jquant, f"quantize_act_{act_quant}")
+        tq_fn = getattr(tquant, f"quantize_act_{act_quant}")
+        jxq, js = jq_fn(jnp.asarray(x))
+        txq, ts = tq_fn(_t(x))
+        if act_quant == "per_token":
+            js, ts = js.reshape(-1, 1), ts.reshape(-1, 1)
+        ju, _ = jnf.encode(jnp.asarray(w))
+        tu, _ = tnf.encode(_t(w))
+        want = jops.matmul_nested_fp8(jxq, ju, js, backend="pallas_interpret",
+                                      block=BLOCK)
+        got = tops.matmul_nested_fp8(txq, tu, ts)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GEMM_TOL)
+
+    def test_per_token_rows_independent_of_batch(self):
+        x, w = _gemm_inputs(4, 12, 256, 64)
+        tu, _ = tnf.encode(_t(w))
+        xq, s = tquant.quantize_act_per_token(_t(x))
+        full = tops.matmul_nested_fp8(xq, tu, s)
+        one = tops.matmul_nested_fp8(xq[3:4], tu, s[3:4])
+        np.testing.assert_array_equal(full[3:4].numpy(), one.numpy())
+
+
+class TestF16:
+    @pytest.mark.parametrize("shape", GEMM_SHAPES)
+    def test_plain_matches_pallas(self, shape):
+        x, w = _gemm_inputs(5, *shape)
+        w[0, 0] = 3.0                       # an exception-tensor weight
+        want = jops.matmul_f16(jnp.asarray(x, jnp.float16), jnp.asarray(w),
+                               backend="pallas_interpret", block=BLOCK)
+        got = tops.matmul_f16(_t(x).half(), _t(w))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GEMM_TOL)
+
+
+def _paged_inputs(seed, b=3, h=4, hkv=2, d=64, bs=16, mb=4):
+    rng = np.random.default_rng(seed)
+    nb = 1 + b * mb
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    tables = perm.reshape(b, mb).copy()
+    tables[2, :2] = tables[0, :2]           # COW-shared prefix blocks
+    lens = np.asarray([50, 0, 37][:b], np.int32)
+    for r in range(b):
+        tables[r, -(-int(lens[r]) // bs):] = 0   # holes -> trash block
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    kv = rng.normal(size=(2, nb, bs, hkv, d)).astype(np.float16)
+    planes = [np.asarray(p) for p in (*jnf.split_bytes(jnp.asarray(kv[0])),
+                                       *jnf.split_bytes(jnp.asarray(kv[1])))]
+    return q, planes, tables, lens
+
+
+class TestPagedPlanarDecodeAttention:
+    @pytest.mark.parametrize("fp8", [False, True])
+    @pytest.mark.parametrize("window", [None, 0, -1, 5, 19])
+    def test_plain_matches_pallas(self, fp8, window):
+        q, planes, tables, lens = _paged_inputs(6)
+        jargs = dict(fp8=fp8, interpret=True)
+        if window is not None and window > 0:
+            jargs["window"] = window
+        elif window is not None:
+            jargs["window_arr"] = jnp.asarray([window], jnp.int32)
+        want = np.asarray(j_paged_attn(
+            jnp.asarray(q), *map(jnp.asarray, planes), jnp.asarray(tables),
+            jnp.asarray(lens), **jargs))
+        tp = dict(zip(("k_hi", "k_lo", "v_hi", "v_lo"), map(_t, planes)))
+        got = tops.paged_decode_attention(_t(q), tp, _t(tables), _t(lens),
+                                          fp8=fp8, window=window).numpy()
+        live = lens > 0
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got[live], want[live], **ATTN_TOL)
+
+    def test_gqa_head_mapping(self):
+        # q head i reads kv head i // G: permuting kv heads moves outputs
+        q, planes, tables, lens = _paged_inputs(7, h=4, hkv=2)
+        tp = dict(zip(("k_hi", "k_lo", "v_hi", "v_lo"), map(_t, planes)))
+        out = tops.paged_decode_attention(_t(q), tp, _t(tables), _t(lens),
+                                          fp8=False)
+        swapped = {k: v.flip(2).contiguous() for k, v in tp.items()}
+        q_sw = _t(q).reshape(3, 2, 2, 64).flip(1).reshape(3, 4, 64)
+        out_sw = tops.paged_decode_attention(q_sw.contiguous(), swapped,
+                                             _t(tables), _t(lens), fp8=False)
+        np.testing.assert_allclose(
+            out_sw.reshape(3, 2, 2, 64).flip(1).reshape(3, 4, 64).numpy(),
+            out.numpy(), rtol=1e-6, atol=1e-6)
+
+
+class TestNestedLinear:
+    """core/linear.py against the JAX package's nested_linear (ref backend):
+    both modes, both activation-scale granularities, the exception-tensor
+    path, the bias, and bf16-rounded outputs (fast_accum)."""
+
+    @pytest.mark.parametrize("mode,act_quant,exception,fast_accum", [
+        ("fp16", "per_tensor", False, False),
+        ("fp8", "per_tensor", False, False),
+        ("fp8", "per_token", False, False),
+        ("fp8", "per_token", True, False),
+        ("fp16", "per_tensor", True, False),
+        ("fp16", "per_tensor", False, True),
+        ("fp8", "per_token", False, True),
+    ])
+    def test_matches_jax(self, mode, act_quant, exception, fast_accum):
+        x, w = _gemm_inputs(11, 6, 96, 40, lead=(2,))
+        if exception:
+            w[5, 7] = -2.5
+        b = np.random.default_rng(12).normal(size=(40,)).astype(np.float32)
+        jp = JNLP(jnf.NestedTensor.from_f16(jnp.asarray(w)), jnp.asarray(b))
+        tp = TNLP(tnf.NestedTensor.from_f16(_t(w)), _t(b))
+        assert tp.weight.is_exception == exception == jp.weight.is_exception
+        kw = dict(mode=mode, act_quant=act_quant, fast_accum=fast_accum,
+                  out_dtype=jnp.float32)
+        want = np.asarray(j_nested_linear(jp, jnp.asarray(x), backend="ref",
+                                          **kw), np.float32)
+        kw["out_dtype"] = torch.float32
+        got = t_nested_linear(tp, _t(x), **kw).numpy()
+        assert got.shape == want.shape == (2, 6, 40)
+        # bf16 outputs: sums that differ in their last f32 bit may round
+        # to neighbouring bf16 values, one ulp = 0.125 for |y| < 32
+        tol = dict(rtol=1e-2, atol=0.125) if fast_accum else GEMM_TOL
+        np.testing.assert_allclose(got, want, **tol)
+
+
+class TestRouting:
+    def test_cpu_tensors_take_plain_versions_without_counting(self):
+        before = tops.all_launch_counters()
+        x, w = _gemm_inputs(8, 4, 64, 32)
+        tops.matmul_nested_f16(_t(x).half(), *tnf.encode(_t(w)))
+        tops.matmul_f16(_t(x).half(), _t(w))
+        assert tops.all_launch_counters() == before
+
+    def test_mixed_devices_raise(self):
+        x = torch.zeros((4, 64), dtype=torch.float16)
+        u = torch.zeros((64, 32), dtype=torch.uint8, device="meta")
+        with pytest.raises(ValueError):
+            tops.matmul_nested_f16(x, u, u)
