@@ -4,18 +4,25 @@
     python3 chip_smoke.py                 # every phase, as a check of the port
 
 Phases, in order; any failed check exits non-zero before the last line:
-  1. card     print the card's name and power limit; build the four CUDA
+  1. card     print the card's name and power limit; build the eight CUDA
               kernels from `src/repro_torch/csrc` (one nvcc per source,
               all at once)
   2. kernels  hold each kernel against its plain PyTorch version on the
               card at llama3.1-8b's shapes, and time kernel, plain version
-              and one library call (yardstick only) with cold weights
+              and one library call (yardstick only) with cold inputs
   3. slice    llama3.1-8b at full width, 2 layers, one planted exception
-              tensor: `paged_step` logits on the card against the plain
-              versions on the CPU, fp16 and fp8, planar KV
+              tensor: `paged_step` logits, and the dense-slot `prefill` +
+              4 `decode_step`s in f32 activations and under `serve_rt`
+              (bf16), on the card against the plain versions on the CPU,
+              fp16 and fp8, planar KV
   4. serve    llama3.1-8b at full width and depth through `Engine`: 8
               requests of 128 prompt tokens and 32 new tokens in forced
               fp16, forced fp8 and dual mode; every kernel must launch
+  5. dense    llama3.1-8b at full width and depth through the dense-slot
+              steps (`launch/steps.py`): weights nested on the card, 8
+              prompts of 1024 tokens prefilled, caches planarized at
+              capacity 1056, 32 greedy decode steps, fp16 and fp8; every
+              kernel of the path must launch
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 GPU is present or the port is missing.
@@ -60,19 +67,28 @@ def bound(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
 
 
 def time_ms(torch, fn, n_sets: int, iters: int) -> float:
-    """Mean ms per call over `iters` calls cycling through `n_sets` input
-    sets (cold in L2), after warm-up, by CUDA events."""
+    """ms per call by CUDA events, after warm-up, cycling through `n_sets`
+    input sets (cold in L2): `iters` calls in 5 groups, the median of the
+    groups' means. A stall of the host idles the card inside one group;
+    the median drops that group. Each group starts behind one untimed
+    call, so the card is busy when timing starts."""
     for i in range(min(n_sets, 3)):
         fn(i)
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(i % n_sets)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    groups = 5
+    per = max(1, iters // groups)
+    means = []
+    for g in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        fn((g * per - 1) % n_sets)     # the set before, as in a cycle
+        start.record()
+        for i in range(per):
+            fn((g * per + i) % n_sets)
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / per)
+    return sorted(means)[len(means) // 2]
 
 
 def max_err(torch, got, want, rtol, atol) -> float:
@@ -91,6 +107,8 @@ def max_err(torch, got, want, rtol, atol) -> float:
 # ---------------------------------------------------------------------------
 
 def gemm_phase(torch, iters: int) -> list[dict]:
+    """K1, K2, K3 at llama3.1-8b's GEMM shapes, M = 8 (decode), 256 and
+    8192 (a prefill of 8 x 1024), and at ragged M, N and K."""
     from repro_torch.core import nestedfp as nf
     from repro_torch.core import quant
     from repro_torch.kernels import ref
@@ -100,7 +118,8 @@ def gemm_phase(torch, iters: int) -> list[dict]:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    shapes = [(m, k, n) for m in (8, 256) for k, n in dict.fromkeys(LLAMA_KN)]
+    shapes = [(m, k, n) for m in (8, 256, 8192)
+              for k, n in dict.fromkeys(LLAMA_KN)]
     shapes += [(37, 999, 1001), (5, 4096, 1000)]     # ragged M, N and K
     rows = {"nestedfp16_matmul": [], "nestedfp8_matmul": [], "f16_matmul": []}
     for m, k, n in shapes:
@@ -155,18 +174,25 @@ def gemm_phase(torch, iters: int) -> list[dict]:
 
 def scaled_mm_yardstick(torch, xq, xs, uppers):
     """torch._scaled_mm on the same e4m3 operands (weights copied to the
-    column-major layout it requires, M padded to 16; row-wise scales need
-    a bf16 output), or None where it refuses the inputs. A yardstick
-    only; the port never calls it."""
+    column-major layout it requires, M padded to 16; bf16 output), with
+    row-wise scales for an (M, 1) xs and one scalar scale for a 1-element
+    xs, or None where it refuses the inputs. A yardstick only; the port
+    never calls it."""
     m = xq.shape[0]
     mp = -(-m // 16) * 16
+    rowwise = xs.numel() > 1
     if mp != m:
         pad = torch.zeros((mp - m, xq.shape[1]), device=xq.device,
                           dtype=torch.uint8)
         xq = torch.cat([xq.view(torch.uint8), pad]).view(torch.float8_e4m3fn)
-        xs = torch.cat([xs, torch.ones((mp - m, 1), device=xs.device)])
+        if rowwise:
+            xs = torch.cat([xs, torch.ones((mp - m, 1), device=xs.device)])
     w8 = [u.t().contiguous().t().view(torch.float8_e4m3fn) for u in uppers]
-    sb = torch.full((1, uppers[0].shape[1]), 2.0 ** -8, device=xq.device)
+    if rowwise:
+        sb = torch.full((1, uppers[0].shape[1]), 2.0 ** -8, device=xq.device)
+    else:
+        xs = xs.reshape(()).float()
+        sb = torch.tensor(2.0 ** -8, device=xq.device)
     fn = (lambda i: torch._scaled_mm(xq, w8[i], scale_a=xs, scale_b=sb,
                                      out_dtype=torch.bfloat16))
     try:
@@ -279,6 +305,214 @@ def sdpa_yardstick(torch, F, q, pools, tables, lens, fp8, window):
     return fn
 
 
+def fused_quant_phase(torch, iters: int) -> list[dict]:
+    """K7 at llama3.1-8b's GEMM shapes, M = 8 (decode), 256 and 8192 (a
+    prefill of 8 x 1024), on bf16 activations as the serving runtime
+    gives them."""
+    from repro_torch.core import nestedfp as nf
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.nestedfp8_matmul_fused_quant import (
+        nestedfp8_matmul_fused_quant)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for k, n in dict.fromkeys(LLAMA_KN):
+        n_sets = max(2, math.ceil(2 * L2_BYTES / (k * n)) + 1)
+        uppers = [nf.encode((torch.randn((k, n), generator=gen, device=dev)
+                             * k ** -0.5).half())[0] for _ in range(n_sets)]
+        for m in (8, 256, 8192):
+            x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+            amax = quant.absmax(x).reshape(1)
+            xq, xs = quant.quantize_act_per_tensor(x)
+
+            def kern(i):
+                return nestedfp8_matmul_fused_quant(x, uppers[i], amax)
+
+            def plain(i):
+                return ref.nestedfp8_matmul_fused_quant_ref(x, uppers[i], amax)
+
+            lib = scaled_mm_yardstick(torch, xq, xs, uppers)
+            err = max_err(torch, kern(0), plain(0), GEMM_RTOL, GEMM_ATOL)
+            b_ms, b_kind = bound(m * k * 2 + k * n + 4 + m * n * 4,
+                                 2.0 * m * k * n, "fp8")
+            row = {"m": m, "k": k, "n": n, "max_abs_err": err,
+                   "ms": time_ms(torch, kern, n_sets, iters),
+                   "plain_ms": time_ms(torch, plain, n_sets, iters),
+                   "library_ms": None if lib is None
+                   else time_ms(torch, lib, n_sets, iters),
+                   "bound_ms": b_ms, "bound_by": b_kind}
+            rows.append(row)
+            log(f"  nestedfp8_matmul_fused_quant M={m:4d} K={k:5d} N={n:5d} "
+                f"err={err:.2e} ms={row['ms']:.4f} "
+                f"plain={row['plain_ms']:.4f} lib={row['library_ms']} "
+                f"bound={b_ms:.4f} ({b_kind})")
+            del x, xq
+        del uppers
+    return rows
+
+
+def dense_decode_phase(torch, iters: int) -> list[dict]:
+    """K5 over dense per-slot planes: llama3.1-8b's heads, 8 rows, ragged
+    lens up to 1056 (the dense phase's capacity) and up to 32768 (the
+    decode_32k length), fp16 and fp8."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import nestedfp as nf
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.planar_decode_attention import (
+        planar_decode_attention)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, h, hkv, d = 8, 32, 8, 128
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    rows = []
+    for cap, lens_l in ((1056, [1056, 1040, 17, 1, 700, 1056, 333, 1024]),
+                        (32768, [32768, 30001, 1, 20000, 32768, 5, 16384,
+                                 32000])):
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        n_sets = max(2, math.ceil(2 * L2_BYTES / (4 * b * cap * hkv * d)) + 1)
+        pools = []
+        for _ in range(n_sets):
+            planes = []
+            for _kv in range(2):
+                x = torch.randn((b, cap, hkv, d), generator=gen,
+                                device=dev).half()
+                planes += nf.split_bytes(x)
+                del x
+            pools.append((planes[0], planes[1], planes[2], planes[3]))
+        kpos = torch.arange(cap, device=dev)[None]
+        mask = (kpos < lens[:, None])[:, None, None, :]
+        for fp8 in (False, True):
+            def kern(i):
+                return planar_decode_attention(q, *pools[i], lens, fp8=fp8)
+
+            def plain(i):
+                return ref.planar_decode_attention_ref(q, *pools[i], lens,
+                                                       fp8=fp8)
+
+            def joined(hi, lo):
+                return (nf.e5m2_view(hi, torch.float16) if fp8
+                        else nf.join_bytes(hi, lo)).transpose(1, 2)
+
+            kv = [(joined(p[0], p[1]), joined(p[2], p[3])) for p in pools]
+            qh = q.half()[:, :, None, :]
+
+            def lib(i):
+                return F.scaled_dot_product_attention(
+                    qh, kv[i][0], kv[i][1], attn_mask=mask, enable_gqa=True)
+
+            err = max_err(torch, kern(0), plain(0), ATTN_TOL, ATTN_TOL)
+            keys = int(lens.sum())
+            nbytes = (keys * hkv * d * 2 * (1 if fp8 else 2) + q.numel() * 4
+                      + b * 4 + b * h * d * 4)
+            b_ms, b_kind = bound(nbytes, 4.0 * keys * h * d, "f32")
+            row = {"cap": cap, "fp8": fp8, "max_abs_err": err,
+                   "ms": time_ms(torch, kern, n_sets, iters),
+                   "plain_ms": time_ms(torch, plain, n_sets, iters),
+                   "library_ms": time_ms(torch, lib, n_sets, iters),
+                   "bound_ms": b_ms, "bound_by": b_kind}
+            rows.append(row)
+            log(f"  planar_decode_attention cap={cap} fp8={fp8} "
+                f"sum(lens)={keys} err={err:.2e} ms={row['ms']:.4f} "
+                f"plain={row['plain_ms']:.4f} lib={row['library_ms']:.4f} "
+                f"bound={b_ms:.5f} ({b_kind})")
+            del kv
+        del pools
+    return rows
+
+
+def prefill_attention_phase(torch, iters: int) -> list[dict]:
+    """K6 at llama3.1-8b's heads on bf16 q/k/v (the serving runtime's):
+    (B, S) = (8, 1024) as the dense phase prefills, (1, 8192), and a
+    ragged S = 1000."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill_attention import (
+        flash_prefill_attention)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    h, hkv, d = 32, 8, 128
+    rows = []
+    for b, s in ((8, 1024), (1, 8192), (8, 1000)):
+        n_sets = 2
+        sets = [tuple(torch.randn(shape, generator=gen, device=dev).bfloat16()
+                      for shape in ((b, s, h, d), (b, s, hkv, d),
+                                    (b, s, hkv, d)))
+                for _ in range(n_sets)]
+        expanded = [(q.transpose(1, 2),
+                     k.repeat_interleave(h // hkv, dim=2).transpose(1, 2),
+                     v.repeat_interleave(h // hkv, dim=2).transpose(1, 2))
+                    for q, k, v in sets]
+
+        def kern(i):
+            return flash_prefill_attention(*sets[i])
+
+        def plain(i):
+            return ref.flash_prefill_attention_ref(*sets[i])
+
+        def lib(i):
+            return F.scaled_dot_product_attention(*expanded[i], is_causal=True)
+
+        err = max_err(torch, kern(0), plain(0), ATTN_TOL, ATTN_TOL)
+        nbytes = 2 * (b * s * h * d + 2 * b * s * hkv * d) + b * s * h * d * 4
+        b_ms, b_kind = bound(nbytes, 4.0 * b * h * s * s * d / 2, "f16")
+        row = {"b": b, "s": s, "max_abs_err": err,
+               "ms": time_ms(torch, kern, n_sets, iters),
+               "plain_ms": time_ms(torch, plain, n_sets, iters),
+               "library_ms": time_ms(torch, lib, n_sets, iters),
+               "bound_ms": b_ms, "bound_by": b_kind}
+        rows.append(row)
+        log(f"  flash_prefill_attention B={b} S={s} err={err:.2e} "
+            f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+            f"lib={row['library_ms']:.4f} bound={b_ms:.4f} ({b_kind})")
+        del sets, expanded
+    return rows
+
+
+def encode_phase(torch, iters: int) -> list[dict]:
+    """K8: every f16 bit pattern byte-identical to `nestedfp.encode` on
+    the CPU, then one llama3.1-8b MLP weight (4096 x 14336) timed."""
+    from repro_torch.core import nestedfp as nf
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.nestedfp_encode import nestedfp_encode
+
+    dev = torch.device("cuda")
+    w_all = nf._bits_to_f16(torch.arange(65536, dtype=torch.int32))
+    u, lo = nestedfp_encode(w_all.reshape(256, 256).to(dev))
+    wu, wl = nf.encode(w_all.reshape(256, 256))
+    check(torch.equal(u.cpu(), wu) and torch.equal(lo.cpu(), wl),
+          "nestedfp_encode differs from nestedfp.encode on some f16 pattern")
+    k, n = 4096, 14336
+    n_sets = max(2, math.ceil(2 * L2_BYTES / (2 * k * n)) + 1)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ws = [(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).half()
+          for _ in range(n_sets)]
+
+    def kern(i):
+        return nestedfp_encode(ws[i])
+
+    def plain(i):
+        return ref.nestedfp_encode_ref(ws[i])
+
+    got, want = kern(0), plain(0)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "nestedfp_encode differs from its plain version")
+    b_ms, b_kind = bound(4 * k * n, 0.0, "f32")
+    row = {"k": k, "n": n, "max_abs_err": 0.0,
+           "ms": time_ms(torch, kern, n_sets, iters),
+           "plain_ms": time_ms(torch, plain, n_sets, iters),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_kind}
+    log(f"  nestedfp_encode all 65536 f16 patterns byte-identical; "
+        f"{k}x{n}: ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+        f"bound={b_ms:.4f} ({b_kind}); no single PyTorch call encodes")
+    return [row]
+
+
 def summarize(rows: list[dict], weight) -> dict:
     """The line's numbers for one kernel: times summed over the calls that
     `weight(row)` counts (0 = not counted), max error over every check."""
@@ -353,24 +587,13 @@ def slice_phase(torch, cfg) -> dict:
         lens = torch.tensor(plens, dtype=torch.int32)
         args = (prompt, torch.zeros(2, dtype=torch.int32), lens,
                 lens - 1)
-        errs, agree, n_tok = [], 0, 0
+        cmp = LogitCheck(torch, mode, SLICE_TOL[mode])
         for s in range(5):
             before = ops.all_launch_counters()
             want = step("cpu", *args)
             got = step("cuda", *args)
             after = ops.all_launch_counters()
-            torch.cuda.synchronize()
-            got = got.cpu()
-            check(bool(torch.isfinite(got).all()), "non-finite logits")
-            errs.append(float((got - want).abs().max()))
-            top2 = want.topk(2, dim=-1).values
-            margin = top2[:, 0] - top2[:, 1]
-            same = got.argmax(-1) == want.argmax(-1)
-            check(bool((same | (margin <= 2 * errs[-1])).all()),
-                  f"{mode} step {s}: greedy token differs with a clear "
-                  f"margin")
-            agree += int(same.sum())
-            n_tok += 2
+            cmp.add(got, want, f"paged step {s}")
             if s > 0:   # decode steps go through K4
                 check(after["paged_planar_decode_attention"]
                       > before["paged_planar_decode_attention"],
@@ -378,13 +601,89 @@ def slice_phase(torch, cfg) -> dict:
             nxt = want.argmax(-1).to(torch.int32)[:, None]  # teacher forcing
             args = (nxt, lens.clone(), lens + 1)
             lens = lens + 1
-        tol = SLICE_TOL[mode]
-        log(f"  slice {mode}: max |logit err| per step "
-            f"{[f'{e:.2e}' for e in errs]} (tol {tol}); greedy agree "
-            f"{agree}/{n_tok}")
-        check(max(errs) <= tol, f"{mode} logits beyond tolerance {tol}")
-        out[mode] = {"max_logit_err": max(errs), "tol": tol,
-                     "greedy_agree": agree, "greedy_total": n_tok}
+        out[mode] = cmp.done("slice")
+    out["dense"] = dense_slice(torch, cfg2, {"cpu": sp_cpu, "cuda": sp_gpu})
+    return out
+
+
+class LogitCheck:
+    """Card logits against the CPU plain versions', step after step: the
+    error within `tol`, and the same greedy token wherever the CPU's
+    top-2 margin is above twice the error."""
+
+    def __init__(self, torch, mode, tol):
+        self.torch, self.mode, self.tol = torch, mode, tol
+        self.errs, self.agree, self.n = [], 0, 0
+
+    def add(self, got, want, what):
+        self.torch.cuda.synchronize()
+        got = got.float().cpu()
+        check(bool(self.torch.isfinite(got).all()), f"{what}: non-finite logits")
+        self.errs.append(float((got - want).abs().max()))
+        top2 = want.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        same = got.argmax(-1) == want.argmax(-1)
+        check(bool((same | (margin <= 2 * self.errs[-1])).all()),
+              f"{self.mode} {what}: greedy token differs with a clear margin")
+        self.agree += int(same.sum())
+        self.n += same.numel()
+
+    def done(self, label) -> dict:
+        tol = self.tol
+        log(f"  {label} {self.mode}: max |logit err| per step "
+            f"{[f'{e:.2e}' for e in self.errs]} (tol {tol}); greedy agree "
+            f"{self.agree}/{self.n}")
+        check(max(self.errs) <= tol, f"{label} {self.mode} logits beyond "
+              f"tolerance {tol}")
+        return {"max_logit_err": max(self.errs), "tol": tol,
+                "greedy_agree": self.agree, "greedy_total": self.n}
+
+
+def dense_slice(torch, cfg2, params) -> dict:
+    """The dense-slot path on the 2-layer model, card against CPU: prefill
+    of 2 x 48 tokens (K6; K1 or K7), planarize, 4 decode steps (K5), with
+    the per-tensor FP8 scale: in f32 activations at SLICE_TOL, then under
+    `steps.serve_rt` (bf16 activations, bf16-rounded GEMM outputs) at
+    BF16_TOL."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Runtime
+
+    prompt = torch.randint(1, cfg2.vocab_size, (2, 48),
+                           generator=torch.Generator().manual_seed(5),
+                           dtype=torch.int32)
+    need = {"fp16": ("flash_prefill_attention", "nestedfp16_matmul"),
+            "fp8": ("flash_prefill_attention", "nestedfp8_matmul_fused_quant")}
+    out = {}
+    for mode, act in [(m, a) for a in ("f32", "bf16") for m in ("fp16", "fp8")]:
+        if act == "f32":
+            rt, tol = Runtime(mode=mode, dtype=torch.float32), SLICE_TOL[mode]
+        else:
+            rt, tol = steps.serve_rt(mode), BF16_TOL[mode]
+        cmp = LogitCheck(torch, mode, tol)
+        before = ops.all_launch_counters()
+        res = {d: M.prefill(rt, params[d], cfg2, {"tokens": prompt.to(d)},
+                            capacity=56) for d in ("cpu", "cuda")}
+        after = ops.all_launch_counters()
+        for name in need[mode]:
+            check(after[name] > before[name], f"dense prefill: no {name}")
+        cmp.add(res["cuda"][0], res["cpu"][0], "dense prefill")
+        want = res["cpu"][0]
+        caches = {d: M.planarize_cache(res[d][1]) for d in res}
+        for i in range(4):
+            nxt = want.argmax(-1).to(torch.int32)[:, None]  # teacher forcing
+            before = ops.all_launch_counters()
+            want, _ = M.decode_step(rt, params["cpu"], cfg2, nxt,
+                                    caches["cpu"], 48 + i)
+            got, _ = M.decode_step(rt, params["cuda"], cfg2, nxt.cuda(),
+                                   caches["cuda"], 48 + i)
+            after = ops.all_launch_counters()
+            check(after["planar_decode_attention"]
+                  > before["planar_decode_attention"],
+                  "dense decode step did not launch K5")
+            cmp.add(got, want, f"dense decode {i}")
+        out[f"{mode}_{act}"] = cmp.done(f"dense slice {act}")
     return out
 
 
@@ -396,6 +695,11 @@ def slice_phase(torch, cfg) -> dict:
 # (1/16 of one value) moves a row by up to ~0.1. Greedy tokens must agree
 # wherever the CPU top-2 margin is above twice the error.
 SLICE_TOL = {"fp16": 1e-2, "fp8": 0.25}
+# the same under bf16 activations with bf16-rounded GEMM outputs: a sum
+# that differs in its last f32 bit can round to the neighbouring bf16
+# value (2^-8 relative), so the tolerance is tests/test_torch_dense.py's
+# for the JAX package's serve_rt against the port's
+BF16_TOL = {"fp16": 0.1, "fp8": 0.5}
 
 
 def serve_phase(torch, cfg, n_layers: int) -> dict:
@@ -496,9 +800,6 @@ def profile_decode(torch, Engine, Request, cfg, sp, prompts, mode,
     profiler), after the run's prefill is done; run after the main path's
     launch counts were read, and outside the timed runs. The idle share
     is taken against `step_ms`, the unprofiled decode-only step time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     eng = Engine(cfg, sp, n_slots=8, capacity=256, kv_planar=True,
                  forced_mode=mode, device="cuda")
     for i, p in enumerate(prompts):
@@ -506,12 +807,24 @@ def profile_decode(torch, Engine, Request, cfg, sp, prompts, mode,
     while eng.queue or eng.prefilling or eng.iteration < 8:
         eng.step()
     torch.cuda.synchronize()
+    wall_ms, by_name = device_ms_by_kernel(torch, eng.step, n_steps)
+    return profile_summary(f"profile {mode}: {n_steps} decode steps",
+                           wall_ms, step_ms, by_name)
+
+
+def device_ms_by_kernel(torch, run, n_calls: int):
+    """(profiled wall ms, {kernel name: device ms}) per call of run(),
+    over n_calls calls under the torch profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(n_steps):
-            eng.step()
+        for _ in range(n_calls):
+            run()
         torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3 / n_steps
+        wall_ms = (time.monotonic() - t0) * 1e3 / n_calls
     by_name = {}
     for ev in prof.key_averages():
         # device-side kernel events only: an aten op's own entry repeats
@@ -520,18 +833,137 @@ def profile_decode(torch, Engine, Request, cfg, sp, prompts, mode,
             continue
         t = getattr(ev, "self_device_time_total",
                     getattr(ev, "self_cuda_time_total", 0))
-        by_name[ev.key] = by_name.get(ev.key, 0.0) + t / 1e3 / n_steps
+        by_name[ev.key] = by_name.get(ev.key, 0.0) + t / 1e3 / n_calls
+    return wall_ms, by_name
+
+
+def profile_summary(label, wall_ms, step_ms, by_name) -> dict:
+    """Log and return device busy time, idle share against `step_ms` (the
+    unprofiled time of the same call) and the top kernels."""
     dev_ms = sum(by_name.values())
     check(dev_ms > 0, "the profiler saw no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    log(f"  profile {mode}: {n_steps} decode steps, wall {wall_ms:.1f} ms/step"
-        f" profiled, {step_ms:.1f} unprofiled; device busy {dev_ms:.1f} "
-        f"ms/step, idle share {1 - dev_ms / step_ms:.2f}")
+    log(f"  {label}, wall {wall_ms:.1f} ms/call profiled, {step_ms:.1f} "
+        f"unprofiled; device busy {dev_ms:.1f} ms/call, idle share "
+        f"{1 - dev_ms / step_ms:.2f}")
     for k, v in top:
-        log(f"    {v:8.3f} ms/step  {k[:90]}")
+        log(f"    {v:8.3f} ms/call  {k[:90]}")
     return {"profiled_wall_ms_per_step": wall_ms,
             "device_ms_per_step": dev_ms, "idle_share": 1 - dev_ms / step_ms,
             "top_kernels_ms_per_step": top}
+
+
+def dense_phase(torch, cfg) -> dict:
+    """The dense-slot serving steps at full width and depth: weights
+    nested on the card (K8), 8 x 1024-token prefill (K6, K1 / K7, K3),
+    planarize at capacity 1056, 32 greedy decode steps (K5) — fp16, then
+    fp8. Launch counts are read over this whole run."""
+    from repro_torch.core.linear import NestedLinearParams
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import serving_memory_bytes
+
+    b, s, cap, n_dec = 8, 1024, 1056, 32
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counters()          # the dense path's run starts here
+    t0 = time.time()
+    sp = make_serving_params(torch, cfg, 0, "cuda", plant_layer=0)
+    torch.cuda.synchronize()
+    mem = serving_memory_bytes(sp)
+    nested = sum(not p.weight.is_exception for layer in sp["layers"]
+                 for p in _linears(layer, NestedLinearParams))
+    log(f"  {cfg.n_layers}-layer params nested on the card in "
+        f"{time.time() - t0:.1f} s: {mem['nested_bytes'] / 1e9:.2f} GB "
+        f"nested, {mem['other_bytes'] / 1e9:.2f} GB other; {nested} "
+        f"applicable tensors")
+    check(ops.all_launch_counters()["nestedfp_encode"] == nested,
+          "to_serving did not encode each applicable tensor through K8")
+    prompts = torch.randint(1, cfg.vocab_size, (b, s),
+                            generator=torch.Generator().manual_seed(11),
+                            dtype=torch.int32).cuda()
+    res = {"layers": cfg.n_layers, "batch": b, "prompt_len": s, "capacity": cap,
+           "decode_steps": n_dec}
+    need = {"fp16": ("flash_prefill_attention", "planar_decode_attention",
+                     "nestedfp16_matmul", "f16_matmul"),
+            "fp8": ("flash_prefill_attention", "planar_decode_attention",
+                    "nestedfp8_matmul_fused_quant", "f16_matmul")}
+    for mode in ("fp16", "fp8"):
+        before = ops.all_launch_counters()
+        prefill = steps.make_prefill_step(cfg, mode, capacity=cap)
+        decode = steps.make_decode_step(cfg, mode)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, caches = prefill(sp, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_ms = (time.monotonic() - t0) * 1e3
+        check(tuple(logits.shape) == (b, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"dense {mode}: prefill logits not finite or mis-shaped")
+        t0 = time.monotonic()
+        caches = M.planarize_cache(caches)
+        torch.cuda.synchronize()
+        planarize_ms = (time.monotonic() - t0) * 1e3
+        nxt = logits.argmax(-1).to(torch.int32)[:, None]
+        step_ms, out = [], []
+        for i in range(n_dec):
+            t0 = time.monotonic()
+            logits, caches = decode(sp, caches, nxt, s + i)
+            nxt = logits.argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            out.append(nxt)
+        check(bool(torch.isfinite(logits).all()),
+              f"dense {mode}: decode logits not finite")
+        toks = torch.cat(out, 1)
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"dense {mode}: tokens out of vocab")
+        launches = {k: v - before[k] for k, v in ops.all_launch_counters().items()}
+        for name in need[mode]:
+            check(launches[name] > 0, f"dense {mode}: {name} never launched")
+        med = sorted(step_ms)[n_dec // 2]
+        r = {"prefill_ms": prefill_ms, "planarize_ms": planarize_ms,
+             "decode_ms_per_step_median": med,
+             "decode_ms_per_step_mean": sum(step_ms) / n_dec,
+             "decode_tokens_per_s": b * n_dec / (sum(step_ms) / 1e3),
+             "prefill_tokens_per_s": b * s / (prefill_ms / 1e3),
+             "launches": launches}
+        log(f"  dense {mode}: prefill {b}x{s} in {prefill_ms:.1f} ms "
+            f"({r['prefill_tokens_per_s']:.0f} tok/s), planarize "
+            f"{planarize_ms:.1f} ms, decode step median {med:.1f} ms mean "
+            f"{r['decode_ms_per_step_mean']:.1f} ms "
+            f"({r['decode_tokens_per_s']:.1f} tok/s), launches {launches}")
+        res[mode] = r
+        del caches
+    res["launches_total"] = ops.all_launch_counters()   # read: the run ends
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  dense peak device memory {res['peak_mem_gb']:.1f} GB")
+    for mode in ("fp16", "fp8"):
+        prefill = steps.make_prefill_step(cfg, mode, capacity=cap)
+        decode = steps.make_decode_step(cfg, mode)
+        wall, by_name = device_ms_by_kernel(
+            torch, lambda: prefill(sp, {"tokens": prompts}), 1)
+        res[f"profile_prefill_{mode}"] = profile_summary(
+            f"profile dense prefill {mode}", wall, res[mode]["prefill_ms"],
+            by_name)
+        _, caches = prefill(sp, {"tokens": prompts})
+        caches = M.planarize_cache(caches)
+        nxt = prompts[:, -1:]
+        wall, by_name = device_ms_by_kernel(
+            torch, lambda: decode(sp, caches, nxt, s), 4)
+        res[f"profile_decode_{mode}"] = profile_summary(
+            f"profile dense decode {mode}: 4 steps", wall,
+            res[mode]["decode_ms_per_step_median"], by_name)
+        del caches
+    return res
+
+
+def _linears(tree, cls):
+    if isinstance(tree, cls):
+        return [tree]
+    if isinstance(tree, dict):
+        return [p for v in tree.values() for p in _linears(v, cls)]
+    return []
 
 
 SOURCES = {
@@ -544,12 +976,42 @@ SOURCES = {
     "paged_planar_decode_attention": (
         "src/repro_torch/csrc/paged_planar_decode_attention.cu",
         "src/repro/kernels/planar_decode_attention.py:193"),
+    "planar_decode_attention": (
+        "src/repro_torch/csrc/planar_decode_attention.cu",
+        "src/repro/kernels/planar_decode_attention.py:241"),
+    "flash_prefill_attention": (
+        "src/repro_torch/csrc/flash_prefill_attention.cu",
+        "src/repro/kernels/flash_prefill_attention.py:81"),
+    "nestedfp8_matmul_fused_quant": (
+        "src/repro_torch/csrc/nestedfp8_matmul_fused_quant.cu",
+        "src/repro/kernels/nestedfp8_matmul.py:122"),
+    "nestedfp_encode": ("src/repro_torch/csrc/nestedfp_encode.cu",
+                        "src/repro/kernels/nestedfp_encode.py:45"),
+}
+
+# which measured calls make up each kernel's numbers in the kernels line
+LINE_WEIGHTS = {
+    # the seven GEMMs of one layer in one decode step (M = 8)
+    **{name: (lambda r: LLAMA_KN.count((r["k"], r["n"])) if r["m"] == 8
+              else 0)
+       for name in ("nestedfp16_matmul", "nestedfp8_matmul", "f16_matmul",
+                    "nestedfp8_matmul_fused_quant")},
+    # one fp16-mode paged decode call of one layer
+    "paged_planar_decode_attention": (
+        lambda r: int(not r["fp8"] and r["window"] is None)),
+    # one fp16-mode dense decode call of one layer at the dense capacity
+    "planar_decode_attention": (
+        lambda r: int(not r["fp8"] and r["cap"] == 1056)),
+    # one layer's prefill attention of 8 x 1024 tokens
+    "flash_prefill_attention": lambda r: int((r["b"], r["s"]) == (8, 1024)),
+    # one 4096 x 14336 weight
+    "nestedfp_encode": lambda r: 1,
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="card,kernels,slice,serve")
+    ap.add_argument("--phases", default="card,kernels,slice,serve,dense")
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--serve-layers", type=int, default=32)
@@ -589,6 +1051,12 @@ def main() -> int:
         log("== kernels vs plain versions (llama3.1-8b shapes)")
         rows = gemm_phase(torch, args.iters)
         rows["paged_planar_decode_attention"] = attention_phase(torch, args.iters)
+        rows["planar_decode_attention"] = dense_decode_phase(torch, args.iters)
+        rows["flash_prefill_attention"] = prefill_attention_phase(
+            torch, args.iters)
+        rows["nestedfp8_matmul_fused_quant"] = fused_quant_phase(
+            torch, args.iters)
+        rows["nestedfp_encode"] = encode_phase(torch, args.iters)
         results["kernel_rows"] = rows
     cfg = get_arch("llama3.1-8b")
     if "slice" in phases:
@@ -597,6 +1065,10 @@ def main() -> int:
     if "serve" in phases:
         log(f"== serve: llama3.1-8b, {args.serve_layers} layers")
         results["serve"] = serve_phase(torch, cfg, args.serve_layers)
+    if "dense" in phases:
+        log(f"== dense: llama3.1-8b, {cfg.n_layers} layers, dense-slot "
+            f"prefill and decode steps")
+        results["dense"] = dense_phase(torch, cfg)
     results["total_s"] = time.time() - t_start
     log(f"== done in {results['total_s']:.1f} s")
     if args.out:
@@ -604,20 +1076,16 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(results, indent=1))
 
     if rows:
-        launches = results.get("serve", {}).get("launches_total", {})
+        # launches over the main paths' runs: the paged serve and the
+        # dense-slot steps, each counted from 0 at its start
+        paths = [results.get(p, {}).get("launches_total", {})
+                 for p in ("serve", "dense")]
         kernels = []
         for name, (src, replaces) in SOURCES.items():
-            if name == "paged_planar_decode_attention":
-                # one fp16-mode decode call of one layer
-                s = summarize(rows[name], lambda r: int(
-                    not r["fp8"] and r["window"] is None))
-            else:
-                # the seven GEMMs of one layer in one decode step (M = 8)
-                s = summarize(rows[name], lambda r: LLAMA_KN.count(
-                    (r["k"], r["n"])) if r["m"] == 8 else 0)
             kernels.append({"name": name, "route": "cuda", "source": src,
                             "replaces": replaces,
-                            "launches": launches.get(name, 0), **s})
+                            "launches": sum(p.get(name, 0) for p in paths),
+                            **summarize(rows[name], LINE_WEIGHTS[name])})
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,13 @@ One weight copy (2 bytes/weight) serves both modes:
   mode="fp16": lossless path — f16 GEMM on the weights rebuilt inside the
                kernel from the two byte planes (K1).
   mode="fp8":  fast path — dynamic absmax activation quant, GEMM on the
-               upper byte alone, dequant by act_scale * 2^-8 (K2).
+               upper byte alone, dequant by act_scale * 2^-8.
                `act_quant` picks the scale granularity: "per_tensor" (the
-               paper's scheme) or "per_token" (one scale per activation
-               row, which makes every token's result independent of what
-               shares the batch — the serving engine's choice).
+               paper's scheme; one torch reduction for the amax, then K7
+               quantizes inside the GEMM) or "per_token" (one scale per
+               activation row, which makes every token's result
+               independent of what shares the batch — the serving
+               engine's choice; quantize, then K2).
 Exception tensors (any |w| > 1.75) always run the f16 path (K3), in both
 modes (paper §4.2 "Handling Exception Layers").
 """
@@ -59,12 +61,12 @@ def nested_linear(params: NestedLinearParams, x: torch.Tensor, *,
     elif mode == "fp8":
         if act_quant == "per_token":
             xq, scale = quant.quantize_act_per_token(x)
-            scale = scale.reshape(-1, 1)
+            y = ops.matmul_nested_fp8(xq, w.upper, scale.reshape(-1, 1))
         elif act_quant == "per_tensor":
-            xq, scale = quant.quantize_act_per_tensor(x)
+            y = ops.matmul_nested_fp8_fused_quant(x, w.upper,
+                                                  quant.absmax(x))
         else:
             raise ValueError(f"unknown act_quant {act_quant!r}")
-        y = ops.matmul_nested_fp8(xq, w.upper, scale)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     if fast_accum:

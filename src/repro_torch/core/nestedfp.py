@@ -105,10 +105,14 @@ class NestedTensor:
     @classmethod
     def from_f16(cls, w: torch.Tensor, force_exception: bool = False
                  ) -> "NestedTensor":
-        """Offline pre-processing; decides applicability on the host."""
+        """Offline pre-processing; decides applicability on the host, then
+        encodes through K8 (`ops.encode`: the CUDA kernel for a tensor on
+        the card, `encode` above for one on the CPU)."""
+        # imported here: the kernel modules import this one
+        from repro_torch.kernels import ops
         w = w.to(torch.float16).contiguous()
         if not force_exception and bool(is_applicable(w)):
-            upper, lower = encode(w)
+            upper, lower = ops.encode(w)
             return cls(upper=upper, lower=lower, raw=None)
         return cls(upper=None, lower=None, raw=w)
 

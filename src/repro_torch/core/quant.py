@@ -18,13 +18,16 @@ def _to_e4m3(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, -E4M3_MAX, E4M3_MAX).to(torch.float8_e4m3fn)
 
 
+def absmax(x: torch.Tensor) -> torch.Tensor:
+    """Per-tensor absmax in f32, at least 1e-12 (an all-zero x)."""
+    return torch.clamp(x.to(torch.float32).abs().max(), min=_EPS)
+
+
 def quantize_act_per_tensor(x: torch.Tensor
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-tensor absmax E4M3 quant. Returns (q, dequant scale ())."""
-    xf = x.to(torch.float32)
-    amax = torch.clamp(xf.abs().max(), min=_EPS)
-    scale = amax / E4M3_MAX
-    return _to_e4m3(xf / scale), scale
+    scale = absmax(x) / E4M3_MAX
+    return _to_e4m3(x.to(torch.float32) / scale), scale
 
 
 def quantize_act_per_token(x: torch.Tensor

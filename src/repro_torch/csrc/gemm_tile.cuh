@@ -1,6 +1,7 @@
-// Shared tiling of the three GEMM kernels of the port (K1 nestedfp16_matmul,
-// K2 nestedfp8_matmul, K3 f16_matmul): out (M,N) f32 = A (M,K) @ B (K,N),
-// with B stored (K,N) row-major exactly as the JAX package lays it out.
+// Shared tiling of the four GEMM kernels of the port (K1 nestedfp16_matmul,
+// K2 nestedfp8_matmul, K3 f16_matmul, K7 nestedfp8_matmul_fused_quant):
+// out (M,N) f32 = A (M,K) @ B (K,N), with B stored (K,N) row-major exactly
+// as the JAX package lays it out.
 //
 // Design (simple first; wgmma/TMA/pipelining are later work):
 //   * A block of 2 or 4 warps owns a BM x BN output tile and walks K in
@@ -8,7 +9,9 @@
 //     and B tiles in registers while the tensor cores work on the current
 //     tile (register double buffering), then converts them to f16 into
 //     shared memory: K1 rebuilds f16 weights from the two byte planes,
-//     K2 widens e4m3 bytes to f16 (exact), K3 copies f16.
+//     K2 widens e4m3 bytes to f16 (exact), K3 copies f16, and K7 turns
+//     f16/bf16/f32 activations into e4m3 codes (x * 448/amax, clamped,
+//     rounded to nearest even) and widens those to f16.
 //   * Tensor cores through WMMA 16x16x16, f16 inputs, f32 accumulate.
 //   * Every output element sums its K products in the same order — 16-wide
 //     steps from k = 0 upwards — whatever the tile shape picked from M, and
@@ -19,14 +22,22 @@
 //     runs when K and N are multiples of 8 and the pointers are aligned.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
 namespace nfp {
 
-enum class Op { kNested16, kNested8, kF16 };
+// kQuant*: K7, whose A operand is quantized to e4m3 inside the kernel;
+// the suffix names the activation type it reads.
+enum class Op { kNested16, kNested8, kF16, kQuantF16, kQuantBF16, kQuantF32 };
+
+template <Op OP>
+constexpr bool kQuant =
+    OP == Op::kQuantF16 || OP == Op::kQuantBF16 || OP == Op::kQuantF32;
 
 // NestedFP reconstruction of one weight (paper Fig. 6), bit-exact with
 // repro.core.nestedfp.decode: undo the RNE carry with lower's MSB.
@@ -78,16 +89,42 @@ __device__ __forceinline__ uint4 e4m3x8_to_f16x8(uint2 b) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// e4m3 code of x * inv, clamped to +-448 first (as the JAX kernel's
+// clip), rounded to nearest even by the hardware conversion.
+__device__ __forceinline__ uint32_t quant_e4m3(float x, float inv) {
+  const float v = fminf(fmaxf(x * inv, -448.f), 448.f);
+  return (uint32_t)__nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
+}
+
+// 8 activations (as 32-bit words of f32 bits, or 16-bit f16/bf16 bits in
+// the low half) -> 8 f16 values holding their e4m3 codes' exact values
+template <Op OP>
+__device__ __forceinline__ uint4 quant8_to_f16x8(const uint32_t (&x)[8],
+                                                 float inv) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float f;
+    if constexpr (OP == Op::kQuantF32) f = __uint_as_float(x[j]);
+    else if constexpr (OP == Op::kQuantBF16) f = __uint_as_float(x[j] << 16);
+    else f = __half2float(__ushort_as_half((unsigned short)x[j]));
+    w[j / 4] |= quant_e4m3(f, inv) << (8 * (j % 4));
+  }
+  return e4m3x8_to_f16x8(make_uint2(w[0], w[1]));
+}
+
 // Raw global bytes of one 8-element chunk, as loaded (converted later).
-template <Op OP> struct AChunk;
-template <> struct AChunk<Op::kNested16> { uint4 v; };   // 8 x f16
-template <> struct AChunk<Op::kF16> { uint4 v; };        // 8 x f16
+template <Op OP> struct AChunk { uint4 v; };             // 8 x 16-bit
 template <> struct AChunk<Op::kNested8> { uint2 v; };    // 8 x e4m3
+template <> struct AChunk<Op::kQuantF32> { uint4 v, w; };  // 8 x f32
 
 template <Op OP> struct BChunk;
 template <> struct BChunk<Op::kNested16> { uint2 u, l; };  // 8 upper + 8 lower
 template <> struct BChunk<Op::kNested8> { uint2 u; };      // 8 upper only
 template <> struct BChunk<Op::kF16> { uint4 w; };          // 8 x f16
+template <> struct BChunk<Op::kQuantF16> { uint2 u; };     // 8 upper only
+template <> struct BChunk<Op::kQuantBF16> { uint2 u; };
+template <> struct BChunk<Op::kQuantF32> { uint2 u; };
 
 template <Op OP, bool VEC>
 __device__ __forceinline__ void load_a(AChunk<OP>& c, const void* a, int m,
@@ -105,6 +142,21 @@ __device__ __forceinline__ void load_a(AChunk<OP>& c, const void* a, int m,
         if (m < M && k + j < K)
           w[j / 4] |= (uint32_t)p[(size_t)m * K + k + j] << (8 * (j % 4));
       c.v = make_uint2(w[0], w[1]);
+    }
+  } else if constexpr (OP == Op::kQuantF32) {
+    const uint32_t* p = static_cast<const uint32_t*>(a);
+    if (VEC) {
+      const bool in = m < M && k < K;
+      const uint4* q = reinterpret_cast<const uint4*>(p + (size_t)m * K + k);
+      c.v = in ? q[0] : make_uint4(0u, 0u, 0u, 0u);
+      c.w = in ? q[1] : make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      uint32_t w[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (m < M && k + j < K) w[j] = p[(size_t)m * K + k + j];
+      c.v = make_uint4(w[0], w[1], w[2], w[3]);
+      c.w = make_uint4(w[4], w[5], w[6], w[7]);
     }
   } else {
     const uint16_t* p = static_cast<const uint16_t*>(a);
@@ -146,7 +198,7 @@ __device__ __forceinline__ void load_b(BChunk<OP>& c, const uint8_t* b0,
   if constexpr (OP == Op::kNested16) {
     c.u = load_bytes8<VEC>(b0, k, n, K, N);
     c.l = load_bytes8<VEC>(b1, k, n, K, N);
-  } else if constexpr (OP == Op::kNested8) {
+  } else if constexpr (OP == Op::kNested8 || kQuant<OP>) {
     c.u = load_bytes8<VEC>(b0, k, n, K, N);
   } else {
     const uint16_t* p = reinterpret_cast<const uint16_t*>(b0);
@@ -166,19 +218,35 @@ __device__ __forceinline__ void load_b(BChunk<OP>& c, const uint8_t* b0,
 }
 
 template <Op OP>
-__device__ __forceinline__ uint4 a_to_f16(const AChunk<OP>& c) {
-  if constexpr (OP == Op::kNested8) return e4m3x8_to_f16x8(c.v);
-  else return c.v;
+__device__ __forceinline__ uint4 a_to_f16(const AChunk<OP>& c, float inv) {
+  if constexpr (OP == Op::kNested8) {
+    return e4m3x8_to_f16x8(c.v);
+  } else if constexpr (OP == Op::kQuantF32) {
+    const uint32_t x[8] = {c.v.x, c.v.y, c.v.z, c.v.w,
+                           c.w.x, c.w.y, c.w.z, c.w.w};
+    return quant8_to_f16x8<OP>(x, inv);
+  } else if constexpr (kQuant<OP>) {
+    const uint32_t ws[4] = {c.v.x, c.v.y, c.v.z, c.v.w};
+    uint32_t x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = (ws[j / 2] >> (16 * (j % 2))) & 0xFFFFu;
+    return quant8_to_f16x8<OP>(x, inv);
+  } else {
+    return c.v;
+  }
 }
 
 template <Op OP>
 __device__ __forceinline__ uint4 b_to_f16(const BChunk<OP>& c) {
   if constexpr (OP == Op::kNested16) return nested8_to_f16x8(c.u, c.l);
-  else if constexpr (OP == Op::kNested8) return e4m3x8_to_f16x8(c.u);
+  else if constexpr (OP == Op::kNested8 || kQuant<OP>)
+    return e4m3x8_to_f16x8(c.u);
   else return c.w;
 }
 
-// scale: optional per-row dequant factor (K2): out = acc * scale[m*stride] * 2^-8
+// scale: optional per-row dequant factor (K2): out = acc * scale[m*stride] * 2^-8;
+// for K7 (kQuant*) it points at amax: A is quantized with 448/amax and
+// out = acc * (amax/448) * 2^-8, the JAX kernel's order of operations.
 template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, Op OP, bool VEC>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
 gemm_kernel(const void* __restrict__ a, const uint8_t* __restrict__ b0,
@@ -197,6 +265,11 @@ gemm_kernel(const void* __restrict__ a, const uint8_t* __restrict__ b0,
   __shared__ __align__(128) half Bs[BK * LDB];
   __shared__ __align__(128) float Cs[BM * LDC];
 
+  float inv = 0.f, deq = 0.f;
+  if constexpr (kQuant<OP>) {
+    inv = 448.f / scale[0];
+    deq = scale[0] / 448.f;
+  }
   const int tid = threadIdx.x, warp = tid / 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -220,7 +293,7 @@ gemm_kernel(const void* __restrict__ a, const uint8_t* __restrict__ b0,
 #pragma unroll
     for (int i = 0; i < A_CH; ++i) {
       const int c = tid + i * T, r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(&As[r * LDA + col]) = a_to_f16<OP>(ar[i]);
+      *reinterpret_cast<uint4*>(&As[r * LDA + col]) = a_to_f16<OP>(ar[i], inv);
     }
 #pragma unroll
     for (int i = 0; i < B_CH; ++i) {
@@ -270,7 +343,9 @@ gemm_kernel(const void* __restrict__ a, const uint8_t* __restrict__ b0,
     const int r = e / BN, c = e % BN, m = m0 + r, n = n0 + c;
     if (m < M && n < N) {
       float v = Cs[r * LDC + c];
-      if (scale != nullptr) v = v * scale[(size_t)m * scale_stride] * 0.00390625f;
+      if constexpr (kQuant<OP>) v = v * deq * 0.00390625f;
+      else if (scale != nullptr)
+        v = v * scale[(size_t)m * scale_stride] * 0.00390625f;
       out[(size_t)m * N + n] = v;
     }
   }
@@ -305,7 +380,7 @@ int launch_gemm(const void* a, const void* b0, const void* b1,
                 int N, int K, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaGetLastError();
   const uintptr_t a_al = OP == Op::kNested8 ? 8 : 16;
-  const uintptr_t b_al = OP == Op::kF16 ? 16 : 8;
+  const uintptr_t b_al = OP == Op::kF16 ? 16 : 8;   // u8 planes: 8 a load
   const bool vec = K % 8 == 0 && N % 8 == 0 && aligned(a, a_al) &&
                    aligned(b0, b_al) && (b1 == nullptr || aligned(b1, b_al));
   const uint8_t* p0 = static_cast<const uint8_t*>(b0);

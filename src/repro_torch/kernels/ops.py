@@ -12,10 +12,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.f16_matmul import f16_matmul
+from repro_torch.kernels.flash_prefill_attention import (
+    flash_prefill_attention as _flash_prefill_attention)
 from repro_torch.kernels.nestedfp16_matmul import nestedfp16_matmul
 from repro_torch.kernels.nestedfp8_matmul import nestedfp8_matmul
+from repro_torch.kernels.nestedfp8_matmul_fused_quant import (
+    nestedfp8_matmul_fused_quant)
+from repro_torch.kernels.nestedfp_encode import nestedfp_encode
 from repro_torch.kernels.planar_decode_attention import (
     paged_planar_decode_attention)
+from repro_torch.kernels.planar_decode_attention import (
+    planar_decode_attention as _planar_decode_attention)
+
+KERNEL_FNS = (nestedfp16_matmul, nestedfp8_matmul, f16_matmul,
+              paged_planar_decode_attention, _planar_decode_attention,
+              _flash_prefill_attention, nestedfp8_matmul_fused_quant,
+              nestedfp_encode)
 
 
 def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -61,14 +73,44 @@ def paged_decode_attention(q, planes: dict, tables, lens, *, fp8: bool,
         window=window)
 
 
+def matmul_nested_fp8_fused_quant(x: torch.Tensor, upper: torch.Tensor,
+                                  amax: torch.Tensor) -> torch.Tensor:
+    """FP8-mode GEMM with per-tensor activation quantization inside the
+    kernel: x (..., K) f16/bf16/f32, amax the absmax of x -> (..., N) f32."""
+    k, n = upper.shape
+    out = nestedfp8_matmul_fused_quant(
+        _rows(x, k), upper, amax.to(torch.float32).reshape(1).contiguous())
+    return out.reshape(*x.shape[:-1], n)
+
+
+def encode(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """NestedFP encode of an applicable f16 tensor -> (upper, lower) u8."""
+    return nestedfp_encode(w.to(torch.float16).contiguous())
+
+
+def planar_decode_attention(q, planes: dict, lens, *, fp8: bool,
+                            window=None) -> torch.Tensor:
+    """Single-query decode over dense per-slot planes: q (B, H, D); planes
+    {"k_hi","k_lo","v_hi","v_lo"} of (B, Cap, Hkv, D); lens (B,) >= 1 ->
+    (B, H, D) f32."""
+    return _planar_decode_attention(
+        q.float().contiguous(), planes["k_hi"], planes["k_lo"],
+        planes["v_hi"], planes["v_lo"], lens.to(torch.int32).contiguous(),
+        fp8=fp8, window=window)
+
+
+def flash_prefill_attention(q, k, v) -> torch.Tensor:
+    """Causal prefill attention: q (B, S, H, D), k/v (B, S, Hkv, D) ->
+    (B, S, H, D) f32."""
+    return _flash_prefill_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous())
+
+
 def all_launch_counters() -> dict[str, int]:
     """Launch count of every kernel wrapper (CUDA launches only)."""
-    return {f.__name__: f.launches for f in (
-        nestedfp16_matmul, nestedfp8_matmul, f16_matmul,
-        paged_planar_decode_attention)}
+    return {f.__name__: f.launches for f in KERNEL_FNS}
 
 
 def reset_launch_counters() -> None:
-    for f in (nestedfp16_matmul, nestedfp8_matmul, f16_matmul,
-              paged_planar_decode_attention):
+    for f in KERNEL_FNS:
         f.launches = 0

@@ -1,11 +1,18 @@
-"""K4: single-query GQA decode attention over the paged NestedKV pool.
+"""K4 and K5: single-query GQA decode attention over byte-planar KV.
 
-Port of `repro/kernels/planar_decode_attention.py::
-paged_planar_decode_attention` (a Pallas TPU kernel) to the CUDA kernel
-in `csrc/paged_planar_decode_attention.cu`. The static `window` and the
-traced `window_arr` of the TPU kernel are arithmetic-identical, so this
-port takes one run-time int (None or <= 0 means global). CPU tensors take
-the plain version (`ref.paged_planar_decode_attention_ref`).
+Ports of two Pallas TPU kernels of `repro/kernels/planar_decode_attention.py`
+to CUDA kernels that share one body (`csrc/decode_attention.cuh`):
+
+- K4 `paged_planar_decode_attention` (`csrc/paged_planar_decode_attention.cu`)
+  over the serving engine's paged pool, keys found through a block table.
+  The static `window` and the traced `window_arr` of the TPU kernel are
+  arithmetic-identical, so this port takes one run-time int.
+- K5 `planar_decode_attention` (`csrc/planar_decode_attention.cu`) over
+  dense per-slot planes (B, Cap, Hkv, D), read in place.
+
+In both, a window of None or <= 0 means global. CPU tensors take the
+plain versions (`ref.paged_planar_decode_attention_ref`,
+`ref.planar_decode_attention_ref`).
 """
 
 from __future__ import annotations
@@ -16,9 +23,31 @@ import torch
 
 from repro_torch.kernels import _build, _common, ref
 
-_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float]
-         + [ctypes.c_void_p])
+_PAGED_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float]
+               + [ctypes.c_void_p])
+_DENSE_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
+               + [ctypes.c_void_p])
 _SMEM_LIMIT = 227 * 1024
+
+
+def _check(q, planes: dict, tile: int) -> None:
+    """Shapes, types and the 16-byte plane loads the shared body makes."""
+    b, h, d = q.shape
+    hkv = planes["k_hi"].shape[2]
+    if h % hkv or d % 16:
+        raise ValueError(f"need H % Hkv == 0 and D % 16 == 0 (H={h}, "
+                         f"Hkv={hkv}, D={d})")
+    _common.expect(q, "q", torch.float32, (b, h, d))
+    shape = planes["k_hi"].shape
+    for name, p in planes.items():
+        _common.expect(p, name, torch.uint8, shape)
+        if p.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
+    g = h // hkv
+    smem = 4 * (2 * g * d + 2 * tile * (d + 1) + g * tile + 3 * g)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"G={g}, D={d}, tile={tile} need {smem} B of "
+                         f"shared memory, above {_SMEM_LIMIT}")
 
 
 def paged_planar_decode_attention(q, k_hi, k_lo, v_hi, v_lo, tables, lens, *,
@@ -34,23 +63,12 @@ def paged_planar_decode_attention(q, k_hi, k_lo, v_hi, v_lo, tables, lens, *,
     b, h, d = q.shape
     nb, bs, hkv, _ = k_hi.shape
     mb = tables.shape[1]
-    if h % hkv or d % 4:
-        raise ValueError(f"need H % Hkv == 0 and D % 4 == 0 (H={h}, "
-                         f"Hkv={hkv}, D={d})")
-    _common.expect(q, "q", torch.float32, (b, h, d))
-    for name, p in (("k_hi", k_hi), ("k_lo", k_lo), ("v_hi", v_hi),
-                    ("v_lo", v_lo)):
-        _common.expect(p, name, torch.uint8, (nb, bs, hkv, d))
+    _check(q, {"k_hi": k_hi, "k_lo": k_lo, "v_hi": v_hi, "v_lo": v_lo}, bs)
     _common.expect(tables, "tables", torch.int32, (b, mb))
     _common.expect(lens, "lens", torch.int32, (b,))
-    g = h // hkv
-    smem = 4 * (2 * g * d + 2 * bs * d + g * bs + 3 * g)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"G={g}, D={d}, BS={bs} need {smem} B of shared "
-                         f"memory, above {_SMEM_LIMIT}")
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     fn = _build.function("paged_planar_decode_attention",
-                         "paged_planar_decode_attention", _ARGS)
+                         "paged_planar_decode_attention", _PAGED_ARGS)
     w = 0 if window is None else int(window)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_hi.data_ptr(),
@@ -64,3 +82,37 @@ def paged_planar_decode_attention(q, k_hi, k_lo, v_hi, v_lo, tables, lens, *,
 
 
 paged_planar_decode_attention.launches = 0
+
+
+def planar_decode_attention(q, k_hi, k_lo, v_hi, v_lo, lens, *,
+                            fp8: bool = False,
+                            window: int | None = None) -> torch.Tensor:
+    """q (B,H,D) f32; planes (B,Cap,Hkv,D) u8, dense per slot; lens (B,)
+    int32 valid keys per row, each >= 1 (decode has written the new
+    token) -> (B,H,D) f32. In fp8 mode the lo planes are not read."""
+    if not _common.on_cuda(q, k_hi, k_lo, v_hi, v_lo, lens):
+        return ref.planar_decode_attention_ref(
+            q, k_hi, k_lo, v_hi, v_lo, lens, fp8=fp8, window=window)
+    b, h, d = q.shape
+    _, cap, hkv, _ = k_hi.shape
+    _check(q, {"k_hi": k_hi, "k_lo": k_lo, "v_hi": v_hi, "v_lo": v_lo},
+           ref.DECODE_TILE)
+    if k_hi.shape[0] != b:
+        raise ValueError(f"planes hold {k_hi.shape[0]} rows, q {b}")
+    _common.expect(lens, "lens", torch.int32, (b,))
+    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    fn = _build.function("planar_decode_attention", "planar_decode_attention",
+                         _DENSE_ARGS)
+    w = 0 if window is None else int(window)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_hi.data_ptr(),
+                 0 if fp8 else k_lo.data_ptr(), v_hi.data_ptr(),
+                 0 if fp8 else v_lo.data_ptr(), lens.data_ptr(),
+                 out.data_ptr(), b, h, hkv, d, cap, w, int(fp8),
+                 float(d ** -0.5), _common.stream_handle(q.device))
+    _build.check(err, "planar_decode_attention")
+    planar_decode_attention.launches += 1
+    return out
+
+
+planar_decode_attention.launches = 0

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels of the serving path.
+"""Plain PyTorch versions of the eight kernels of the port.
 
 Each repeats its kernel's arithmetic with f32 accumulation. A kernel
 wrapper takes its plain version for tensors on the CPU (which is how the
@@ -34,6 +34,77 @@ def nestedfp8_matmul_ref(x_q: torch.Tensor, upper: torch.Tensor,
     return acc * x_scale * nf.FP8_DEQUANT_SCALE
 
 
+def nestedfp8_matmul_fused_quant_ref(x: torch.Tensor, upper: torch.Tensor,
+                                     amax: torch.Tensor) -> torch.Tensor:
+    """FP8 mode with the activation quantized inside the GEMM, as the
+    fused kernel does it: x_q = e4m3(clip(x * (448/amax))) — a multiply by
+    the inverse, where `quant.quantize_act_per_tensor` divides by
+    amax/448 — then (x_q @ e4m3(upper)) * (amax/448) * 2^-8. amax: the
+    per-tensor absmax of x, one f32 element."""
+    amax = amax.to(torch.float32).reshape(())
+    inv = nf.E4M3_MAX / amax
+    xq = torch.clamp(x.float() * inv, -nf.E4M3_MAX, nf.E4M3_MAX)
+    acc = xq.to(torch.float8_e4m3fn).float() @ nf.fp8_view(upper).float()
+    return acc * (amax / nf.E4M3_MAX) * nf.FP8_DEQUANT_SCALE
+
+
+def nestedfp_encode_ref(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f16 -> (upper, lower) u8 by the kernel's bit formula, which is
+    `nestedfp.encode` (RNE on the 7 dropped bits, carry by integer add)."""
+    return nf.encode(w)
+
+
+def softmax_state(qg: torch.Tensor, dv: int):
+    """Initial (m, l, acc) of an online softmax for queries qg
+    (B,Hkv,G,Q,D): m, l (B,Hkv,G,Q,1) and acc (B,Hkv,G,Q,dv), all f32."""
+    m = torch.full((*qg.shape[:-1], 1), NEG_INF, dtype=torch.float32,
+                   device=qg.device)
+    return m, torch.zeros_like(m), qg.new_zeros((*qg.shape[:-1], dv))
+
+
+def tile_update(state, qg, k, v, keep):
+    """One key tile of the online softmax shared by the attention kernels'
+    plain versions and `layers.attn_core_prefill`: qg (B,Hkv,G,Q,D) scaled
+    f32; k/v (B,T,Hkv,·) f32; keep broadcastable to the scores
+    (B,Hkv,G,Q,T)."""
+    m, l, acc = state
+    s = torch.einsum("bhgqd,bthd->bhgqt", qg, k)
+    s = torch.where(keep, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(s - m_new)
+    l = l * corr + p.sum(dim=-1, keepdim=True)
+    acc = acc * corr + torch.einsum("bhgqt,bthd->bhgqd", p, v)
+    return m_new, l, acc
+
+
+def softmax_out(state) -> torch.Tensor:
+    """acc / max(l, 1e-30): (B,Hkv,G,Q,dv)."""
+    _, l, acc = state
+    return acc / torch.clamp(l, min=1e-30)
+
+
+def _decode_state(q, hkv):
+    b, h, d = q.shape
+    qg = q.float().reshape(b, hkv, h // hkv, 1, d) * (d ** -0.5)
+    return qg, softmax_state(qg, d)
+
+
+def _planes_kv(k_hi, k_lo, v_hi, v_lo, fp8: bool):
+    if fp8:
+        return nf.e5m2_view(k_hi), nf.e5m2_view(v_hi)
+    return (nf.join_bytes(k_hi, k_lo).float(),
+            nf.join_bytes(v_hi, v_lo).float())
+
+
+def _window_keep(kpos, lens, window):
+    """(B,T) keys kept, shaped to broadcast over the scores."""
+    keep = kpos < lens[:, None]
+    if window is not None and window > 0:
+        keep = keep & (kpos > lens[:, None] - 1 - window)
+    return keep[:, None, None, None, :]
+
+
 def paged_planar_decode_attention_ref(q, k_hi, k_lo, v_hi, v_lo, tables,
                                       lens, *, fp8: bool = False,
                                       window: int | None = None
@@ -43,34 +114,57 @@ def paged_planar_decode_attention_ref(q, k_hi, k_lo, v_hi, v_lo, tables,
     blocks, one block of BS keys at a time -> (B,H,D) f32."""
     b, h, d = q.shape
     bs, hkv = k_hi.shape[1], k_hi.shape[2]
-    g = h // hkv
-    mb = tables.shape[1]
     tables = tables.long()
     lens = lens.to(torch.int64)
-    qg = q.float().reshape(b, hkv, g, d) * (d ** -0.5)
-    m = torch.full((b, hkv, g, 1), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, hkv, g, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
+    qg, state = _decode_state(q, hkv)
     offs = torch.arange(bs, device=q.device)
-    for j in range(mb):
+    for j in range(tables.shape[1]):
         blk = tables[:, j]
-        if fp8:
-            k = nf.e5m2_view(k_hi[blk])                  # (B,BS,Hkv,D)
-            v = nf.e5m2_view(v_hi[blk])
-        else:
-            k = nf.join_bytes(k_hi[blk], k_lo[blk]).float()
-            v = nf.join_bytes(v_hi[blk], v_lo[blk]).float()
-        s = torch.einsum("bhgd,bthd->bhgt", qg, k)
-        kpos = (j * bs + offs)[None, :]                  # (1,BS)
-        keep = kpos < lens[:, None]
-        if window is not None and window > 0:
-            keep = keep & (kpos > lens[:, None] - 1 - window)
-        s = torch.where(keep[:, None, None, :], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
-        l = l * corr + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + torch.einsum("bhgt,bthd->bhgd", p, v)
-        m = m_new
-    return (acc / torch.clamp(l, min=1e-30)).reshape(b, h, d)
+        k, v = _planes_kv(k_hi[blk], k_lo[blk], v_hi[blk], v_lo[blk], fp8)
+        keep = _window_keep((j * bs + offs)[None, :], lens, window)
+        state = tile_update(state, qg, k, v, keep)
+    return softmax_out(state).reshape(b, h, d)
+
+
+DECODE_TILE = 64      # keys per step of the dense-slot decode kernel
+
+
+def planar_decode_attention_ref(q, k_hi, k_lo, v_hi, v_lo, lens, *,
+                                fp8: bool = False, window: int | None = None
+                                ) -> torch.Tensor:
+    """q (B,H,D); planes (B,Cap,Hkv,D) u8 dense per slot; lens (B,);
+    window None or <= 0 means global. Online softmax over the cache in
+    tiles of DECODE_TILE keys -> (B,H,D) f32."""
+    b, h, d = q.shape
+    cap, hkv = k_hi.shape[1], k_hi.shape[2]
+    lens = lens.to(torch.int64)
+    qg, state = _decode_state(q, hkv)
+    for t0 in range(0, cap, DECODE_TILE):
+        sl = slice(t0, min(t0 + DECODE_TILE, cap))
+        k, v = _planes_kv(k_hi[:, sl], k_lo[:, sl], v_hi[:, sl], v_lo[:, sl],
+                          fp8)
+        kpos = torch.arange(sl.start, sl.stop, device=q.device)[None, :]
+        state = tile_update(state, qg, k, v, _window_keep(kpos, lens, window))
+    return softmax_out(state).reshape(b, h, d)
+
+
+PREFILL_TILE = 64     # keys per step of the prefill kernel
+
+
+def flash_prefill_attention_ref(q, k, v) -> torch.Tensor:
+    """Causal GQA attention for prefill: q (B,S,H,D), k/v (B,S,Hkv,D) ->
+    (B,S,H,D) f32. q is scaled by D^-0.5 in f32, then an online softmax
+    runs over the keys in tiles of PREFILL_TILE, masking kpos > qpos."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.float().reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4) \
+        * (d ** -0.5)                                       # (B,Hkv,G,S,D)
+    state = softmax_state(qg, d)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    for t0 in range(0, s, PREFILL_TILE):
+        sl = slice(t0, min(t0 + PREFILL_TILE, s))
+        kpos = torch.arange(sl.start, sl.stop, device=q.device)[None, :]
+        state = tile_update(state, qg, k[:, sl].float(), v[:, sl].float(),
+                            kpos <= qpos)
+    return softmax_out(state).permute(0, 3, 1, 2, 4).reshape(b, s, h, d)

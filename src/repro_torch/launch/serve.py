@@ -42,9 +42,10 @@ def main(argv=None) -> int:
 
     from repro_torch.configs import get_arch
     from repro_torch.core.policy import DualPrecisionController, SLOConfig
+    from repro_torch.device import resolve_device
     from repro_torch.models import model as M
     from repro_torch.models.convert import serving_memory_bytes, to_serving
-    from repro_torch.serving.engine import Engine, Request, resolve_device
+    from repro_torch.serving.engine import Engine, Request
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)

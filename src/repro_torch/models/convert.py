@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.linear import NestedLinearParams
 from repro_torch.core.nestedfp import NestedTensor
+from repro_torch.device import resolve_device
 
 # path substrings excluded from nesting (as in the JAX package)
 _EXCLUDE = ("embed", "lm_head", "router", "frontend_proj")
@@ -74,14 +75,16 @@ def serving_memory_bytes(tree) -> dict[str, int]:
 
 
 def from_jax_serving(flat: dict[str, np.ndarray], n_layers: int,
-                     device="cpu") -> dict:
+                     device=None) -> dict:
     """Port serving params from the JAX serving tree, flattened by path.
 
     Keys are "/"-joined dict paths of the JAX tree (`M.init_params` +
     `to_serving`); a NestedLinearParams at path P contributes
     "P/weight/upper", "P/weight/lower", "P/weight/raw" (whichever exist)
     and "P/bias". Leaves under "layers/" are stacked (L, ...) and are
-    split into one dict per layer. Bytes are kept exactly."""
+    split into one dict per layer. Bytes are kept exactly. device=None
+    means the card."""
+    device = resolve_device(device)
     nested: dict = {}
     for key, arr in flat.items():
         node = nested

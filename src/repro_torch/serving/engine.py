@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import DualPrecisionController, StepObservation
+from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.convert import params_to
 from repro_torch.models.layers import Runtime
@@ -89,16 +90,6 @@ def _bucket(n: int, minimum: int = 16) -> int:
 # placeholder for a token whose value still lives on the device; patched
 # by `_finalize_step`'s single end-of-step sync before anything reads it
 _PENDING = -1
-
-
-def resolve_device(device) -> torch.device:
-    """None means the card. Without a GPU that raises: the engine never
-    carries on on the CPU unless the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available; pass device='cpu' to "
-                           "run the plain PyTorch versions of the kernels")
-    return dev
 
 
 class Engine:

@@ -49,4 +49,5 @@ def serving_pair(jcfg, n_layers: int, plant_exception: bool, seed: int = 0):
         wo = params["layers"]["attn"]["wo"]["w"]
         params["layers"]["attn"]["wo"]["w"] = wo.at[1, 0, 0].set(2.0)
     sp = j_to_serving(params)
-    return sp, from_jax_serving(flatten_serving(sp), n_layers)
+    return sp, from_jax_serving(flatten_serving(sp), n_layers,
+                                device="cpu")

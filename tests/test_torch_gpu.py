@@ -16,8 +16,9 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import nestedfp as nf  # noqa: E402
 from repro_torch.core import quant  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.models.convert import to_serving  # noqa: E402
+from repro_torch.models.convert import params_to, to_serving  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -106,6 +107,133 @@ def test_paged_planar_decode_attention(dev, fp8, window):
     live = ln > 0
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got[live], want[live], **ATTN_TOL)
+
+
+def _dense_planes(dev, b, cap, hkv, d, seed):
+    rng = np.random.default_rng(seed)
+    kv = torch.from_numpy(rng.normal(size=(2, b, cap, hkv, d))
+                          .astype(np.float16)).to(dev)
+    planes = dict(zip(("k_hi", "k_lo"), nf.split_bytes(kv[0])))
+    planes.update(zip(("v_hi", "v_lo"), nf.split_bytes(kv[1])))
+    return planes
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("cap,lens", [(200, [1, 64, 65, 200]),
+                                      (3000, [2999, 1, 1500, 3000])])
+def test_planar_decode_attention(dev, fp8, window, cap, lens):
+    b, h, hkv, d = 4, 8, 2, 128
+    planes = _dense_planes(dev, b, cap, hkv, d, seed=5)
+    q = torch.randn((b, h, d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n0 = ops.all_launch_counters()["planar_decode_attention"]
+    got = ops.planar_decode_attention(q, planes, ln, fp8=fp8, window=window)
+    want = ref.planar_decode_attention_ref(
+        q, planes["k_hi"], planes["k_lo"], planes["v_hi"], planes["v_lo"],
+        ln, fp8=fp8, window=window)
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+    assert ops.all_launch_counters()["planar_decode_attention"] == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d", [(2, 128, 8, 2, 128),
+                                         (1, 1000, 32, 8, 128),
+                                         (3, 45, 4, 4, 64)])
+def test_flash_prefill_attention(dev, dtype, b, s, h, hkv, d):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((b, s, h, d), device=dev, generator=gen).to(dtype)
+    k = torch.randn((b, s, hkv, d), device=dev, generator=gen).to(dtype)
+    v = torch.randn((b, s, hkv, d), device=dev, generator=gen).to(dtype)
+    n0 = ops.all_launch_counters()["flash_prefill_attention"]
+    got = ops.flash_prefill_attention(q, k, v)
+    torch.testing.assert_close(got, ref.flash_prefill_attention_ref(q, k, v),
+                               **ATTN_TOL)
+    assert ops.all_launch_counters()["flash_prefill_attention"] == n0 + 1
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_nestedfp8_matmul_fused_quant(dev, shape, dtype):
+    x, w = _gemm(dev, *shape, seed=7)
+    x = x.to(dtype)
+    u, _ = nf.encode(w)
+    amax = quant.absmax(x)
+    n0 = ops.all_launch_counters()["nestedfp8_matmul_fused_quant"]
+    got = ops.matmul_nested_fp8_fused_quant(x, u, amax)
+    want = ref.nestedfp8_matmul_fused_quant_ref(x, u, amax)
+    torch.testing.assert_close(got, want, **GEMM_TOL)
+    assert ops.all_launch_counters()["nestedfp8_matmul_fused_quant"] == n0 + 1
+
+
+def test_fused_quant_rows_do_not_depend_on_the_batch(dev):
+    """Given the same amax, one row computed alone equals the same row
+    inside M = 256 bitwise (K2's fixed K order)."""
+    x, w = _gemm(dev, 256, 4096, 1024, seed=8)
+    u, _ = nf.encode(w)
+    amax = quant.absmax(x)
+    full = ops.matmul_nested_fp8_fused_quant(x, u, amax)
+    one = ops.matmul_nested_fp8_fused_quant(x[17:18], u, amax)
+    assert torch.equal(full[17:18], one)
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (37, 1001), (1, 7)])
+def test_nestedfp_encode(dev, shape):
+    """Every f16 bit pattern (applicable or not: the formula is total)
+    encodes to the bytes of `nestedfp.encode`, on ragged shapes too."""
+    n = shape[0] * shape[1]
+    bits = torch.arange(n, dtype=torch.int32) * (65536 // n + 1) % 65536
+    w = nf._bits_to_f16(bits).reshape(shape)
+    n0 = ops.all_launch_counters()["nestedfp_encode"]
+    u, l = ops.encode(w.to(dev))
+    wu, wl = nf.encode(w)
+    assert torch.equal(u.cpu(), wu) and torch.equal(l.cpu(), wl)
+    assert ops.all_launch_counters()["nestedfp_encode"] == n0 + 1
+
+
+def test_nestedfp_encode_every_pattern(dev):
+    w = nf._bits_to_f16(torch.arange(65536, dtype=torch.int32))
+    u, l = ops.encode(w.reshape(256, 256).to(dev))
+    wu, wl = nf.encode(w.reshape(256, 256))
+    assert torch.equal(u.cpu(), wu) and torch.equal(l.cpu(), wl)
+
+
+def test_dense_steps_on_the_card(dev):
+    """A reduced llama through the dense-slot steps on the card, fp16 and
+    fp8: to_serving runs K8, prefill K6 (and K1 / K7), decode over the
+    planarized cache K5; logits stay finite and near the CPU's."""
+    cfg = get_arch("llama3.1-8b").reduced()
+    before = ops.all_launch_counters()
+    sp = to_serving(M.init_params(cfg, seed=0, device=dev))
+    sp_cpu = params_to(sp, "cpu")
+    toks = torch.randint(1, cfg.vocab_size, (3, 40),
+                         generator=torch.Generator().manual_seed(9),
+                         dtype=torch.int32)
+    for mode in ("fp16", "fp8"):
+        out = {}
+        for d, p in (("cuda", sp), ("cpu", sp_cpu)):
+            logits, caches = steps.make_prefill_step(cfg, mode, capacity=48)(
+                p, {"tokens": toks.to(d)})
+            caches = M.planarize_cache(caches)
+            decode = steps.make_decode_step(cfg, mode)
+            nxt = toks[:, -1:]
+            seq = [logits.float().cpu()]
+            for i in range(3):
+                logits, caches = decode(p, caches, nxt.to(d), 40 + i)
+                seq.append(logits.float().cpu())
+            out[d] = torch.stack(seq)
+        assert torch.isfinite(out["cuda"]).all()
+        # bf16 activations on both sides; see tests/test_torch_dense.py
+        tol = {"fp16": 0.1, "fp8": 0.5}[mode]
+        assert (out["cuda"] - out["cpu"]).abs().max() <= tol
+    after = ops.all_launch_counters()
+    for name in ("nestedfp_encode", "flash_prefill_attention",
+                 "planar_decode_attention", "nestedfp16_matmul",
+                 "nestedfp8_matmul_fused_quant"):
+        assert after[name] > before[name], name
 
 
 def test_engine_serves_on_the_card(dev):

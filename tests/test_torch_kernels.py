@@ -1,5 +1,5 @@
-"""The four kernels of the PyTorch port's serving path, against the JAX
-package's Pallas kernels run in interpret mode on the CPU.
+"""The eight kernels of the PyTorch port, against the JAX package's Pallas
+kernels run in interpret mode on the CPU.
 
 On the CPU each kernel wrapper takes its plain PyTorch version, so these
 tests hold the plain versions to the Pallas kernels on seeded inputs.
@@ -19,13 +19,22 @@ from repro.core import quant as jquant  # noqa: E402
 from repro.core.linear import NestedLinearParams as JNLP  # noqa: E402
 from repro.core.linear import nested_linear as j_nested_linear  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.flash_prefill_attention import (  # noqa: E402
+    flash_prefill_attention as j_flash_prefill)
+from repro.kernels.nestedfp8_matmul import (  # noqa: E402
+    nestedfp8_matmul_fused_quant as j_fused_quant)
+from repro.kernels.nestedfp_encode import nestedfp_encode as j_encode  # noqa: E402
 from repro.kernels.planar_decode_attention import (  # noqa: E402
     paged_planar_decode_attention as j_paged_attn)
+from repro.kernels.planar_decode_attention import (  # noqa: E402
+    planar_decode_attention as j_dense_attn)
+from repro.models.layers import attn_core_prefill as j_core_prefill  # noqa: E402
 from repro_torch.core import nestedfp as tnf  # noqa: E402
 from repro_torch.core import quant as tquant  # noqa: E402
 from repro_torch.core.linear import NestedLinearParams as TNLP  # noqa: E402
 from repro_torch.core.linear import nested_linear as t_nested_linear  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 
 GEMM_TOL = dict(rtol=1e-5, atol=1e-4)
 ATTN_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -160,6 +169,139 @@ class TestPagedPlanarDecodeAttention:
             out.numpy(), rtol=1e-6, atol=1e-6)
 
 
+def _dense_inputs(seed, b=3, h=4, hkv=2, d=64, cap=64):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    kv = rng.normal(size=(2, b, cap, hkv, d)).astype(np.float16)
+    planes = [np.asarray(p) for p in (*jnf.split_bytes(jnp.asarray(kv[0])),
+                                       *jnf.split_bytes(jnp.asarray(kv[1])))]
+    lens = np.asarray([1, 37, 64][:b], np.int32)
+    return q, planes, lens
+
+
+class TestPlanarDecodeAttention:
+    """K5: dense per-slot planes (B, Cap, Hkv, D), ragged lens >= 1."""
+
+    @pytest.mark.parametrize("fp8", [False, True])
+    @pytest.mark.parametrize("window", [None, 7])
+    def test_plain_matches_pallas(self, fp8, window):
+        q, planes, lens = _dense_inputs(13)
+        want = np.asarray(j_dense_attn(
+            jnp.asarray(q), *map(jnp.asarray, planes), jnp.asarray(lens),
+            fp8=fp8, block_c=16, window=window, interpret=True))
+        tp = dict(zip(("k_hi", "k_lo", "v_hi", "v_lo"), map(_t, planes)))
+        got = tops.planar_decode_attention(_t(q), tp, _t(lens), fp8=fp8,
+                                           window=window).numpy()
+        np.testing.assert_allclose(got, want, **ATTN_TOL)
+
+    def test_equals_paged_over_an_identity_table(self):
+        """K5 and K4 share their math: dense row b is paged blocks
+        b*MB .. b*MB + MB - 1."""
+        q, planes, lens = _dense_inputs(14, cap=64)
+        tp = dict(zip(("k_hi", "k_lo", "v_hi", "v_lo"), map(_t, planes)))
+        dense = tops.planar_decode_attention(_t(q), tp, _t(lens), fp8=False)
+        pool = {k: v.reshape(-1, 16, *v.shape[2:]) for k, v in tp.items()}
+        tables = torch.arange(3 * 4, dtype=torch.int32).reshape(3, 4)
+        paged = tops.paged_decode_attention(_t(q), pool, tables, _t(lens),
+                                            fp8=False)
+        np.testing.assert_allclose(dense.numpy(), paged.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+class TestFlashPrefillAttention:
+    """K6: causal GQA prefill attention, q (B,S,H,D), k/v (B,S,Hkv,D)."""
+
+    @staticmethod
+    def _qkv(seed, b, s, h, hkv, d):
+        rng = np.random.default_rng(seed)
+        return (rng.normal(size=(b, s, h, d)).astype(np.float32),
+                rng.normal(size=(b, s, hkv, d)).astype(np.float32),
+                rng.normal(size=(b, s, hkv, d)).astype(np.float32))
+
+    @pytest.mark.parametrize("h,hkv", [(4, 2), (4, 4)])
+    def test_plain_matches_pallas(self, h, hkv):
+        q, k, v = self._qkv(15, 2, 128, h, hkv, 64)
+        want = np.asarray(j_flash_prefill(*map(jnp.asarray, (q, k, v)),
+                                          block=(32, 64), interpret=True))
+        got = tops.flash_prefill_attention(_t(q), _t(k), _t(v)).numpy()
+        np.testing.assert_allclose(got, want, **ATTN_TOL)
+
+    def test_ragged_s_matches_jax_reference_prefill(self):
+        # the Pallas kernel needs S to divide its blocks; the port does not
+        q, k, v = self._qkv(16, 2, 45, 4, 2, 64)
+        want = np.asarray(j_core_prefill(*map(jnp.asarray, (q, k, v)),
+                                         block_k=16))
+        got = tops.flash_prefill_attention(_t(q), _t(k), _t(v)).numpy()
+        np.testing.assert_allclose(got, want, **ATTN_TOL)
+
+    def test_first_position_attends_only_itself(self):
+        q, k, v = self._qkv(17, 1, 20, 4, 2, 64)
+        got = tops.flash_prefill_attention(_t(q), _t(k), _t(v)).numpy()
+        np.testing.assert_allclose(got[0, 0].reshape(2, 2, 64),
+                                   np.repeat(v[0, 0][:, None], 2, axis=1),
+                                   rtol=1e-6, atol=1e-6)
+
+
+class TestFusedQuantFP8:
+    """K7: activations quantized inside the GEMM with 448/amax."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+    def test_plain_matches_pallas(self, dtype):
+        x, w = _gemm_inputs(18, 64, 256, 128)
+        jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+        amax = jnp.max(jnp.abs(jx.astype(jnp.float32)))
+        ju, _ = jnf.encode(jnp.asarray(w))
+        want = np.asarray(j_fused_quant(jx, ju, jnp.atleast_1d(amax),
+                                        block=BLOCK, interpret=True))
+        tx = _t(x).to(getattr(torch, dtype))
+        tu, _ = tnf.encode(_t(w))
+        got = tops.matmul_nested_fp8_fused_quant(tx, tu, tquant.absmax(tx))
+        np.testing.assert_allclose(got.numpy(), want, **GEMM_TOL)
+
+    def test_quantizes_by_multiplying_with_the_inverse(self):
+        # x * (448/amax) and x / (amax/448) can land one f32 ulp apart,
+        # across an e4m3 rounding midpoint: here 368.0 (codes 352 / 384).
+        # The fused kernel multiplies; quantize_act_per_tensor divides.
+        x = torch.tensor([[2.4642856121063232, 3.0]])
+        u = torch.full((2, 1), 0x38, dtype=torch.uint8)       # e4m3 1.0
+        amax = tquant.absmax(x)
+        got = tref.nestedfp8_matmul_fused_quant_ref(x, u, amax)
+        want = torch.tensor([[384.0 + 448.0]]) * (amax / 448.0) * 2 ** -8
+        assert torch.equal(got, want)
+        xq, scale = tquant.quantize_act_per_tensor(x)
+        assert xq.float().tolist() == [[352.0, 448.0]]
+
+    def test_rows_independent_of_batch_given_amax(self):
+        x, w = _gemm_inputs(19, 12, 256, 64)
+        tu, _ = tnf.encode(_t(w))
+        amax = tquant.absmax(_t(x))
+        full = tops.matmul_nested_fp8_fused_quant(_t(x), tu, amax)
+        one = tops.matmul_nested_fp8_fused_quant(_t(x)[3:4], tu, amax)
+        np.testing.assert_array_equal(full[3:4].numpy(), one.numpy())
+
+
+class TestEncode:
+    """K8: f16 -> (upper, lower) bytes."""
+
+    def test_every_applicable_pattern_matches_pallas(self):
+        mags = np.arange(jnf.F16_NESTED_ABS_MAX_BITS + 1, dtype=np.uint16)
+        bits = np.concatenate([mags, mags | 0x8000])          # 32258 values
+        bits = np.pad(bits, (0, 128 * 256 - bits.size))
+        w = bits.view(np.float16).reshape(128, 256)
+        ju, jl = j_encode(jnp.asarray(w), block=(128, 256), interpret=True)
+        tu, tl = tops.encode(_t(w))
+        np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+
+    def test_from_f16_nests_through_encode(self):
+        w = np.random.default_rng(20).uniform(-1.7, 1.7, (33, 17)).astype(
+            np.float16)
+        t = tnf.NestedTensor.from_f16(_t(w))
+        u, lo = tops.encode(_t(w))
+        assert torch.equal(t.upper, u) and torch.equal(t.lower, lo)
+        assert torch.equal(t.read_f16(), _t(w))
+
+
 class TestNestedLinear:
     """core/linear.py against the JAX package's nested_linear (ref backend):
     both modes, both activation-scale granularities, the exception-tensor
@@ -201,7 +343,16 @@ class TestRouting:
         x, w = _gemm_inputs(8, 4, 64, 32)
         tops.matmul_nested_f16(_t(x).half(), *tnf.encode(_t(w)))
         tops.matmul_f16(_t(x).half(), _t(w))
+        tops.matmul_nested_fp8_fused_quant(_t(x), tnf.encode(_t(w))[0],
+                                           tquant.absmax(_t(x)))
+        q, planes, lens = _dense_inputs(21)
+        tops.planar_decode_attention(
+            _t(q), dict(zip(("k_hi", "k_lo", "v_hi", "v_lo"),
+                            map(_t, planes))), _t(lens), fp8=True)
+        qkv = torch.zeros((1, 8, 2, 64))
+        tops.flash_prefill_attention(qkv, qkv, qkv)
         assert tops.all_launch_counters() == before
+        assert len(before) == 8
 
     def test_mixed_devices_raise(self):
         x = torch.zeros((4, 64), dtype=torch.float16)

@@ -88,7 +88,7 @@ def test_paged_step_logits_match(model_pair, mode, planar):
                    act_quant="per_token")
     trt = TRuntime(mode=mode, dtype=torch.float32, act_quant="per_token")
     jc = JM.init_paged_cache(jcfg, nb, BS, planar=planar)
-    tc = TM.init_paged_cache(tcfg, nb, BS, planar=planar)
+    tc = TM.init_paged_cache(tcfg, nb, BS, planar=planar, device="cpu")
     steps = _schedule(11, jcfg.vocab_size)
     for _ in range(2):                       # then two C=1 decode steps
         steps.append(None)
@@ -141,14 +141,16 @@ def _pool_values(caches, kind):
 def test_sampling_returns_argmax_ids(model_pair):
     _, _, tcfg, _, tsp = model_pair
     trt = TRuntime(mode="fp16", dtype=torch.float32, act_quant="per_token")
-    tc = TM.init_paged_cache(tcfg, 1 + TABLES.size, BS, planar=True)
+    tc = TM.init_paged_cache(tcfg, 1 + TABLES.size, BS, planar=True,
+                            device="cpu")
     toks, qo, kvl, lp = (torch.from_numpy(np.asarray(a, np.int32))
                          for a in _schedule(12, tcfg.vocab_size)[0])
     tab = torch.from_numpy(TABLES)
     kw = dict(q_offset=qo, kv_len=kvl, block_size=BS, logit_position=lp)
     logits = TM.paged_step(trt, tsp, tcfg, toks, tc, tab, return_logits=True,
                            **kw)
-    tc2 = TM.init_paged_cache(tcfg, 1 + TABLES.size, BS, planar=True)
+    tc2 = TM.init_paged_cache(tcfg, 1 + TABLES.size, BS, planar=True,
+                             device="cpu")
     ids = TM.paged_step(trt, tsp, tcfg, toks, tc2, tab, **kw)
     assert ids.dtype == torch.int32
     np.testing.assert_array_equal(ids.numpy(), logits.argmax(-1).numpy())
