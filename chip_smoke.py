@@ -427,7 +427,7 @@ def dense_decode_phase(torch, iters: int) -> list[dict]:
 def prefill_attention_phase(torch, iters: int) -> list[dict]:
     """K6 at llama3.1-8b's heads on bf16 q/k/v (the serving runtime's):
     (B, S) = (8, 1024) as the dense phase prefills, (1, 8192), and a
-    ragged S = 1000."""
+    ragged S = 1000; and on f16 at (8, 1024)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -438,9 +438,10 @@ def prefill_attention_phase(torch, iters: int) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(4)
     h, hkv, d = 32, 8, 128
     rows = []
-    for b, s in ((8, 1024), (1, 8192), (8, 1000)):
+    for dtype, b, s in ((torch.bfloat16, 8, 1024), (torch.bfloat16, 1, 8192),
+                        (torch.bfloat16, 8, 1000), (torch.float16, 8, 1024)):
         n_sets = 2
-        sets = [tuple(torch.randn(shape, generator=gen, device=dev).bfloat16()
+        sets = [tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
                       for shape in ((b, s, h, d), (b, s, hkv, d),
                                     (b, s, hkv, d)))
                 for _ in range(n_sets)]
@@ -461,13 +462,15 @@ def prefill_attention_phase(torch, iters: int) -> list[dict]:
         err = max_err(torch, kern(0), plain(0), ATTN_TOL, ATTN_TOL)
         nbytes = 2 * (b * s * h * d + 2 * b * s * hkv * d) + b * s * h * d * 4
         b_ms, b_kind = bound(nbytes, 4.0 * b * h * s * s * d / 2, "f16")
-        row = {"b": b, "s": s, "max_abs_err": err,
+        row = {"dtype": str(dtype).removeprefix("torch."), "b": b, "s": s,
+               "max_abs_err": err,
                "ms": time_ms(torch, kern, n_sets, iters),
                "plain_ms": time_ms(torch, plain, n_sets, iters),
                "library_ms": time_ms(torch, lib, n_sets, iters),
                "bound_ms": b_ms, "bound_by": b_kind}
         rows.append(row)
-        log(f"  flash_prefill_attention B={b} S={s} err={err:.2e} "
+        log(f"  flash_prefill_attention {row['dtype']} B={b} S={s} "
+            f"err={err:.2e} "
             f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
             f"lib={row['library_ms']:.4f} bound={b_ms:.4f} ({b_kind})")
         del sets, expanded
@@ -1002,8 +1005,9 @@ LINE_WEIGHTS = {
     # one fp16-mode dense decode call of one layer at the dense capacity
     "planar_decode_attention": (
         lambda r: int(not r["fp8"] and r["cap"] == 1056)),
-    # one layer's prefill attention of 8 x 1024 tokens
-    "flash_prefill_attention": lambda r: int((r["b"], r["s"]) == (8, 1024)),
+    # one layer's bf16 prefill attention of 8 x 1024 tokens
+    "flash_prefill_attention": (
+        lambda r: int((r["dtype"], r["b"], r["s"]) == ("bfloat16", 8, 1024))),
     # one 4096 x 14336 weight
     "nestedfp_encode": lambda r: 1,
 }
@@ -1043,7 +1047,8 @@ def main() -> int:
     log(f"== built {len(_build.KERNELS)} kernels in {results['build_s']:.1f} s")
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            # ptxas names each entry function, then its spills and registers
+            if any(w in line for w in ("entry function", "registers", "spill")):
                 log(f"  {name}: {line.strip()}")
 
     rows = {}

@@ -2,9 +2,11 @@
 
 Port of `repro/kernels/flash_prefill_attention.py::flash_prefill_attention`
 (a Pallas TPU kernel) to the CUDA kernel in
-`csrc/flash_prefill_attention.cu`. Any S is taken: the kernel masks the
-ragged last tiles itself (the JAX wrapper required S to divide its
-blocks). CPU tensors take the plain version
+`csrc/flash_prefill_attention.cu`. The input type alone picks the body:
+f16 and bf16 run on the tensor cores (mma.sync, cp.async), f32 on f32
+FMAs; both count as launches of this kernel. Any S is taken: the kernel
+masks the ragged last tiles itself (the JAX wrapper required S to divide
+its blocks). CPU tensors take the plain version
 (`ref.flash_prefill_attention_ref`).
 """
 

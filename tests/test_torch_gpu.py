@@ -137,11 +137,19 @@ def test_planar_decode_attention(dev, fp8, window, cap, lens):
     assert ops.all_launch_counters()["planar_decode_attention"] == n0 + 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
-                                   torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,hkv,d", [(2, 128, 8, 2, 128),
-                                         (1, 1000, 32, 8, 128),
-                                         (3, 45, 4, 4, 64)])
+# (dtype, b, s, h, hkv, d): f32 runs the SIMT body, f16 and bf16 the
+# tensor-core body; the second group sits on the 64-key and 64-row tile
+# edges for every G = H / Hkv, the last is llama3.1-8b's prefill
+PREFILL_CASES = (
+    [(dt, *shape) for shape in [(2, 128, 8, 2, 128), (1, 1000, 32, 8, 128),
+                                (3, 45, 4, 4, 64)]
+     for dt in (torch.float32, torch.float16, torch.bfloat16)]
+    + [(dt, 2, s, 2 * g, 2, d) for dt in (torch.float16, torch.bfloat16)
+       for s in (1, 63, 64, 65) for g in (1, 2, 4, 8) for d in (64, 128)]
+    + [(torch.bfloat16, 8, 1024, 32, 8, 128)])
+
+
+@pytest.mark.parametrize("dtype,b,s,h,hkv,d", PREFILL_CASES)
 def test_flash_prefill_attention(dev, dtype, b, s, h, hkv, d):
     gen = torch.Generator(device=dev).manual_seed(6)
     q = torch.randn((b, s, h, d), device=dev, generator=gen).to(dtype)
@@ -152,6 +160,23 @@ def test_flash_prefill_attention(dev, dtype, b, s, h, hkv, d):
     torch.testing.assert_close(got, ref.flash_prefill_attention_ref(q, k, v),
                                **ATTN_TOL)
     assert ops.all_launch_counters()["flash_prefill_attention"] == n0 + 1
+
+
+def test_flash_prefill_both_bodies_count_as_launches(dev):
+    """The f32 (SIMT) and the bf16 (tensor-core) body are one kernel to
+    the launch counter: one call of each adds two."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(shape, device=dev, generator=gen)
+               for shape in ((1, 70, 8, 64), (1, 70, 2, 64), (1, 70, 2, 64)))
+    n0 = ops.all_launch_counters()["flash_prefill_attention"]
+    f32 = ops.flash_prefill_attention(q, k, v)
+    bf16 = ops.flash_prefill_attention(q.bfloat16(), k.bfloat16(),
+                                       v.bfloat16())
+    assert ops.all_launch_counters()["flash_prefill_attention"] == n0 + 2
+    torch.testing.assert_close(bf16, ref.flash_prefill_attention_ref(
+        q.bfloat16(), k.bfloat16(), v.bfloat16()), **ATTN_TOL)
+    torch.testing.assert_close(f32, ref.flash_prefill_attention_ref(q, k, v),
+                               **ATTN_TOL)
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -241,6 +241,75 @@ class TestFlashPrefillAttention:
                                    np.repeat(v[0, 0][:, None], 2, axis=1),
                                    rtol=1e-6, atol=1e-6)
 
+    # The card's f16/bf16 body (csrc/flash_prefill_attention.cu) runs both
+    # products on the tensor cores. Its arithmetic, emulated below, keeps
+    # the plain version's 2e-4: QK^T of the unscaled inputs is exact in
+    # f32 before the D^-0.5 scale, and PV takes the f32 probabilities as
+    # two terms of the input type, p_hi = rn(p) and p_lo = rn(p - p_hi),
+    # whose sum is within 2^-16 p (bf16) of p; one rounding of p alone
+    # (2^-9 in bf16) is not (test_one_term_of_p_misses_the_tolerance).
+    @staticmethod
+    def _tc_body(q, k, v, dtype, terms=2, tile=64):
+        """The tensor-core body in plain torch, in its key-tile order: q
+        (B,S,H,D), k/v (B,S,Hkv,D) f32 holding values of `dtype`."""
+        b, s, h, d = q.shape
+        hkv = k.shape[2]
+        qg = q.reshape(b, s, hkv, h // hkv, d).permute(0, 2, 3, 1, 4)
+        m = torch.full((*qg.shape[:-1], 1), -1e30)
+        l, acc = torch.zeros_like(m), torch.zeros_like(qg)
+        qpos = torch.arange(s)[:, None]
+        for t0 in range(0, s, tile):
+            kt, vt = k[:, t0:t0 + tile], v[:, t0:t0 + tile]
+            sc = torch.einsum("bhgqd,bthd->bhgqt", qg, kt) * d ** -0.5
+            kpos = torch.arange(t0, t0 + kt.shape[1])[None]
+            sc = torch.where(kpos <= qpos, sc, -1e30)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            p_hi = p.to(dtype).float()
+            acc = acc * corr + torch.einsum("bhgqt,bthd->bhgqd", p_hi, vt)
+            if terms == 2:
+                p_lo = (p - p_hi).to(dtype).float()
+                acc = acc + torch.einsum("bhgqt,bthd->bhgqd", p_lo, vt)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)
+        return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+    def _rounded_qkv(self, seed, b, s, h, hkv, d, dtype):
+        return [torch.from_numpy(x).to(dtype).float()
+                for x in self._qkv(seed, b, s, h, hkv, d)]
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("h,hkv", [(4, 2), (4, 4), (8, 1)])
+    def test_tensor_core_design_matches_pallas(self, h, hkv, d, dtype):
+        q, k, v = self._rounded_qkv(18, 2, 128, h, hkv, d, dtype)
+        want = np.asarray(j_flash_prefill(
+            *(jnp.asarray(x.numpy()) for x in (q, k, v)), block=(32, 64),
+            interpret=True))
+        got = self._tc_body(q, k, v, dtype).numpy()
+        np.testing.assert_allclose(got, want, **ATTN_TOL)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+    def test_tensor_core_design_ragged_s(self, dtype):
+        q, k, v = self._rounded_qkv(19, 2, 45, 4, 2, 64, dtype)
+        want = np.asarray(j_core_prefill(
+            *(jnp.asarray(x.numpy()) for x in (q, k, v)), block_k=16))
+        got = self._tc_body(q, k, v, dtype).numpy()
+        np.testing.assert_allclose(got, want, **ATTN_TOL)
+
+    def test_one_term_of_p_misses_the_tolerance(self):
+        """Why the split: P rounded once to bf16 for the PV product lands
+        outside 2e-4 of the f32 plain version on the same inputs."""
+        q, k, v = self._rounded_qkv(18, 2, 128, 4, 2, 128, torch.bfloat16)
+        want = tref.flash_prefill_attention_ref(q, k, v)
+        one = self._tc_body(q, k, v, torch.bfloat16, terms=1)
+        two = self._tc_body(q, k, v, torch.bfloat16, terms=2)
+        lim = ATTN_TOL["atol"] + ATTN_TOL["rtol"] * want.abs()
+        assert not bool(((one - want).abs() <= lim).all())
+        assert bool(((two - want).abs() <= lim).all())
+
 
 class TestFusedQuantFP8:
     """K7: activations quantized inside the GEMM with 448/amax."""
