@@ -305,26 +305,62 @@ def sdpa_yardstick(torch, F, q, pools, tables, lens, fp8, window):
     return fn
 
 
+def graph_ms(torch, fn, n_sets: int, reps: int = 30) -> float:
+    """Device ms per call: `reps` calls (cycling through the input sets)
+    captured in one CUDA graph and replayed, so host overhead between the
+    launches is gone. For calls too small to keep the card busy from the
+    host (decode M)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            for i in range(reps):
+                fn(i % n_sets)
+    torch.cuda.current_stream().wait_stream(side)
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def fused_quant_phase(torch, iters: int) -> list[dict]:
-    """K7 at llama3.1-8b's GEMM shapes, M = 8 (decode), 256 and 8192 (a
-    prefill of 8 x 1024), on bf16 activations as the serving runtime
-    gives them."""
+    """K7 at llama3.1-8b's seven GEMM shapes, M = 8 (decode), 256 and 8192
+    (a prefill of 8 x 1024), on bf16 activations as the serving runtime
+    gives them, each held against the plain version (a repeated shape is
+    checked on fresh inputs, timed once); then ragged shapes in f32, f16
+    and bf16. Beside the host-timed ms, the device ms of K7 and of
+    `_scaled_mm` from CUDA-graph replay, the achieved TFLOP/s, the share
+    of the bound and the dynamic shared memory of the body that runs."""
     from repro_torch.core import nestedfp as nf
     from repro_torch.core import quant
     from repro_torch.kernels import ref
     from repro_torch.kernels.nestedfp8_matmul_fused_quant import (
-        nestedfp8_matmul_fused_quant)
+        dynamic_smem_bytes, nestedfp8_matmul_fused_quant)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = []
+    err_k14336 = 0.0
     for k, n in dict.fromkeys(LLAMA_KN):
         n_sets = max(2, math.ceil(2 * L2_BYTES / (k * n)) + 1)
         uppers = [nf.encode((torch.randn((k, n), generator=gen, device=dev)
                              * k ** -0.5).half())[0] for _ in range(n_sets)]
         for m in (8, 256, 8192):
-            x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
-            amax = quant.absmax(x).reshape(1)
+            errs = []
+            for _ in range(LLAMA_KN.count((k, n))):   # every GEMM of a layer
+                x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+                amax = quant.absmax(x).reshape(1)
+                errs.append(max_err(
+                    torch, nestedfp8_matmul_fused_quant(x, uppers[0], amax),
+                    ref.nestedfp8_matmul_fused_quant_ref(x, uppers[0], amax),
+                    GEMM_RTOL, GEMM_ATOL))
             xq, xs = quant.quantize_act_per_tensor(x)
 
             def kern(i):
@@ -334,22 +370,49 @@ def fused_quant_phase(torch, iters: int) -> list[dict]:
                 return ref.nestedfp8_matmul_fused_quant_ref(x, uppers[i], amax)
 
             lib = scaled_mm_yardstick(torch, xq, xs, uppers)
-            err = max_err(torch, kern(0), plain(0), GEMM_RTOL, GEMM_ATOL)
-            b_ms, b_kind = bound(m * k * 2 + k * n + 4 + m * n * 4,
-                                 2.0 * m * k * n, "fp8")
-            row = {"m": m, "k": k, "n": n, "max_abs_err": err,
+            flops = 2.0 * m * k * n
+            b_ms, b_kind = bound(m * k * 2 + k * n + 4 + m * n * 4, flops,
+                                 "fp8")
+            row = {"m": m, "k": k, "n": n, "max_abs_err": max(errs),
                    "ms": time_ms(torch, kern, n_sets, iters),
                    "plain_ms": time_ms(torch, plain, n_sets, iters),
                    "library_ms": None if lib is None
                    else time_ms(torch, lib, n_sets, iters),
-                   "bound_ms": b_ms, "bound_by": b_kind}
+                   "bound_ms": b_ms, "bound_by": b_kind,
+                   "device_ms": graph_ms(torch, kern, n_sets),
+                   "library_device_ms": None if lib is None
+                   else graph_ms(torch, lib, n_sets),
+                   "smem_bytes": dynamic_smem_bytes(uppers[0], m)}
+            row["tflops"] = flops / row["device_ms"] / 1e9
+            row["bound_share"] = b_ms / row["device_ms"]
+            if k == 14336:
+                err_k14336 = max(err_k14336, row["max_abs_err"])
             rows.append(row)
+            lib_d = row["library_device_ms"]
             log(f"  nestedfp8_matmul_fused_quant M={m:4d} K={k:5d} N={n:5d} "
-                f"err={err:.2e} ms={row['ms']:.4f} "
+                f"err={row['max_abs_err']:.2e} ms={row['ms']:.4f} "
                 f"plain={row['plain_ms']:.4f} lib={row['library_ms']} "
-                f"bound={b_ms:.4f} ({b_kind})")
+                f"device={row['device_ms']:.4f} lib_device="
+                f"{None if lib_d is None else round(lib_d, 4)} "
+                f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} of "
+                f"bound={b_ms:.4f} ({b_kind}), smem={row['smem_bytes']} B")
             del x, xq
         del uppers
+    log(f"  nestedfp8_matmul_fused_quant max |kernel - plain| at K = 14336: "
+        f"{err_k14336:.3e} (atol {GEMM_ATOL}, rtol {GEMM_RTOL})")
+    for m, k, n in ((37, 999, 1001), (37, 1040, 1008), (100, 48, 80),
+                    (1, 64, 8)):
+        u = nf.encode((torch.randn((k, n), generator=gen, device=dev)
+                       * k ** -0.5).half())[0]
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            amax = quant.absmax(x).reshape(1)
+            err = max_err(torch, nestedfp8_matmul_fused_quant(x, u, amax),
+                          ref.nestedfp8_matmul_fused_quant_ref(x, u, amax),
+                          GEMM_RTOL, GEMM_ATOL)
+            log(f"  nestedfp8_matmul_fused_quant ragged M={m} K={k} N={n} "
+                f"{str(dtype)[6:]} err={err:.2e} smem="
+                f"{dynamic_smem_bytes(u, m)} B")
     return rows
 
 
@@ -1013,6 +1076,31 @@ LINE_WEIGHTS = {
 }
 
 
+def k7_sass_ops(_build) -> dict:
+    """What K7's mma_kernel instances compile to: counts of the tensor-core
+    (HMMA, QMMA, HGMMA, QGMMA) and e4m3 conversion (F2FP) instructions in
+    cuobjdump's SASS of the build."""
+    import collections
+    import re
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    lib = _build.library_path("nestedfp8_matmul_fused_quant")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    ops, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "mma_kernel" in m.group(1) else None
+            continue
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?((?:[HQ]G?MMA|F2FP)[A-Z0-9_.]*)",
+                      line)
+        if fn and m:
+            ops.setdefault(fn, collections.Counter())[m.group(1)] += 1
+    for fn, c in ops.items():
+        log(f"  nestedfp8_matmul_fused_quant SASS {fn[:60]}: {dict(c)}")
+    return {fn: dict(c) for fn, c in ops.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="card,kernels,slice,serve,dense")
@@ -1050,6 +1138,7 @@ def main() -> int:
             # ptxas names each entry function, then its spills and registers
             if any(w in line for w in ("entry function", "registers", "spill")):
                 log(f"  {name}: {line.strip()}")
+    results["k7_sass"] = k7_sass_ops(_build)
 
     rows = {}
     if "kernels" in phases:

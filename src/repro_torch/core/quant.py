@@ -19,8 +19,10 @@ def _to_e4m3(x: torch.Tensor) -> torch.Tensor:
 
 
 def absmax(x: torch.Tensor) -> torch.Tensor:
-    """Per-tensor absmax in f32, at least 1e-12 (an all-zero x)."""
-    return torch.clamp(x.to(torch.float32).abs().max(), min=_EPS)
+    """Per-tensor absmax in f32, at least 1e-12 (an all-zero x). The max
+    is taken in x's own type and only the result is cast: abs and max are
+    exact, so this equals casting first, without an f32 copy of x."""
+    return torch.clamp(x.abs().max().to(torch.float32), min=_EPS)
 
 
 def quantize_act_per_tensor(x: torch.Tensor

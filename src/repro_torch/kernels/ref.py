@@ -34,17 +34,29 @@ def nestedfp8_matmul_ref(x_q: torch.Tensor, upper: torch.Tensor,
     return acc * x_scale * nf.FP8_DEQUANT_SCALE
 
 
+def fused_quant_codes(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """The e4m3 codes (as u8) that K7 quantizes x to, elementwise:
+    e4m3(clip(x * (448/amax))) — a multiply by the inverse, where
+    `quant.quantize_act_per_tensor` divides by amax/448. amax: one f32
+    element."""
+    amax = amax.to(torch.float32).reshape(())
+    # a true division, as the JAX kernel and the CUDA kernel do it:
+    # `448.0 / amax` would run as amax.reciprocal() * 448 in PyTorch, one
+    # f32 ulp away for about a quarter of the amax values
+    inv = torch.full_like(amax, nf.E4M3_MAX) / amax
+    xq = torch.clamp(x.float() * inv, -nf.E4M3_MAX, nf.E4M3_MAX)
+    return xq.to(torch.float8_e4m3fn).view(torch.uint8)
+
+
 def nestedfp8_matmul_fused_quant_ref(x: torch.Tensor, upper: torch.Tensor,
                                      amax: torch.Tensor) -> torch.Tensor:
     """FP8 mode with the activation quantized inside the GEMM, as the
-    fused kernel does it: x_q = e4m3(clip(x * (448/amax))) — a multiply by
-    the inverse, where `quant.quantize_act_per_tensor` divides by
-    amax/448 — then (x_q @ e4m3(upper)) * (amax/448) * 2^-8. amax: the
-    per-tensor absmax of x, one f32 element."""
+    fused kernel does it: x_q = `fused_quant_codes(x, amax)`, then
+    (x_q @ e4m3(upper)) * (amax/448) * 2^-8. amax: the per-tensor absmax
+    of x, one f32 element."""
     amax = amax.to(torch.float32).reshape(())
-    inv = nf.E4M3_MAX / amax
-    xq = torch.clamp(x.float() * inv, -nf.E4M3_MAX, nf.E4M3_MAX)
-    acc = xq.to(torch.float8_e4m3fn).float() @ nf.fp8_view(upper).float()
+    acc = (nf.fp8_view(fused_quant_codes(x, amax)).float()
+           @ nf.fp8_view(upper).float())
     return acc * (amax / nf.E4M3_MAX) * nf.FP8_DEQUANT_SCALE
 
 

@@ -179,7 +179,14 @@ def test_flash_prefill_both_bodies_count_as_launches(dev):
                                **ATTN_TOL)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+# K7's mma body masks ragged M, N and K itself when K and N are
+# multiples of 16 (37 x 1040 x 1008, 100 x 48 x 80); other shapes take the
+# in-register body (the shape rule in csrc/nestedfp8_matmul_fused_quant.cu)
+FUSED_SHAPES = SHAPES + [(37, 1040, 1008), (100, 48, 80), (3, 4096, 1040)]
+LLAMA_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 def test_nestedfp8_matmul_fused_quant(dev, shape, dtype):
@@ -194,15 +201,83 @@ def test_nestedfp8_matmul_fused_quant(dev, shape, dtype):
     assert ops.all_launch_counters()["nestedfp8_matmul_fused_quant"] == n0 + 1
 
 
-def test_fused_quant_rows_do_not_depend_on_the_batch(dev):
-    """Given the same amax, one row computed alone equals the same row
-    inside M = 256 bitwise (K2's fixed K order)."""
-    x, w = _gemm(dev, 256, 4096, 1024, seed=8)
+@pytest.mark.parametrize("kn", LLAMA_KN)
+@pytest.mark.parametrize("m", [1, 8, 64, 65, 256])
+def test_fused_quant_llama_shapes(dev, m, kn):
+    """Every llama3.1-8b GEMM shape at decode and mid M, bf16 x as the
+    serving runtime gives it; K = 14336 is where FP8 accumulation would
+    drift if the tensor-core sums kept fewer bits than f32."""
+    x, w = _gemm(dev, m, *kn, seed=9)
+    x = x.bfloat16()
     u, _ = nf.encode(w)
     amax = quant.absmax(x)
-    full = ops.matmul_nested_fp8_fused_quant(x, u, amax)
+    n0 = ops.all_launch_counters()["nestedfp8_matmul_fused_quant"]
+    got = ops.matmul_nested_fp8_fused_quant(x, u, amax)
+    torch.testing.assert_close(
+        got, ref.nestedfp8_matmul_fused_quant_ref(x, u, amax), **GEMM_TOL)
+    assert ops.all_launch_counters()["nestedfp8_matmul_fused_quant"] == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_quant_sums_hold_f32_accuracy(dev, dtype):
+    """At K = 14336 K7 stays within 1e-4 of the exact sum (in f64) of the
+    same e4m3 products, as an f32 sum does: FP8 tensor-core sums that
+    keep about 14 bits miss it by ~1e-3 here, enough to move the next
+    layer's per-tensor amax."""
+    x, w = _gemm(dev, 16, 14336, 4096, seed=11)
+    x = x.to(dtype)
+    u, _ = nf.encode(w)
+    amax = quant.absmax(x)
+    vals = [nf.fp8_view(c).double()
+            for c in (ref.fused_quant_codes(x, amax), u)]
+    exact = (vals[0] @ vals[1]) * (amax.double() / 448.0 * 2.0 ** -8)
+    got = ops.matmul_nested_fp8_fused_quant(x, u, amax)
+    assert (got.double() - exact).abs().max().item() <= 1e-4
+
+
+def test_fused_quant_prefill_shape(dev):
+    x, w = _gemm(dev, 8192, 14336, 4096, seed=10)
+    x = x.bfloat16()
+    u, _ = nf.encode(w)
+    amax = quant.absmax(x)
+    got = ops.matmul_nested_fp8_fused_quant(x, u, amax)
+    torch.testing.assert_close(
+        got, ref.nestedfp8_matmul_fused_quant_ref(x, u, amax), **GEMM_TOL)
+
+
+def test_fused_quant_body_rule(dev):
+    """x of any type with K and N multiples of 16 and a 16-byte aligned
+    upper takes the mma body (dynamic shared memory by M's tile
+    config); any other shape the in-register body (none)."""
+    from repro_torch.kernels.nestedfp8_matmul_fused_quant import (
+        dynamic_smem_bytes)
+
+    def upper(k, n):
+        return torch.zeros((k, n), dtype=torch.uint8, device=dev)
+
+    assert dynamic_smem_bytes(upper(4096, 4096), 8) > 0
+    assert dynamic_smem_bytes(upper(14336, 4096), 8192) > 0
+    assert dynamic_smem_bytes(upper(1008, 1040), 37) > 0
+    assert dynamic_smem_bytes(upper(999, 1001), 37) == 0
+    assert dynamic_smem_bytes(upper(64, 8), 1) == 0
+    # a view 8 bytes into its storage breaks the 16-byte alignment
+    shifted = torch.zeros(8208, dtype=torch.uint8, device=dev)[8:8200]
+    assert dynamic_smem_bytes(shifted.view(16, 512), 8) == 0
+
+
+@pytest.mark.parametrize("m", [32, 64, 65, 256, 257, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_quant_rows_do_not_depend_on_the_batch(dev, m, dtype):
+    """Given the same amax, row 17 computed alone equals row 17 inside a
+    batch of m rows bitwise, across every tile config of the mma body
+    (M <= 64, 64 < M <= 256, M > 256): one k order, no split-K."""
+    x, w = _gemm(dev, 2048, 4096, 1024, seed=8)
+    x = x.to(dtype)
+    u, _ = nf.encode(w)
+    amax = quant.absmax(x)
+    batch = ops.matmul_nested_fp8_fused_quant(x[:m], u, amax)
     one = ops.matmul_nested_fp8_fused_quant(x[17:18], u, amax)
-    assert torch.equal(full[17:18], one)
+    assert torch.equal(batch[17:18], one)
 
 
 @pytest.mark.parametrize("shape", [(256, 256), (37, 1001), (1, 7)])

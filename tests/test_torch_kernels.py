@@ -312,7 +312,7 @@ class TestFlashPrefillAttention:
 
 
 class TestFusedQuantFP8:
-    """K7: activations quantized inside the GEMM with 448/amax."""
+    """K7: activations quantized with 448/amax, then the FP8 GEMM."""
 
     @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
     def test_plain_matches_pallas(self, dtype):
@@ -327,18 +327,109 @@ class TestFusedQuantFP8:
         got = tops.matmul_nested_fp8_fused_quant(tx, tu, tquant.absmax(tx))
         np.testing.assert_allclose(got.numpy(), want, **GEMM_TOL)
 
+    @staticmethod
+    def _mma_body(x, upper, amax):
+        """The CUDA mma body's arithmetic in plain torch: x quantized once
+        (the pre-pass), then each k32 product (mma.sync m16n8k32) added to
+        the f32 accumulators, k from 0 upwards."""
+        codes = tnf.fp8_view(tref.fused_quant_codes(x, amax)).float()
+        w = tnf.fp8_view(upper).float()
+        total = torch.zeros((x.shape[0], w.shape[1]))
+        for k in range(0, x.shape[1], 32):
+            total = total + codes[:, k:k + 32] @ w[k:k + 32]
+        amax = amax.reshape(())
+        return total * (amax / 448.0) * 2.0 ** -8
+
+    @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+    def test_mma_arithmetic_matches_pallas(self, dtype):
+        x, w = _gemm_inputs(23, 64, 512, 128)
+        jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+        amax = jnp.max(jnp.abs(jx.astype(jnp.float32)))
+        ju, _ = jnf.encode(jnp.asarray(w))
+        want = np.asarray(j_fused_quant(jx, ju, jnp.atleast_1d(amax),
+                                        block=BLOCK, interpret=True))
+        tx = _t(x).to(getattr(torch, dtype))
+        got = self._mma_body(tx, tnf.encode(_t(w))[0], tquant.absmax(tx))
+        np.testing.assert_allclose(got.numpy(), want, **GEMM_TOL)
+
+    @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+    def test_prepass_codes_equal_in_tile_codes(self, dtype):
+        """The codes the pre-pass writes (its plain version,
+        `ref.fused_quant_codes`) are bitwise those the JAX kernel makes
+        inside its tile: saturation at +-448 (x beyond the amax given),
+        e4m3 subnormals, signed zeros, and an all-zero x whose amax is
+        clamped to 1e-12. Read through an identity weight: the GEMM is
+        exact, so each JAX output is its code times the dequant scale (to
+        an ulp of the epilogue), and rounding output / scale to e4m3 gives
+        the code back; -0 codes sum to +0 there, so zeros compare
+        unsigned."""
+        rng = np.random.default_rng(24)
+        x = rng.uniform(-3, 3, (3, 8, 128)).astype(np.float32)
+        x[0, 0, :8] = [3.0, -3.0, 5.0, -7.5, 0.0, -0.0, 2e-4, -3e-4]
+        x[0, 1] = np.linspace(-0.02, 0.02, 128)       # codes near 0
+        x[0, 2, :16] = np.linspace(-9e-5, 9e-5, 16)   # e4m3 subnormals
+        x[1] *= 1e-3
+        x[2] = 0.0
+        eye = np.zeros((128, 128), np.uint8)
+        np.fill_diagonal(eye, 0x38)                    # e4m3 1.0
+        for i, amax in enumerate((2.5, None, None)):
+            jx = jnp.asarray(x[i]).astype(getattr(jnp, dtype))
+            tx = _t(x[i]).to(getattr(torch, dtype))
+            ta = (torch.tensor([amax]) if amax is not None
+                  else tquant.absmax(tx).reshape(1))
+            want = np.asarray(j_fused_quant(jx, jnp.asarray(eye),
+                                            jnp.asarray(ta.numpy()),
+                                            block=(8, 128, 128),
+                                            interpret=True))
+            scale = np.float32(ta.item()) / np.float32(448) / np.float32(256)
+            jcodes = np.asarray(jnp.asarray(want / scale)
+                                .astype(jnp.float8_e4m3fn)).view(np.uint8)
+            got = tref.fused_quant_codes(tx, ta).numpy()
+            unsigned_zero = np.where(got == 0x80, 0, got)
+            np.testing.assert_array_equal(unsigned_zero, jcodes)
+        codes = tref.fused_quant_codes(_t(x[0]), torch.tensor(2.5))
+        assert {0x7E, 0xFE} <= set(codes.flatten().tolist())  # +-448
+        assert any(0 < c & 0x7F < 8 for c in codes.flatten().tolist())
+        zero = _t(x[2])
+        assert tquant.absmax(zero).item() == pytest.approx(1e-12)
+        assert not tref.fused_quant_codes(zero, tquant.absmax(zero)).any()
+
+    def test_inverse_is_a_true_division(self):
+        """448/amax as the JAX kernel computes it: PyTorch's `448.0 /
+        tensor` runs as reciprocal() * 448 and lands one ulp away for a
+        quarter of the amax values; here x = 2.4642856 with amax = 3 then
+        gave code 384 where the JAX kernel gives 352."""
+        rng = np.random.default_rng(25)
+        amax = rng.uniform(0.01, 10, 2000).astype(np.float32)
+        for a in list(amax[:50]) + [np.float32(3.0)]:
+            x = np.float32(a) * np.linspace(-1, 1, 2049, dtype=np.float32)
+            x = np.concatenate([x, [np.float32(2.4642856121063232)]])
+            jinv = jnp.float32(448.0) / jnp.float32(a)
+            want = np.asarray(jnp.clip(jnp.asarray(x) * jinv, -448, 448)
+                              .astype(jnp.float8_e4m3fn)).view(np.uint8)
+            got = tref.fused_quant_codes(_t(x), torch.tensor(a)).numpy()
+            np.testing.assert_array_equal(got, want)
+
     def test_quantizes_by_multiplying_with_the_inverse(self):
         # x * (448/amax) and x / (amax/448) can land one f32 ulp apart,
-        # across an e4m3 rounding midpoint: here 368.0 (codes 352 / 384).
+        # across an e4m3 rounding midpoint: here 336.0 (codes 320 / 352).
         # The fused kernel multiplies; quantize_act_per_tensor divides.
-        x = torch.tensor([[2.4642856121063232, 3.0]])
+        x = torch.tensor([[3.750000238418579, 5.0]])
         u = torch.full((2, 1), 0x38, dtype=torch.uint8)       # e4m3 1.0
         amax = tquant.absmax(x)
         got = tref.nestedfp8_matmul_fused_quant_ref(x, u, amax)
-        want = torch.tensor([[384.0 + 448.0]]) * (amax / 448.0) * 2 ** -8
+        want = torch.tensor([[352.0 + 448.0]]) * (amax / 448.0) * 2 ** -8
         assert torch.equal(got, want)
         xq, scale = tquant.quantize_act_per_tensor(x)
-        assert xq.float().tolist() == [[352.0, 448.0]]
+        assert xq.float().tolist() == [[320.0, 448.0]]
+        jx = np.zeros((8, 128), np.float32)
+        jx[0, :2] = x[0].numpy()
+        ju = np.zeros((128, 128), np.uint8)
+        ju[:2, 0] = 0x38
+        j = np.asarray(j_fused_quant(jnp.asarray(jx), jnp.asarray(ju),
+                                     jnp.asarray([5.0], jnp.float32),
+                                     block=(8, 128, 128), interpret=True))
+        assert j[0, 0] == want.item()
 
     def test_rows_independent_of_batch_given_amax(self):
         x, w = _gemm_inputs(19, 12, 256, 64)
@@ -347,6 +438,198 @@ class TestFusedQuantFP8:
         full = tops.matmul_nested_fp8_fused_quant(_t(x), tu, amax)
         one = tops.matmul_nested_fp8_fused_quant(_t(x)[3:4], tu, amax)
         np.testing.assert_array_equal(full[3:4].numpy(), one.numpy())
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """CUDA's __byte_perm for selectors 0-7: result byte i is byte
+    (s >> 4i) & 7 of the 8 bytes y:x."""
+    b = (x | (y << 32)).to_bytes(8, "little")
+    return int.from_bytes(bytes(b[(s >> (4 * i)) & 7] for i in range(4)),
+                          "little")
+
+
+def _transpose4x4(w):
+    t0 = _byte_perm(w[0], w[1], 0x5140)
+    t1 = _byte_perm(w[0], w[1], 0x7362)
+    t2 = _byte_perm(w[2], w[3], 0x5140)
+    t3 = _byte_perm(w[2], w[3], 0x7362)
+    return [_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+            _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)]
+
+
+def _tma_sw128(lin: int) -> int:
+    """TMA's 128-byte swizzle: bits 4-6 of the shared offset XOR bits 7-9."""
+    return lin ^ (((lin >> 7) & 7) << 4)
+
+
+def _sw128_offset(row: int, chunk: int) -> int:          # the kernel's
+    return row * 128 + ((chunk ^ (row & 7)) << 4)
+
+
+def _raw_offset(bn: int, kr: int, n: int) -> int:        # the kernel's
+    row = 8 * (kr & 15) + (kr >> 4)
+    if bn == 128:
+        return row * 128 + ((((n >> 4) ^ (row & 7))) << 4) + (n & 15)
+    return row * bn + n
+
+
+class TestFusedQuantLayout:
+    """The index maps of K7's mma body (csrc/nestedfp8_matmul_fused_
+    quant.cu), mirrored here: the TMA box of a raw weight tile, the
+    transposing load (4 x 4 byte transposes by __byte_perm), the 128-byte
+    swizzle of the K-major operands and the ldmatrix addresses that turn
+    them into mma.sync m16n8k32 e4m3 fragments."""
+
+    # producer warps that transpose: all four at BN = 128 (a consumer
+    # thread loads), warps 1-3 at BN = 32 (warp 0 loads)
+    TRANSPOSERS = {128: (0, 4), 32: (1, 3)}
+
+    @pytest.mark.parametrize("bn", [32, 128])
+    def test_tma_box_lands_where_raw_offset_reads(self, bn):
+        seen = {}
+        for i in range(16):
+            for kg in range(8):
+                for n in range(bn):
+                    lin = (i * 8 + kg) * bn + n        # box order (n, kg, i)
+                    phys = _tma_sw128(lin) if bn == 128 else lin
+                    seen[(16 * kg + i, n)] = phys
+        assert sorted(seen.values()) == list(range(128 * bn))
+        for (kr, n), phys in seen.items():
+            assert _raw_offset(bn, kr, n) == phys
+
+    @pytest.mark.parametrize("bn", [32, 128])
+    def test_transposing_load_puts_n_k_where_ldmatrix_reads(self, bn):
+        rng = np.random.default_rng(26)
+        tile = rng.integers(0, 256, (128, bn), dtype=np.uint8)   # [k][n]
+        raw = bytearray(128 * bn)
+        for kr in range(128):
+            for n in range(bn):
+                raw[_raw_offset(bn, kr, n)] = tile[kr, n]
+        bop = bytearray(bn * 128)
+        written = []
+        lds_banks, sts_slots = [], []
+        first, count = self.TRANSPOSERS[bn]
+        for warp in range(first, first + count):
+            for wu in range(warp - first, bn // 16, count):
+                for i in range(16):
+                    lds_banks.append(sorted(
+                        (_raw_offset(bn, 16 * (lane & 7) + i,
+                                     4 * (wu * 4 + (lane >> 3))) // 4) % 32
+                        for lane in range(32)))
+                for lane in range(32):
+                    kg, ng = lane & 7, wu * 4 + (lane >> 3)
+                    w = [int.from_bytes(raw[_raw_offset(bn, 16 * kg + i,
+                                                        4 * ng):][:4],
+                                        "little") for i in range(16)]
+                    o = [[0] * 4 for _ in range(4)]
+                    for q in range(4):
+                        oq = _transpose4x4(w[4 * q:4 * q + 4])
+                        for j in range(4):
+                            o[j][q] = oq[j]
+                    for j in range(4):
+                        at = _sw128_offset(ng * 4 + j, kg)
+                        bop[at:at + 16] = b"".join(
+                            v.to_bytes(4, "little") for v in o[j])
+                        written.append(at)
+                for j in range(4):
+                    for quarter in range(4):
+                        sts_slots.append({
+                            (_sw128_offset((wu * 4 + quarter) * 4 + j,
+                                           lane & 7) % 128) // 16
+                            for lane in range(8 * quarter, 8 * quarter + 8)})
+        # every 16-byte chunk of the operand written once
+        assert sorted(written) == list(range(0, bn * 128, 16))
+        # the K-major 128B-swizzled layout that the consumers read
+        for n in range(bn):
+            for k in range(128):
+                assert bop[_sw128_offset(n, k >> 4) + (k & 15)] == tile[k, n]
+        # conflict-free: the 8 stores of a quarter-warp fill a 128-byte
+        # row; at BN = 128 the 32 reads of a warp hit 32 banks
+        assert all(len(s) == 8 for s in sts_slots)
+        if bn == 128:
+            assert all(b == list(range(32)) for b in lds_banks)
+
+    def test_x_codes_box_is_the_operand_layout(self):
+        for m in range(128):
+            for k in range(128):
+                assert _tma_sw128(m * 128 + k) == _sw128_offset(m, k >> 4) + (k & 15)
+
+    @staticmethod
+    def _ldmatrix(buf, addrs):
+        """ldmatrix .b16 (x len(addrs) / 8 matrices): lanes 8i..8i+7 name
+        the 16-byte rows of matrix i; lane l receives bytes 4(l%4)..+3 of
+        row l/4 of each matrix, as one 32-bit word a matrix."""
+        return [[bytes(buf[addrs[8 * i + lane // 4] + 4 * (lane % 4):][:4])
+                 for i in range(len(addrs) // 8)] for lane in range(32)]
+
+    @pytest.mark.parametrize("mt,nt,cm,cn", [(1, 1, 1, 4), (1, 4, 4, 1),
+                                             (1, 4, 8, 1), (4, 4, 2, 4)])
+    def test_ldmatrix_gives_the_mma_fragments(self, mt, nt, cm, cn):
+        """With the kernel's lane addresses, each lane holds the e4m3
+        bytes that mma.sync m16n8k32 .row.col expects: a_r = A[g + 8(r%2)]
+        [16(r/2) + 4t ..+3], b_r = B[16r + 4t ..+3][g] (g = lane/4,
+        t = lane%4), for every warp of each tile config (by_m) and
+        every k32 step of a 128-byte k tile (x2 loads when a warp has one
+        n8 tile: lanes 0-15 name the rows)."""
+        bm, bn = 16 * mt * cm, 8 * nt * cn
+        rng = np.random.default_rng(28)
+        a = rng.integers(0, 256, (bm, 128), dtype=np.uint8)     # [m][k]
+        bt = rng.integers(0, 256, (bn, 128), dtype=np.uint8)    # [n][k]
+        abuf, bbuf = bytearray(bm * 128), bytearray(bn * 128)
+        for r in range(bm):
+            for k in range(128):
+                abuf[_sw128_offset(r, k >> 4) + (k & 15)] = a[r, k]
+        for r in range(bn):
+            for k in range(128):
+                bbuf[_sw128_offset(r, k >> 4) + (k & 15)] = bt[r, k]
+        for warp in range(cm * cn):
+            wm, wn = warp // cn, warp % cn
+            for kk in range(4):
+                for i in range(mt):
+                    got = self._ldmatrix(abuf, [_sw128_offset(
+                        wm * mt * 16 + 16 * i + (ln & 7) + ((ln >> 3) & 1) * 8,
+                        2 * kk + (ln >> 4)) for ln in range(32)])
+                    for lane in range(32):
+                        g, t = lane // 4, lane % 4
+                        row0 = wm * mt * 16 + 16 * i + g
+                        for r in range(4):
+                            k0 = 32 * kk + 16 * (r // 2) + 4 * t
+                            assert got[lane][r] == bytes(
+                                a[row0 + 8 * (r % 2), k0:k0 + 4])
+                for j in range(0, nt, 2 if nt > 1 else 1):
+                    lanes = 32 if nt > 1 else 16
+                    got = self._ldmatrix(bbuf, [_sw128_offset(
+                        wn * nt * 8 + 8 * j + (ln & 7) + (ln >> 4) * 8,
+                        2 * kk + ((ln >> 3) & 1)) for ln in range(lanes)])
+                    for lane in range(32):
+                        g, t = lane // 4, lane % 4
+                        for r in range(len(got[lane])):
+                            n = wn * nt * 8 + 8 * (j + r // 2) + g
+                            k0 = 32 * kk + 16 * (r % 2) + 4 * t
+                            assert got[lane][r] == bytes(bt[n, k0:k0 + 4])
+
+
+class TestAbsmax:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                       torch.bfloat16])
+    def test_own_type_max_equals_f32_first(self, dtype):
+        """quant.absmax takes the max in x's own type and casts the one
+        result; casting x to f32 first gives the same bits (abs and max
+        are exact), for +-0, subnormals, and an all-zero x."""
+        tiny = torch.finfo(dtype).smallest_normal
+        cases = [
+            torch.tensor([[0.0, -0.0], [tiny / 4, -tiny / 2]]),
+            torch.tensor([[-0.0, 0.0]]),
+            torch.zeros((3, 5)),
+            torch.from_numpy(np.random.default_rng(27).normal(
+                size=(16, 33)).astype(np.float32)) * 100,
+        ]
+        for x in cases:
+            x = x.to(dtype)
+            old = torch.clamp(x.to(torch.float32).abs().max(), min=1e-12)
+            new = tquant.absmax(x)
+            assert new.dtype == torch.float32
+            assert torch.equal(new, old)
 
 
 class TestEncode:
