@@ -9,7 +9,8 @@ Phases, in order; any failed check exits non-zero before the last line:
               all at once)
   2. kernels  hold each kernel against its plain PyTorch version on the
               card at llama3.1-8b's shapes, and time kernel, plain version
-              and one library call (yardstick only) with cold inputs
+              and one library call (yardstick only) with cold inputs; K1,
+              K3 and K7 also by CUDA-graph replay (device time)
   3. slice    llama3.1-8b at full width, 2 layers, one planted exception
               tensor: `paged_step` logits, and the dense-slot `prefill` +
               4 `decode_step`s in f32 activations and under `serve_rt`
@@ -108,11 +109,16 @@ def max_err(torch, got, want, rtol, atol) -> float:
 
 def gemm_phase(torch, iters: int) -> list[dict]:
     """K1, K2, K3 at llama3.1-8b's GEMM shapes, M = 8 (decode), 256 and
-    8192 (a prefill of 8 x 1024), and at ragged M, N and K."""
+    8192 (a prefill of 8 x 1024), and at ragged M, N and K. K1, K3 and
+    torch.matmul also by CUDA-graph replay (device ms), with the dynamic
+    shared memory of the K1/K3 body that runs."""
     from repro_torch.core import nestedfp as nf
     from repro_torch.core import quant
     from repro_torch.kernels import ref
+    from repro_torch.kernels.f16_matmul import dynamic_smem_bytes as smem_k3
     from repro_torch.kernels.f16_matmul import f16_matmul
+    from repro_torch.kernels.nestedfp16_matmul import (
+        dynamic_smem_bytes as smem_k1)
     from repro_torch.kernels.nestedfp16_matmul import nestedfp16_matmul
     from repro_torch.kernels.nestedfp8_matmul import nestedfp8_matmul
 
@@ -152,6 +158,8 @@ def gemm_phase(torch, iters: int) -> list[dict]:
                 f16_lib, m * k * 2 + 2 * k * n + out_b, "f16"),
         }
         lib8 = scaled_mm_yardstick(torch, xq, xs, [p[0] for p in planes])
+        smem = {"nestedfp16_matmul": smem_k1(x16, *planes[0]),
+                "f16_matmul": smem_k3(x16, ws[0])}
         for name, (kern, plain, lib, nbytes, kind) in cases.items():
             err = max_err(torch, kern(0), plain(0), GEMM_RTOL, GEMM_ATOL)
             if name == "nestedfp8_matmul":
@@ -163,13 +171,45 @@ def gemm_phase(torch, iters: int) -> list[dict]:
                    "library_ms": None if lib is None
                    else time_ms(torch, lib, n_sets, iters),
                    "bound_ms": b_ms, "bound_by": b_kind}
+            extra = ""
+            if name in smem:
+                row["device_ms"] = graph_ms(torch, kern, n_sets)
+                row["library_device_ms"] = graph_ms(torch, lib, n_sets)
+                row["smem_bytes"] = smem[name]
+                extra = (f" device={row['device_ms']:.4f} lib_device="
+                         f"{row['library_device_ms']:.4f} "
+                         f"smem={row['smem_bytes']} B")
             rows[name].append(row)
             log(f"  {name:18s} M={m:4d} K={k:5d} N={n:5d} err={err:.2e} "
                 f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
                 f"lib={row['library_ms'] if lib is None else round(row['library_ms'], 4)} "
-                f"bound={b_ms:.4f} ({b_kind})")
+                f"bound={b_ms:.4f} ({b_kind}){extra}")
         del ws, planes
+    gemm_layer_sums(rows)
     return rows
+
+
+def gemm_layer_sums(rows: dict) -> None:
+    """Log one llama3.1-8b layer's seven GEMMs for K1, K3 and torch.matmul
+    at M = 8, 256 and 8192: host-timed and device (graph replay) sums, the
+    bound, and the K1/K3 ratio (the cost of the rebuild, paper Fig. 7)."""
+    for m in (8, 256, 8192):
+        sums = {}
+        for name in ("nestedfp16_matmul", "f16_matmul"):
+            sel = [(r, LLAMA_KN.count((r["k"], r["n"]))) for r in rows[name]
+                   if r["m"] == m and (r["k"], r["n"]) in LLAMA_KN]
+            sums[name] = {key: sum(r[key] * w for r, w in sel)
+                          for key in ("ms", "device_ms", "library_ms",
+                                      "library_device_ms", "bound_ms")}
+        k1, k3 = sums["nestedfp16_matmul"], sums["f16_matmul"]
+        log(f"  layer M={m}: K1 {k1['ms']:.4f} ms (device "
+            f"{k1['device_ms']:.4f}), K3 {k3['ms']:.4f} (device "
+            f"{k3['device_ms']:.4f}), torch.matmul {k1['library_ms']:.4f} "
+            f"(device {k1['library_device_ms']:.4f}), bound "
+            f"{k1['bound_ms']:.4f}; K1/K3 {k1['ms'] / k3['ms']:.3f} (device "
+            f"{k1['device_ms'] / k3['device_ms']:.3f}), K1/matmul "
+            f"{k1['ms'] / k1['library_ms']:.3f} (device "
+            f"{k1['device_ms'] / k1['library_device_ms']:.3f})")
 
 
 def scaled_mm_yardstick(torch, xq, xs, uppers):

@@ -1,9 +1,11 @@
-// Shared tiling of the four GEMM kernels of the port (K1 nestedfp16_matmul,
-// K2 nestedfp8_matmul, K3 f16_matmul, K7 nestedfp8_matmul_fused_quant):
-// out (M,N) f32 = A (M,K) @ B (K,N), with B stored (K,N) row-major exactly
-// as the JAX package lays it out.
+// The WMMA tiling of K2 (nestedfp8_matmul), and the body of K1, K3 and K7
+// for shapes outside their TMA rule (N not a multiple of 16, K not a
+// multiple of 8 or 16, unaligned operands): out (M,N) f32 = A (M,K) @
+// B (K,N), with B stored (K,N) row-major exactly as the JAX package lays
+// it out. The TMA-fed bodies are wgmma_gemm.cuh (K1, K3) and
+// nestedfp8_matmul_fused_quant.cu (K7).
 //
-// Design (simple first; wgmma/TMA/pipelining are later work):
+// Design (the first slice's, simple first):
 //   * A block of 2 or 4 warps owns a BM x BN output tile and walks K in
 //     BK-deep steps. Each step stages the raw global bytes of the next A
 //     and B tiles in registers while the tensor cores work on the current

@@ -7,20 +7,34 @@
 //
 // What bounds it on an H100: at decode (M = 8 slots) the weight stream,
 // 2 bytes a weight (the same bytes as a plain f16 GEMM: the paper's
-// zero-amplification property) — about 2*K*N bytes over 3.35 TB/s. At a
-// prefill chunk (M ~ 256-1024) the f16 tensor-core rate.
+// zero-amplification property), 2*K*N bytes over 3.35 TB/s; at prefill
+// (M = 8192) the f16 tensor-core rate, 2*M*K*N at 989 TFLOP/s.
 //
-// What the design does about it: the planes are read in place (no
-// rebuilt copy of W ever reaches device memory); the rebuild is integer
-// work in registers between the global load and the shared-memory store,
-// overlapped with the previous tile's MMAs; decode-sized M takes narrow
-// tiles so that more blocks stream the weights. See gemm_tile.cuh.
-#include "gemm_tile.cuh"
+// What the design does about it (wgmma_gemm.cuh): the planes come in by
+// TMA (no rebuilt copy of W reaches device memory); producer warpgroups
+// rebuild f16 in shared memory, in place, four weights per 32-bit word (a
+// guarded per-byte subtract, a shift and two byte permutes) into the
+// MN-major operand that wgmma reads with its transpose bit, while the
+// consumer warpgroups run wgmma m64nNk16 on earlier stages; x is wgmma's
+// N side, 8 rows at decode and 256 at prefill. K3 (f16_matmul.cu) is the
+// same body with W loaded by TMA instead of rebuilt, so K1's time over
+// K3's is the cost of the rebuild. Measured pace (PERF.md §6, H100 at
+// 700 W): a llama3.1-8b layer's seven GEMMs ~1.4x torch.matmul at
+// M = 8192 and ~1.15x at M = 8 (device time). Shapes outside the TMA rule
+// take gemm_tile.cuh.
+#include "wgmma_gemm.cuh"
 
 extern "C" int nestedfp16_matmul(const void* x, const void* upper,
                                  const void* lower, void* out, int M, int N,
                                  int K, void* stream) {
-  return nfp::launch_gemm<nfp::Op::kNested16>(
-      x, upper, lower, nullptr, 0, static_cast<float*>(out), M, N, K,
-      static_cast<cudaStream_t>(stream));
+  return nfp_wg::run<true>(x, upper, lower, static_cast<float*>(out), M, N,
+                           K, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory (bytes) of the body the entry above picks: 0 for
+// gemm_tile.cuh's (static tiles).
+extern "C" int nestedfp16_matmul_smem(const void* x, const void* upper,
+                                      const void* lower, int M, int N,
+                                      int K) {
+  return nfp_wg::smem<true>(x, upper, lower, M, N, K);
 }

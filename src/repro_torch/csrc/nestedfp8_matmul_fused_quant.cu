@@ -72,54 +72,28 @@
 // and a 16-byte aligned upper, as TMA needs of the row strides and the
 // base addresses; ragged edges of M, N and K are then zero-filled by TMA
 // and masked at the stores. Any other shape takes gemm_tile.cuh's kQuant
-// body: K2's WMMA tiling with x quantized in registers, which K1, K2 and
-// K3 share unchanged.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
+// body: K2's WMMA tiling with x quantized in registers. The mbarrier,
+// TMA and swizzle helpers are tma.cuh's, shared with K1 and K3.
 #include <algorithm>
 #include <type_traits>
 
 #include "gemm_tile.cuh"
+#include "tma.cuh"
 
 namespace nfp_fq {
 
+using nfp::encode_fn;
+using nfp::mbar_arrive;
+using nfp::mbar_expect_tx;
+using nfp::mbar_init;
+using nfp::mbar_wait;
+using nfp::smem_u32;
+using nfp::sw128_offset;
+using nfp::tma_load_2d;
+using nfp::tma_load_3d;
+
 constexpr int kBK = 128;          // k bytes of a tile: one 128-byte swizzle row
 constexpr int kQuantThreads = 256;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// Byte offset of (row, k) in a K-major 128B-swizzled buffer: the 16-byte
-// chunk index k/16 is XORed with row % 8 (TMA's 128-byte swizzle, CuTe's
-// Swizzle<3,4,3>); the buffer is 1024-byte aligned.
-__device__ __forceinline__ uint32_t sw128_offset(int row, int chunk) {
-  return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -177,36 +151,6 @@ struct Cfg {
   static_assert(BN == 32 || BN == 128, "raw tile layouts exist for these");
   static_assert(NT == 1 || NT % 2 == 0, "B fragments load in pairs");
 };
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// TMA tile loads into shared memory, completing on an mbarrier; elements
-// outside the tensor arrive as zeros
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
 
 // Where k row kr (0..127) and byte n of a raw weight tile lie in shared
 // memory. The TMA box reads rows in the order kr = 16 * kg + i -> shared
@@ -468,21 +412,6 @@ cudaError_t launch_quant(const void* x, uint8_t* q, const float* amax,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry
-// point query (no link against libcuda)
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }();
-  return fn;
-}
-
 template <class C>
 cudaError_t launch_mma(const uint8_t* xq, const uint8_t* up,
                        const float* amax, float* out, int M, int N, int K,
@@ -497,28 +426,21 @@ cudaError_t launch_mma(const uint8_t* xq, const uint8_t* up,
   // stored, and TMA does not spend its time writing zeros there.
   CUtensorMap map_a, map_b;
   const int a_rows = M < BM ? (M + 7) / 8 * 8 : BM;
-  const cuuint64_t a_dim[2] = {(cuuint64_t)K, (cuuint64_t)M};
-  const cuuint64_t a_stride[1] = {(cuuint64_t)K};
-  const cuuint32_t a_box[2] = {kBK, (cuuint32_t)a_rows}, one[3] = {1, 1, 1};
-  CUresult r = encode(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                      const_cast<uint8_t*>(xq), a_dim, a_stride, a_box, one,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  if (!nfp::encode_2d(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, M, K,
+                      a_rows, kBK, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
   // B: upper (K,N) seen as (n, kg, i) with k = 16 kg + i, boxes of
   // BN x 8 x 16: 128 k rows, stored in the order raw_offset expects
   const cuuint64_t b_dim[3] = {(cuuint64_t)N, (cuuint64_t)(K / 16), 16};
   const cuuint64_t b_stride[2] = {(cuuint64_t)N * 16, (cuuint64_t)N};
-  const cuuint32_t b_box[3] = {BN, 8, 16};
-  r = encode(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
-             const_cast<uint8_t*>(up), b_dim, b_stride, b_box, one,
-             CU_TENSOR_MAP_INTERLEAVE_NONE,
-             BN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                       : CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint32_t b_box[3] = {BN, 8, 16}, one[3] = {1, 1, 1};
+  const CUresult r = encode(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                            const_cast<uint8_t*>(up), b_dim, b_stride, b_box,
+                            one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            BN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                      : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   auto kern = mma_kernel<C>;
   static const cudaError_t attr = cudaFuncSetAttribute(

@@ -1,8 +1,9 @@
 """K3: plain f16 GEMM (exception tensors; the reconstruction baseline).
 
 Port of `repro/kernels/f16_matmul.py::f16_matmul` (a Pallas TPU kernel)
-to the CUDA kernel in `csrc/f16_matmul.cu`, which shares K1's tiling.
-CPU tensors take the plain version (`ref.matmul_f16_ref`).
+to the CUDA kernel in `csrc/f16_matmul.cu`, which runs K1's body (and its
+shape rule) without the rebuild. CPU tensors take the plain version
+(`ref.matmul_f16_ref`).
 """
 
 from __future__ import annotations
@@ -35,3 +36,12 @@ def f16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 f16_matmul.launches = 0
+
+
+def dynamic_smem_bytes(x: torch.Tensor, w: torch.Tensor) -> int:
+    """Dynamic shared memory of the body the C entry picks for these
+    operands: 0 for the WMMA body, whose tiles are static."""
+    fn = _build.function("f16_matmul", "f16_matmul_smem",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3)
+    k, n = w.shape
+    return int(fn(x.data_ptr(), w.data_ptr(), x.shape[0], n, k))

@@ -1,9 +1,12 @@
 """K1: FP16-mode GEMM with in-kernel NestedFP reconstruction.
 
 Port of `repro/kernels/nestedfp16_matmul.py::nestedfp16_matmul` (a Pallas
-TPU kernel) to the CUDA kernel in `csrc/nestedfp16_matmul.cu`. The
-wrapper takes the plain version (`ref.nestedfp16_matmul_ref`) for CPU
-tensors only; for CUDA tensors it launches the kernel or raises.
+TPU kernel) to the CUDA kernel in `csrc/nestedfp16_matmul.cu`: a TMA +
+wgmma body (`csrc/wgmma_gemm.cuh`) when N % 16 == 0, K % 8 == 0 and the
+operands are 16-byte aligned, else the WMMA body of `csrc/gemm_tile.cuh`
+(the shape rule is decided in C before any launch). The wrapper takes the
+plain version (`ref.nestedfp16_matmul_ref`) for CPU tensors only; for
+CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -38,3 +41,14 @@ def nestedfp16_matmul(x: torch.Tensor, upper: torch.Tensor,
 
 
 nestedfp16_matmul.launches = 0
+
+
+def dynamic_smem_bytes(x: torch.Tensor, upper: torch.Tensor,
+                       lower: torch.Tensor) -> int:
+    """Dynamic shared memory of the body the C entry picks for these
+    operands: 0 for the WMMA body, whose tiles are static."""
+    fn = _build.function("nestedfp16_matmul", "nestedfp16_matmul_smem",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3)
+    k, n = upper.shape
+    return int(fn(x.data_ptr(), upper.data_ptr(), lower.data_ptr(),
+                  x.shape[0], n, k))

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the eight kernels of the port.
 
-Each repeats its kernel's arithmetic with f32 accumulation. A kernel
+Each repeats its kernel's arithmetic with f32 accumulation; the GEMMs
+sum in f64 and round once to f32 (`_exact_rows_matmul`). A kernel
 wrapper takes its plain version for tensors on the CPU (which is how the
 tests hold the port against the JAX package), and `chip_smoke.py` holds
 each CUDA kernel against its plain version on the card.
@@ -15,9 +16,20 @@ from repro_torch.core import nestedfp as nf
 NEG_INF = -1e30
 
 
+def _exact_rows_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M,K) @ b (K,N) of f16 or e4m3 values, summed in f64 and rounded
+    once to f32. Their products are exact in f64 and so are the sums at
+    these K (short of products of subnormals), so a row's value does not
+    depend on the other rows: an f32 BLAS picks its summation order from
+    M, and an f32 sum then differs by an ulp between a row alone and the
+    same row in a batch."""
+    return (a.double() @ b.double()).float()
+
+
 def matmul_f16_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain f16 GEMM: (M,K) @ (K,N) -> (M,N) f32 (f16 inputs, f32 sums)."""
-    return x.to(torch.float16).float() @ w.to(torch.float16).float()
+    """Plain f16 GEMM: (M,K) @ (K,N) -> (M,N) f32 (f16 inputs, sums
+    f32-rounded from f64)."""
+    return _exact_rows_matmul(x.to(torch.float16), w.to(torch.float16))
 
 
 def nestedfp16_matmul_ref(x: torch.Tensor, upper: torch.Tensor,
@@ -30,7 +42,7 @@ def nestedfp8_matmul_ref(x_q: torch.Tensor, upper: torch.Tensor,
                          x_scale: torch.Tensor) -> torch.Tensor:
     """FP8 mode: (x_q @ e4m3(upper)) * x_scale * 2^-8, x_scale a scalar
     (per-tensor) or (M,1) (per-token)."""
-    acc = x_q.float() @ nf.fp8_view(upper).float()
+    acc = _exact_rows_matmul(x_q, nf.fp8_view(upper))
     return acc * x_scale * nf.FP8_DEQUANT_SCALE
 
 
@@ -55,8 +67,8 @@ def nestedfp8_matmul_fused_quant_ref(x: torch.Tensor, upper: torch.Tensor,
     (x_q @ e4m3(upper)) * (amax/448) * 2^-8. amax: the per-tensor absmax
     of x, one f32 element."""
     amax = amax.to(torch.float32).reshape(())
-    acc = (nf.fp8_view(fused_quant_codes(x, amax)).float()
-           @ nf.fp8_view(upper).float())
+    acc = _exact_rows_matmul(nf.fp8_view(fused_quant_codes(x, amax)),
+                             nf.fp8_view(upper))
     return acc * (amax / nf.E4M3_MAX) * nf.FP8_DEQUANT_SCALE
 
 

@@ -72,14 +72,86 @@ def test_f16_matmul(dev, shape):
                                **GEMM_TOL)
 
 
-def test_gemm_rows_do_not_depend_on_the_batch(dev):
-    """One row computed alone equals the same row inside M = 256: the
-    kernels keep one K order whatever tile shape M selects."""
-    x, w = _gemm(dev, 256, 4096, 1024, seed=3)
-    u, l = nf.encode(w)
-    full = ops.matmul_nested_f16(x.half(), u, l)
-    one = ops.matmul_nested_f16(x[17:18].half(), u, l)
-    assert torch.equal(full[17:18], one)
+# K1 and K3 run the TMA + wgmma body (csrc/wgmma_gemm.cuh) when N % 16 ==
+# 0, K % 8 == 0 and the operands are 16-byte aligned, in five tile configs
+# picked by M (<= 8, <= 32, <= 64, <= 512, beyond); other shapes run
+# gemm_tile.cuh's body
+WG_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+def _k1(x, w):
+    return ops.matmul_nested_f16(x, *nf.encode(w))
+
+
+def _k3(x, w):
+    return ops.matmul_f16(x, w)
+
+
+@pytest.mark.parametrize("kn", WG_KN)
+@pytest.mark.parametrize("m", [1, 8, 37, 65, 256, 8192])
+@pytest.mark.parametrize("kernel", ["k1", "k3"])
+def test_wgmma_gemm_llama_shapes(dev, kernel, m, kn):
+    """Every llama3.1-8b GEMM shape in every tile config, up to the
+    8192-row prefill, against the plain version (f64 sums)."""
+    x, w = _gemm(dev, m, *kn, seed=12)
+    x = x.half()
+    name = {"k1": "nestedfp16_matmul", "k3": "f16_matmul"}[kernel]
+    n0 = ops.all_launch_counters()[name]
+    got = {"k1": _k1, "k3": _k3}[kernel](x, w)
+    torch.testing.assert_close(got, ref.matmul_f16_ref(x, w), **GEMM_TOL)
+    assert ops.all_launch_counters()[name] == n0 + 1
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k3"])
+def test_wgmma_sums_hold_f32_accuracy(dev, kernel):
+    """At K = 14336 the f16 wgmma sums stay within 1e-4 of the exact sum
+    (in f64) of the same products: sums that kept fewer bits than f32
+    would miss it."""
+    x, w = _gemm(dev, 16, 14336, 4096, seed=11)
+    x = x.half()
+    exact = x.double() @ w.double()
+    got = {"k1": _k1, "k3": _k3}[kernel](x, w)
+    assert (got.double() - exact).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("m", [8, 16, 64, 65, 256, 257, 2048])
+@pytest.mark.parametrize("kernel", ["k1", "k3"])
+def test_gemm_rows_do_not_depend_on_the_batch(dev, kernel, m):
+    """Row 17 (the last row when m is smaller) computed alone equals the
+    same row inside a batch of m rows bitwise, across every tile config:
+    one k order, no split-K, whatever the wgmma N."""
+    x, w = _gemm(dev, 2048, 4096, 1024, seed=13)
+    x = x.half()
+    fn = {"k1": _k1, "k3": _k3}[kernel]
+    r = min(17, m - 1)
+    assert torch.equal(fn(x[:m], w)[r:r + 1], fn(x[r:r + 1], w))
+
+
+def test_wgmma_body_rule(dev):
+    """N % 16 == 0, K % 8 == 0 and 16-byte aligned x and weights take the
+    wgmma body (dynamic shared memory by M's tile config); anything else
+    gemm_tile.cuh's body (none)."""
+    from repro_torch.kernels.f16_matmul import dynamic_smem_bytes as smem3
+    from repro_torch.kernels.nestedfp16_matmul import (
+        dynamic_smem_bytes as smem1)
+
+    def both(m, k, n, x_off=0, w_off=0):
+        x = torch.zeros(m * k + 8, dtype=torch.float16, device=dev)
+        x = x[x_off:x_off + m * k].view(m, k)
+        w = torch.zeros(k * n + 16, dtype=torch.float16, device=dev)
+        w = w[w_off:w_off + k * n].view(k, n)
+        u = torch.zeros(k * n + 16, dtype=torch.uint8, device=dev)
+        u = u[2 * w_off:2 * w_off + k * n].view(k, n)
+        return smem1(x, u, u), smem3(x, w)
+
+    for m in (1, 8, 37, 256, 8192):
+        assert all(b > 0 for b in both(m, 4096, 4096))
+    assert all(b > 0 for b in both(37, 1040, 1008))
+    assert both(37, 999, 1001) == (0, 0)         # ragged K and N
+    assert both(5, 4096, 1000) == (0, 0)         # N % 16 != 0
+    assert both(8, 4100, 1024) == (0, 0)         # K % 8 != 0
+    assert both(8, 4096, 1024, x_off=4) == (0, 0)     # x 8 bytes off
+    assert both(8, 4096, 1024, w_off=4) == (0, 0)     # weights 8 bytes off
 
 
 @pytest.mark.parametrize("fp8", [False, True])

@@ -118,6 +118,38 @@ class TestF16:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **GEMM_TOL)
 
 
+class TestPlainGemmRows:
+    """Each plain GEMM gives a row the same bits alone as inside a batch
+    of any M, on any CPU: they sum in f64 and round once to f32, where an
+    f32 BLAS picks its summation order from M (one f32 ulp apart)."""
+
+    K, N = 4096, 64
+
+    @staticmethod
+    def _gemms(x, w):
+        u, lo = tnf.encode(w)
+        amax = tquant.absmax(x)
+        xq, s = tquant.quantize_act_per_token(x)
+        return {
+            "f16": lambda r: tref.matmul_f16_ref(x[r].half(), w),
+            "nested_f16": lambda r: tref.nestedfp16_matmul_ref(x[r].half(),
+                                                               u, lo),
+            "nested_fp8": lambda r: tref.nestedfp8_matmul_ref(xq[r], u, s[r]),
+            "fused_quant": lambda r: tref.nestedfp8_matmul_fused_quant_ref(
+                x[r], u, amax),
+        }
+
+    @pytest.mark.parametrize("m", [1, 3, 12, 19, 64])
+    @pytest.mark.parametrize("gemm", ["f16", "nested_f16", "nested_fp8",
+                                      "fused_quant"])
+    def test_rows_bitwise_independent_of_m(self, gemm, m):
+        x, w = _gemm_inputs(29, 64, self.K, self.N)
+        fn = self._gemms(_t(x), _t(w))[gemm]
+        batch = fn(slice(0, m))
+        for r in range(m):
+            assert torch.equal(batch[r:r + 1], fn(slice(r, r + 1))), r
+
+
 def _paged_inputs(seed, b=3, h=4, hkv=2, d=64, bs=16, mb=4):
     rng = np.random.default_rng(seed)
     nb = 1 + b * mb
@@ -607,6 +639,145 @@ class TestFusedQuantLayout:
                             n = wn * nt * 8 + 8 * (j + r // 2) + g
                             k0 = 32 * kk + 16 * (r % 2) + 4 * t
                             assert got[lane][r] == bytes(bt[n, k0:k0 + 4])
+
+
+def _nested4_to_f16x4(u: int, l: int) -> tuple[int, int]:   # the kernel's
+    """K1's packed rebuild of four weights (wgmma_gemm.cuh): u, l hold four
+    upper and four lower bytes; returns the (lo, hi) words of four f16."""
+    m32 = 0xFFFFFFFF
+    c = (l >> 7) & 0x01010101
+    e = (((u | 0x80808080) - c) & m32) ^ 0x80808080
+    h = (u & 0x80808080) | (e & 0x80808080) | ((e >> 1) & 0x7F7F7F7F)
+    return _byte_perm(l, h, 0x5140), _byte_perm(l, h, 0x7362)
+
+
+class TestWgmmaLayout:
+    """The bit tricks and index maps of K1's and K3's TMA + wgmma body
+    (csrc/wgmma_gemm.cuh), mirrored here: the packed four-at-a-time
+    rebuild, the in-place rebuild of a raw plane block into the MN-major
+    128B-swizzled operand, the TMA box that puts K3's f16 weights in the
+    same place, the smem descriptors wgmma reads both operands by, and the
+    epilogue's accumulator map."""
+
+    def test_packed_rebuild_equals_decode_on_every_byte_pair(self):
+        pairs = np.arange(65536, dtype=np.uint32)
+        up, lo = (pairs >> 8).astype(np.uint8), (pairs & 0xFF).astype(np.uint8)
+        want = tnf.decode(_t(up), _t(lo)).view(torch.int16).numpy()
+        want = want.astype(np.uint16)
+        uw = up.reshape(-1, 4).astype(np.uint32)
+        lw = lo.reshape(-1, 4).astype(np.uint32)
+        got = []
+        for ub, lb in zip(uw.tolist(), lw.tolist()):
+            u = ub[0] | ub[1] << 8 | ub[2] << 16 | ub[3] << 24
+            l = lb[0] | lb[1] << 8 | lb[2] << 16 | lb[3] << 24
+            for word in _nested4_to_f16x4(u, l):
+                got += [word & 0xFFFF, word >> 16]
+        np.testing.assert_array_equal(np.asarray(got, np.uint16), want)
+
+    @staticmethod
+    def _operand_offset(k: int, n: int) -> int:
+        """Byte offset of f16 weight (k, n) of one 64-column block in the
+        MN-major operand: 64 k rows of 128 bytes, 16-byte chunks XORed
+        with k % 8 (the kernel's sw128_offset)."""
+        return _sw128_offset(k, n >> 3) + 2 * (n & 7)
+
+    @pytest.mark.parametrize("rt", [128, 96])
+    def test_in_place_rebuild_gives_the_operand(self, rt):
+        """A block arrives as raw upper (bytes 0-4095, 64 k x 64 n) and
+        lower (4096-8191) boxes; the rt threads of a rebuild group load all
+        of it, meet at the named barrier, then store the rebuilt f16: every
+        16-byte chunk is written once, lands where wgmma reads weight
+        (k, n), and a quarter-warp's stores fill one 128-byte row."""
+        rng = np.random.default_rng(30)
+        wts = rng.uniform(-1.75, 1.75, (64, 64)).astype(np.float16)
+        up, lo = (x.numpy() for x in tnf.encode(_t(wts)))
+        blk = bytearray(up.tobytes() + lo.tobytes())
+        units = -(-512 // rt)
+        loaded = {}
+        for pt in range(rt):                       # loads first ...
+            for q in range(units):
+                at = (pt + rt * q) * 8
+                if at < 4096:
+                    loaded[pt, q] = (int.from_bytes(blk[at:at + 8], "little"),
+                                     int.from_bytes(blk[4096 + at:][:8],
+                                                    "little"))
+        written, rows = [], {}
+        for pt in range(rt):                       # ... then the stores
+            for q in range(units):
+                i = pt + rt * q
+                if i >= 512:
+                    break
+                u, l = loaded[pt, q]
+                a = _nested4_to_f16x4(u & 0xFFFFFFFF, l & 0xFFFFFFFF)
+                b = _nested4_to_f16x4(u >> 32, l >> 32)
+                at = _sw128_offset(i // 8, i % 8)
+                blk[at:at + 16] = b"".join(w.to_bytes(4, "little")
+                                           for w in (*a, *b))
+                written.append(at)
+                rows.setdefault((pt // 8, q), set()).add(at // 128)
+        assert sorted(written) == list(range(0, 8192, 16))
+        assert all(len(r) == 1 for r in rows.values())
+        got = np.frombuffer(bytes(blk), np.uint16)
+        for k in range(64):
+            for n in range(64):
+                assert got[self._operand_offset(k, n) // 2] == \
+                    wts[k, n].view(np.uint16)
+
+    def test_k3_tma_box_lands_in_the_operand_layout(self):
+        """K3's f16 box of 64 k rows x 64 columns under TMA's 128-byte
+        swizzle puts weight (k, n) where K1's rebuild writes it."""
+        for k in range(64):
+            for n in range(64):
+                assert _tma_sw128(k * 128 + 2 * n) == \
+                    self._operand_offset(k, n)
+
+    @staticmethod
+    def _desc_read(start: int, lbo: int, sbo: int, mn: int, k: int,
+                   mn_major: bool) -> int:
+        """Where wgmma reads element (mn, k) of a 128B-swizzled operand
+        by its descriptor (CuTe's canonical GMMA layouts, 16-byte units):
+        MN-major ((8,n),(8,k)):((1,LBO),(8,SBO)), K-major
+        ((8,n),2):((8,SBO),1); the swizzle acts on the address bits."""
+        if mn_major:
+            lin = start + (mn // 64) * lbo + (k // 8) * sbo \
+                + (k % 8) * 128 + 2 * (mn % 64)
+        else:
+            lin = start + (mn // 8) * sbo + (mn % 8) * 128 + 2 * k
+        return _tma_sw128(lin)
+
+    @pytest.mark.parametrize("bmx", [8, 256])
+    def test_descriptors_read_both_operands(self, bmx):
+        """Each k16 step kk of a stage: A (64 weight columns x 16 k) at
+        start + 2048 kk, MN-major with SBO 1024; B (bmx rows of x x 16 k)
+        at start + 32 kk in the TMA box of x (bmx rows of 128 bytes),
+        K-major with SBO 1024."""
+        for kk in range(4):
+            for m in range(64):
+                for k in range(16):
+                    assert self._desc_read(2048 * kk, 8192, 1024, m, k,
+                                           True) == \
+                        self._operand_offset(16 * kk + k, m)
+            for r in range(bmx):
+                for k in range(16):
+                    assert self._desc_read(32 * kk, 16, 1024, r, k,
+                                           False) == \
+                        _tma_sw128(r * 128 + 2 * (16 * kk + k))
+
+    @pytest.mark.parametrize("bmx,cw", [(8, 1), (128, 1), (256, 2)])
+    def test_epilogue_stores_each_output_once(self, bmx, cw):
+        """The m64nNk16 accumulator map (thread t of warpgroup wg holds
+        rows 16 w + lane/4 (+8) and columns 8 j' + 2 (lane % 4) (+1)):
+        weight column n and x row m of every register cover the tile once."""
+        seen = []
+        for wg in range(cw):
+            for warp in range(4):
+                for lane in range(32):
+                    for j in range(bmx // 2):
+                        n = 64 * wg + 16 * warp + lane // 4 + 8 * ((j >> 1) & 1)
+                        m = 2 * (lane & 3) + 8 * (j >> 2) + (j & 1)
+                        seen.append((n, m))
+        assert sorted(seen) == [(n, m) for n in range(64 * cw)
+                                for m in range(bmx)]
 
 
 class TestAbsmax:
