@@ -23,7 +23,9 @@ Phases, in order; any failed check exits non-zero before the last line:
               steps (`launch/steps.py`): weights nested on the card, 8
               prompts of 1024 tokens prefilled, caches planarized at
               capacity 1056, 32 greedy decode steps, fp16 and fp8; every
-              kernel of the path must launch
+              kernel of the path must launch; then the decode step at
+              long context: planar caches of capacity 32768 filled with
+              random planes, ragged lens up to 32767, fp16 and fp8
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 GPU is present or the port is missing.
@@ -304,11 +306,14 @@ def attention_phase(torch, iters: int) -> list[dict]:
                    "ms": time_ms(torch, kern, n_sets, iters),
                    "plain_ms": time_ms(torch, plain, n_sets, iters),
                    "library_ms": time_ms(torch, lib, n_sets, iters),
-                   "bound_ms": b_ms, "bound_by": b_kind}
+                   "bound_ms": b_ms, "bound_by": b_kind,
+                   **device_times(torch, kern, lib, n_sets, b_ms)}
             rows.append(row)
             log(f"  paged_planar_decode_attention fp8={fp8} window={window} "
                 f"err={err:.2e} ms={row['ms']:.4f} plain={row['plain_ms']:.4f}"
-                f" lib={row['library_ms']:.4f} bound={b_ms:.5f} ({b_kind})")
+                f" lib={row['library_ms']:.4f} bound={b_ms:.5f} ({b_kind}) "
+                f"device={row['device_ms']:.4f} lib_device="
+                f"{row['library_device_ms']:.4f} share={row['bound_share']:.3f}")
     return rows
 
 
@@ -343,6 +348,15 @@ def sdpa_yardstick(torch, F, q, pools, tables, lens, fp8, window):
         return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
                                               enable_gqa=True)
     return fn
+
+
+def device_times(torch, kern, lib, n_sets: int, b_ms: float) -> dict:
+    """Device ms of a kernel and of its library yardstick by CUDA-graph
+    replay, and the kernel's share of the bound."""
+    dev_ms = graph_ms(torch, kern, n_sets)
+    return {"device_ms": dev_ms,
+            "library_device_ms": graph_ms(torch, lib, n_sets),
+            "bound_share": b_ms / dev_ms}
 
 
 def graph_ms(torch, fn, n_sets: int, reps: int = 30) -> float:
@@ -459,7 +473,8 @@ def fused_quant_phase(torch, iters: int) -> list[dict]:
 def dense_decode_phase(torch, iters: int) -> list[dict]:
     """K5 over dense per-slot planes: llama3.1-8b's heads, 8 rows, ragged
     lens up to 1056 (the dense phase's capacity) and up to 32768 (the
-    decode_32k length), fp16 and fp8."""
+    decode_32k length, also with a window of 4096), fp16 and fp8; host
+    and device (graph replay) ms of K5 and of SDPA over joined planes."""
     import torch.nn.functional as F
 
     from repro_torch.core import nestedfp as nf
@@ -487,14 +502,21 @@ def dense_decode_phase(torch, iters: int) -> list[dict]:
                 del x
             pools.append((planes[0], planes[1], planes[2], planes[3]))
         kpos = torch.arange(cap, device=dev)[None]
-        mask = (kpos < lens[:, None])[:, None, None, :]
-        for fp8 in (False, True):
+        for fp8, window in [(f, w) for w in ((None, 4096) if cap == 32768
+                                             else (None,))
+                            for f in (False, True)]:
+            keep = kpos < lens[:, None]
+            if window:
+                keep &= kpos > lens[:, None] - 1 - window
+            mask = keep[:, None, None, :]
+
             def kern(i):
-                return planar_decode_attention(q, *pools[i], lens, fp8=fp8)
+                return planar_decode_attention(q, *pools[i], lens, fp8=fp8,
+                                               window=window)
 
             def plain(i):
                 return ref.planar_decode_attention_ref(q, *pools[i], lens,
-                                                       fp8=fp8)
+                                                       fp8=fp8, window=window)
 
             def joined(hi, lo):
                 return (nf.e5m2_view(hi, torch.float16) if fp8
@@ -508,20 +530,24 @@ def dense_decode_phase(torch, iters: int) -> list[dict]:
                     qh, kv[i][0], kv[i][1], attn_mask=mask, enable_gqa=True)
 
             err = max_err(torch, kern(0), plain(0), ATTN_TOL, ATTN_TOL)
-            keys = int(lens.sum())
+            keys = int(keep.sum())        # the keys this data attends to
             nbytes = (keys * hkv * d * 2 * (1 if fp8 else 2) + q.numel() * 4
                       + b * 4 + b * h * d * 4)
             b_ms, b_kind = bound(nbytes, 4.0 * keys * h * d, "f32")
-            row = {"cap": cap, "fp8": fp8, "max_abs_err": err,
+            row = {"cap": cap, "fp8": fp8, "window": window,
+                   "max_abs_err": err,
                    "ms": time_ms(torch, kern, n_sets, iters),
                    "plain_ms": time_ms(torch, plain, n_sets, iters),
                    "library_ms": time_ms(torch, lib, n_sets, iters),
-                   "bound_ms": b_ms, "bound_by": b_kind}
+                   "bound_ms": b_ms, "bound_by": b_kind,
+                   **device_times(torch, kern, lib, n_sets, b_ms)}
             rows.append(row)
             log(f"  planar_decode_attention cap={cap} fp8={fp8} "
-                f"sum(lens)={keys} err={err:.2e} ms={row['ms']:.4f} "
-                f"plain={row['plain_ms']:.4f} lib={row['library_ms']:.4f} "
-                f"bound={b_ms:.5f} ({b_kind})")
+                f"window={window} kept keys={keys} err={err:.2e} "
+                f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+                f"lib={row['library_ms']:.4f} bound={b_ms:.5f} ({b_kind}) "
+                f"device={row['device_ms']:.4f} lib_device="
+                f"{row['library_device_ms']:.4f} share={row['bound_share']:.3f}")
             del kv
         del pools
     return rows
@@ -1061,6 +1087,86 @@ def dense_phase(torch, cfg) -> dict:
             f"profile dense decode {mode}: 4 steps", wall,
             res[mode]["decode_ms_per_step_median"], by_name)
         del caches
+    res["long_decode"] = long_decode(torch, cfg, sp)
+    return res
+
+
+def long_decode(torch, cfg, sp, n_steps: int = 5, n_prof: int = 3) -> dict:
+    """The dense decode step at long context, through `make_decode_step`:
+    8 rows, all layers, planar caches of capacity 32768 from
+    `init_cache(planar=True)` filled one layer at a time with the planes
+    of random f16 (a 32k prefill would not fit the time limit), ragged
+    cache lengths up to 32766 (kv lengths up to 32767); fp16, then fp8.
+    Each mode runs 1 + n_steps steps (median step ms of the last n_steps,
+    host clock), then n_prof steps under the torch profiler (device busy
+    ms and K5's ms a step), rewriting the same positions."""
+    from repro_torch.core import nestedfp as nf
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+
+    b, cap = 8, 32768
+    top = cap - 3 - n_steps          # the profiled steps' kv length: cap - 1
+    lens0 = [top, 30001, 1, 20000, top, 5, 16384, 32000]
+    torch.cuda.empty_cache()
+    t_start = t0 = time.time()
+    caches = M.init_cache(cfg, b, cap, planar=True, device="cuda")
+    planes = caches["attn"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for layer in range(cfg.n_layers):
+        for kind in ("k", "v"):
+            x = torch.randn(planes["k_hi"].shape[1:], generator=gen,
+                            device="cuda", dtype=torch.float16)
+            hi, lo = nf.split_bytes(x)
+            planes[f"{kind}_hi"][layer].copy_(hi)
+            planes[f"{kind}_lo"][layer].copy_(lo)
+            del x, hi, lo
+    torch.cuda.synchronize()
+    cache_gb = sum(p.numel() for p in planes.values()) / 1e9
+    log(f"  long decode: {cache_gb:.1f} GB of planar caches (capacity {cap}, "
+        f"{cfg.n_layers} layers) filled in {time.time() - t0:.1f} s")
+    tokens = torch.randint(1, cfg.vocab_size, (b, 1), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(14),
+                           dtype=torch.int32)
+    res = {"batch": b, "capacity": cap, "cache_gb": cache_gb}
+    k5 = ("planar_split_kernel", "combine_kernel")
+    for mode in ("fp16", "fp8"):
+        decode = steps.make_decode_step(cfg, mode)
+        lens = torch.tensor(lens0, dtype=torch.int32, device="cuda")
+        before = ops.all_launch_counters()["planar_decode_attention"]
+        step_ms, nxt = [], tokens
+        for _ in range(1 + n_steps):
+            t0 = time.monotonic()
+            logits, caches = decode(sp, caches, nxt, lens)
+            nxt = logits.argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            lens = lens + 1
+        check(tuple(logits.shape) == (b, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"long decode {mode}: logits not finite or mis-shaped")
+        launched = ops.all_launch_counters()["planar_decode_attention"] - before
+        check(launched == cfg.n_layers * (1 + n_steps),
+              f"long decode {mode}: K5 launched {launched} times")
+        med = sorted(step_ms[1:])[n_steps // 2]
+        wall, by_name = device_ms_by_kernel(
+            torch, lambda: decode(sp, caches, nxt, lens), n_prof)
+        prof = profile_summary(f"profile long decode {mode}: {n_prof} steps",
+                               wall, med, by_name)
+        k5_ms = sum(v for k, v in by_name.items() if any(n in k for n in k5))
+        res[mode] = {"step_ms_median": med, "step_ms": step_ms,
+                     "max_kv_len": int(lens.max()) + 1,
+                     "k5_launches": launched,
+                     "k5_device_ms_per_step": k5_ms, **prof}
+        log(f"  long decode {mode}: step median {med:.1f} ms (host), device "
+            f"busy {prof['device_ms_per_step']:.2f} ms a step, K5 "
+            f"{k5_ms:.3f} ms a step ({cfg.n_layers} calls)")
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["seconds"] = time.time() - t_start
+    log(f"  long decode peak device memory {res['peak_mem_gb']:.1f} GB, "
+        f"{res['seconds']:.1f} s in all")
+    del caches, planes
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1107,13 +1213,40 @@ LINE_WEIGHTS = {
         lambda r: int(not r["fp8"] and r["window"] is None)),
     # one fp16-mode dense decode call of one layer at the dense capacity
     "planar_decode_attention": (
-        lambda r: int(not r["fp8"] and r["cap"] == 1056)),
+        lambda r: int(not r["fp8"] and r["cap"] == 1056
+                      and r["window"] is None)),
     # one layer's bf16 prefill attention of 8 x 1024 tokens
     "flash_prefill_attention": (
         lambda r: int((r["dtype"], r["b"], r["s"]) == ("bfloat16", 8, 1024))),
     # one 4096 x 14336 weight
     "nestedfp_encode": lambda r: 1,
 }
+
+
+def ptxas_entries(build_log: str) -> list[dict]:
+    """Registers and spill bytes of each entry function in a ptxas -v
+    log (names kept to their readable part)."""
+    import re
+    out, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            short = re.search(r"\d+([a-z_]+kernel)(?:ILi(\d+)ELb(\d))?", name)
+            cur = {"entry": name if not short else short.group(1) + (
+                f"<{short.group(2)},{short.group(3)}>" if short.group(2)
+                else "")}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def k7_sass_ops(_build) -> dict:
@@ -1179,6 +1312,9 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill")):
                 log(f"  {name}: {line.strip()}")
     results["k7_sass"] = k7_sass_ops(_build)
+    results["decode_ptxas"] = {name: ptxas_entries(_build.build_log(name))
+                               for name in ("planar_decode_attention",
+                                            "paged_planar_decode_attention")}
 
     rows = {}
     if "kernels" in phases:

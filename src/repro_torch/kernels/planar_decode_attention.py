@@ -10,8 +10,12 @@ to CUDA kernels that share one body (`csrc/decode_attention.cuh`):
 - K5 `planar_decode_attention` (`csrc/planar_decode_attention.cu`) over
   dense per-slot planes (B, Cap, Hkv, D), read in place.
 
-In both, a window of None or <= 0 means global. CPU tensors take the
-plain versions (`ref.paged_planar_decode_attention_ref`,
+In both, a window of None or <= 0 means global, and D is 64 or 128.
+Each row's keys are cut into splits of a fixed number of keys (the C
+entry's `*_splits`), one block a split; when a row has more than one
+split, a second kernel merges them from an f32 scratch that the wrapper
+allocates. One call counts one launch, whatever it runs. CPU tensors take
+the plain versions (`ref.paged_planar_decode_attention_ref`,
 `ref.planar_decode_attention_ref`).
 """
 
@@ -23,31 +27,62 @@ import torch
 
 from repro_torch.kernels import _build, _common, ref
 
-_PAGED_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float]
+_PAGED_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float]
                + [ctypes.c_void_p])
-_DENSE_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
+_DENSE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
                + [ctypes.c_void_p])
-_SMEM_LIMIT = 227 * 1024
+_LIBS = {True: "paged_planar_decode_attention",
+         False: "planar_decode_attention"}
 
 
-def _check(q, planes: dict, tile: int) -> None:
-    """Shapes, types and the 16-byte plane loads the shared body makes."""
+def dynamic_smem_bytes(d: int, *, fp8: bool, paged: bool) -> int:
+    """Dynamic shared memory of the split kernel for head dim d, as the C
+    entry computes it: 0 when the kernel has no instance for d."""
+    lib = _LIBS[paged]
+    fn = _build.function(lib, f"{lib}_smem", [ctypes.c_int] * 2)
+    return int(fn(d, int(fp8)))
+
+
+def dense_splits(cap: int) -> int:
+    """Splits of a dense row of `cap` keys, as the C entry cuts it."""
+    fn = _build.function(_LIBS[False], "planar_decode_attention_splits",
+                         [ctypes.c_int])
+    return int(fn(cap))
+
+
+def paged_splits(block_size: int, max_blocks: int) -> int:
+    """Splits of a row of `max_blocks` table blocks of `block_size` keys,
+    as the C entry cuts it."""
+    fn = _build.function(_LIBS[True], "paged_planar_decode_attention_splits",
+                         [ctypes.c_int] * 2)
+    return int(fn(block_size, max_blocks))
+
+
+def _check(q, planes: dict, *, fp8: bool, paged: bool) -> None:
+    """Shapes, types, the 16-byte loads of q and of the planes, and the
+    head dims the split kernel has."""
     b, h, d = q.shape
     hkv = planes["k_hi"].shape[2]
-    if h % hkv or d % 16:
-        raise ValueError(f"need H % Hkv == 0 and D % 16 == 0 (H={h}, "
-                         f"Hkv={hkv}, D={d})")
+    if h % hkv:
+        raise ValueError(f"need H % Hkv == 0 (H={h}, Hkv={hkv})")
     _common.expect(q, "q", torch.float32, (b, h, d))
-    shape = planes["k_hi"].shape
     for name, p in planes.items():
-        _common.expect(p, name, torch.uint8, shape)
+        _common.expect(p, name, torch.uint8, planes["k_hi"].shape)
+    for name, p in (("q", q), *planes.items()):
         if p.data_ptr() % 16:
             raise ValueError(f"{name}: must be 16-byte aligned")
-    g = h // hkv
-    smem = 4 * (2 * g * d + 2 * tile * (d + 1) + g * tile + 3 * g)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"G={g}, D={d}, tile={tile} need {smem} B of "
-                         f"shared memory, above {_SMEM_LIMIT}")
+    if dynamic_smem_bytes(d, fp8=fp8, paged=paged) == 0:
+        raise ValueError(f"head dim D={d}: the decode kernels have D = 64 "
+                         f"and 128")
+
+
+def _scratch(b, h, d, ns, device):
+    """f32 per-split partials (acc, then m and l) when a row has more than
+    one split; otherwise the kernel writes `out` directly."""
+    if ns <= 1:
+        return None
+    return torch.empty(b * h * ns * (d + 2), dtype=torch.float32,
+                       device=device)
 
 
 def paged_planar_decode_attention(q, k_hi, k_lo, v_hi, v_lo, tables, lens, *,
@@ -63,10 +98,12 @@ def paged_planar_decode_attention(q, k_hi, k_lo, v_hi, v_lo, tables, lens, *,
     b, h, d = q.shape
     nb, bs, hkv, _ = k_hi.shape
     mb = tables.shape[1]
-    _check(q, {"k_hi": k_hi, "k_lo": k_lo, "v_hi": v_hi, "v_lo": v_lo}, bs)
+    _check(q, {"k_hi": k_hi, "k_lo": k_lo, "v_hi": v_hi, "v_lo": v_lo},
+           fp8=fp8, paged=True)
     _common.expect(tables, "tables", torch.int32, (b, mb))
     _common.expect(lens, "lens", torch.int32, (b,))
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    part = _scratch(b, h, d, paged_splits(bs, mb), q.device)
     fn = _build.function("paged_planar_decode_attention",
                          "paged_planar_decode_attention", _PAGED_ARGS)
     w = 0 if window is None else int(window)
@@ -74,8 +111,10 @@ def paged_planar_decode_attention(q, k_hi, k_lo, v_hi, v_lo, tables, lens, *,
         err = fn(q.data_ptr(), k_hi.data_ptr(),
                  0 if fp8 else k_lo.data_ptr(), v_hi.data_ptr(),
                  0 if fp8 else v_lo.data_ptr(), tables.data_ptr(),
-                 lens.data_ptr(), out.data_ptr(), b, h, hkv, d, bs, mb, w,
-                 int(fp8), float(d ** -0.5), _common.stream_handle(q.device))
+                 lens.data_ptr(), out.data_ptr(),
+                 0 if part is None else part.data_ptr(), b, h, hkv, d, bs,
+                 mb, w, int(fp8), float(d ** -0.5),
+                 _common.stream_handle(q.device))
     _build.check(err, "paged_planar_decode_attention")
     paged_planar_decode_attention.launches += 1
     return out
@@ -96,11 +135,12 @@ def planar_decode_attention(q, k_hi, k_lo, v_hi, v_lo, lens, *,
     b, h, d = q.shape
     _, cap, hkv, _ = k_hi.shape
     _check(q, {"k_hi": k_hi, "k_lo": k_lo, "v_hi": v_hi, "v_lo": v_lo},
-           ref.DECODE_TILE)
+           fp8=fp8, paged=False)
     if k_hi.shape[0] != b:
         raise ValueError(f"planes hold {k_hi.shape[0]} rows, q {b}")
     _common.expect(lens, "lens", torch.int32, (b,))
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    part = _scratch(b, h, d, dense_splits(cap), q.device)
     fn = _build.function("planar_decode_attention", "planar_decode_attention",
                          _DENSE_ARGS)
     w = 0 if window is None else int(window)
@@ -108,8 +148,9 @@ def planar_decode_attention(q, k_hi, k_lo, v_hi, v_lo, lens, *,
         err = fn(q.data_ptr(), k_hi.data_ptr(),
                  0 if fp8 else k_lo.data_ptr(), v_hi.data_ptr(),
                  0 if fp8 else v_lo.data_ptr(), lens.data_ptr(),
-                 out.data_ptr(), b, h, hkv, d, cap, w, int(fp8),
-                 float(d ** -0.5), _common.stream_handle(q.device))
+                 out.data_ptr(), 0 if part is None else part.data_ptr(), b, h,
+                 hkv, d, cap, w, int(fp8), float(d ** -0.5),
+                 _common.stream_handle(q.device))
     _build.check(err, "planar_decode_attention")
     planar_decode_attention.launches += 1
     return out

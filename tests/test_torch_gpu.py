@@ -154,15 +154,16 @@ def test_wgmma_body_rule(dev):
     assert both(8, 4096, 1024, w_off=4) == (0, 0)     # weights 8 bytes off
 
 
-@pytest.mark.parametrize("fp8", [False, True])
-@pytest.mark.parametrize("window", [None, 0, 5])
-def test_paged_planar_decode_attention(dev, fp8, window):
-    rng = np.random.default_rng(4)
-    b, h, hkv, d, bs, mb = 3, 8, 2, 64, 16, 4
+def _paged_case(dev, seed, lens, bs, mb, h=8, hkv=2, d=64):
+    """A paged pool with shuffled blocks, the first two blocks of row 0
+    shared with the last row (COW prefix), holes past each length pointing
+    at the trash block 0."""
+    rng = np.random.default_rng(seed)
+    b = len(lens)
     nb = 1 + b * mb
     tables = rng.permutation(np.arange(1, nb)).astype(np.int32).reshape(b, mb)
-    tables[2, :2] = tables[0, :2]
-    lens = np.asarray([50, 0, 37], np.int32)
+    tables[-1, :2] = tables[0, :2]
+    lens = np.asarray(lens, np.int32)
     for r in range(b):
         tables[r, -(-int(lens[r]) // bs):] = 0
     q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32)).to(dev)
@@ -170,14 +171,35 @@ def test_paged_planar_decode_attention(dev, fp8, window):
                           .astype(np.float16)).to(dev)
     planes = dict(zip(("k_hi", "k_lo"), nf.split_bytes(kv[0])))
     planes.update(zip(("v_hi", "v_lo"), nf.split_bytes(kv[1])))
-    tab, ln = torch.from_numpy(tables).to(dev), torch.from_numpy(lens).to(dev)
+    return q, planes, torch.from_numpy(tables).to(dev), \
+        torch.from_numpy(lens).to(dev)
+
+
+# (bs, mb, lens): one split a row (the kernel writes `out` itself), then
+# rows of several splits of 512 keys with lens on the split edges, then a
+# block size that does not divide 512 (splits of 504 keys)
+PAGED_CASES = [(16, 4, [50, 0, 37]),
+               (16, 40, [0, 1, 511, 512, 513, 640]),
+               (24, 22, [0, 503, 504, 505, 528])]
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("window", [None, 0, 5, 128, 300])
+@pytest.mark.parametrize("bs,mb,lens", PAGED_CASES)
+def test_paged_planar_decode_attention(dev, fp8, window, bs, mb, lens):
+    """Windows 128 and 300 put the first kept key of the 640-key row on a
+    split edge (512) and mid-split (340)."""
+    q, planes, tab, ln = _paged_case(dev, 4, lens, bs, mb)
+    n0 = ops.all_launch_counters()["paged_planar_decode_attention"]
     got = ops.paged_decode_attention(q, planes, tab, ln, fp8=fp8,
                                      window=window)
+    assert ops.all_launch_counters()["paged_planar_decode_attention"] == n0 + 1
     want = ref.paged_planar_decode_attention_ref(
         q, planes["k_hi"], planes["k_lo"], planes["v_hi"], planes["v_lo"],
         tab, ln, fp8=fp8, window=window)
     live = ln > 0
     assert torch.isfinite(got).all()
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
     torch.testing.assert_close(got[live], want[live], **ATTN_TOL)
 
 
@@ -190,10 +212,16 @@ def _dense_planes(dev, b, cap, hkv, d, seed):
     return planes
 
 
+# (cap, lens): one split (cap <= 512), then splits of 512 with lens on the
+# edges; windows 273 and 300 put the first kept key of len 785 on the
+# split edge 512 and of len 600 at 327, mid-split and mid-step
+DENSE_CASES = [(200, [1, 64, 65, 200]), (3000, [2999, 1, 1500, 3000]),
+               (1024, [1, 511, 512, 513]), (800, [785, 600, 512, 16])]
+
+
 @pytest.mark.parametrize("fp8", [False, True])
-@pytest.mark.parametrize("window", [None, 7])
-@pytest.mark.parametrize("cap,lens", [(200, [1, 64, 65, 200]),
-                                      (3000, [2999, 1, 1500, 3000])])
+@pytest.mark.parametrize("window", [None, 7, 273, 300])
+@pytest.mark.parametrize("cap,lens", DENSE_CASES)
 def test_planar_decode_attention(dev, fp8, window, cap, lens):
     b, h, hkv, d = 4, 8, 2, 128
     planes = _dense_planes(dev, b, cap, hkv, d, seed=5)
@@ -207,6 +235,95 @@ def test_planar_decode_attention(dev, fp8, window, cap, lens):
         ln, fp8=fp8, window=window)
     torch.testing.assert_close(got, want, **ATTN_TOL)
     assert ops.all_launch_counters()["planar_decode_attention"] == n0 + 1
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("window", [None, 4096])
+def test_planar_decode_attention_row_of_32768_keys(dev, fp8, window):
+    """llama3.1-8b's heads, the decode_32k length: 64 splits of a row,
+    beside a short row."""
+    b, h, hkv, d, cap = 2, 32, 8, 128, 32768
+    planes = _dense_planes(dev, b, cap, hkv, d, seed=6)
+    q = torch.randn((b, h, d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    ln = torch.tensor([cap, 17], dtype=torch.int32, device=dev)
+    got = ops.planar_decode_attention(q, planes, ln, fp8=fp8, window=window)
+    want = ref.planar_decode_attention_ref(
+        q, planes["k_hi"], planes["k_lo"], planes["v_hi"], planes["v_lo"],
+        ln, fp8=fp8, window=window)
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("kernel", ["k4", "k5"])
+def test_decode_rows_do_not_depend_on_the_batch(dev, kernel, fp8):
+    """Splits sit on a fixed grid of keys: a row's output is bitwise the
+    same alone, in a batch of 8 beside rows of other lengths, and at
+    another place in the batch."""
+    lens = [700, 1, 256, 1024, 333, 17, 999, 512]
+    d, bs = 128, 16
+    if kernel == "k5":
+        planes = _dense_planes(dev, 8, 1024, 2, d, seed=7)
+        q = torch.randn((8, 8, d), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(7))
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+        def run(rows):
+            return ops.planar_decode_attention(
+                q[rows].contiguous(),
+                {k: v[rows].contiguous() for k, v in planes.items()},
+                ln[rows].contiguous(), fp8=fp8)
+    else:
+        q, planes, tab, ln = _paged_case(dev, 7, lens, bs, 64, d=d)
+
+        def run(rows):
+            return ops.paged_decode_attention(
+                q[rows].contiguous(), planes, tab[rows].contiguous(),
+                ln[rows].contiguous(), fp8=fp8)
+    batch = run(list(range(8)))
+    moved = run([3, 1, 2, 0, 4, 5, 6, 7])
+    for r in range(8):
+        assert torch.equal(batch[r:r + 1], run([r])), r
+    assert torch.equal(moved[0], batch[3]) and torch.equal(moved[3], batch[0])
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("window", [None, 300])
+def test_dense_equals_paged_over_an_identity_table(dev, fp8, window):
+    """K5 over dense planes and K4 over the same bytes as a pool with an
+    identity table (row b is blocks b*MB .. b*MB + MB - 1)."""
+    b, h, hkv, d, cap, bs = 4, 8, 2, 128, 800, 16
+    planes = _dense_planes(dev, b, cap, hkv, d, seed=8)
+    q = torch.randn((b, h, d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(8))
+    ln = torch.tensor([785, 600, 512, 16], dtype=torch.int32, device=dev)
+    dense = ops.planar_decode_attention(q, planes, ln, fp8=fp8, window=window)
+    pool = {k: v.reshape(-1, bs, hkv, d) for k, v in planes.items()}
+    mb = cap // bs
+    tables = torch.arange(b * mb, dtype=torch.int32, device=dev).reshape(b, mb)
+    paged = ops.paged_decode_attention(q, pool, tables, ln, fp8=fp8,
+                                       window=window)
+    torch.testing.assert_close(dense, paged, rtol=1e-5, atol=1e-6)
+
+
+def test_decode_split_grid_and_head_dims(dev):
+    """The C entries' split of a row (512 keys; K4 rounds down to whole
+    table blocks) and the head dims they take; the wrapper refuses other
+    D before any launch."""
+    from repro_torch.kernels import planar_decode_attention as pda
+    assert [pda.dense_splits(c) for c in (1, 512, 513, 32768)] == [1, 1, 2, 64]
+    assert [pda.paged_splits(bs, mb) for bs, mb in
+            ((16, 32), (16, 33), (24, 22), (1024, 3))] == [1, 2, 2, 3]
+    for paged in (False, True):
+        for fp8 in (False, True):
+            assert pda.dynamic_smem_bytes(64, fp8=fp8, paged=paged) > 0
+            assert pda.dynamic_smem_bytes(128, fp8=fp8, paged=paged) > 0
+            assert pda.dynamic_smem_bytes(96, fp8=fp8, paged=paged) == 0
+    planes = _dense_planes(dev, 1, 32, 1, 96, seed=9)
+    with pytest.raises(ValueError, match="D=96"):
+        ops.planar_decode_attention(torch.zeros((1, 1, 96), device=dev),
+                                    planes, torch.ones(1, dtype=torch.int32,
+                                                       device=dev), fp8=False)
 
 
 # (dtype, b, s, h, hkv, d): f32 runs the SIMT body, f16 and bf16 the

@@ -6,6 +6,8 @@ tests hold the plain versions to the Pallas kernels on seeded inputs.
 The CUDA kernels themselves are held to the plain versions on the card
 by tests/test_torch_gpu.py (and by chip_smoke.py)."""
 
+import math
+
 import numpy as np
 import pytest
 
@@ -238,6 +240,348 @@ class TestPlanarDecodeAttention:
                                             fp8=False)
         np.testing.assert_allclose(dense.numpy(), paged.numpy(), rtol=1e-5,
                                    atol=1e-6)
+
+
+# The card's K4/K5 body (csrc/decode_attention.cuh) feeds mma.sync
+# m16n8k16 from the plane bytes by ldmatrix and byte permutes. Its index
+# maps are mirrored here lane by lane: a wrong slot or selector gives
+# garbage, not a small error.
+_LOG2E = 1.4426950408889634
+_STEP = 16            # keys a warp takes a step
+
+
+def _byte_perm(x: int, y: int, sel: int) -> int:
+    pool = [(x >> (8 * i)) & 0xFF for i in range(4)]
+    pool += [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(pool[(sel >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def _f16_pair(word: int) -> tuple[float, float]:
+    h = np.asarray([word & 0xFFFF, word >> 16], np.uint16).view(np.float16)
+    return float(h[0]), float(h[1])
+
+
+def _split2(x: float, y: float) -> tuple[int, int]:
+    """The kernel's split2: f16 words of rn(x), rn(y) and of the f32
+    residuals, x in the low half."""
+    v = np.asarray([x, y], np.float32)
+    hi = v.astype(np.float16)
+    lo = (v - hi.astype(np.float32)).astype(np.float16)
+    hw, lw = hi.view(np.uint16).astype(int), lo.view(np.uint16).astype(int)
+    return int(hw[0] | hw[1] << 16), int(lw[0] | lw[1] << 16)
+
+
+def _ldsm_x4(smem: np.ndarray, addrs: list[int], trans: bool) -> list[list[int]]:
+    """ldmatrix .x4 (.trans): lanes 8i..8i+7 give the rows of matrix i;
+    each lane gets one 32-bit word of each matrix."""
+    regs = [[0] * 4 for _ in range(32)]
+    for i in range(4):
+        mat = [smem[a:a + 16].view(np.uint16) for a in addrs[8 * i:8 * i + 8]]
+        for lane in range(32):
+            r, c = lane // 4, 2 * (lane % 4)
+            u0, u1 = ((mat[c][r], mat[c + 1][r]) if trans
+                      else (mat[r][c], mat[r][c + 1]))
+            regs[lane][i] = int(u0) | int(u1) << 16
+    return regs
+
+
+def _mma(c, a, b0, b1):
+    """mma.sync m16n8k16 row.col over per-lane fragments, f64 sums."""
+    A, B = np.zeros((16, 16)), np.zeros((16, 8))
+    C = np.zeros((16, 8))
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        A[g, 2 * t:2 * t + 2] = _f16_pair(a[lane][0])
+        A[g + 8, 2 * t:2 * t + 2] = _f16_pair(a[lane][1])
+        A[g, 2 * t + 8:2 * t + 10] = _f16_pair(a[lane][2])
+        A[g + 8, 2 * t + 8:2 * t + 10] = _f16_pair(a[lane][3])
+        B[2 * t:2 * t + 2, g] = _f16_pair(b0[lane])
+        B[2 * t + 8:2 * t + 10, g] = _f16_pair(b1[lane])
+        C[g, 2 * t:2 * t + 2] = c[lane][0:2]
+        C[g + 8, 2 * t:2 * t + 2] = c[lane][2:4]
+    out = A @ B + C
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        c[lane] = [out[g, 2 * t], out[g, 2 * t + 1], out[g + 8, 2 * t],
+                   out[g + 8, 2 * t + 1]]
+
+
+def _join(kind: str, fp8: bool, hi: int, lo: int) -> tuple[int, int]:
+    sel = {("k", False): (0x5140, 0x7362), ("k", True): (0x1404, 0x3424),
+           ("v", False): (0x6240, 0x7351), ("v", True): (0x2404, 0x3414)}
+    s0, s1 = sel[kind, fp8]
+    if fp8:
+        return _byte_perm(hi, 0, s0), _byte_perm(hi, 0, s1)
+    return _byte_perm(lo, hi, s0), _byte_perm(lo, hi, s1)
+
+
+class TestDecodeFragments:
+    """One warp's step of the card's K4/K5 body: 16 keys of plane bytes
+    in a padded ring slot (planes k_hi, v_hi, k_lo, v_lo), QK^T with q as
+    two f16 terms in rows g and g + 8, PV with p * 2^12 likewise, and the
+    float4 each thread ends with."""
+
+    @staticmethod
+    def _slot(d, fp8, k, v):
+        ld = d + 16
+        planes = []
+        for x in (k, v):
+            bits = x.view(np.uint16)
+            planes.append((bits >> 8).astype(np.uint8))
+            planes.append((bits & 0xFF).astype(np.uint8))
+        order = [planes[0], planes[2]] + ([] if fp8 else [planes[1], planes[3]])
+        smem = np.zeros(len(order) * _STEP * ld, np.uint8)
+        for p, pl in enumerate(order):
+            for key in range(_STEP):
+                at = (p * _STEP + key) * ld
+                smem[at:at + d] = pl[key]
+        return smem, ld
+
+    @staticmethod
+    def _a_off(lane, ld):
+        return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 16
+
+    @pytest.mark.parametrize("fp8", [False, True])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_step_products_follow_the_fragment_maps(self, d, fp8):
+        rng = np.random.default_rng(40)
+        g_rows = 4
+        k = rng.normal(size=(_STEP, d)).astype(np.float16)
+        v = rng.normal(size=(_STEP, d)).astype(np.float16)
+        if fp8:     # e5m2 values: f16 with a zero low byte
+            k = (k.view(np.uint16) & 0xFF00).view(np.float16)
+            v = (v.view(np.uint16) & 0xFF00).view(np.float16)
+        q = (rng.normal(size=(g_rows, d)) * 300).astype(np.float32)
+        smem, ld = self._slot(d, fp8, k, v)
+        plane = _STEP * ld
+        kb_n = d // 16
+        qa = [[[0] * 4 for _ in range(32)] for _ in range(kb_n)]
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            for kb in range(kb_n):
+                x = q[g, 16 * kb + 4 * t:16 * kb + 4 * t + 4] if g < g_rows \
+                    else np.zeros(4, np.float32)
+                qa[kb][lane][0], qa[kb][lane][1] = _split2(x[0], x[1])
+                qa[kb][lane][2], qa[kb][lane][3] = _split2(x[2], x[3])
+        offs = [self._a_off(lane, ld) for lane in range(32)]
+        sc = [[[0.0] * 4 for _ in range(32)] for _ in range(2)]
+        for kb in range(d // 32):
+            kh = _ldsm_x4(smem, [o + kb * 32 for o in offs], False)
+            kl = (_ldsm_x4(smem, [2 * plane + o + kb * 32 for o in offs],
+                           False) if not fp8 else [[0] * 4] * 32)
+            for mt in range(4):
+                b = [_join("k", fp8, kh[ln][mt], kl[ln][mt]) for ln in range(32)]
+                _mma(sc[mt & 1], qa[2 * kb + (mt >> 1)], [x[0] for x in b],
+                     [x[1] for x in b])
+        q_hi = q.astype(np.float16).astype(np.float32)  # the two f16 terms
+        q_two = q_hi.astype(np.float64) + (q - q_hi).astype(np.float16)
+        want_s = q_two @ k.astype(np.float64).T
+        p = rng.uniform(0, 1, size=(8, _STEP))
+        pa = [[0] * 4 for _ in range(32)]
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            for n in range(2):
+                for e in range(2):
+                    key = 8 * n + 2 * t + e
+                    if g < g_rows:
+                        np.testing.assert_allclose(
+                            sc[n][lane][e] + sc[n][lane][2 + e],
+                            want_s[g, key], rtol=1e-9, atol=1e-9)
+            pw = (p[g] * 4096).astype(np.float32)
+            pa[lane][0], pa[lane][1] = _split2(pw[2 * t], pw[2 * t + 1])
+            pa[lane][2], pa[lane][3] = _split2(pw[8 + 2 * t], pw[9 + 2 * t])
+        acc = [[[[0.0] * 4 for _ in range(32)] for _ in range(2)]
+               for _ in range(kb_n)]
+        for vb in range(d // 32):
+            vh = _ldsm_x4(smem, [plane + o + vb * 32 for o in offs], True)
+            vl = (_ldsm_x4(smem, [3 * plane + o + vb * 32 for o in offs],
+                           True) if not fp8 else [[0] * 4] * 32)
+            for half in range(2):
+                j0 = [_join("v", fp8, vh[ln][2 * half], vl[ln][2 * half])
+                      for ln in range(32)]
+                j1 = [_join("v", fp8, vh[ln][2 * half + 1],
+                            vl[ln][2 * half + 1]) for ln in range(32)]
+                for par in range(2):
+                    _mma(acc[2 * vb + half][par], pa,
+                         [x[par] for x in j0], [x[par] for x in j1])
+        p32 = (p * 4096).astype(np.float32)      # the two f16 terms of p
+        p_hi = p32.astype(np.float16).astype(np.float32)
+        p_two = p_hi.astype(np.float64) + (p32 - p_hi).astype(np.float16)
+        want_o = p_two @ v.astype(np.float64)
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            for db in range(kb_n):
+                a0, a1 = acc[db][0][lane], acc[db][1][lane]
+                got = [a0[0] + a0[2], a1[0] + a1[2], a0[1] + a0[3],
+                       a1[1] + a1[3]]
+                np.testing.assert_allclose(
+                    got, want_o[g, 16 * db + 4 * t:16 * db + 4 * t + 4],
+                    rtol=1e-9, atol=1e-9)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_loads_and_reads_cover_the_slot_without_bank_conflicts(self, d):
+        """cp.async: lane + 32 it covers every (key, 16-byte chunk) of a
+        plane once; ldmatrix: the 8 rows of each matrix of every x4 read
+        hit 32 distinct banks."""
+        ld, ch = d + 16, d // 16
+        seen = sorted(((lane + 32 * it) // ch, (lane + 32 * it) % ch)
+                      for it in range(_STEP * ch // 32) for lane in range(32))
+        assert seen == [(t, c) for t in range(_STEP) for c in range(ch)]
+        for kb in range(d // 32):
+            offs = [self._a_off(lane, ld) + kb * 32 for lane in range(32)]
+            for i in range(4):
+                banks = {(a // 4 + w) % 32 for a in offs[8 * i:8 * i + 8]
+                         for w in range(4)}
+                assert len(banks) == 32
+
+
+def _split_keys(block_size: int) -> int:
+    """Keys a split holds: 512, rounded down to whole table blocks."""
+    return block_size if block_size >= 512 else (512 // block_size) * block_size
+
+
+def _split_design(q, k, v, lens, *, limit, split, window):
+    """The card's K4/K5 arithmetic in plain torch: q (B,H,D) f32, k and v
+    (B, limit, Hkv, D) f32 holding the f16 (or e5m2) values in logical key
+    order. Per (row, kv head, group of 8 query heads): splits of `split`
+    keys, inside a split steps of 16 kept keys dealt to 4 warps in turn,
+    q * 2^e and p * 2^12 as two f16 terms, exp2 of log2(e)-scaled scores,
+    the warps merged in order, then the splits in order."""
+    b_n, h_n, d = q.shape
+    hkv = k.shape[2]
+    g_n = h_n // hkv
+    out = torch.zeros((b_n, h_n, d))
+
+    def two(x):
+        hi = x.to(torch.float16).float()
+        return hi, (x - hi).to(torch.float16).float()
+
+    for b in range(b_n):
+        n = int(lens[b])
+        khi = min(n, limit)
+        klo = n - window if window and window > 0 and n - window > 0 else 0
+        if khi <= klo:
+            continue
+        for h in range(hkv):
+            for g0 in range(0, g_n, 8):
+                rows = slice(h * g_n + g0, h * g_n + min(g0 + 8, g_n))
+                qs = q[b, rows] * d ** -0.5
+                amax = float(qs.abs().max())
+                e = max(-100, min(100, 14 - math.frexp(amax)[1])) if amax else 0
+                q_hi, q_lo = two(qs * 2.0 ** e)
+                down = 2.0 ** -e * _LOG2E
+                parts = []
+                for s0 in range(klo // split * split, khi, split):
+                    lo, hi = max(klo, s0), min(khi, s0 + split)
+                    n_st = -(-(hi - lo) // _STEP)
+                    warps = []
+                    for w in range(min(n_st, 4)):
+                        m = torch.full((qs.shape[0], 1), -1e30)
+                        l = torch.zeros_like(m)
+                        acc = torch.zeros_like(qs)
+                        for i, j in enumerate(range(w, n_st, 4)):
+                            keys = torch.arange(lo + 16 * j, lo + 16 * j + 16)
+                            kept = keys < hi
+                            kt = torch.where(kept[:, None], k[b, keys.clamp(max=limit - 1), h], 0.0)
+                            vt = torch.where(kept[:, None], v[b, keys.clamp(max=limit - 1), h], 0.0)
+                            sc = ((q_hi @ kt.T) + (q_lo @ kt.T)) * down
+                            sc = torch.where(kept[None], sc, -1e30)
+                            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                            corr = torch.exp2(m - m_new)
+                            p = torch.exp2(sc - m_new)
+                            l = l * corr + p.sum(-1, keepdim=True)
+                            if i > 0:
+                                acc = acc * corr
+                            p_hi, p_lo = two(p * 4096.0)
+                            acc = acc + (p_hi @ vt + p_lo @ vt)
+                            m = m_new
+                        warps.append((m, l, acc))
+                    big = torch.stack([x[0] for x in warps]).amax(0)
+                    o = sum(torch.exp2(x[0] - big) * x[2] for x in warps)
+                    lsum = sum(torch.exp2(x[0] - big) * x[1] for x in warps)
+                    parts.append((big, lsum, o / 4096.0))
+                big = torch.stack([x[0] for x in parts]).amax(0)
+                o = sum(torch.exp2(x[0] - big) * x[2] for x in parts)
+                lsum = sum(torch.exp2(x[0] - big) * x[1] for x in parts)
+                out[b, rows] = o / torch.clamp(lsum, min=1e-30)
+    return out
+
+
+def _planes_values(planes, fp8):
+    k_hi, k_lo, v_hi, v_lo = (_t(p) for p in planes)
+    if fp8:
+        return (tnf.e5m2_view(k_hi, torch.float16).float(),
+                tnf.e5m2_view(v_hi, torch.float16).float())
+    return (tnf.join_bytes(k_hi, k_lo).float(),
+            tnf.join_bytes(v_hi, v_lo).float())
+
+
+class TestDecodeSplitDesign:
+    """The split + combine arithmetic of the card's K4/K5 body
+    (`_split_design`), held to the Pallas kernels in interpret mode at the
+    unchanged 2e-4: lens 1, S-1, S, S+1 and several splits (S = 512),
+    windows whose first kept key lands mid-split and on a split edge, K4
+    rows of len 0, a block size that does not divide 512, and G = 10 (two
+    head groups)."""
+
+    @pytest.mark.parametrize("fp8", [False, True])
+    @pytest.mark.parametrize("window", [None, 273, 300])
+    @pytest.mark.parametrize("h,hkv", [(4, 2), (20, 2)])
+    def test_dense_split_design_matches_pallas(self, h, hkv, window, fp8):
+        """lens 785 and 600: window 273 starts row 785 at key 512, a split
+        edge; window 300 starts it at 485 and row 600 at 300, mid-split."""
+        rng = np.random.default_rng(41)
+        b, d, cap = 6, 64, 1024
+        q = rng.normal(size=(b, h, d)).astype(np.float32)
+        kv = rng.normal(size=(2, b, cap, hkv, d)).astype(np.float16)
+        planes = [np.asarray(p) for p in (
+            *jnf.split_bytes(jnp.asarray(kv[0])),
+            *jnf.split_bytes(jnp.asarray(kv[1])))]
+        lens = np.asarray([1, 511, 512, 513, 785, 600], np.int32)
+        want = np.asarray(j_dense_attn(
+            jnp.asarray(q), *map(jnp.asarray, planes), jnp.asarray(lens),
+            fp8=fp8, block_c=256, window=window, interpret=True))
+        k, v = _planes_values(planes, fp8)
+        got = _split_design(_t(q), k, v, lens, limit=cap,
+                            split=_split_keys(1), window=window).numpy()
+        np.testing.assert_allclose(got, want, **ATTN_TOL)
+
+    @pytest.mark.parametrize("fp8", [False, True])
+    @pytest.mark.parametrize("window", [None, 128, 300])
+    @pytest.mark.parametrize("bs,mb,lens", [
+        (32, 20, [0, 1, 511, 512, 513, 640]),
+        (24, 24, [0, 503, 504, 505, 576])])
+    def test_paged_split_design_matches_pallas(self, bs, mb, lens, window,
+                                               fp8):
+        rng = np.random.default_rng(42)
+        b, h, hkv, d = len(lens), 4, 2, 64
+        nb = 1 + b * mb
+        tables = rng.permutation(np.arange(1, nb)).astype(np.int32)
+        tables = tables.reshape(b, mb)
+        tables[-1, :2] = tables[1, :2]          # COW-shared prefix blocks
+        lens = np.asarray(lens, np.int32)
+        for r in range(b):
+            tables[r, -(-int(lens[r]) // bs):] = 0
+        q = rng.normal(size=(b, h, d)).astype(np.float32)
+        kv = rng.normal(size=(2, nb, bs, hkv, d)).astype(np.float16)
+        planes = [np.asarray(p) for p in (
+            *jnf.split_bytes(jnp.asarray(kv[0])),
+            *jnf.split_bytes(jnp.asarray(kv[1])))]
+        jargs = dict(fp8=fp8, interpret=True)
+        if window:
+            jargs["window"] = window
+        want = np.asarray(j_paged_attn(
+            jnp.asarray(q), *map(jnp.asarray, planes), jnp.asarray(tables),
+            jnp.asarray(lens), **jargs))
+        k, v = _planes_values(planes, fp8)
+        rows = _t(tables).long()
+        k = k[rows].reshape(b, mb * bs, hkv, d)
+        v = v[rows].reshape(b, mb * bs, hkv, d)
+        got = _split_design(_t(q), k, v, lens, limit=mb * bs,
+                            split=_split_keys(bs), window=window).numpy()
+        live = lens > 0
+        assert np.array_equal(got[~live], np.zeros_like(got[~live]))
+        np.testing.assert_allclose(got[live], want[live], **ATTN_TOL)
 
 
 class TestFlashPrefillAttention:
