@@ -4,13 +4,14 @@
     python3 chip_smoke.py                 # every phase, as a check of the port
 
 Phases, in order; any failed check exits non-zero before the last line:
-  1. card     print the card's name and power limit; build the eight CUDA
+  1. card     print the card's name and power limit; build the nine CUDA
               kernels from `src/repro_torch/csrc` (one nvcc per source,
               all at once)
   2. kernels  hold each kernel against its plain PyTorch version on the
               card at llama3.1-8b's shapes, and time kernel, plain version
-              and one library call (yardstick only) with cold inputs; K1,
-              K3 and K7 also by CUDA-graph replay (device time)
+              and one library call (yardstick only) with cold inputs; the
+              GEMMs (K1, K2, K3, K7), the decode attentions and the
+              per-token quantizer also by CUDA-graph replay (device time)
   3. slice    llama3.1-8b at full width, 2 layers, one planted exception
               tensor: `paged_step` logits, and the dense-slot `prefill` +
               4 `decode_step`s in f32 activations and under `serve_rt`
@@ -111,9 +112,10 @@ def max_err(torch, got, want, rtol, atol) -> float:
 
 def gemm_phase(torch, iters: int) -> list[dict]:
     """K1, K2, K3 at llama3.1-8b's GEMM shapes, M = 8 (decode), 256 and
-    8192 (a prefill of 8 x 1024), and at ragged M, N and K. K1, K3 and
-    torch.matmul also by CUDA-graph replay (device ms), with the dynamic
-    shared memory of the K1/K3 body that runs."""
+    8192 (a prefill of 8 x 1024), and at ragged M, N and K. Each also by
+    CUDA-graph replay (device ms) beside its library call (K1, K3:
+    torch.matmul; K2: row-wise torch._scaled_mm), with the dynamic shared
+    memory of the body that runs."""
     from repro_torch.core import nestedfp as nf
     from repro_torch.core import quant
     from repro_torch.kernels import ref
@@ -122,6 +124,8 @@ def gemm_phase(torch, iters: int) -> list[dict]:
     from repro_torch.kernels.nestedfp16_matmul import (
         dynamic_smem_bytes as smem_k1)
     from repro_torch.kernels.nestedfp16_matmul import nestedfp16_matmul
+    from repro_torch.kernels.nestedfp8_matmul import (
+        dynamic_smem_bytes as smem_k2)
     from repro_torch.kernels.nestedfp8_matmul import nestedfp8_matmul
 
     dev = torch.device("cuda")
@@ -161,6 +165,7 @@ def gemm_phase(torch, iters: int) -> list[dict]:
         }
         lib8 = scaled_mm_yardstick(torch, xq, xs, [p[0] for p in planes])
         smem = {"nestedfp16_matmul": smem_k1(x16, *planes[0]),
+                "nestedfp8_matmul": smem_k2(xq, planes[0][0]),
                 "f16_matmul": smem_k3(x16, ws[0])}
         for name, (kern, plain, lib, nbytes, kind) in cases.items():
             err = max_err(torch, kern(0), plain(0), GEMM_RTOL, GEMM_ATOL)
@@ -176,10 +181,12 @@ def gemm_phase(torch, iters: int) -> list[dict]:
             extra = ""
             if name in smem:
                 row["device_ms"] = graph_ms(torch, kern, n_sets)
-                row["library_device_ms"] = graph_ms(torch, lib, n_sets)
+                row["library_device_ms"] = (None if lib is None
+                                            else graph_ms(torch, lib, n_sets))
                 row["smem_bytes"] = smem[name]
+                lib_d = row["library_device_ms"]
                 extra = (f" device={row['device_ms']:.4f} lib_device="
-                         f"{row['library_device_ms']:.4f} "
+                         f"{None if lib_d is None else round(lib_d, 4)} "
                          f"smem={row['smem_bytes']} B")
             rows[name].append(row)
             log(f"  {name:18s} M={m:4d} K={k:5d} N={n:5d} err={err:.2e} "
@@ -192,18 +199,30 @@ def gemm_phase(torch, iters: int) -> list[dict]:
 
 
 def gemm_layer_sums(rows: dict) -> None:
-    """Log one llama3.1-8b layer's seven GEMMs for K1, K3 and torch.matmul
-    at M = 8, 256 and 8192: host-timed and device (graph replay) sums, the
-    bound, and the K1/K3 ratio (the cost of the rebuild, paper Fig. 7)."""
+    """Log one llama3.1-8b layer's seven GEMMs for K1, K3 and torch.matmul,
+    and for K2 and row-wise torch._scaled_mm, at M = 8, 256 and 8192:
+    host-timed and device (graph replay) sums, the bounds, the K1/K3
+    ratio (the cost of the rebuild, paper Fig. 7) and K2/_scaled_mm."""
     for m in (8, 256, 8192):
         sums = {}
-        for name in ("nestedfp16_matmul", "f16_matmul"):
+        for name in ("nestedfp16_matmul", "f16_matmul", "nestedfp8_matmul"):
             sel = [(r, LLAMA_KN.count((r["k"], r["n"]))) for r in rows[name]
                    if r["m"] == m and (r["k"], r["n"]) in LLAMA_KN]
-            sums[name] = {key: sum(r[key] * w for r, w in sel)
+            sums[name] = {key: None if any(r[key] is None for r, _ in sel)
+                          else sum(r[key] * w for r, w in sel)
                           for key in ("ms", "device_ms", "library_ms",
                                       "library_device_ms", "bound_ms")}
         k1, k3 = sums["nestedfp16_matmul"], sums["f16_matmul"]
+        k2 = sums["nestedfp8_matmul"]
+        lib = ("refused" if k2["library_ms"] is None else
+               f"{k2['library_ms']:.4f} (device "
+               f"{k2['library_device_ms']:.4f}); K2/_scaled_mm "
+               f"{k2['ms'] / k2['library_ms']:.3f} (device "
+               f"{k2['device_ms'] / k2['library_device_ms']:.3f})")
+        log(f"  layer M={m}: K2 {k2['ms']:.4f} ms (device "
+            f"{k2['device_ms']:.4f}), bound {k2['bound_ms']:.4f}, device "
+            f"share of bound {k2['bound_ms'] / k2['device_ms']:.3f}; "
+            f"row-wise _scaled_mm {lib}")
         log(f"  layer M={m}: K1 {k1['ms']:.4f} ms (device "
             f"{k1['device_ms']:.4f}), K3 {k3['ms']:.4f} (device "
             f"{k3['device_ms']:.4f}), torch.matmul {k1['library_ms']:.4f} "
@@ -467,6 +486,77 @@ def fused_quant_phase(torch, iters: int) -> list[dict]:
             log(f"  nestedfp8_matmul_fused_quant ragged M={m} K={k} N={n} "
                 f"{str(dtype)[6:]} err={err:.2e} smem="
                 f"{dynamic_smem_bytes(u, m)} B")
+    return rows
+
+
+def quant_phase(torch, iters: int) -> list[dict]:
+    """The per-token quantizer in front of K2: codes and scales bitwise
+    those of `quant.quantize_act_per_token` (its plain version) on the
+    card, for f32 (the engine's activations), f16 and bf16 rows with an
+    all-zero row and rows reaching +-amax; timed at llama3.1-8b's GEMM
+    input widths (K = 4096 for q/k/v, o, gate/up; 14336 for down),
+    M = 8, 256 and 8192, host and device (graph replay) ms."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.quant_per_token import quant_per_token
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for k in (4096, 14336):
+        for m in (8, 256, 8192):
+            for dtype in (torch.float32, torch.float16, torch.bfloat16):
+                n_sets = max(2, math.ceil(2 * L2_BYTES / (m * k * 2)) + 1)
+                xs = []
+                for _ in range(n_sets):
+                    x = torch.randn((m, k), generator=gen, device=dev)
+                    x *= torch.exp(torch.empty((m, 1), device=dev).uniform_(
+                        -4, 4, generator=gen))
+                    x[1] = 0.0
+                    x[2, k // 3] = x[2].abs().max() * 2
+                    x[3, k - 1] = -x[3].abs().max() * 2
+                    xs.append(x.to(dtype))
+
+                def kern(i):
+                    return quant_per_token(xs[i])
+
+                def plain(i):
+                    return quant.quantize_act_per_token(xs[i])
+
+                for i in range(n_sets):
+                    (q, s), (wq, ws) = kern(i), plain(i)
+                    check(torch.equal(s, ws) and torch.equal(
+                        q.view(torch.uint8), wq.view(torch.uint8)),
+                        f"quant_per_token M={m} K={k} {dtype}: codes or "
+                        f"scales differ from quant.quantize_act_per_token")
+                es = xs[0].element_size()
+                b_ms, b_kind = bound(m * k * (es + 1) + 4 * m, 0.0, "f32")
+                row = {"m": m, "k": k, "dtype": str(dtype)[6:],
+                       "max_abs_err": 0.0,
+                       "ms": time_ms(torch, kern, n_sets, iters),
+                       "plain_ms": time_ms(torch, plain, n_sets, iters),
+                       "library_ms": None, "bound_ms": b_ms,
+                       "bound_by": b_kind,
+                       "device_ms": graph_ms(torch, kern, n_sets),
+                       "plain_device_ms": graph_ms(torch, plain, n_sets)}
+                rows.append(row)
+                log(f"  quant_per_token M={m:4d} K={k:5d} {row['dtype']:8s} "
+                    f"bitwise; ms={row['ms']:.4f} plain={row['plain_ms']:.4f}"
+                    f" device={row['device_ms']:.4f} plain_device="
+                    f"{row['plain_device_ms']:.4f} bound={b_ms:.5f} "
+                    f"({b_kind}); no single PyTorch call quantizes per row")
+                del xs
+    # ROADMAP F-port-6: PyTorch divides a CUDA tensor by a Python number
+    # as a multiply by the number's reciprocal, which is why
+    # quant._dequant_scale divides by a tensor; the share of amax values
+    # where the two differ
+    amax = torch.empty(20000, device=dev).uniform_(1, 2, generator=gen) * (
+        2.0 ** torch.randint(-30, 30, (20000,), device=dev, generator=gen))
+    ieee = amax / torch.full_like(amax, 448.0)
+    check(torch.equal(ieee.cpu(), amax.cpu() / torch.full((20000,), 448.0)),
+          "tensor / tensor on the card is not the CPU's IEEE quotient")
+    share = float(((amax / 448.0) != ieee).float().mean())
+    log(f"  amax / 448.0 on the card misses the IEEE quotient for "
+        f"{share:.4f} of 20000 amax values")
     return rows
 
 
@@ -910,7 +1000,7 @@ def serve_phase(torch, cfg, n_layers: int) -> dict:
         del eng
     need = {"fp16": ("nestedfp16_matmul", "f16_matmul",
                      "paged_planar_decode_attention"),
-            "fp8": ("nestedfp8_matmul", "f16_matmul",
+            "fp8": ("nestedfp8_matmul", "quant_per_token", "f16_matmul",
                     "paged_planar_decode_attention")}
     for policy, names in need.items():
         for name in names:
@@ -940,8 +1030,20 @@ def profile_decode(torch, Engine, Request, cfg, sp, prompts, mode,
         eng.step()
     torch.cuda.synchronize()
     wall_ms, by_name = device_ms_by_kernel(torch, eng.step, n_steps)
-    return profile_summary(f"profile {mode}: {n_steps} decode steps",
-                           wall_ms, step_ms, by_name)
+    res = profile_summary(f"profile {mode}: {n_steps} decode steps",
+                          wall_ms, step_ms, by_name)
+    # K2 (its mma body's RowScale instances, or the WMMA body's kNested8
+    # instances) and the per-token quantizer
+    res["k2_device_ms_per_step"] = sum(
+        v for k, v in by_name.items()
+        if ("mma_kernel" in k and "RowScale" in k)
+        or ("gemm_kernel" in k and "(nfp::Op)1" in k))
+    res["quant_device_ms_per_step"] = sum(
+        v for k, v in by_name.items() if "quant_per_token_kernel" in k)
+    log(f"  profile {mode}: K2 {res['k2_device_ms_per_step']:.3f} ms, "
+        f"per-token quantizer {res['quant_device_ms_per_step']:.3f} ms of "
+        f"device time a decode step")
+    return res
 
 
 def device_ms_by_kernel(torch, run, n_calls: int):
@@ -1181,7 +1283,7 @@ def _linears(tree, cls):
 SOURCES = {
     "nestedfp16_matmul": ("src/repro_torch/csrc/nestedfp16_matmul.cu",
                           "src/repro/kernels/nestedfp16_matmul.py:81"),
-    "nestedfp8_matmul": ("src/repro_torch/csrc/nestedfp8_matmul.cu",
+    "nestedfp8_matmul": ("src/repro_torch/csrc/fp8_mma_gemm.cuh",
                          "src/repro/kernels/nestedfp8_matmul.py:67"),
     "f16_matmul": ("src/repro_torch/csrc/f16_matmul.cu",
                    "src/repro/kernels/f16_matmul.py:48"),
@@ -1199,6 +1301,9 @@ SOURCES = {
         "src/repro/kernels/nestedfp8_matmul.py:122"),
     "nestedfp_encode": ("src/repro_torch/csrc/nestedfp_encode.cu",
                         "src/repro/kernels/nestedfp_encode.py:45"),
+    # no Pallas kernel: the JAX function that XLA fuses under jit
+    "quant_per_token": ("src/repro_torch/csrc/quant_per_token.cu",
+                        "src/repro/core/quant.py:35"),
 }
 
 # which measured calls make up each kernel's numbers in the kernels line
@@ -1220,6 +1325,10 @@ LINE_WEIGHTS = {
         lambda r: int((r["dtype"], r["b"], r["s"]) == ("bfloat16", 8, 1024))),
     # one 4096 x 14336 weight
     "nestedfp_encode": lambda r: 1,
+    # the seven quantizations of one layer in one fp8 decode step (M = 8,
+    # f32 rows as the engine gives them): six of width 4096, one of 14336
+    "quant_per_token": (lambda r: (r["m"] == 8 and r["dtype"] == "float32")
+                        * {4096: 6, 14336: 1}[r["k"]]),
 }
 
 
@@ -1327,6 +1436,7 @@ def main() -> int:
         rows["nestedfp8_matmul_fused_quant"] = fused_quant_phase(
             torch, args.iters)
         rows["nestedfp_encode"] = encode_phase(torch, args.iters)
+        rows["quant_per_token"] = quant_phase(torch, args.iters)
         results["kernel_rows"] = rows
     cfg = get_arch("llama3.1-8b")
     if "slice" in phases:

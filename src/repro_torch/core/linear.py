@@ -10,7 +10,8 @@ One weight copy (2 bytes/weight) serves both modes:
                quantizes inside the GEMM) or "per_token" (one scale per
                activation row, which makes every token's result
                independent of what shares the batch — the serving
-               engine's choice; quantize, then K2).
+               engine's choice; one launch of the per-token quantizer,
+               then K2).
 Exception tensors (any |w| > 1.75) always run the f16 path (K3), in both
 modes (paper §4.2 "Handling Exception Layers").
 """
@@ -60,7 +61,7 @@ def nested_linear(params: NestedLinearParams, x: torch.Tensor, *,
         y = ops.matmul_nested_f16(x.to(torch.float16), w.upper, w.lower)
     elif mode == "fp8":
         if act_quant == "per_token":
-            xq, scale = quant.quantize_act_per_token(x)
+            xq, scale = ops.quantize_act_per_token(x)
             y = ops.matmul_nested_fp8(xq, w.upper, scale.reshape(-1, 1))
         elif act_quant == "per_tensor":
             y = ops.matmul_nested_fp8_fused_quant(x, w.upper,

@@ -1,9 +1,9 @@
-// The WMMA tiling of K2 (nestedfp8_matmul), and the body of K1, K3 and K7
-// for shapes outside their TMA rule (N not a multiple of 16, K not a
-// multiple of 8 or 16, unaligned operands): out (M,N) f32 = A (M,K) @
-// B (K,N), with B stored (K,N) row-major exactly as the JAX package lays
-// it out. The TMA-fed bodies are wgmma_gemm.cuh (K1, K3) and
-// nestedfp8_matmul_fused_quant.cu (K7).
+// The WMMA tiling that was K2's first body (nestedfp8_matmul), kept as the
+// body of K1, K2, K3 and K7 for shapes outside their TMA rules (N not a
+// multiple of 16, K not a multiple of 8 or 16, unaligned operands): out
+// (M,N) f32 = A (M,K) @ B (K,N), with B stored (K,N) row-major exactly as
+// the JAX package lays it out. The TMA-fed bodies are wgmma_gemm.cuh (K1,
+// K3) and fp8_mma_gemm.cuh (K2, K7).
 //
 // Design (the first slice's, simple first):
 //   * A block of 2 or 4 warps owns a BM x BN output tile and walks K in
@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace nfp {
 
@@ -96,6 +98,17 @@ __device__ __forceinline__ uint4 e4m3x8_to_f16x8(uint2 b) {
 __device__ __forceinline__ uint32_t quant_e4m3(float x, float inv) {
   const float v = fminf(fmaxf(x * inv, -448.f), 448.f);
   return (uint32_t)__nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
+}
+
+// An activation of type T (f32, f16 or bf16) in f32, exactly
+template <typename T>
+__device__ __forceinline__ float to_f32(T v) {
+  if constexpr (std::is_same<T, float>::value)
+    return v;
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(v);
+  else
+    return __half2float(v);
 }
 
 // 8 activations (as 32-bit words of f32 bits, or 16-bit f16/bf16 bits in

@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNELS = ("nestedfp16_matmul", "nestedfp8_matmul", "f16_matmul",
            "paged_planar_decode_attention", "planar_decode_attention",
            "flash_prefill_attention", "nestedfp8_matmul_fused_quant",
-           "nestedfp_encode")
+           "nestedfp_encode", "quant_per_token")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,10 +1,14 @@
 """K2: FP8-mode GEMM on the NestedFP upper plane.
 
 Port of `repro/kernels/nestedfp8_matmul.py::nestedfp8_matmul` (a Pallas
-TPU kernel) to the CUDA kernel in `csrc/nestedfp8_matmul.cu`. The kernel
-reads only `upper` (1 byte a weight) and folds the activation scale —
-one scalar, or one factor a row — and 2^-8 into its epilogue. CPU
-tensors take the plain version (`ref.nestedfp8_matmul_ref`).
+TPU kernel) to the CUDA kernel in `csrc/nestedfp8_matmul.cu`, which runs
+the TMA + `mma.sync` e4m3 body it shares with K7 (`csrc/fp8_mma_gemm.cuh`).
+The kernel reads only `upper` (1 byte a weight) and folds the activation
+scale — one scalar, or one factor a row — and 2^-8 into its epilogue.
+Shapes with K or N not a multiple of 16, or an `upper` or `x_q` that is
+not 16-byte aligned (a view into a larger buffer), take the WMMA body of
+`csrc/gemm_tile.cuh` instead; the C entry decides before it launches.
+CPU tensors take the plain version (`ref.nestedfp8_matmul_ref`).
 """
 
 from __future__ import annotations
@@ -50,3 +54,13 @@ def nestedfp8_matmul(x_q: torch.Tensor, upper: torch.Tensor,
 
 
 nestedfp8_matmul.launches = 0
+
+
+def dynamic_smem_bytes(x_q: torch.Tensor, upper: torch.Tensor) -> int:
+    """Dynamic shared memory of the body the C entry picks for these
+    operands: 0 for the WMMA body, whose tiles are static."""
+    fn = _build.function("nestedfp8_matmul", "nestedfp8_matmul_smem",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3)
+    m = x_q.shape[0]
+    k, n = upper.shape
+    return int(fn(x_q.data_ptr(), upper.data_ptr(), m, n, k))

@@ -23,11 +23,14 @@ from repro_torch.kernels.planar_decode_attention import (
     paged_planar_decode_attention)
 from repro_torch.kernels.planar_decode_attention import (
     planar_decode_attention as _planar_decode_attention)
+from repro_torch.kernels.quant_per_token import quant_per_token
 
+# the eight kernels that replace a Pallas kernel, then the per-token
+# quantizer in front of K2 (which replaces an XLA-fused function)
 KERNEL_FNS = (nestedfp16_matmul, nestedfp8_matmul, f16_matmul,
               paged_planar_decode_attention, _planar_decode_attention,
               _flash_prefill_attention, nestedfp8_matmul_fused_quant,
-              nestedfp_encode)
+              nestedfp_encode, quant_per_token)
 
 
 def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -40,6 +43,16 @@ def matmul_nested_f16(x: torch.Tensor, upper: torch.Tensor,
     k, n = upper.shape
     out = nestedfp16_matmul(_rows(x, k), upper, lower)
     return out.reshape(*x.shape[:-1], n)
+
+
+def quantize_act_per_token(x: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token absmax e4m3 quant in one kernel launch: x (..., K)
+    f32/f16/bf16 -> (codes (..., K) e4m3, dequant scales (..., 1) f32),
+    bitwise `quant.quantize_act_per_token`."""
+    k = x.shape[-1]
+    q, s = quant_per_token(_rows(x, k))
+    return q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)
 
 
 def matmul_nested_fp8(x_q: torch.Tensor, upper: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the eight kernels of the port.
+"""Plain PyTorch versions of the kernels of the port: the eight that
+replace a Pallas kernel, and the per-token quantizer in front of K2.
 
 Each repeats its kernel's arithmetic with f32 accumulation; the GEMMs
 sum in f64 and round once to f32 (`_exact_rows_matmul`). A kernel
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import nestedfp as nf
+from repro_torch.core import quant
 
 NEG_INF = -1e30
 
@@ -44,6 +46,13 @@ def nestedfp8_matmul_ref(x_q: torch.Tensor, upper: torch.Tensor,
     (per-tensor) or (M,1) (per-token)."""
     acc = _exact_rows_matmul(x_q, nf.fp8_view(upper))
     return acc * x_scale * nf.FP8_DEQUANT_SCALE
+
+
+def quantize_per_token_ref(x: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-token quantizer: (M,K) x -> (codes (M,K) e4m3, scales (M,1)
+    f32), exactly `quant.quantize_act_per_token`."""
+    return quant.quantize_act_per_token(x)
 
 
 def fused_quant_codes(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:

@@ -64,6 +64,151 @@ def test_nestedfp8_matmul(dev, shape, act_quant):
                                **GEMM_TOL)
 
 
+# K2 runs the TMA + mma.sync body of csrc/fp8_mma_gemm.cuh (shared with
+# K7) when K % 16 == 0, N % 16 == 0 and upper and x_q are 16-byte
+# aligned, in four tile configs picked by M (<= 16, <= 64, <= 256,
+# beyond); other shapes run gemm_tile.cuh's body
+K2_M = [1, 8, 16, 17, 64, 65, 256, 257, 1024, 8192]
+
+
+def _k2(x, w, per_row=True):
+    xq, s = quant.quantize_act_per_token(x)
+    if not per_row:
+        s = s.amax().reshape(1)
+    return ops.matmul_nested_fp8(xq, nf.encode(w)[0], s), xq, s
+
+
+@pytest.mark.parametrize("per_row", [True, False])
+@pytest.mark.parametrize("kn", [(4096, 4096), (4096, 1024), (4096, 14336),
+                                (14336, 4096)])
+@pytest.mark.parametrize("m", K2_M)
+def test_nestedfp8_matmul_llama_shapes(dev, m, kn, per_row):
+    """Every llama3.1-8b GEMM shape in every tile config, with per-row
+    and with one scalar scale, against the plain version (f64 sums)."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    k, n = kn
+    x = torch.randn((m, k), generator=gen, device=dev)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).half()
+    n0 = ops.all_launch_counters()["nestedfp8_matmul"]
+    got, xq, s = _k2(x, w, per_row)
+    assert ops.all_launch_counters()["nestedfp8_matmul"] == n0 + 1
+    torch.testing.assert_close(
+        got, ref.nestedfp8_matmul_ref(xq, nf.encode(w)[0], s), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("case", ["37x999x1001", "5x4096x1000",
+                                  "x_q 8 bytes off"])
+def test_nestedfp8_matmul_fallback_body(dev, case):
+    """Ragged K or N, and an x_q view whose base is not 16-byte aligned,
+    take gemm_tile.cuh's body (no dynamic shared memory) and still match
+    the plain version."""
+    from repro_torch.kernels.nestedfp8_matmul import (
+        dynamic_smem_bytes, nestedfp8_matmul)
+    m, k, n = {"37x999x1001": (37, 999, 1001), "5x4096x1000": (5, 4096, 1000),
+               "x_q 8 bytes off": (8, 4096, 1024)}[case]
+    x, w = _gemm(dev, m, k, n, seed=15)
+    xq, s = quant.quantize_act_per_token(x)
+    if case == "x_q 8 bytes off":
+        buf = torch.zeros(m * k + 16, dtype=torch.uint8, device=dev)
+        buf[8:8 + m * k] = xq.view(torch.uint8).flatten()
+        xq = buf[8:8 + m * k].view(m, k).view(torch.float8_e4m3fn)
+    u = nf.encode(w)[0]
+    assert dynamic_smem_bytes(xq, u) == 0
+    n0 = ops.all_launch_counters()["nestedfp8_matmul"]
+    got = nestedfp8_matmul(xq, u, s)
+    assert ops.all_launch_counters()["nestedfp8_matmul"] == n0 + 1
+    torch.testing.assert_close(got, ref.nestedfp8_matmul_ref(xq, u, s),
+                               **GEMM_TOL)
+
+
+def test_nestedfp8_body_rule(dev):
+    """K % 16 == 0, N % 16 == 0 and 16-byte aligned upper and x_q take the
+    mma body (dynamic shared memory by M's tile config, the same as K7's
+    at that M); anything else gemm_tile.cuh's body (none)."""
+    from repro_torch.kernels.nestedfp8_matmul import dynamic_smem_bytes
+    from repro_torch.kernels.nestedfp8_matmul_fused_quant import (
+        dynamic_smem_bytes as smem_k7)
+
+    def smem(m, k, n, x_off=0, u_off=0):
+        x = torch.zeros(m * k + 16, dtype=torch.uint8, device=dev)
+        x = x[x_off:x_off + m * k].view(m, k).view(torch.float8_e4m3fn)
+        u = torch.zeros(k * n + 16, dtype=torch.uint8, device=dev)
+        return dynamic_smem_bytes(x, u[u_off:u_off + k * n].view(k, n))
+
+    for m in (1, 16, 17, 64, 65, 256, 257, 8192):
+        u = torch.zeros((4096, 1024), dtype=torch.uint8, device=dev)
+        assert smem(m, 4096, 1024) == smem_k7(u, m) > 0
+    # at M <= 16 an N above 4224 takes K2's own config (BN = 128)
+    wide = torch.zeros((4096, 14336), dtype=torch.uint8, device=dev)
+    assert smem(16, 4096, 14336) > smem_k7(wide, 16) > 0
+    assert smem(17, 4096, 14336) == smem_k7(wide, 17)
+    assert smem(8, 4096, 4096) == smem_k7(wide[:, :4096].contiguous(), 8)
+    assert smem(37, 1040, 1008) > 0
+    assert smem(37, 999, 1001) == 0              # ragged K and N
+    assert smem(5, 4096, 1000) == 0              # N % 16 != 0
+    assert smem(8, 4104, 1024) == 0              # K % 16 != 0
+    assert smem(8, 4096, 1024, x_off=8) == 0     # x_q 8 bytes off
+    assert smem(8, 4096, 1024, u_off=8) == 0     # upper 8 bytes off
+
+
+def _quant_rows(dev, m, k, dtype, seed):
+    """m rows of random magnitudes with the edge rows: all zero, +amax
+    and -amax reached exactly, signed zeros."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=dev) * torch.exp(
+        torch.empty((m, 1), device=dev).uniform_(-6, 6, generator=gen))
+    if m >= 4:
+        x[1] = 0.0
+        x[2, k // 3] = x[2].abs().max() * 2
+        x[3, k - 1] = -x[3].abs().max() * 2
+        x[0, :2] = torch.tensor([-0.0, 0.0], device=dev)
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("mk", [(1, 4096), (8, 4096), (37, 14336),
+                                (8, 1000), (5, 100), (256, 4096),
+                                (4, 16392), (4, 20001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_quant_per_token_bitwise(dev, dtype, mk):
+    """The kernel's codes and scales are bitwise those of
+    quant.quantize_act_per_token on the card and on the CPU, for every
+    input type, the edge rows included; K = 1000, 100 and 20001 take the
+    one-element loads, K = 16392 and 20001 the two-pass variant for rows
+    longer than the registers hold."""
+    x = _quant_rows(dev, *mk, dtype, seed=16)
+    n0 = ops.all_launch_counters()["quant_per_token"]
+    q, s = ops.quantize_act_per_token(x)
+    assert ops.all_launch_counters()["quant_per_token"] == n0 + 1
+    assert q.dtype == torch.float8_e4m3fn and s.shape == (mk[0], 1)
+    for wq, ws in (quant.quantize_act_per_token(x),
+                   quant.quantize_act_per_token(x.cpu())):
+        assert torch.equal(s.cpu(), ws.cpu())
+        assert torch.equal(q.view(torch.uint8).cpu(),
+                           wq.view(torch.uint8).cpu())
+    if mk[0] >= 4:
+        eps_scale = torch.tensor(1e-12) / torch.tensor(448.0)
+        assert s[1].item() == eps_scale.item()
+        assert not q[1].view(torch.uint8).any()
+        assert q[2].float().abs().max().item() == 448.0
+        assert q[3, -1].float().item() == -448.0
+
+
+def test_per_token_scale_divides_on_the_card(dev):
+    """quant.quantize_act_per_token's scale on the card is the IEEE
+    quotient amax / 448, bitwise the CPU's, over 20000 amax values."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    amax = torch.empty(20000, device=dev).uniform_(1, 2, generator=gen) * (
+        2.0 ** torch.randint(-30, 30, (20000,), device=dev, generator=gen))
+    x = torch.zeros((20000, 3), device=dev)
+    x[:, 1] = -amax
+    _, s = quant.quantize_act_per_token(x)
+    _, s_cpu = quant.quantize_act_per_token(x.cpu())
+    assert torch.equal(s.cpu(), s_cpu)
+    _, s_kernel = ops.quantize_act_per_token(x)
+    assert torch.equal(s_kernel, s)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_f16_matmul(dev, shape):
     x, w = _gemm(dev, *shape, seed=2)
@@ -115,16 +260,27 @@ def test_wgmma_sums_hold_f32_accuracy(dev, kernel):
 
 
 @pytest.mark.parametrize("m", [8, 16, 64, 65, 256, 257, 2048])
-@pytest.mark.parametrize("kernel", ["k1", "k3"])
+@pytest.mark.parametrize("kernel", ["k1", "k3", "k2"])
 def test_gemm_rows_do_not_depend_on_the_batch(dev, kernel, m):
     """Row 17 (the last row when m is smaller) computed alone equals the
     same row inside a batch of m rows bitwise, across every tile config:
-    one k order, no split-K, whatever the wgmma N."""
+    one k order, no split-K, whatever the wgmma N; K2 with per-row scales
+    (m = 16, 64, 256 and 2048 are the last M of its four configs)."""
     x, w = _gemm(dev, 2048, 4096, 1024, seed=13)
     x = x.half()
-    fn = {"k1": _k1, "k3": _k3}[kernel]
+    fn = {"k1": _k1, "k3": _k3, "k2": lambda x, w: _k2(x, w)[0]}[kernel]
     r = min(17, m - 1)
     assert torch.equal(fn(x[:m], w)[r:r + 1], fn(x[r:r + 1], w))
+
+
+@pytest.mark.parametrize("m", [16, 17, 64, 257])
+def test_k2_rows_do_not_depend_on_the_batch_at_wide_n(dev, m):
+    """At N = 14336 K2 runs its wide decode config for M <= 16 and K7's
+    configs beyond; row 17 (row 15 at m = 16) alone equals the same row
+    inside the batch bitwise."""
+    x, w = _gemm(dev, 257, 4096, 14336, seed=18)
+    r = min(17, m - 1)
+    assert torch.equal(_k2(x[:m], w)[0][r:r + 1], _k2(x[r:r + 1], w)[0])
 
 
 def test_wgmma_body_rule(dev):

@@ -1,5 +1,6 @@
-"""The eight kernels of the PyTorch port, against the JAX package's Pallas
-kernels run in interpret mode on the CPU.
+"""The kernels of the PyTorch port, against the JAX package's Pallas
+kernels run in interpret mode on the CPU (the eight that replace one),
+and the per-token quantizer against the JAX package's function.
 
 On the CPU each kernel wrapper takes its plain PyTorch version, so these
 tests hold the plain versions to the Pallas kernels on seeded inputs.
@@ -107,6 +108,130 @@ class TestNestedFP8:
         full = tops.matmul_nested_fp8(xq, tu, s)
         one = tops.matmul_nested_fp8(xq[3:4], tu, s[3:4])
         np.testing.assert_array_equal(full[3:4].numpy(), one.numpy())
+
+    @staticmethod
+    def _mma_body(xq, upper, scale):
+        """K2's CUDA arithmetic (the mma body of csrc/fp8_mma_gemm.cuh) in
+        plain torch: each k32 product of the e4m3 values (mma.sync
+        m16n8k32) added to f32 accumulators, k from 0 upwards, then the
+        RowScale epilogue (acc * s) * 2^-8."""
+        codes = xq.float()
+        w = tnf.fp8_view(upper).float()
+        total = torch.zeros((codes.shape[0], w.shape[1]))
+        for k in range(0, codes.shape[1], 32):
+            total = total + codes[:, k:k + 32] @ w[k:k + 32]
+        return total * scale * 2.0 ** -8
+
+    @pytest.mark.parametrize("act_quant", ["per_tensor", "per_token"])
+    def test_mma_arithmetic_matches_pallas(self, act_quant):
+        x, w = _gemm_inputs(28, 40, 512, 128)
+        jxq, js = getattr(jquant, f"quantize_act_{act_quant}")(jnp.asarray(x))
+        txq, ts = getattr(tquant, f"quantize_act_{act_quant}")(_t(x))
+        if act_quant == "per_token":
+            js, ts = js.reshape(-1, 1), ts.reshape(-1, 1)
+        ju, _ = jnf.encode(jnp.asarray(w))
+        want = jops.matmul_nested_fp8(jxq, ju, js, backend="pallas_interpret",
+                                      block=BLOCK)
+        got = self._mma_body(txq, tnf.encode(_t(w))[0], ts)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GEMM_TOL)
+
+    def test_row_epilogue_order_equals_jax(self):
+        """K2's epilogue applies a row's scale inside the kernel as
+        (acc * s) * 2^-8; the JAX package runs its Pallas kernel with a
+        unit scale, (acc * 1 * 2^-8), and multiplies by s outside
+        (repro/kernels/ops.py::matmul_nested_fp8). Multiplying by 2^-8 is
+        exact for normal values, so the two agree bitwise over normal f32
+        ranges of sums and scales."""
+        rng = np.random.default_rng(29)
+        n = 200_000
+        acc = (rng.uniform(-1, 1, n) * 2.0 ** rng.integers(-60, 60, n)
+               ).astype(np.float32)
+        s = (rng.uniform(0.5, 1, n) * 2.0 ** rng.integers(-40, 10, n)
+             ).astype(np.float32)
+        ours = (_t(acc) * _t(s)) * 2.0 ** -8
+        ja = jnp.asarray(acc)
+        jax_order = np.asarray((ja * jnp.float32(1.0) * jnp.float32(2.0 ** -8))
+                               * jnp.asarray(s))
+        np.testing.assert_array_equal(ours.numpy(), jax_order)
+        assert np.all(np.abs(jax_order[jax_order != 0])
+                      >= np.finfo(np.float32).tiny)
+
+
+class TestPerTokenQuant:
+    """The per-token quantizer in front of K2: its plain version
+    (`ref.quantize_per_token_ref`, which is `quant.quantize_act_per_token`)
+    bitwise the JAX package's `quantize_act_per_token`, codes and scales;
+    the CUDA kernel is held bitwise to the plain version on the card."""
+
+    @staticmethod
+    def _rows(dtype):
+        """Rows of f32 values representable in `dtype`: random rows over
+        many magnitudes, an all-zero row, rows whose largest |x| sits at
+        +amax and at -amax exactly, and a row of values next to e4m3
+        midpoints (x / scale one f32 ulp either side of a midpoint)."""
+        rng = np.random.default_rng(30)
+        x = (rng.standard_normal((12, 160))
+             * np.exp(rng.uniform(-6, 6, (12, 1)))).astype(np.float32)
+        x[3] = 0.0
+        x[4, 7] = np.abs(x[4]).max() * 2          # +amax
+        x[5, 9] = -np.abs(x[5]).max() * 2         # -amax
+        x[6, :4] = [-0.0, 0.0, 1e-30, -1e-30]     # signed zeros, underflow
+        amax = np.float32(3.0)
+        scale = amax / np.float32(448.0)
+        codes = np.arange(256, dtype=np.uint8)
+        vals = jnp.asarray(codes).view(jnp.float8_e4m3fn).astype(jnp.float32)
+        vals = np.unique(np.abs(np.asarray(vals)[np.isfinite(vals)]))
+        mids = ((vals[:-1] + vals[1:]) / 2).astype(np.float32)[::4][:52]
+        near = np.concatenate([np.nextafter(mids * scale, np.float32(0)),
+                               mids * scale,
+                               np.nextafter(mids * scale, np.float32(9))])
+        x[7] = 0.0
+        x[7, 0] = amax
+        x[7, 1:1 + near.size] = near[:159] * np.where(
+            np.arange(min(near.size, 159)) % 2, 1, -1)
+        t = torch.from_numpy(x).to(dtype)
+        return t.float().numpy(), t
+
+    @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+    def test_plain_matches_jax_bitwise(self, dtype):
+        x32, tx = self._rows(getattr(torch, dtype))
+        jx = jnp.asarray(x32).astype(getattr(jnp, dtype))
+        jq, js = jquant.quantize_act_per_token(jx)
+        tq, ts = tref.quantize_per_token_ref(tx)
+        assert tq.dtype == torch.float8_e4m3fn and ts.shape == (12, 1)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(tq.view(torch.uint8).numpy(),
+                                      np.asarray(jq).view(np.uint8))
+        assert ts[3].item() == np.float32(1e-12) / np.float32(448)
+        assert not tq[3].view(torch.uint8).any()
+        assert tq[4, 7].float().item() == 448.0
+        assert tq[5, 9].float().item() == -448.0
+
+    def test_scale_is_an_ieee_division(self):
+        """amax / 448 divides: over 20000 amax values about half differ
+        from amax * (1/448) by an ulp, and the scales equal numpy's f32
+        division and JAX's."""
+        rng = np.random.default_rng(31)
+        amax = (rng.uniform(1, 2, 20000) * 2.0 ** rng.integers(-30, 30, 20000)
+                ).astype(np.float32)
+        x = np.zeros((amax.size, 3), np.float32)
+        x[:, 1] = -amax
+        _, ts = tquant.quantize_act_per_token(_t(x))
+        want = amax / np.float32(448)
+        np.testing.assert_array_equal(ts.numpy()[:, 0], want)
+        _, js = jquant.quantize_act_per_token(jnp.asarray(x))
+        np.testing.assert_array_equal(np.asarray(js)[:, 0], want)
+        assert (want != amax * (np.float32(1) / np.float32(448))).mean() > 0.3
+
+    def test_ops_flattens_leading_dims_on_the_cpu(self):
+        before = tops.all_launch_counters()
+        x = _t(_gemm_inputs(32, 5, 96, 1, lead=(2,))[0]).bfloat16()
+        q, s = tops.quantize_act_per_token(x)
+        assert q.shape == (2, 5, 96) and s.shape == (2, 5, 1)
+        wq, ws = tquant.quantize_act_per_token(x)
+        assert torch.equal(q.view(torch.uint8), wq.view(torch.uint8))
+        assert torch.equal(s, ws)
+        assert tops.all_launch_counters() == before
 
 
 class TestF16:
@@ -1218,8 +1343,9 @@ class TestRouting:
                             map(_t, planes))), _t(lens), fp8=True)
         qkv = torch.zeros((1, 8, 2, 64))
         tops.flash_prefill_attention(qkv, qkv, qkv)
+        tops.quantize_act_per_token(_t(x))
         assert tops.all_launch_counters() == before
-        assert len(before) == 8
+        assert len(before) == 9         # eight TPU kernels, the quantizer
 
     def test_mixed_devices_raise(self):
         x = torch.zeros((4, 64), dtype=torch.float16)
