@@ -19,7 +19,11 @@ Phases, in order; any failed check exits non-zero before the last line:
               fp16 and fp8, planar KV
   4. serve    llama3.1-8b at full width and depth through `Engine`: 8
               requests of 128 prompt tokens and 32 new tokens in forced
-              fp16, forced fp8 and dual mode; every kernel must launch
+              fp16, forced fp8 and dual mode, each after a warm pass of 8
+              other requests that captures the engine's step graphs;
+              every kernel must launch, no key may be captured in the
+              timed run, every key's replay must be bitwise its eager
+              call, and each engine's graphs must go with it
   5. dense    llama3.1-8b at full width and depth through the dense-slot
               steps (`launch/steps.py`): weights nested on the card, 8
               prompts of 1024 tokens prefilled, caches planarized at
@@ -925,6 +929,12 @@ BF16_TOL = {"fp16": 0.1, "fp8": 0.5}
 
 
 def serve_phase(torch, cfg, n_layers: int) -> dict:
+    """The paged engine at full width and depth, forced FP16, forced FP8
+    and dual. Each engine first serves 8 other prompts of the same
+    shapes (the warm pass: it captures every step key and holds each
+    key's replay bitwise against an eager call; in dual mode a pass for
+    each mode), then the 8 timed prompts; then the engine is freed with
+    its graphs."""
     import dataclasses
 
     from repro_torch.core.policy import DualPrecisionController, SLOConfig
@@ -943,7 +953,8 @@ def serve_phase(torch, cfg, n_layers: int) -> dict:
         f"{mem['other_bytes'] / 1e9:.2f} GB other")
     rng = torch.Generator().manual_seed(7)
     prompts = [torch.randint(1, cfg.vocab_size, (128,), generator=rng).tolist()
-               for _ in range(8)]
+               for _ in range(24)]
+    warm, prompts = [prompts[8:16], prompts[16:]], prompts[:8]
     results = {}
     ops.reset_launch_counters()          # the main path's run starts here
     for policy in ("fp16", "fp8", "dual"):
@@ -951,53 +962,105 @@ def serve_phase(torch, cfg, n_layers: int) -> dict:
         if policy == "dual":
             ctrl = DualPrecisionController(SLOConfig(), fp16_ms_per_token=0.5,
                                            fp8_ms_per_token=0.25)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
         eng = Engine(cfgn, sp, n_slots=8, capacity=256, kv_planar=True,
                      controller=ctrl,
                      forced_mode=None if policy == "dual" else policy,
                      device="cuda")
+        # warm pass: 8 other prompts of the same shapes (in dual mode one
+        # set forced to each mode), so that the timed run finds every key
+        # captured; each key's first replay is held against an eager call
+        t0 = time.monotonic()
+        n_checked = 0
+        for w, mode in enumerate(["fp16", "fp8"] if ctrl else [policy]):
+            eng.forced_mode = mode
+            for i, p in enumerate(warm[w]):
+                eng.submit(Request(f"w{w}.{i}", list(p), max_new=32))
+            n_checked += serve_checked(eng, policy)
+        eng.forced_mode = None if ctrl else policy
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        check(n_checked == len(eng.graphs.keys()) == eng.graphs.n_captured,
+              f"{policy}: {n_checked} keys checked of "
+              f"{len(eng.graphs.keys())}")
+        n_graphs = eng.graphs.n_captured
+        stats0, n_warm = dict(eng.stats), len(eng.finished)
         for i, p in enumerate(prompts):
             eng.submit(Request(f"r{i}", list(p), max_new=32))
         before = ops.all_launch_counters()
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        step_ms, decode_ms = [], []
+        step_ms, decode_ms, decode_modes = [], [], []
         while eng.queue or eng.active or eng.prefilling:
             n_pre = eng.stats["prefill_dispatches"]
             eng.step()
             step_ms.append(eng._last_step_ms)
             if eng.stats["prefill_dispatches"] == n_pre:
                 decode_ms.append(eng._last_step_ms)
+                decode_modes.append(ctrl.history[-1] if ctrl else policy)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {k: v - before[k] for k, v in ops.all_launch_counters().items()}
-        fin = eng.finished
+        check(eng.graphs.n_captured == n_graphs,
+              f"{policy}: a step key was captured inside the timed run")
+        fin = eng.finished[n_warm:]
         check(len(fin) == 8, f"{policy}: {len(fin)}/8 requests finished")
         check(all(len(r.output) == 32 and all(0 <= t < cfg.vocab_size
                                                for t in r.output) for r in fin),
               f"{policy}: outputs of the wrong length or out of vocab")
         modes = [m for r in fin for m in r.modes]
         n_tok = sum(len(r.output) for r in fin)
-        res = {"wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
-               "steps": eng.iteration,
+        # device time of each decode step's graph (CUDA events around
+        # back-to-back replays on its last inputs; not counted as launches)
+        graph_dev = {m: replay_ms(torch, eng.graphs.graph(("decode", m)))
+                     for m in sorted(set(decode_modes))}
+        idle = sorted(1 - graph_dev[m] / w
+                      for m, w in zip(decode_modes, decode_ms))
+        res = {"wall_s": wall, "warm_pass_s": warm_s, "tokens": n_tok,
+               "tokens_per_s": n_tok / wall, "steps": len(step_ms),
                "step_ms_mean": sum(step_ms) / len(step_ms),
                "step_ms_median": sorted(step_ms)[len(step_ms) // 2],
                "decode_step_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
+               "decode_graph_device_ms": graph_dev,
+               "decode_idle_share_median": idle[len(idle) // 2],
                "ttft_ms_mean": 1e3 * sum(r.first_token_s - t0 for r in fin) / 8,
                "tpot_ms_mean": 1e3 * sum((r.finished_s - r.first_token_s)
                                          / (len(r.output) - 1)
                                          for r in fin) / 8,
                "fp16_fraction": modes.count("fp16") / len(modes),
-               "launches": launches, "stats": dict(eng.stats)}
-        results[policy] = res
-        log(f"  serve {policy}: {n_tok} tokens in {wall:.2f} s "
-            f"({res['tokens_per_s']:.1f} tok/s), {eng.iteration} steps, "
-            f"step ms mean {res['step_ms_mean']:.1f} median "
-            f"{res['step_ms_median']:.1f}, decode-only step ms median "
-            f"{res['decode_step_ms_median']:.1f}, TTFT mean "
-            f"{res['ttft_ms_mean']:.0f} ms, TPOT mean "
-            f"{res['tpot_ms_mean']:.1f} ms, fp16 fraction "
-            f"{res['fp16_fraction']:.2f}, launches {launches}")
+               "graphs": n_graphs, "keys": sorted(map(str, eng.graphs.keys())),
+               "graph_pool_bytes": eng.graphs.pool_bytes(),
+               "launches": launches,
+               "stats": {k: v - stats0[k] if isinstance(v, int) else v
+                         for k, v in eng.stats.items()}}
+        log(f"  serve {policy}: {n_tok} tokens in {wall:.3f} s "
+            f"({res['tokens_per_s']:.1f} tok/s), {len(step_ms)} steps, "
+            f"step ms mean {res['step_ms_mean']:.2f} median "
+            f"{res['step_ms_median']:.2f}, decode-only step ms median "
+            f"{res['decode_step_ms_median']:.2f}, decode graph device ms "
+            f"{ {m: round(v, 3) for m, v in graph_dev.items()} }, idle share "
+            f"{res['decode_idle_share_median']:.3f}, TTFT mean "
+            f"{res['ttft_ms_mean']:.1f} ms, TPOT mean "
+            f"{res['tpot_ms_mean']:.2f} ms, fp16 fraction "
+            f"{res['fp16_fraction']:.2f}; {n_graphs} graphs, pool "
+            f"{res['graph_pool_bytes'] / 2**20:.1f} MiB, warm pass "
+            f"{warm_s:.2f} s; launches {launches}")
+        res["replays_bitwise"] = n_checked
+        pool = tuple(eng.graphs._pool)
         del eng
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - mem0
+        torch.cuda.empty_cache()
+        check(not [s for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == pool],
+              f"{policy}: the graphs' pool outlived its engine")
+        log(f"  serve {policy}: engine freed, {left / 2**20:.1f} MiB left "
+            f"allocated against before it (the capture stream's cuBLAS "
+            f"workspace stays after the first engine)")
+        check(left <= 128 * 2**20, f"{policy}: {left} bytes outlived the engine")
+        res["bytes_left_after_engine"] = left
+        results[policy] = res
     need = {"fp16": ("nestedfp16_matmul", "f16_matmul",
                      "paged_planar_decode_attention"),
             "fp8": ("nestedfp8_matmul", "quant_per_token", "f16_matmul",
@@ -1016,12 +1079,49 @@ def serve_phase(torch, cfg, n_layers: int) -> dict:
     return results
 
 
+def serve_checked(eng, policy: str) -> int:
+    """Run the engine to the end of its queue; right after the step that
+    captures a key (while the block table still holds that step's rows),
+    hold one replay of it bitwise against an eager call of the same step
+    on clones of its inputs and the pool (launches not counted). Returns
+    the number of keys checked."""
+    g, checked = eng.graphs, set(eng.graphs.keys())
+    n = 0
+    while eng.queue or eng.active or eng.prefilling:
+        eng.step()
+        for key in sorted(g.keys() - checked):
+            same = g.check_replay(key)
+            check(all(same.values()),
+                  f"{policy} {key}: replay differs from the eager call {same}")
+            log(f"  serve {policy}: {key} captured; its replay is bitwise "
+                f"the eager call (ids of live rows, pool planes)")
+            checked.add(key)
+            n += 1
+    return n
+
+
+def replay_ms(torch, graph, reps: int = 20) -> float:
+    """Device ms of one replay of a captured step: CUDA events around
+    `reps` back-to-back replays, after one untimed."""
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def profile_decode(torch, Engine, Request, cfg, sp, prompts, mode,
                    step_ms: float, n_steps: int = 4) -> dict:
-    """Device time by kernel over `n_steps` decode-only steps (torch
-    profiler), after the run's prefill is done; run after the main path's
-    launch counts were read, and outside the timed runs. The idle share
-    is taken against `step_ms`, the unprofiled decode-only step time."""
+    """Device time by kernel over `n_steps` decode-only steps (the torch
+    profiler lists the kernels inside each graph replay), after the
+    run's prefill is done; run after the main path's launch counts were
+    read, and outside the timed runs. The idle share is taken against
+    `step_ms`, the unprofiled decode-only step time."""
     eng = Engine(cfg, sp, n_slots=8, capacity=256, kv_planar=True,
                  forced_mode=mode, device="cuda")
     for i, p in enumerate(prompts):
@@ -1030,7 +1130,8 @@ def profile_decode(torch, Engine, Request, cfg, sp, prompts, mode,
         eng.step()
     torch.cuda.synchronize()
     wall_ms, by_name = device_ms_by_kernel(torch, eng.step, n_steps)
-    res = profile_summary(f"profile {mode}: {n_steps} decode steps",
+    res = profile_summary(f"profile {mode}: {n_steps} decode steps "
+                          f"(graph replays; {len(by_name)} kernel names)",
                           wall_ms, step_ms, by_name)
     # K2 (its mma body's RowScale instances, or the WMMA body's kNested8
     # instances) and the per-token quantizer
@@ -1077,9 +1178,9 @@ def profile_summary(label, wall_ms, step_ms, by_name) -> dict:
     dev_ms = sum(by_name.values())
     check(dev_ms > 0, "the profiler saw no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    log(f"  {label}, wall {wall_ms:.1f} ms/call profiled, {step_ms:.1f} "
-        f"unprofiled; device busy {dev_ms:.1f} ms/call, idle share "
-        f"{1 - dev_ms / step_ms:.2f}")
+    log(f"  {label}, wall {wall_ms:.2f} ms/call profiled, {step_ms:.2f} "
+        f"unprofiled; device busy {dev_ms:.3f} ms/call, idle share "
+        f"{1 - dev_ms / step_ms:.3f}")
     for k, v in top:
         log(f"    {v:8.3f} ms/call  {k[:90]}")
     return {"profiled_wall_ms_per_step": wall_ms,

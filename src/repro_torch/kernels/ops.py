@@ -124,6 +124,13 @@ def all_launch_counters() -> dict[str, int]:
     return {f.__name__: f.launches for f in KERNEL_FNS}
 
 
+def add_launches(counts: dict[str, int]) -> None:
+    """Add launches made without a wrapper call: a CUDA graph's replay
+    runs the launches that its capture recorded."""
+    for f in KERNEL_FNS:
+        f.launches += counts.get(f.__name__, 0)
+
+
 def reset_launch_counters() -> None:
     for f in KERNEL_FNS:
         f.launches = 0

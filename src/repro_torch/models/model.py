@@ -226,7 +226,7 @@ def lm_logits(rt, params, cfg, h):
 
 def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
                q_offset, kv_len, block_size: int, logit_position=None,
-               return_logits: bool = False):
+               rows=None, return_logits: bool = False):
     """One step over the paged cache — batched decode (C=1 across all
     rows) and chunked prefill (ragged right-padded chunk rows) alike.
 
@@ -239,12 +239,18 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
                   (0 disables a row: its writes go to the trash block).
     logit_position: (B,) column of the last real token per row (default:
                   the last column).
+    rows:         (B,) slot of each row: block_tables is then the whole
+                  (n_slots, MB) table array and row b reads its row
+                  rows[b], gathered here, inside the step (as the JAX
+                  engine gathers inside its jit).
 
     The pool planes in `caches` are updated in place. Returns next_ids
     (B,) int32 (greedy argmax, on the device) or, with return_logits,
     the (B, V) f32 logits."""
     b, c = tokens.shape
     dev = tokens.device
+    if rows is not None:
+        block_tables = block_tables[rows.long()]
     tables = block_tables.to(torch.int32)
     q_offset = q_offset.to(torch.int64)
     kv_len = kv_len.to(torch.int32)

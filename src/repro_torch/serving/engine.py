@@ -24,10 +24,16 @@ completes mid-step hands its first token to the same step's decode with
 an on-device overlay.
 
 The JAX package jit-compiled one executable per (mode, bucket) and donated
-the pool to it; here every call runs eagerly and the pool is updated in
-place. CUDA graphs are later work. Copy-on-write prefix caching is on by
-default (`prefix_cache=True`): shared blocks are forked by an in-place
-block copy in the pool before any write lands.
+the pool to it; here each key — the decode per mode, the fused prefill
+per (mode, rows bucket, chunk bucket) — is one CUDA graph on the card,
+captured at its first use and replayed after (`serving/graphs.py`), and
+the pool is updated in place. A step stages its inputs into the key's
+static buffers with one host->device copy; COW block copies, the block
+table flush and the first-token overlay run eagerly on the same stream
+before the replay. On the CPU the same buffers are staged and the step
+runs eagerly. Copy-on-write prefix caching is on by default
+(`prefix_cache=True`): shared blocks are forked by an in-place block
+copy in the pool before any write lands.
 
 Not ported yet, and refused with NotImplementedError when asked for:
 speculative decoding, the host KV tier and its persistence, serving
@@ -51,6 +57,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.convert import params_to
 from repro_torch.models.layers import Runtime
+from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.kvcache import BlockManager
 
 
@@ -155,6 +162,10 @@ class Engine:
         self.caches = M.init_paged_cache(
             cfg, self.blocks.n_total_blocks, block_size, planar=kv_planar,
             device=self.device)
+        # the device block table exists from here on and is only ever
+        # written in place: the captured steps read it at a fixed address
+        self.graphs = StepGraphs(self._rts, self.params, cfg, self.caches,
+                                 self.blocks.device_tables(), block_size)
         self.iteration = 0
 
     # -- public API -----------------------------------------------------------
@@ -298,9 +309,17 @@ class Engine:
         return plan
 
     def _h2d(self, a: np.ndarray) -> torch.Tensor:
-        """Host->device upload of a step input, with byte accounting."""
+        """Host->device upload of a small auxiliary input, with byte
+        accounting."""
         self.stats["h2d_bytes"] += a.nbytes
         return torch.from_numpy(a).to(self.device)
+
+    def _upload(self, key: tuple) -> dict[str, torch.Tensor]:
+        """Copy a step key's staged inputs to its static device buffers
+        (one copy), with byte accounting."""
+        views, nbytes = self.graphs.upload(key)
+        self.stats["h2d_bytes"] += nbytes
+        return views
 
     def _apply_cow(self, pairs: list[tuple[int, int]]) -> None:
         """Materialize COW forks: copy each forked block's bytes in the
@@ -347,26 +366,21 @@ class Engine:
         entries = [e for e in entries if e[0] in self.prefilling]
         if not entries:
             return None
-        rb = _bucket(len(entries), 1)
-        cb = _bucket(max(take for _, _, take in entries))
-        tokens = np.zeros((rb, cb), np.int32)
-        rows = np.zeros(rb, np.int32)        # pad rows alias slot 0:
-        qo = np.zeros(rb, np.int32)          # kv_len=0 masks their reads
-        kvl = np.zeros(rb, np.int32)         # and trashes their writes
-        lp = np.zeros(rb, np.int32)
+        key = ("prefill", mode, _bucket(len(entries), 1),
+               _bucket(max(take for _, _, take in entries)))
+        # zeroed: pad rows alias slot 0, and kv_len=0 masks their reads
+        # and trashes their writes
+        x = self.graphs.inputs(key)
         for r, (idx, start, take) in enumerate(entries):
             st = self.prefilling[idx]
-            tokens[r, :take] = st.seq_tokens[start: start + take]
-            rows[r] = idx
-            qo[r] = start
-            kvl[r] = start + take
-            lp[r] = take - 1
-        tables = self.blocks.device_tables()[self._h2d(rows).long()]
-        ids = M.paged_step(
-            self._rts[mode], self.params, self.cfg, self._h2d(tokens),
-            self.caches, tables, q_offset=self._h2d(qo),
-            kv_len=self._h2d(kvl), block_size=self.block_size,
-            logit_position=self._h2d(lp))
+            x["tokens"][r, :take] = st.seq_tokens[start: start + take]
+            x["rows"][r] = idx
+            x["q_offset"][r] = start
+            x["kv_len"][r] = start + take
+            x["logit_position"][r] = take - 1
+        self._upload(key)
+        self.blocks.device_tables()          # flush table edits first
+        ids = self.graphs.run(key)
         self.stats["prefill_dispatches"] += 1
         for idx, start, take in entries:
             self._commit_chunk(idx, start, take)
@@ -458,15 +472,14 @@ class Engine:
         self._sample_peak()                  # allocation peak, pre-retire
         if not self.active:
             return None
-        tokens = np.zeros((self.n_slots, 1), np.int32)
-        q_off = np.zeros(self.n_slots, np.int32)
-        kvl = np.zeros(self.n_slots, np.int32)   # 0 disables inactive rows
+        key = ("decode", mode)
+        x = self.graphs.inputs(key)          # kv_len 0 disables idle rows
         for idx, req in self.active.items():
             if req.output[-1] != _PENDING:
-                tokens[idx, 0] = req.output[-1]
-            q_off[idx] = self.lens[idx]
-            kvl[idx] = self.lens[idx] + 1
-        toks = self._h2d(tokens)
+                x["tokens"][idx, 0] = req.output[-1]
+            x["q_offset"][idx] = self.lens[idx]
+            x["kv_len"][idx] = self.lens[idx] + 1
+        toks = self._upload(key)["tokens"]
         fresh = [(s, a, r) for s, a, r in fresh if s in self.active]
         if fresh:
             # every completing prefill's first token lives in ONE device
@@ -476,10 +489,8 @@ class Engine:
             toks[self._h2d(slots).long(), 0] = \
                 chunk_ids[self._h2d(rows).long()]
             self.stats["aux_dispatches"] += 1
-        ids = M.paged_step(
-            self._rts[mode], self.params, self.cfg, toks, self.caches,
-            self.blocks.device_tables(), q_offset=self._h2d(q_off),
-            kv_len=self._h2d(kvl), block_size=self.block_size)
+        self.blocks.device_tables()          # flush table edits first
+        ids = self.graphs.run(key)
         self.stats["decode_dispatches"] += 1
         return ids
 

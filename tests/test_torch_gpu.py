@@ -698,3 +698,150 @@ def test_engine_serves_on_the_card(dev):
     for name in ("nestedfp16_matmul", "nestedfp8_matmul",
                  "paged_planar_decode_attention"):
         assert after[name] > before[name], name
+
+
+# -- the engine's captured steps (serving/graphs.py) -------------------------
+
+def _fake_clock():
+    """4 ms a reading: the dual controller's decisions then depend on the
+    step count alone, so two runs take the same modes."""
+    import itertools
+    c = itertools.count()
+    return lambda: next(c) * 0.004
+
+
+def _graph_engine(cfg, sp, *, dual=False, **kw):
+    from repro_torch.core.policy import DualPrecisionController, SLOConfig
+    if dual:
+        kw.update(controller=DualPrecisionController(
+            SLOConfig(tpot_ms=33.3, hysteresis_steps=1),
+            fp16_ms_per_token=1.0, fp8_ms_per_token=0.5,
+            fixed_overhead_ms=1.0), clock=_fake_clock())
+    eng = Engine(cfg, sp, n_slots=4, capacity=64, kv_planar=True, **kw)
+    rng = np.random.default_rng(3)
+    base = [int(t) for t in rng.integers(1, cfg.vocab_size, 32)]
+    for i in range(6):
+        toks = base if i % 2 == 0 else \
+            [int(t) for t in rng.integers(1, cfg.vocab_size, 20 + i)]
+        eng.submit(Request(f"r{i}", toks, 12))
+    return eng
+
+
+@pytest.fixture(scope="module")
+def llama_sp():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    cfg = get_arch("llama3.1-8b").reduced()
+    return cfg, to_serving(M.init_params(cfg, seed=0, device="cuda"))
+
+
+def _eager_on_card(eng, monkeypatch):
+    """Run every key of `eng` eagerly on the card: the step the graphs
+    capture, called as the CPU calls it."""
+    g = eng.graphs
+
+    def run(key):
+        g._call(g._steps[key])
+        return g._steps[key].ids
+    monkeypatch.setattr(g, "run", run)
+
+
+def test_every_captured_replay_is_its_eager_call(dev, llama_sp):
+    """Each key a dual run captures (both decode modes, every prefill
+    bucket), right after the step that captured it: one replay's ids and
+    pool planes are bitwise an eager call of the same step on clones of
+    the same inputs, table and pool."""
+    cfg, sp = llama_sp
+    eng = _graph_engine(cfg, sp, dual=True, chunk_tokens=32)
+    g, checked = eng.graphs, set()
+    while eng.queue or eng.active or eng.prefilling:
+        eng.step()
+        for key in sorted(g.keys() - checked):
+            same = g.check_replay(key)
+            assert all(same.values()), (key, same)
+            checked.add(key)
+    assert g.keys("decode") == {"fp16", "fp8"}
+    assert len(g.keys("prefill")) >= 2
+    assert g.n_captured == len(checked) == len(g.keys())
+
+
+@pytest.mark.parametrize("case", ["dual", "scarce"])
+def test_precaptured_keys_give_the_same_tokens(dev, llama_sp, case):
+    """A dual-controller run and a scarce-pool run (preemption) finish
+    with the same tokens when every key was captured before the run
+    (on zeroed inputs, which write only to the trash block), and a
+    second engine captures nothing more."""
+    cfg, sp = llama_sp
+    kw = (dict(dual=True) if case == "dual"
+          else dict(forced_mode="fp16", n_blocks=6, chunk_tokens=32))
+    first = _graph_engine(cfg, sp, **kw)
+    out = {r.request_id: r.output for r in first.run()}
+    keys = first.graphs.keys()
+    if case == "scarce":
+        assert first.stats["preemptions"] > 0
+    second = _graph_engine(cfg, sp, **kw)
+    for key in sorted(keys):
+        second.graphs.capture(key)
+    assert second.graphs.n_captured == len(keys)
+    assert {r.request_id: r.output for r in second.run()} == out
+    assert second.graphs.keys() == keys
+    assert second.graphs.n_captured == len(keys)
+
+
+def test_replayed_launch_counts_are_the_eager_counts(dev, llama_sp,
+                                                     monkeypatch):
+    """Launch counters after a graph run equal those of the same request
+    set with every step eager on the card, and so do the tokens."""
+    cfg, sp = llama_sp
+    counts, outs = {}, {}
+    for eager in (False, True):
+        eng = _graph_engine(cfg, sp, dual=True)
+        if eager:
+            _eager_on_card(eng, monkeypatch)
+        ops.reset_launch_counters()
+        outs[eager] = {r.request_id: r.output for r in eng.run()}
+        counts[eager] = ops.all_launch_counters()
+        assert eng.graphs.n_captured == (0 if eager else len(eng.graphs.keys()))
+    assert counts[False] == counts[True]
+    assert outs[False] == outs[True]
+    for name in ("nestedfp16_matmul", "nestedfp8_matmul", "quant_per_token",
+                 "paged_planar_decode_attention"):
+        assert counts[False][name] > 0, name
+
+
+def test_a_failed_capture_raises(dev, llama_sp, monkeypatch):
+    """An error while a step is captured reaches the caller; nothing
+    runs the eager step in its place."""
+    cfg, sp = llama_sp
+    eng = _graph_engine(cfg, sp, forced_mode="fp16")
+    real = M.paged_step
+
+    def step(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused inside a capture")
+        return real(*a, **k)
+    monkeypatch.setattr(M, "paged_step", step)
+    with pytest.raises(RuntimeError, match="refused inside a capture"):
+        eng.step()
+    assert eng.graphs.n_captured == 0
+
+
+def test_graphs_are_freed_with_their_engine(dev, llama_sp):
+    """An engine's graphs, pool and buffers go with it: its pool's
+    segments leave the allocator, and the allocated bytes return to
+    where they were before the engine (after a first engine has made
+    the capture stream's cuBLAS workspace, which stays)."""
+    cfg, sp = llama_sp
+    _graph_engine(cfg, sp, forced_mode="fp8").run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = _graph_engine(cfg, sp, dual=True)
+    eng.run()
+    pool = tuple(eng.graphs._pool)
+    assert eng.graphs.pool_bytes() > 0
+    del eng
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+    torch.cuda.empty_cache()
+    assert not [s for s in torch.cuda.memory_snapshot()
+                if tuple(s.get("segment_pool_id", ())) == pool]
