@@ -31,6 +31,18 @@ Phases, in order; any failed check exits non-zero before the last line:
               kernel of the path must launch; then the decode step at
               long context: planar caches of capacity 32768 filled with
               random planes, ragged lens up to 32767, fp16 and fp8
+  6. gemma_slice  gemma3-1b at full width, 6 layers (0-4 local with a
+              window of 512, 5 global): `paged_step` with one block table
+              per window group on the card against the plain versions on
+              the CPU, prompts of 600 and 520 tokens in chunks of 256 and
+              4 decode steps past them, fp16 and fp8, planar KV
+  7. gemma_serve  gemma3-1b at full width and depth through `Engine`: 8
+              requests of 1024 prompt tokens and 64 new tokens in forced
+              fp16, forced fp8 and dual mode, then forced fp16 with window
+              reclaim off, each after a warm pass; local-layer blocks must
+              be reclaimed, fp16 tokens must be equal with reclaim on and
+              off, every replay bitwise its eager call
+The kernels phase also holds K4 and K5 at gemma3-1b's heads (D = 256).
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 GPU is present or the port is missing.
@@ -269,7 +281,13 @@ def scaled_mm_yardstick(torch, xq, xs, uppers):
     return fn
 
 
-def attention_phase(torch, iters: int) -> list[dict]:
+def attention_phase(torch, iters: int, *, h=32, hkv=8, d=128, mb=16,
+                    lens_l=(160, 129, 17, 1, 256, 0, 100, 33),
+                    windows=(None, 0, 40)) -> list[dict]:
+    """K4 over a paged pool of blocks of 16 keys: llama3.1-8b's heads,
+    8 rows of lens <= 256 by default; gemma3-1b's (4 q heads, 1 kv head,
+    D = 256) at lens <= 1088 and windows 0 and 512 from the gemma kernels
+    phase."""
     import torch.nn.functional as F
 
     from repro_torch.core import nestedfp as nf
@@ -279,10 +297,9 @@ def attention_phase(torch, iters: int) -> list[dict]:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    b, h, hkv, d, bs, mb = 8, 32, 8, 128, 16, 16
+    b, bs = len(lens_l), 16
     nb = 1 + b * mb
-    lens = torch.tensor([160, 129, 17, 1, 256, 0, 100, 33], dtype=torch.int32,
-                        device=dev)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
     # shuffled physical blocks; rows 1 and 6 share their first 2 blocks
     # (COW prefix aliasing); holes past each row's length are trash
     perm = torch.randperm(nb - 1, generator=gen, device=dev).to(torch.int32) + 1
@@ -294,7 +311,7 @@ def attention_phase(torch, iters: int) -> list[dict]:
     q = torch.randn((b, h, d), generator=gen, device=dev)
     rows = []
     for fp8 in (False, True):
-        for window in (None, 0, 40):
+        for window in windows:
             n_sets = 4
             pools = []
             for _ in range(n_sets):
@@ -325,14 +342,15 @@ def attention_phase(torch, iters: int) -> list[dict]:
             flops = 4.0 * keys * (h // hkv) * hkv * d
             b_ms, b_kind = bound(nbytes, flops, "f32")
             lib = sdpa_yardstick(torch, F, q, pools, tables, lens, fp8, w)
-            row = {"fp8": fp8, "window": window, "max_abs_err": err,
+            row = {"d": d, "fp8": fp8, "window": window, "max_abs_err": err,
                    "ms": time_ms(torch, kern, n_sets, iters),
                    "plain_ms": time_ms(torch, plain, n_sets, iters),
                    "library_ms": time_ms(torch, lib, n_sets, iters),
                    "bound_ms": b_ms, "bound_by": b_kind,
                    **device_times(torch, kern, lib, n_sets, b_ms)}
             rows.append(row)
-            log(f"  paged_planar_decode_attention fp8={fp8} window={window} "
+            log(f"  paged_planar_decode_attention D={d} fp8={fp8} "
+                f"window={window} kept keys={keys} "
                 f"err={err:.2e} ms={row['ms']:.4f} plain={row['plain_ms']:.4f}"
                 f" lib={row['library_ms']:.4f} bound={b_ms:.5f} ({b_kind}) "
                 f"device={row['device_ms']:.4f} lib_device="
@@ -564,11 +582,18 @@ def quant_phase(torch, iters: int) -> list[dict]:
     return rows
 
 
-def dense_decode_phase(torch, iters: int) -> list[dict]:
+LLAMA_DENSE_CASES = (
+    (1056, [1056, 1040, 17, 1, 700, 1056, 333, 1024], (None,)),
+    (32768, [32768, 30001, 1, 20000, 32768, 5, 16384, 32000], (None, 4096)))
+
+
+def dense_decode_phase(torch, iters: int, *, h=32, hkv=8, d=128,
+                       cases=LLAMA_DENSE_CASES) -> list[dict]:
     """K5 over dense per-slot planes: llama3.1-8b's heads, 8 rows, ragged
     lens up to 1056 (the dense phase's capacity) and up to 32768 (the
     decode_32k length, also with a window of 4096), fp16 and fp8; host
-    and device (graph replay) ms of K5 and of SDPA over joined planes."""
+    and device (graph replay) ms of K5 and of SDPA over joined planes.
+    `cases`: (capacity, lens, windows) of each pool."""
     import torch.nn.functional as F
 
     from repro_torch.core import nestedfp as nf
@@ -578,12 +603,10 @@ def dense_decode_phase(torch, iters: int) -> list[dict]:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    b, h, hkv, d = 8, 32, 8, 128
+    b = 8
     q = torch.randn((b, h, d), generator=gen, device=dev)
     rows = []
-    for cap, lens_l in ((1056, [1056, 1040, 17, 1, 700, 1056, 333, 1024]),
-                        (32768, [32768, 30001, 1, 20000, 32768, 5, 16384,
-                                 32000])):
+    for cap, lens_l, windows in cases:
         lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
         n_sets = max(2, math.ceil(2 * L2_BYTES / (4 * b * cap * hkv * d)) + 1)
         pools = []
@@ -596,9 +619,7 @@ def dense_decode_phase(torch, iters: int) -> list[dict]:
                 del x
             pools.append((planes[0], planes[1], planes[2], planes[3]))
         kpos = torch.arange(cap, device=dev)[None]
-        for fp8, window in [(f, w) for w in ((None, 4096) if cap == 32768
-                                             else (None,))
-                            for f in (False, True)]:
+        for fp8, window in [(f, w) for w in windows for f in (False, True)]:
             keep = kpos < lens[:, None]
             if window:
                 keep &= kpos > lens[:, None] - 1 - window
@@ -628,7 +649,7 @@ def dense_decode_phase(torch, iters: int) -> list[dict]:
             nbytes = (keys * hkv * d * 2 * (1 if fp8 else 2) + q.numel() * 4
                       + b * 4 + b * h * d * 4)
             b_ms, b_kind = bound(nbytes, 4.0 * keys * h * d, "f32")
-            row = {"cap": cap, "fp8": fp8, "window": window,
+            row = {"d": d, "cap": cap, "fp8": fp8, "window": window,
                    "max_abs_err": err,
                    "ms": time_ms(torch, kern, n_sets, iters),
                    "plain_ms": time_ms(torch, plain, n_sets, iters),
@@ -636,7 +657,7 @@ def dense_decode_phase(torch, iters: int) -> list[dict]:
                    "bound_ms": b_ms, "bound_by": b_kind,
                    **device_times(torch, kern, lib, n_sets, b_ms)}
             rows.append(row)
-            log(f"  planar_decode_attention cap={cap} fp8={fp8} "
+            log(f"  planar_decode_attention D={d} cap={cap} fp8={fp8} "
                 f"window={window} kept keys={keys} err={err:.2e} "
                 f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
                 f"lib={row['library_ms']:.4f} bound={b_ms:.5f} ({b_kind}) "
@@ -1079,25 +1100,28 @@ def serve_phase(torch, cfg, n_layers: int) -> dict:
     return results
 
 
-def serve_checked(eng, policy: str) -> int:
-    """Run the engine to the end of its queue; right after the step that
-    captures a key (while the block table still holds that step's rows),
-    hold one replay of it bitwise against an eager call of the same step
-    on clones of its inputs and the pool (launches not counted). Returns
-    the number of keys checked."""
-    g, checked = eng.graphs, set(eng.graphs.keys())
-    n = 0
+def serve_checked(eng, policy: str, label: str = "serve") -> int:
+    """Run the engine to the end of its queue; right after the run that
+    captures a key (inside its step, while the block tables are those the
+    run read: a sliding-window decode slides blocks that the same step's
+    prefill wrote), hold one replay of it bitwise against an eager call
+    of the same step on clones of its inputs and the pool (launches not
+    counted; `StepGraphs.check_first_runs`). Returns the number of keys
+    checked."""
+    g = eng.graphs
+    before = set(g.checks)
+    g.check_first_runs = True
     while eng.queue or eng.active or eng.prefilling:
         eng.step()
-        for key in sorted(g.keys() - checked):
-            same = g.check_replay(key)
-            check(all(same.values()),
-                  f"{policy} {key}: replay differs from the eager call {same}")
-            log(f"  serve {policy}: {key} captured; its replay is bitwise "
-                f"the eager call (ids of live rows, pool planes)")
-            checked.add(key)
-            n += 1
-    return n
+    g.check_first_runs = False
+    new = sorted(set(g.checks) - before)
+    for key in new:
+        same = g.checks[key]
+        check(all(same.values()),
+              f"{policy} {key}: replay differs from the eager call {same}")
+        log(f"  {label} {policy}: {key} captured; its replay is bitwise "
+            f"the eager call (ids of live rows, pool planes)")
+    return len(new)
 
 
 def replay_ms(torch, graph, reps: int = 20) -> float:
@@ -1373,6 +1397,281 @@ def long_decode(torch, cfg, sp, n_steps: int = 5, n_prof: int = 3) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: sliding-window serving, gemma3-1b
+# ---------------------------------------------------------------------------
+
+# K4 and K5 at gemma3-1b's heads (4 q heads, 1 kv head, D = 256), windows
+# 0 (global) and 512 (a local layer): K4 over blocks of 16 keys at lens
+# <= 1088 (the serve phase's capacity), K5 at lens <= 4096
+GEMMA_K4 = dict(h=4, hkv=1, d=256, mb=68,
+                lens_l=(1088, 1024, 513, 1, 600, 0, 512, 1087),
+                windows=(0, 512))
+GEMMA_K5 = dict(h=4, hkv=1, d=256, cases=(
+    (4096, [4096, 4000, 1, 2048, 513, 512, 3333, 1024], (0, 512)),))
+
+
+def gemma_slice_phase(torch, cfg) -> dict:
+    """gemma3-1b at full width and 6 layers (0-4 local, 5 global; layer
+    5's wo an exception tensor): `paged_step` on the card against the
+    plain versions on the CPU, one block table per window group, planar
+    KV, FP16 and FP8. Prompts of 600 and 520 tokens prefill in chunks of
+    256, then 4 decode steps (K4) run past them, so the local layers'
+    window of 512 cuts keys; the local table's blocks wholly before the
+    window point at the trash block, as the engine's slides leave them."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.layers import Runtime
+
+    cfg6 = dataclasses.replace(cfg, n_layers=6)
+    desc = M.cache_descriptor(cfg6, planar=True)
+    check(desc.group_windows == (None, 512)
+          and list(desc.layer_group_map(6)) == [1, 1, 1, 1, 1, 0],
+          f"gemma3 window groups {desc.groups}")
+    t0 = time.time()
+    sp_cpu = make_serving_params(torch, cfg6, 0, "cpu", plant_layer=5)
+    sp_gpu = params_to(sp_cpu, "cuda")
+    log(f"  6-layer full-width params made on the CPU in "
+        f"{time.time() - t0:.1f} s")
+    bs, chunk, n_dec, w = 16, 256, 4, cfg.sliding_window
+    plens = [600, 520]
+    mb = -(-(max(plens) + n_dec) // bs)
+    gen = torch.Generator().manual_seed(3)
+    ids = [torch.arange(1, 1 + 2 * mb, dtype=torch.int32).reshape(2, mb),
+           (torch.randperm(2 * mb, generator=gen) + 1).to(torch.int32)
+           .reshape(2, mb)]
+    prompt = torch.randint(1, cfg.vocab_size, (2, max(plens)), generator=gen,
+                           dtype=torch.int32)
+
+    def tables_at(qo):
+        """(2, 2, mb): the local group's blocks below each row's slide
+        point (qo - w + 1) // bs point at the trash block."""
+        loc = ids[1].clone()
+        for r, q0 in enumerate(qo.tolist()):
+            loc[r, :max(0, (q0 - w + 1) // bs)] = 0
+        return torch.stack([ids[0], loc])
+
+    out = {}
+    for mode in ("fp16", "fp8"):
+        rt = Runtime(mode=mode, dtype=torch.float32, act_quant="per_token")
+        caches = {dev: M.init_paged_cache(cfg6, 1 + 2 * mb, bs, planar=True,
+                                          device=dev)
+                  for dev in ("cpu", "cuda")}
+        params = {"cpu": sp_cpu, "cuda": sp_gpu}
+
+        def step(dev, toks, qo, kvl, lp=None):
+            return M.paged_step(
+                rt, params[dev], cfg6, toks.to(dev), caches[dev],
+                tables_at(qo).to(dev), q_offset=qo.to(dev),
+                kv_len=kvl.to(dev), block_size=bs, return_logits=True,
+                logit_position=None if lp is None else lp.to(dev))
+
+        cmp = LogitCheck(torch, mode, SLICE_TOL[mode])
+        lens = torch.zeros(2, dtype=torch.int32)
+        plen = torch.tensor(plens, dtype=torch.int32)
+        t0 = time.time()
+        while bool((lens < plen).any()):
+            take = torch.clamp(plen - lens, max=chunk)
+            toks = torch.zeros((2, int(take.max())), dtype=torch.int32)
+            for r in range(2):
+                toks[r, :int(take[r])] = prompt[r, int(lens[r]):
+                                                int(lens[r] + take[r])]
+            want = step("cpu", toks, lens, lens + take,
+                        torch.clamp(take - 1, min=0))
+            got = step("cuda", toks, lens, lens + take,
+                       torch.clamp(take - 1, min=0))
+            cmp.add(got, want, f"prefill chunk at {lens.tolist()}")
+            lens = lens + take
+        for i in range(n_dec):
+            nxt = want.argmax(-1).to(torch.int32)[:, None]  # teacher forcing
+            before = ops.all_launch_counters()
+            want = step("cpu", nxt, lens, lens + 1)
+            got = step("cuda", nxt, lens, lens + 1)
+            after = ops.all_launch_counters()
+            check(after["paged_planar_decode_attention"]
+                  > before["paged_planar_decode_attention"],
+                  "gemma decode step did not launch K4")
+            cmp.add(got, want, f"decode at {lens.tolist()}")
+            lens = lens + 1
+        check(int(lens.min()) > w, "the window cut no key")
+        out[mode] = cmp.done("gemma slice")
+        out[mode]["seconds"] = time.time() - t0
+    return out
+
+
+def gemma_serve_phase(torch, cfg) -> dict:
+    """gemma3-1b at full width and depth (26 layers) through `Engine`,
+    planar KV, window groups: 8 requests of 1024 prompt tokens and 64 new
+    tokens in forced FP16, forced FP8 and dual mode, then forced FP16 with
+    window reclaim off; each engine after a warm pass of 8 other prompts
+    of the same shapes that captures its step keys and holds each key's
+    replay bitwise against an eager call. Checks: blocks reclaimed from
+    the local layers in every mode with reclaim on (none with it off),
+    forced-FP16 tokens bitwise equal with reclaim on and off, no key
+    captured in a timed run, K4 launched, each engine's graphs freed
+    with it."""
+    from repro_torch.core.policy import DualPrecisionController, SLOConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import serving_memory_bytes
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving.engine import Engine, Request
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sp = make_serving_params(torch, cfg, 0, "cuda", plant_layer=5)
+    torch.cuda.synchronize()
+    mem = serving_memory_bytes(sp)
+    log(f"  {cfg.n_layers}-layer params on the card in {time.time() - t0:.1f}"
+        f" s: {mem['nested_bytes'] / 1e9:.2f} GB nested, "
+        f"{mem['other_bytes'] / 1e9:.2f} GB other")
+    plen, max_new, cap = 1024, 64, 1088
+    rng = torch.Generator().manual_seed(17)
+    prompts = [torch.randint(1, cfg.vocab_size, (plen,), generator=rng)
+               .tolist() for _ in range(24)]
+    warm, prompts = [prompts[8:16], prompts[16:]], prompts[:8]
+    results, tokens = {}, {}
+    ops.reset_launch_counters()          # the gemma path's run starts here
+    for policy, reclaim in (("fp16", True), ("fp8", True), ("dual", True),
+                            ("fp16", False)):
+        label = policy if reclaim else f"{policy}-no-reclaim"
+        ctrl = None
+        if policy == "dual":
+            ctrl = DualPrecisionController(SLOConfig(), fp16_ms_per_token=0.5,
+                                           fp8_ms_per_token=0.25)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        eng = Engine(cfg, sp, n_slots=8, capacity=cap, kv_planar=True,
+                     chunk_tokens=2 * plen, controller=ctrl,
+                     forced_mode=None if policy == "dual" else policy,
+                     window_reclaim=reclaim, device="cuda")
+        t0 = time.monotonic()
+        n_checked = 0
+        for wi, mode in enumerate(["fp16", "fp8"] if ctrl else [policy]):
+            eng.forced_mode = mode
+            for i, p in enumerate(warm[wi]):
+                eng.submit(Request(f"w{wi}.{i}", list(p), max_new=max_new))
+            n_checked += serve_checked(eng, label, "gemma serve")
+        eng.forced_mode = None if ctrl else policy
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        check(n_checked == len(eng.graphs.keys()) == eng.graphs.n_captured,
+              f"gemma {label}: {n_checked} keys checked of "
+              f"{len(eng.graphs.keys())}")
+        n_graphs = eng.graphs.n_captured
+        stats0, n_warm = dict(eng.stats), len(eng.finished)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(f"r{i}", list(p), max_new=max_new))
+        before = ops.all_launch_counters()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        step_ms, decode_ms, decode_modes, peak = [], [], [], 0
+        while eng.queue or eng.active or eng.prefilling:
+            n_pre = eng.stats["prefill_dispatches"]
+            eng.step()
+            step_ms.append(eng._last_step_ms)
+            peak = max(peak, eng.blocks.blocks_in_use())
+            if eng.stats["prefill_dispatches"] == n_pre:
+                decode_ms.append(eng._last_step_ms)
+                decode_modes.append(ctrl.history[-1] if ctrl else policy)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: v - before[k]
+                    for k, v in ops.all_launch_counters().items()}
+        check(eng.graphs.n_captured == n_graphs,
+              f"gemma {label}: a step key was captured inside the timed run")
+        fin = eng.finished[n_warm:]
+        check(len(fin) == 8, f"gemma {label}: {len(fin)}/8 requests finished")
+        check(all(len(r.output) == max_new
+                  and all(0 <= t < cfg.vocab_size for t in r.output)
+                  for r in fin),
+              f"gemma {label}: outputs of the wrong length or out of vocab")
+        reclaimed = eng.stats["window_reclaimed_blocks"] \
+            - stats0["window_reclaimed_blocks"]
+        check((reclaimed > 0) == reclaim,
+              f"gemma {label}: {reclaimed} blocks reclaimed")
+        check(launches["paged_planar_decode_attention"] > 0,
+              f"gemma {label}: K4 never launched")
+        tokens[label] = {r.request_id: list(r.output) for r in fin}
+        modes = [m for r in fin for m in r.modes]
+        n_tok = sum(len(r.output) for r in fin)
+        graph_dev = {m: replay_ms(torch, eng.graphs.graph(("decode", m)))
+                     for m in sorted(set(decode_modes))}
+        idle = sorted(1 - graph_dev[m] / x
+                      for m, x in zip(decode_modes, decode_ms))
+        res = {"wall_s": wall, "warm_pass_s": warm_s, "tokens": n_tok,
+               "tokens_per_s": n_tok / wall, "steps": len(step_ms),
+               "decode_step_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
+               "decode_graph_device_ms": graph_dev,
+               "decode_idle_share_median": idle[len(idle) // 2],
+               "ttft_ms_mean": 1e3 * sum(r.first_token_s - t0 for r in fin) / 8,
+               "tpot_ms_mean": 1e3 * sum((r.finished_s - r.first_token_s)
+                                         / (len(r.output) - 1)
+                                         for r in fin) / 8,
+               "fp16_fraction": modes.count("fp16") / len(modes),
+               "window_reclaimed_blocks": reclaimed,
+               "peak_blocks_in_use": peak,
+               "pool_blocks_per_group": eng.blocks.n_blocks,
+               "graphs": n_graphs,
+               "keys": sorted(map(str, eng.graphs.keys())),
+               "graph_pool_bytes": eng.graphs.pool_bytes(),
+               "launches": launches, "replays_bitwise": n_checked}
+        log(f"  gemma serve {label}: {n_tok} tokens in {wall:.3f} s "
+            f"({res['tokens_per_s']:.1f} tok/s), {len(step_ms)} steps, "
+            f"decode-only step ms median {res['decode_step_ms_median']:.2f}, "
+            f"decode graph device ms "
+            f"{ {m: round(v, 3) for m, v in graph_dev.items()} }, idle share "
+            f"{res['decode_idle_share_median']:.3f}, TTFT mean "
+            f"{res['ttft_ms_mean']:.1f} ms, TPOT mean "
+            f"{res['tpot_ms_mean']:.2f} ms, fp16 fraction "
+            f"{res['fp16_fraction']:.2f}; window reclaimed {reclaimed} "
+            f"blocks, peak blocks in use {peak} of "
+            f"{eng.blocks.n_groups} x {eng.blocks.n_blocks}; {n_graphs} "
+            f"graphs, pool {res['graph_pool_bytes'] / 2**20:.1f} MiB; "
+            f"launches {launches}")
+        if reclaim and policy != "dual":
+            wall_p, by_name = device_ms_by_kernel(
+                torch, eng.graphs.graph(("decode", policy)).replay, 4)
+            res["profile_decode"] = profile_summary(
+                f"gemma profile {policy}: 4 decode graph replays", wall_p,
+                res["decode_step_ms_median"], by_name)
+            res["k4_device_ms_per_step"] = sum(
+                v for k, v in by_name.items() if "paged_split_kernel" in k)
+            log(f"  gemma profile {policy}: K4 (D = 256) "
+                f"{res['k4_device_ms_per_step']:.3f} ms of device time a "
+                f"decode step")
+        pool = tuple(eng.graphs._pool)
+        del eng
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - mem0
+        torch.cuda.empty_cache()
+        check(not [x for x in torch.cuda.memory_snapshot()
+                   if tuple(x.get("segment_pool_id", ())) == pool],
+              f"gemma {label}: the graphs' pool outlived its engine")
+        check(left <= 128 * 2**20,
+              f"gemma {label}: {left} bytes outlived the engine")
+        results[label] = res
+    results["launches_total"] = ops.all_launch_counters()   # the run ends
+    check(tokens["fp16"] == tokens["fp16-no-reclaim"],
+          "gemma fp16: tokens differ with window reclaim on and off")
+    log("  gemma serve fp16: tokens bitwise equal with window reclaim on "
+        "and off")
+    # the tied LM head: the f32 (262144 x 1152) embedding against 8 rows,
+    # inside every step's graph
+    h = torch.randn((8, 1, cfg.d_model), device="cuda")
+    rt = Runtime(mode="fp16", dtype=torch.float32)
+    results["lm_head_device_ms"] = graph_ms(
+        torch, lambda i: M.lm_logits(rt, sp, cfg, h), 1)
+    log(f"  gemma tied LM head (8 rows): {results['lm_head_device_ms']:.4f} "
+        f"ms device time")
+    results["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  gemma peak device memory {results['peak_mem_gb']:.1f} GB")
+    return results
+
+
 def _linears(tree, cls):
     if isinstance(tree, cls):
         return [tree]
@@ -1414,12 +1713,13 @@ LINE_WEIGHTS = {
               else 0)
        for name in ("nestedfp16_matmul", "nestedfp8_matmul", "f16_matmul",
                     "nestedfp8_matmul_fused_quant")},
-    # one fp16-mode paged decode call of one layer
+    # one fp16-mode paged decode call of one llama layer
     "paged_planar_decode_attention": (
-        lambda r: int(not r["fp8"] and r["window"] is None)),
-    # one fp16-mode dense decode call of one layer at the dense capacity
+        lambda r: int(r["d"] == 128 and not r["fp8"] and r["window"] is None)),
+    # one fp16-mode dense decode call of one llama layer at the dense
+    # capacity
     "planar_decode_attention": (
-        lambda r: int(not r["fp8"] and r["cap"] == 1056
+        lambda r: int(r["d"] == 128 and not r["fp8"] and r["cap"] == 1056
                       and r["window"] is None)),
     # one layer's bf16 prefill attention of 8 x 1024 tokens
     "flash_prefill_attention": (
@@ -1486,7 +1786,9 @@ def k7_sass_ops(_build) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="card,kernels,slice,serve,dense")
+    ap.add_argument("--phases",
+                    default="card,kernels,slice,serve,dense,gemma_slice,"
+                            "gemma_serve")
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--serve-layers", type=int, default=32)
@@ -1532,6 +1834,11 @@ def main() -> int:
         rows = gemm_phase(torch, args.iters)
         rows["paged_planar_decode_attention"] = attention_phase(torch, args.iters)
         rows["planar_decode_attention"] = dense_decode_phase(torch, args.iters)
+        log("== K4 and K5 at gemma3-1b's heads (D = 256)")
+        rows["paged_planar_decode_attention"] += attention_phase(
+            torch, args.iters, **GEMMA_K4)
+        rows["planar_decode_attention"] += dense_decode_phase(
+            torch, args.iters, **GEMMA_K5)
         rows["flash_prefill_attention"] = prefill_attention_phase(
             torch, args.iters)
         rows["nestedfp8_matmul_fused_quant"] = fused_quant_phase(
@@ -1550,6 +1857,15 @@ def main() -> int:
         log(f"== dense: llama3.1-8b, {cfg.n_layers} layers, dense-slot "
             f"prefill and decode steps")
         results["dense"] = dense_phase(torch, cfg)
+    gemma = get_arch("gemma3-1b")
+    if "gemma_slice" in phases:
+        log("== gemma slice: 6-layer gemma3-1b, window groups, card vs CPU "
+            "plain versions")
+        results["gemma_slice"] = gemma_slice_phase(torch, gemma)
+    if "gemma_serve" in phases:
+        log(f"== gemma serve: gemma3-1b, {gemma.n_layers} layers, window "
+            f"groups")
+        results["gemma_serve"] = gemma_serve_phase(torch, gemma)
     results["total_s"] = time.time() - t_start
     log(f"== done in {results['total_s']:.1f} s")
     if args.out:
@@ -1557,10 +1873,11 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(results, indent=1))
 
     if rows:
-        # launches over the main paths' runs: the paged serve and the
-        # dense-slot steps, each counted from 0 at its start
+        # launches over the main paths' runs: the paged serve, the
+        # dense-slot steps and the sliding-window serve, each counted
+        # from 0 at its start
         paths = [results.get(p, {}).get("launches_total", {})
-                 for p in ("serve", "dense")]
+                 for p in ("serve", "dense", "gemma_serve")]
         kernels = []
         for name, (src, replaces) in SOURCES.items():
             kernels.append({"name": name, "route": "cuda", "source": src,

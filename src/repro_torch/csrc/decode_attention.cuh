@@ -52,6 +52,12 @@
 //    q's fragments repeat; PV's n columns are the even and the odd d of
 //    each 16, so a thread ends with 4 adjacent outputs. exp runs as exp2
 //    on log2(e)-scaled scores, as in K6.
+//  - Head dims 64, 128 and 256 (gemma3-1b). At D = 256 a thread's PV
+//    accumulator alone is 128 f32 registers, so q's A fragments (64
+//    words a thread at D = 256) are not kept in registers: warp 0 writes
+//    them once to shared memory (8 KB after the warps' rings, the same
+//    for every warp) and each step loads the two it needs per k32 slice.
+//    Values and order of the products are those of the register path.
 //  - The warps' states merge in warp order in shared memory, then either
 //    straight into `out` (one split a row: Cap or MB*BS within S) or into
 //    an f32 scratch (m, l, acc per split) that combine_kernel merges in
@@ -78,6 +84,9 @@ constexpr float kPUnscale = 1.f / 4096.f;
 
 template <int D, bool FP8>
 struct Layout {
+  static constexpr int kKB = D / 16;              // k16 blocks of QK^T
+  static constexpr bool kQSmem = D > 128;         // q fragments in smem
+  static constexpr int kQBytes = kQSmem ? kKB * 32 * 16 : 0;
   static constexpr int kStages = 2;               // ring depth of a warp
   static constexpr int kLd = D + 16;              // padded key row, bytes
   static constexpr int kPlanes = FP8 ? 2 : 4;     // k_hi, v_hi[, k_lo, v_lo]
@@ -88,7 +97,7 @@ struct Layout {
   static constexpr int kMergeBytes = 4 * (kRows * D + 2 * kRows);
   static constexpr int kWarpBytes =
       kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
-  static constexpr int kSmemBytes = kWarps * kWarpBytes;
+  static constexpr int kSmemBytes = kWarps * kWarpBytes + kQBytes;
 };
 
 // dynamic shared memory of the body for head dim D, or 0 when the body
@@ -98,6 +107,8 @@ inline int smem_bytes(int D, bool fp8) {
                           : Layout<64, false>::kSmemBytes;
   if (D == 128) return fp8 ? Layout<128, true>::kSmemBytes
                            : Layout<128, false>::kSmemBytes;
+  if (D == 256) return fp8 ? Layout<256, true>::kSmemBytes
+                           : Layout<256, false>::kSmemBytes;
   return 0;
 }
 
@@ -276,19 +287,24 @@ __device__ __forceinline__ void attend_split(
 
   // q as the A operand of QK^T: rows grp (hi term) and grp + 8 (lo term),
   // k slots in ldmatrix's byte order, scaled by 2^e with max|q| < 2^14
-  float4 qv[KB];
+  auto q_at = [&](int kb) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (grp < n_rows)
+      v = *reinterpret_cast<const float4*>(q + grp * D + 16 * kb + 4 * tig);
+    v.x *= q_scale;
+    v.y *= q_scale;
+    v.z *= q_scale;
+    v.w *= q_scale;
+    return v;
+  };
+  float4 qv[L::kQSmem ? 1 : KB];
   float amax = 0.f;
 #pragma unroll
   for (int kb = 0; kb < KB; ++kb) {
-    qv[kb] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (grp < n_rows)
-      qv[kb] = *reinterpret_cast<const float4*>(q + grp * D + 16 * kb + 4 * tig);
-    qv[kb].x *= q_scale;
-    qv[kb].y *= q_scale;
-    qv[kb].z *= q_scale;
-    qv[kb].w *= q_scale;
-    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(qv[kb].x), fabsf(qv[kb].y)),
-                             fmaxf(fabsf(qv[kb].z), fabsf(qv[kb].w))));
+    const float4 v = q_at(kb);
+    if constexpr (!L::kQSmem) qv[kb] = v;
+    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                             fmaxf(fabsf(v.z), fabsf(v.w))));
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -298,11 +314,26 @@ __device__ __forceinline__ void attend_split(
   const int e = amax > 0.f ? max(-100, min(100, 14 - ex)) : 0;
   const float up = ldexpf(1.f, e);
   const float down = ldexpf(1.f, -e) * kLog2e;   // back, and to log2 units
-  uint32_t qa[KB][4];
+  uint32_t qa[L::kQSmem ? 1 : KB][4];
+  uint4* qsm = reinterpret_cast<uint4*>(smem + kWarps * L::kWarpBytes);
+  if constexpr (L::kQSmem) {
+    if (warp == 0) {
+#pragma unroll 4
+      for (int kb = 0; kb < KB; ++kb) {
+        const float4 v = q_at(kb);
+        uint4 f;
+        f.x = split2(v.x * up, v.y * up, &f.y);
+        f.z = split2(v.z * up, v.w * up, &f.w);
+        qsm[kb * 32 + lane] = f;
+      }
+    }
+    __syncthreads();
+  } else {
 #pragma unroll
-  for (int kb = 0; kb < KB; ++kb) {
-    qa[kb][0] = split2(qv[kb].x * up, qv[kb].y * up, &qa[kb][1]);
-    qa[kb][2] = split2(qv[kb].z * up, qv[kb].w * up, &qa[kb][3]);
+    for (int kb = 0; kb < KB; ++kb) {
+      qa[kb][0] = split2(qv[kb].x * up, qv[kb].y * up, &qa[kb][1]);
+      qa[kb][2] = split2(qv[kb].z * up, qv[kb].w * up, &qa[kb][3]);
+    }
   }
 
   float m = kNegInf, l = 0.f;      // row grp, l summed over this thread's keys
@@ -332,10 +363,25 @@ __device__ __forceinline__ void attend_split(
       ldsm_x4(kh, st + kb * 32);
       if (!FP8) ldsm_x4(kl, st + 2 * L::kPlaneBytes + kb * 32);
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {   // keys 8*(mt&1).., d 16*(mt>>1)..
-        uint32_t b0, b1;
-        join_k<FP8>(kh[mt], kl[mt], &b0, &b1);
-        mma16816(sc[mt & 1], qa[2 * kb + (mt >> 1)], b0, b1);
+      for (int half = 0; half < 2; ++half) {   // d 16*(2 kb + half)..
+        uint32_t a[4];
+        if constexpr (L::kQSmem) {
+          const uint4 f = qsm[(2 * kb + half) * 32 + lane];
+          a[0] = f.x;
+          a[1] = f.y;
+          a[2] = f.z;
+          a[3] = f.w;
+        } else {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a[r] = qa[2 * kb + half][r];
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {          // keys 8n..
+          const int mt = 2 * half + n;
+          uint32_t b0, b1;
+          join_k<FP8>(kh[mt], kl[mt], &b0, &b1);
+          mma16816(sc[n], a, b0, b1);
+        }
       }
     }
     float p[4], mx = kNegInf;
@@ -443,7 +489,8 @@ __device__ __forceinline__ void attend_split(
 }
 
 // Merge the splits of one (batch row, query head) in split order. grid
-// (H, B), thread d (D <= kThreads); part holds acc (B, H, ns, D), then
+// (H, B), thread t takes d = t and t + kThreads (D <= 2 * kThreads);
+// part holds acc (B, H, ns, D), then
 // (m, l) (B, H, ns, 2). Each split's weight e^(m_s - M) is taken once,
 // into shared memory, a chunk of kThreads splits at a time, and the acc
 // loads of a chunk are independent, so they overlap: the pass is a few
@@ -473,7 +520,8 @@ combine_kernel(const float* __restrict__ part, const int* __restrict__ lens,
   __syncthreads();
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) M = fmaxf(M, red[w]);
-  float o = 0.f, lsum = 0.f;
+  float o = 0.f, o2 = 0.f, lsum = 0.f;
+  const bool two = tid + kThreads < D;    // a second column, D > kThreads
   for (int c0 = s_lo; c0 < s_hi; c0 += kThreads) {
     const int n = min(kThreads, s_hi - c0);
     __syncthreads();                      // the last chunk's weights are used
@@ -484,14 +532,24 @@ combine_kernel(const float* __restrict__ part, const int* __restrict__ lens,
     __syncthreads();
     if (tid < D) {
       const float* a = acc + (size_t)c0 * D + tid;
+      if (two) {
 #pragma unroll 8
-      for (int i = 0; i < n; ++i) {
-        lsum += wt[i] * lt[i];
-        o += wt[i] * a[(size_t)i * D];
+        for (int i = 0; i < n; ++i) {
+          lsum += wt[i] * lt[i];
+          o += wt[i] * a[(size_t)i * D];
+          o2 += wt[i] * a[(size_t)i * D + kThreads];
+        }
+      } else {
+#pragma unroll 8
+        for (int i = 0; i < n; ++i) {
+          lsum += wt[i] * lt[i];
+          o += wt[i] * a[(size_t)i * D];
+        }
       }
     }
   }
   if (tid < D) out[bh * D + tid] = o / fmaxf(lsum, 1e-30f);
+  if (two) out[bh * D + tid + kThreads] = o2 / fmaxf(lsum, 1e-30f);
 }
 
 // The split kernel's work for block (s, y, b) of a row whose keys are

@@ -5,7 +5,8 @@
 // planar_decode_attention: q (B,H,D) f32; planes k_hi, k_lo, v_hi, v_lo
 // (B,Cap,Hkv,D) u8; lens (B,) i32 >= 1; window (<= 0 is global) ->
 // (B,H,D) f32. FP16 mode joins hi|lo into the exact f16 K/V; FP8 mode
-// reads only the hi planes, as e5m2 (half the bytes). D is 64 or 128.
+// reads only the hi planes, as e5m2 (half the bytes). D is 64, 128 or
+// 256.
 //
 // What bounds it on an H100: the KV bytes of the kept keys,
 // sum(kept) * Hkv * D * 2 (K and V) * (2 B in FP16 mode, 1 B in FP8) over
@@ -87,8 +88,9 @@ extern "C" int planar_decode_attention(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ns > 0) {
     decltype(&launch<64, true>) fn =
-        D == 64 ? (fp8 ? &launch<64, true> : &launch<64, false>)
-                : (fp8 ? &launch<128, true> : &launch<128, false>);
+        D == 64    ? (fp8 ? &launch<64, true> : &launch<64, false>)
+        : D == 128 ? (fp8 ? &launch<128, true> : &launch<128, false>)
+                   : (fp8 ? &launch<256, true> : &launch<256, false>);
     const int err = fn(q, k_hi, k_lo, v_hi, v_lo, lens, out, part, B, H, Hkv,
                        Cap, ns, S, window, q_scale, st);
     if (err != 0) return err;

@@ -10,7 +10,8 @@ to CUDA kernels that share one body (`csrc/decode_attention.cuh`):
 - K5 `planar_decode_attention` (`csrc/planar_decode_attention.cu`) over
   dense per-slot planes (B, Cap, Hkv, D), read in place.
 
-In both, a window of None or <= 0 means global, and D is 64 or 128.
+In both, a window of None or <= 0 means global, and D is 64, 128 or 256
+(gemma3-1b).
 Each row's keys are cut into splits of a fixed number of keys (the C
 entry's `*_splits`), one block a split; when a row has more than one
 split, a second kernel merges them from an f32 scratch that the wrapper
@@ -72,8 +73,8 @@ def _check(q, planes: dict, *, fp8: bool, paged: bool) -> None:
         if p.data_ptr() % 16:
             raise ValueError(f"{name}: must be 16-byte aligned")
     if dynamic_smem_bytes(d, fp8=fp8, paged=paged) == 0:
-        raise ValueError(f"head dim D={d}: the decode kernels have D = 64 "
-                         f"and 128")
+        raise ValueError(f"head dim D={d}: the decode kernels have D = 64, "
+                         f"128 and 256")
 
 
 def _scratch(b, h, d, ns, device):

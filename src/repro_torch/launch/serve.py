@@ -5,7 +5,12 @@ Usage (the card is the default device):
       --requests 8 --policy dual|fp16|fp8 --kv-planar
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --reduced --device cpu
-Prints a JSON summary; exits 1 if any request failed to finish.
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+      --reduced --device cpu --kv-planar --prompt-len 40
+Prints a JSON summary (with `window_reclaimed_blocks`, the local-layer
+blocks freed by window slides, nonzero for a sliding-window arch such as
+gemma3-1b once sequences outgrow the window); exits 1 if any request
+failed to finish.
 """
 
 from __future__ import annotations
@@ -87,6 +92,7 @@ def main(argv=None) -> int:
         "fp16_fraction": modes.count("fp16") / max(len(modes), 1),
         "prefix_hit_rate": round(ps["hit_rate"], 3),
         "blocks_saved": ps["blocks_saved"],
+        "window_reclaimed_blocks": eng.stats["window_reclaimed_blocks"],
     }))
     return 0 if len(fin) == args.requests else 1
 

@@ -173,7 +173,12 @@ def attention_paged(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
     f16, or the byte-planar {"k_hi","k_lo","v_hi","v_lo"} u8 — written in
     place. paged: (phys_write (B,C), phys_read (B,Cap), q_offset (B,),
     tables (B,MB) int32) — flat physical indices into the pool (pad and
-    inactive columns point at the trash block) plus the block table."""
+    inactive columns point at the trash block) plus the block table, all
+    of this layer's window group. window: None (global) or the layer's
+    sliding window. A local group's table points slide-freed blocks at
+    the trash block; they lie wholly before the window of every query of
+    the step, so K4 never reads them (it reads only the kept keys) and
+    the gathered path masks them out."""
     b, c = x.shape[0], x.shape[1]
     phys_write, phys_read, q_offset, tables = paged
     q, k, v = _qkv(rt, p, cfg, x, positions)

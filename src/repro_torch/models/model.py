@@ -4,6 +4,12 @@
 - `prefill` and `decode_step`: the dense-slot steps (`launch/steps.py`)
   over per-slot caches laid out (L, B, Cap, Hkv, D) as in the JAX package.
 
+Sliding-window stacks (gemma3): every `swa_pattern`-th layer is global,
+the rest attend within `sliding_window` tokens (`window_schedule`). The
+paged cache then has two window groups, each with its own block table
+(`cache_descriptor`, serving/kvcache.py), and each layer reads and
+writes the pool through its own group's table.
+
 The JAX package scans stacked (L, ...) layer params; the port keeps one
 dict per layer in `params["layers"]` and runs the stack as a Python loop.
 Random init uses a seeded `torch.Generator` on the requested device, so
@@ -87,9 +93,24 @@ def _check_dense(cfg: ArchConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(f"the port serves dense decoders; "
                                   f"{cfg.arch_id} is {cfg.family}")
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window layer groups are not "
-                                  "ported yet")
+
+
+def window_schedule(cfg: ArchConfig) -> tuple[int, ...] | None:
+    """Per-layer window: every swa_pattern-th layer is global (-1), the
+    rest local (sliding_window); None for a stack without windows."""
+    if cfg.sliding_window is None:
+        return None
+    p = cfg.swa_pattern
+    return tuple(-1 if i % p == p - 1 else int(cfg.sliding_window)
+                 for i in range(cfg.n_layers))
+
+
+def _layer_windows(cfg: ArchConfig) -> list[int | None]:
+    """Each layer's window for the attention functions (None = global)."""
+    ws = window_schedule(cfg)
+    if ws is None:
+        return [None] * cfg.n_layers
+    return [w if w > 0 else None for w in ws]
 
 
 # ---------------------------------------------------------------------------
@@ -97,16 +118,25 @@ def _check_dense(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def cache_descriptor(cfg: ArchConfig, planar: bool = False) -> KV.CacheDescriptor:
-    """GQA descriptor: K/V planes per layer, f16 or byte-planar (NestedKV)."""
+    """GQA descriptor: K/V planes per layer, f16 or byte-planar (NestedKV),
+    and for a sliding-window stack its two window groups: global = the
+    layers with i % swa_pattern == swa_pattern - 1, local = the rest."""
     _check_dense(cfg)
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    groups: tuple[KV.LayerGroup, ...] = ()
+    if cfg.sliding_window and cfg.swa_pattern:
+        p = cfg.swa_pattern
+        glob = tuple(i for i in range(cfg.n_layers) if i % p == p - 1)
+        loc = tuple(i for i in range(cfg.n_layers) if i % p != p - 1)
+        groups = (KV.LayerGroup("global", None, glob),
+                  KV.LayerGroup("local", int(cfg.sliding_window), loc))
     if planar:
         return KV.CacheDescriptor("gqa", planes=tuple(
             KV.PlaneSpec(n, cfg.n_layers, (hkv, hd), "uint8")
-            for n in ("k_hi", "k_lo", "v_hi", "v_lo")))
+            for n in ("k_hi", "k_lo", "v_hi", "v_lo")), groups=groups)
     return KV.CacheDescriptor("gqa", planes=(
         KV.PlaneSpec("k", cfg.n_layers, (hkv, hd), "float16"),
-        KV.PlaneSpec("v", cfg.n_layers, (hkv, hd), "float16")))
+        KV.PlaneSpec("v", cfg.n_layers, (hkv, hd), "float16")), groups=groups)
 
 
 _TORCH_DTYPES = {"uint8": torch.uint8, "float16": torch.float16}
@@ -179,22 +209,35 @@ def apply_decoder_block(rt: Runtime, p: dict, cfg: ArchConfig, x, attend):
 
 
 def run_decoder_stack(rt, layers, cfg, x, *, phase, positions, caches,
-                      kv_len=None, paged=None):
+                      kv_len=None, paged=None, paged_groups=None):
     """The decoder stack as a loop over layers, for the "paged", "prefill"
     and "decode" phases; layer i reads and writes slice i of every cache
-    plane in place. Prefill copies each layer's k/v into its f16 cache
-    (the first min(S, Cap) positions; the rest stay zero)."""
+    plane in place, within its window (`window_schedule`). Prefill copies
+    each layer's k/v into its f16 cache (the first min(S, Cap) positions;
+    the rest stay zero).
+
+    paged: (phys_write (G,B,C), phys_read (G,B,Cap), q_offset (B,),
+    tables (G,B,MB)), one index set per window group; paged_groups:
+    (L,) layer -> group map. Layer i attends through group
+    paged_groups[i]'s indices and table."""
+    windows = _layer_windows(cfg)
     for i, p in enumerate(layers):
         cache = {name: plane[i] for name, plane in caches.items()}
+        window = windows[i]
         if phase == "paged":
+            g = 0 if paged_groups is None else int(paged_groups[i])
+            pg = (paged[0][g], paged[1][g], paged[2], paged[3][g])
+
             def attend(h):
                 return L.attention_paged(rt, p["attn"], cfg, h,
                                          positions=positions, cache=cache,
-                                         kv_len=kv_len, paged=paged)
+                                         kv_len=kv_len, paged=pg,
+                                         window=window)
         elif phase == "prefill":
             def attend(h):
                 a, kv = L.attention_prefill(rt, p["attn"], cfg, h,
-                                            positions=positions)
+                                            positions=positions,
+                                            window=window)
                 for name in ("k", "v"):
                     n = min(kv[name].shape[1], cache[name].shape[1])
                     cache[name][:, :n] = kv[name][:, :n]
@@ -203,7 +246,7 @@ def run_decoder_stack(rt, layers, cfg, x, *, phase, positions, caches,
             def attend(h):
                 return L.attention_decode(rt, p["attn"], cfg, h,
                                           positions=positions, cache=cache,
-                                          kv_len=kv_len)
+                                          kv_len=kv_len, window=window)
         else:
             raise ValueError(f"unknown phase {phase!r}")
         x = apply_decoder_block(rt, p, cfg, x, attend)
@@ -231,8 +274,10 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
     rows) and chunked prefill (ragged right-padded chunk rows) alike.
 
     tokens:       (B, C) int32, right-padded chunks.
-    block_tables: (B, MB) int32 physical block ids in logical order
-                  (holes = trash block 0). Rows may alias blocks (COW
+    block_tables: (G, B, MB) int32 physical block ids in logical order,
+                  one table per window group (holes and slide-freed
+                  blocks = trash block 0), or (B, MB), then the same
+                  table for every group. Rows may alias blocks (COW
                   prefix sharing); the caller forks before any write.
     q_offset:     (B,) absolute position of tokens[:, 0].
     kv_len:       (B,) valid cache tokens AFTER this chunk is written
@@ -240,36 +285,46 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
     logit_position: (B,) column of the last real token per row (default:
                   the last column).
     rows:         (B,) slot of each row: block_tables is then the whole
-                  (n_slots, MB) table array and row b reads its row
-                  rows[b], gathered here, inside the step (as the JAX
-                  engine gathers inside its jit).
+                  (G, n_slots, MB) (or (n_slots, MB)) table array and row
+                  b reads its row rows[b] of every group, gathered here,
+                  inside the step (as the JAX engine gathers inside its
+                  jit).
 
     The pool planes in `caches` are updated in place. Returns next_ids
     (B,) int32 (greedy argmax, on the device) or, with return_logits,
     the (B, V) f32 logits."""
     b, c = tokens.shape
     dev = tokens.device
+    desc = cache_descriptor(cfg)
+    ngrp = len(desc.group_windows)
+    tables = block_tables
+    if tables.dim() == 2:
+        tables = tables[None]
     if rows is not None:
-        block_tables = block_tables[rows.long()]
-    tables = block_tables.to(torch.int32)
+        tables = tables[:, rows.long()]
+    tables = tables.to(torch.int32)
+    if tables.shape[0] != ngrp:            # one table for every group
+        tables = tables.expand(ngrp, -1, -1)
     q_offset = q_offset.to(torch.int64)
     kv_len = kv_len.to(torch.int32)
-    mb = tables.shape[1]
+    mb = tables.shape[2]
     positions = q_offset[:, None] + torch.arange(c, device=dev)[None, :]
     real = positions < kv_len[:, None]
     blkidx = torch.clamp(positions // block_size, 0, mb - 1)
-    blk = torch.gather(tables.long(), 1, blkidx)                 # (B, C)
-    trash = (torch.arange(c, device=dev) % block_size)[None, :]
-    phys_write = torch.where(real, blk * block_size + positions % block_size,
-                             trash)
+    blk = torch.gather(tables.long(), 2,
+                       blkidx.expand(ngrp, -1, -1))              # (G, B, C)
+    trash = (torch.arange(c, device=dev) % block_size)[None, None, :]
+    phys_write = torch.where(
+        real[None], blk * block_size + (positions % block_size)[None], trash)
     offs = torch.arange(block_size, device=dev)
     phys_read = (tables.long()[..., None] * block_size
-                 + offs[None, None, :]).reshape(b, mb * block_size)
+                 + offs).reshape(ngrp, b, mb * block_size)
     h = embed_tokens(rt, params, cfg, tokens)
     h = run_decoder_stack(rt, params["layers"], cfg, h, phase="paged",
                           positions=positions, caches=caches["attn"],
                           kv_len=kv_len,
-                          paged=(phys_write, phys_read, q_offset, tables))
+                          paged=(phys_write, phys_read, q_offset, tables),
+                          paged_groups=desc.layer_group_map(cfg.n_layers))
     if logit_position is None:
         hsel = h[:, -1:]
     else:

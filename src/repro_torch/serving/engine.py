@@ -35,6 +35,12 @@ runs eagerly. Copy-on-write prefix caching is on by default
 (`prefix_cache=True`): shared blocks are forked by an in-place block
 copy in the pool before any write lands.
 
+Sliding-window stacks (gemma3) keep one block table per window group
+over the same pool (`kvcache.BlockManager(group_windows=...)`): blocks
+of the local layers whose keys have left every future query's window
+are freed mid-generation and counted in `stats["window_reclaimed_blocks"]`;
+`window_reclaim=False` keeps the groups but never slides them.
+
 Not ported yet, and refused with NotImplementedError when asked for:
 speculative decoding, the host KV tier and its persistence, serving
 meshes and the fault-injection hook.
@@ -107,6 +113,7 @@ class Engine:
                  clock: Callable[[], float] = time.monotonic,
                  block_size: int = 16, n_blocks: int | None = None,
                  chunk_tokens: int = 256, prefix_cache: bool = True,
+                 window_reclaim: bool = True,
                  debug_invariants: bool = False, device=None,
                  speculate=None, mesh=None, persist_dir: str | None = None,
                  host_offload: bool = False,
@@ -137,7 +144,7 @@ class Engine:
         self.finished: list[Request] = []
         self.lens = np.zeros(n_slots, np.int32)
         self.stats = {"preemptions": 0, "chunks": 0, "chunk_tokens": 0,
-                      "peak_block_util": 0.0,
+                      "peak_block_util": 0.0, "window_reclaimed_blocks": 0,
                       # model calls per phase, small auxiliary device ops
                       # (COW block copies, first-token overlays) and
                       # host->device bytes of step inputs (block-table
@@ -154,11 +161,21 @@ class Engine:
                      for m in ("fp16", "fp8")}
         self.block_size = block_size
         mbs = -(-capacity // block_size)
+        # one block table per window group, each its own id space over the
+        # same pool (a layer touches only its group's rows of a block)
+        desc = M.cache_descriptor(cfg, planar=kv_planar)
+        gw = desc.group_windows
+        if not window_reclaim:
+            gw = (None,) * len(gw)
         if n_blocks is None:
             n_blocks = n_slots * mbs         # dense-equivalent pool by default
         self.blocks = BlockManager(n_slots, block_size, n_blocks, mbs,
                                    prefix_cache=prefix_cache,
-                                   device=self.device)
+                                   group_windows=gw, device=self.device)
+        # the layers whose pool rows a COW fork of each group copies
+        self._group_layers = {
+            gi: torch.tensor(g.layers, dtype=torch.long, device=self.device)
+            for gi, g in enumerate(desc.groups)} or {0: slice(None)}
         self.caches = M.init_paged_cache(
             cfg, self.blocks.n_total_blocks, block_size, planar=kv_planar,
             device=self.device)
@@ -184,11 +201,13 @@ class Engine:
                 f"request {req.request_id}: prompt ({len(req.tokens)}) + "
                 f"max_new ({req.max_new}) = {total} exceeds per-sequence "
                 f"capacity {self.capacity}")
-        if self.blocks.blocks_needed(total) > self.blocks.n_blocks:
+        bm = self.blocks
+        if any(bm._group_need(total, w) > bm.n_blocks
+               for w in bm.group_windows):
             raise ValueError(
-                f"request {req.request_id}: needs more KV blocks than the "
-                f"pool holds ({self.blocks.n_blocks}) — the pool can never "
-                f"cover it")
+                f"request {req.request_id}: needs more KV blocks than a "
+                f"whole group pool holds ({bm.n_blocks}) — the pool can "
+                f"never cover it")
         self.queue.append(req)
 
     def run(self, max_iters: int = 10_000,
@@ -259,7 +278,9 @@ class Engine:
             self.blocks.check_invariants()
 
     def _ensure_take(self, idx: int, start: int, want: int) -> int:
-        """Largest chunk <= want coverable by owned + free blocks."""
+        """Largest chunk <= want coverable by owned + free blocks across
+        every window group (dead local blocks slide back into the pool
+        first)."""
         bm = self.blocks
         take = bm.max_coverable(idx, start, want)
         if take <= 0 or not bm.ensure(idx, start + take):
@@ -321,12 +342,15 @@ class Engine:
         self.stats["h2d_bytes"] += nbytes
         return views
 
-    def _apply_cow(self, pairs: list[tuple[int, int]]) -> None:
+    def _apply_cow(self, triples: list[tuple[int, int, int]]) -> None:
         """Materialize COW forks: copy each forked block's bytes in the
-        pool, in place, for every layer and plane."""
-        for src, dst in pairs:
+        pool, in place, for every plane and the owning group's layers
+        only (the same id may be live in another group with other
+        content)."""
+        for g, src, dst in triples:
+            layers = self._group_layers[g]
             for plane in self.caches["attn"].values():
-                plane[:, dst] = plane[:, src]
+                plane[layers, dst] = plane[layers, src]
             self.stats["aux_dispatches"] += 1
 
     def _cow_or_preempt(self, idx: int, start: int, end: int) -> bool:
@@ -349,6 +373,8 @@ class Engine:
     def _sample_peak(self) -> None:
         self.stats["peak_block_util"] = max(
             self.stats["peak_block_util"], self.blocks.utilization())
+        self.stats["window_reclaimed_blocks"] = \
+            self.blocks.window_freed_blocks
 
     def _run_chunks_fused(self, mode: str, plan, pending, fresh):
         """ONE ragged `paged_step` covers the whole chunk budget: rows

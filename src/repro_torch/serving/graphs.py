@@ -6,8 +6,8 @@ keys, each made at its first use:
 - `("decode", mode)`: the batched decode, `(n_slots, 1)` tokens over the
   whole device block table (the JAX engine's `_decode[mode]`);
 - `("prefill", mode, rows_bucket, chunk_bucket)`: the fused ragged
-  prefill, whose rows gather their block-table rows inside the step
-  (the JAX engine's `_fused_cache`).
+  prefill, whose rows gather their block-table rows of every window
+  group inside the step (the JAX engine's `_fused_cache`).
 
 Each key owns static buffers: one int32 device buffer that packs the
 step's inputs (tokens, rows, q_offset, kv_len, logit_position), a host
@@ -73,18 +73,24 @@ class StepGraphs:
 
     rts: mode -> Runtime; params, cfg, block_size: as `paged_step` takes
     them; caches: the engine's pool planes; tables: its persistent
-    (n_slots, MB) device block table (`BlockManager.device_tables()`)."""
+    (G, n_slots, MB) device block tables, one per window group
+    (`BlockManager.device_tables()`)."""
 
     def __init__(self, rts: dict, params, cfg, caches: dict,
                  tables: torch.Tensor, block_size: int):
         self.rts, self.params, self.cfg = rts, params, cfg
         self.caches, self.tables = caches, tables
         self.block_size = block_size
-        self.n_slots = tables.shape[0]
+        self.n_slots = tables.shape[1]
         self.device = tables.device
         self.on_card = self.device.type == "cuda"
         self._steps: dict[tuple, _Step] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.on_card else None
+        # with check_first_runs set, `run` holds each key's first run
+        # against an eager call (`check_replay`) right after it, while
+        # the tables are those the run read; results go to `checks`
+        self.check_first_runs = False
+        self.checks: dict[tuple, dict[str, bool]] = {}
 
     # -- keys and buffers ------------------------------------------------------
     def keys(self, kind: str | None = None) -> set:
@@ -172,6 +178,9 @@ class StepGraphs:
         else:
             st.graph.replay()
             ops.add_launches(st.launches)
+        if self.check_first_runs and key not in self.checks:
+            self.checks[key] = {}            # check_replay runs the key too
+            self.checks[key] = self.check_replay(key)
         return st.ids
 
     def capture(self, key: tuple) -> None:
@@ -211,11 +220,14 @@ class StepGraphs:
         pool plane bitwise. The pool and the launch counters are left as
         they were. Returns {"ids": equal, plane name: equal, ...}.
 
-        Call it right after a step that ran `key`, while the device block
-        table still holds that step's rows (the engine flushes table
-        edits at the start of the next step): a row whose slot was
-        released since reads and writes only the trash block. Re-running
-        the step writes the values it wrote before. Only rows with
+        Call it right after a run of `key`, while the device block tables
+        still hold the rows that run read: the engine flushes table
+        edits before its next dispatch, and a sliding-window stack's
+        decode slides blocks that the same step's prefill wrote, so a
+        prefill key is checked inside its step (`check_first_runs`). A
+        row whose slot was released since reads and writes only the
+        trash block. Re-running the step writes the values it wrote
+        before. Only rows with
         kv_len > 0 are compared, and the planes past the trash block:
         pad and idle rows all write there, colliding writes land in no
         fixed order, and only those rows' discarded ids read it."""

@@ -6,20 +6,29 @@ driven by free blocks, and when blocks run out the youngest sequence is
 preempted (blocks released, request recomputed later). Physical block 0
 is the trash block: pad and inactive-row writes are pointed at it.
 
+Window groups (gemma3-style sliding-window stacks): the descriptor splits
+the layers into a global group (window None) and a local group (a window
+in tokens), and the manager keeps one block table per group, each
+allocating from its own id space over the same pool array (a layer only
+touches its own group's rows of a block). Local blocks whose keys have
+slid out of every future query's window are freed mid-generation
+(`slide_window`), while global blocks stay pinned.
+
 Copy-on-write prefix caching (`prefix_cache=True`): every physical block
-carries a refcount, and every FULL committed block is registered in a
-content-hash index keyed by a prefix chain hash
-`h_i = blake2b(h_{i-1}, tokens_of_block_i)`, so identical prefixes map to
-identical chains. `attach_prefix` shares the longest cached run at
-admission; `cow_for_write` forks any shared write target before the
-write lands; released registered blocks park in an LRU pool that is
+carries a refcount per group, and every FULL committed block is
+registered in a content-hash index keyed by (group, prefix chain hash)
+`h_i = blake2b(h_{i-1}, tokens_of_block_i)`, so identical prefixes map
+to identical chains. `attach_prefix` shares the longest cached run at
+admission (a windowed group only the resume position's lookback window);
+`cow_for_write` forks any shared write target before the write lands;
+released registered blocks park in a per-group LRU pool that is
 reclaimed before preemption ever triggers.
 
-This is the host side of the JAX package's `serving/kvcache.py`
-restricted to one window group (no sliding-window reclamation), with no
-host tier. The block tables keep a DEVICE mirror: table mutations are
-recorded in a dirty set and flushed by one small in-place index write
-per step (`device_tables`), not by a re-upload of the whole table.
+This is the host side of the JAX package's `serving/kvcache.py` without
+the host tier and without `truncate`. The block tables keep a DEVICE
+mirror of shape (G, n_slots, MB): table mutations are recorded in a
+dirty set and flushed by one small in-place index write per step
+(`device_tables`), not by a re-upload of the whole table.
 """
 
 from __future__ import annotations
@@ -46,10 +55,46 @@ class PlaneSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class LayerGroup:
+    """One attention-window group of the paged planes' layer axis: a
+    "global" group (window None: keys live for the whole sequence) or a
+    "local" one (a sliding window in tokens: keys die once they fall out
+    of every future query's lookback). Each group gets its own
+    per-sequence block table in `BlockManager`."""
+    name: str
+    window: int | None                  # tokens; None = full attention
+    layers: tuple[int, ...]             # indices into the planes' layer axis
+
+
+@dataclasses.dataclass(frozen=True)
 class CacheDescriptor:
-    """Cache layout of one model: its paged planes."""
+    """Cache layout of one model: its paged planes, and its window groups
+    (empty = one implicit global group)."""
     kind: str                           # "gqa"
     planes: tuple[PlaneSpec, ...] = ()
+    groups: tuple[LayerGroup, ...] = ()
+
+    @property
+    def group_windows(self) -> tuple[int | None, ...]:
+        """Per-group sliding window (None = global): the BlockManager's
+        `group_windows` argument."""
+        if not self.groups:
+            return (None,)
+        return tuple(g.window for g in self.groups)
+
+    def layer_group_map(self, n_layers: int) -> np.ndarray:
+        """(n_layers,) int32 map from plane layer index to group index
+        (all zeros for the implicit single global group)."""
+        out = np.zeros(n_layers, np.int32)
+        if self.groups:
+            seen: set[int] = set()
+            for gi, g in enumerate(self.groups):
+                for li in g.layers:
+                    assert 0 <= li < n_layers and li not in seen, (gi, li)
+                    seen.add(li)
+                    out[li] = gi
+            assert len(seen) == n_layers, "layer groups must cover the stack"
+        return out
 
 
 def _chain_hash(parent: int, tokens: tuple[int, ...]) -> int:
@@ -68,51 +113,83 @@ _ROOT_HASH = int.from_bytes(
     "little", signed=True)
 
 
+
+
+@dataclasses.dataclass
+class _Group:
+    """One window group's view of a sequence: physical block ids by
+    logical index (TRASH_BLOCK = slide-freed hole), the chain hashes of
+    the committed or matched full-block prefix, and how many leading
+    logical blocks the window has slid past."""
+    blocks: list[int] = dataclasses.field(default_factory=list)
+    hashes: list[int] = dataclasses.field(default_factory=list)
+    slid: int = 0
+
+
 @dataclasses.dataclass
 class _Seq:
     request_id: str
-    blocks: list[int] = dataclasses.field(default_factory=list)
-    hashes: list[int] = dataclasses.field(default_factory=list)
+    groups: list[_Group]       # one block table per window group
     length: int = 0            # tokens committed to the cache
     admitted: int = 0          # admission counter (largest == youngest)
+
+    # group 0's views: the only group of a non-windowed descriptor, the
+    # global group of a windowed one
+    @property
+    def blocks(self) -> list[int]:
+        return self.groups[0].blocks
+
+    @property
+    def hashes(self) -> list[int]:
+        return self.groups[0].hashes
 
 
 class BlockManager:
     """Free-list allocator of fixed-size KV blocks with per-sequence block
-    tables, per-block refcounts and optional COW prefix caching.
+    tables (one per window group), per-block refcounts and optional COW
+    prefix caching.
 
-    `n_blocks` counts USABLE blocks; physical block 0 (trash) is extra, so
-    pools hold `n_total_blocks` blocks. Unassigned table entries point at
-    the trash block."""
+    `n_blocks` counts USABLE blocks of each group's id space; physical
+    block 0 (trash) is extra, so pools hold `n_total_blocks` blocks.
+    Unassigned table entries and slide-freed holes point at the trash
+    block."""
 
     def __init__(self, n_slots: int, block_size: int, n_blocks: int,
                  max_blocks_per_seq: int, prefix_cache: bool = False,
+                 group_windows: tuple[int | None, ...] = (None,),
                  device="cpu"):
         assert block_size > 0 and n_blocks > 0
+        assert group_windows and all(w is None or w > 0
+                                     for w in group_windows)
         self.n_slots = n_slots
         self.block_size = block_size
         self.n_blocks = n_blocks
         self.max_blocks_per_seq = max_blocks_per_seq
         self.prefix_cache = prefix_cache
+        self.group_windows = tuple(group_windows)
+        self.n_groups = len(self.group_windows)
         self.device = torch.device(device)
-        self._free = list(range(n_blocks, 0, -1))   # pop() -> low ids first
+        # pop() hands out low block ids first
+        self._free = [list(range(n_blocks, 0, -1))
+                      for _ in range(self.n_groups)]
         self.seqs: list[_Seq | None] = [None] * n_slots
         self._admissions = 0
-        self._ref = [0] * (n_blocks + 1)
-        self._index: dict[int, int] = {}            # chain hash -> block
-        self._hash_of: dict[int, int] = {}          # block -> chain hash
-        self._lru: collections.OrderedDict[int, None] = \
-            collections.OrderedDict()               # unreferenced cached
-        self._tables = np.full((n_slots, max_blocks_per_seq), TRASH_BLOCK,
-                               np.int32)
+        self._ref = [[0] * (n_blocks + 1) for _ in range(self.n_groups)]
+        self._index: dict[tuple[int, int], int] = {}   # (group, hash) -> block
+        self._hash_of: dict[tuple[int, int], int] = {}  # (group, block) -> hash
+        self._lru: list[collections.OrderedDict[int, None]] = [
+            collections.OrderedDict() for _ in range(self.n_groups)]
+        self._tables = np.full((self.n_groups, n_slots, max_blocks_per_seq),
+                               TRASH_BLOCK, np.int32)
         self._dev_tables: torch.Tensor | None = None
-        self._dirty: dict[tuple[int, int], int] = {}
+        self._dirty: dict[tuple[int, int, int], int] = {}
         self.table_h2d_bytes = 0
         self.table_flushes = 0
         self.table_updates = 0
         self.prefix_stats = {"queries": 0, "lookup_tokens": 0,
                              "hit_tokens": 0, "blocks_shared": 0,
                              "cow_forks": 0, "evictions": 0}
+        self.window_freed_blocks = 0     # blocks returned by window slides
 
     # -- pool-level views ------------------------------------------------------
     @property
@@ -124,40 +201,52 @@ class BlockManager:
         """Max tokens a single sequence can hold."""
         return self.max_blocks_per_seq * self.block_size
 
-    def free_blocks(self) -> int:
-        """Allocatable blocks: truly free + reclaimable LRU-cached."""
-        return len(self._free) + len(self._lru)
+    def free_blocks(self, group: int) -> int:
+        """Allocatable blocks of one group's id space: truly free +
+        reclaimable LRU-cached."""
+        return len(self._free[group]) + len(self._lru[group])
+
+    def n_free_blocks(self) -> int:
+        """Allocatable blocks of the tightest group: every group must be
+        able to cover a new block."""
+        return min(self.free_blocks(g) for g in range(self.n_groups))
 
     def n_cached_blocks(self) -> int:
-        return len(self._lru)
+        """Unreferenced blocks kept warm in the prefix cache (summed over
+        groups)."""
+        return sum(len(lru) for lru in self._lru)
 
     def blocks_in_use(self) -> int:
-        return self.n_blocks - self.free_blocks()
+        """Group-blocks held by live sequences, summed over groups."""
+        return sum(self.n_blocks - self.free_blocks(g)
+                   for g in range(self.n_groups))
 
     def utilization(self) -> float:
-        return self.blocks_in_use() / self.n_blocks
+        return self.blocks_in_use() / (self.n_blocks * self.n_groups)
 
     def free_block_frac(self) -> float:
-        """Allocatable fraction of the pool — the controller's
-        memory-pressure signal."""
-        return self.free_blocks() / self.n_blocks
+        """Allocatable fraction of the tightest group's pool — the
+        controller's memory-pressure signal."""
+        return self.n_free_blocks() / self.n_blocks
 
-    def tables(self) -> np.ndarray:
-        """(n_slots, max_blocks_per_seq) host table array (do not mutate)."""
+    def group_tables(self) -> np.ndarray:
+        """(n_groups, n_slots, max_blocks_per_seq) host table array, one
+        table per window group (do not mutate)."""
         return self._tables
 
-    def _set_table(self, idx: int, j: int, b: int) -> None:
+    def _set_table(self, g: int, idx: int, j: int, b: int) -> None:
         """Single point of mutation for table entries: the host array and
         the device mirror's dirty set."""
-        if self._tables[idx, j] != b:
-            self._tables[idx, j] = b
+        if self._tables[g, idx, j] != b:
+            self._tables[g, idx, j] = b
             if self._dev_tables is not None:
-                self._dirty[(idx, j)] = int(b)
+                self._dirty[(g, idx, j)] = int(b)
 
     def device_tables(self) -> torch.Tensor:
-        """(n_slots, max_blocks_per_seq) int32 table array on the device.
-        The first call uploads the whole host array; later calls write
-        only the entries changed since the last flush, in place."""
+        """(n_groups, n_slots, max_blocks_per_seq) int32 table array on
+        the device. The first call uploads the whole host array; later
+        calls write only the entries changed since the last flush, in
+        place."""
         if self._dev_tables is None:
             self._dev_tables = torch.from_numpy(self._tables.copy()).to(
                 self.device)
@@ -165,10 +254,11 @@ class BlockManager:
             self.table_flushes += 1
             return self._dev_tables
         if self._dirty:
-            upd = np.asarray([(s, j, b) for (s, j), b in self._dirty.items()],
-                             np.int64)
+            upd = np.asarray([(g, s, j, b) for (g, s, j), b
+                              in self._dirty.items()], np.int64)
             dev = torch.from_numpy(upd).to(self.device)
-            self._dev_tables[dev[:, 0], dev[:, 1]] = dev[:, 2].to(torch.int32)
+            self._dev_tables[dev[:, 0], dev[:, 1], dev[:, 2]] = \
+                dev[:, 3].to(torch.int32)
             self.table_h2d_bytes += upd.nbytes
             self.table_flushes += 1
             self.table_updates += len(self._dirty)
@@ -176,86 +266,146 @@ class BlockManager:
         return self._dev_tables
 
     # -- allocation core -------------------------------------------------------
-    def _alloc_block(self) -> int | None:
-        """Pop a free block; when the free list is dry, reclaim the
-        least-recently-used cached block (evicting its index entry)."""
-        if self._free:
-            return self._free.pop()
-        if self._lru:
-            b, _ = self._lru.popitem(last=False)
-            h = self._hash_of.pop(b)
-            del self._index[h]
+    def _alloc_block(self, g: int) -> int | None:
+        """Pop a free block of group g; when the free list is dry, reclaim
+        the least-recently-used cached block (evicting its index entry)."""
+        if self._free[g]:
+            return self._free[g].pop()
+        if self._lru[g]:
+            b, _ = self._lru[g].popitem(last=False)
+            h = self._hash_of.pop((g, b))
+            del self._index[(g, h)]
             self.prefix_stats["evictions"] += 1
             return b
         return None
 
-    def _release_block(self, b: int) -> None:
-        """Decref; park registered zero-ref blocks in the LRU cache,
-        return unregistered ones to the free list."""
-        self._ref[b] -= 1
-        assert self._ref[b] >= 0, f"refcount underflow on block {b}"
-        if self._ref[b] == 0:
-            if b in self._hash_of:
-                self._lru[b] = None          # most-recent end
+    def _release_block(self, g: int, b: int) -> None:
+        """Decref; park registered zero-ref blocks in the group's LRU
+        cache, return unregistered ones to the group's free list."""
+        self._ref[g][b] -= 1
+        assert self._ref[g][b] >= 0, f"refcount underflow on block {g}/{b}"
+        if self._ref[g][b] == 0:
+            if (g, b) in self._hash_of:
+                self._lru[g][b] = None       # most-recent end
             else:
-                self._free.append(b)
+                self._free[g].append(b)
 
     # -- sequence lifecycle ----------------------------------------------------
-    def blocks_needed(self, seq_len: int) -> int:
-        return -(-max(seq_len, 1) // self.block_size)
+    def _group_need(self, seq_len: int, window: int | None) -> int:
+        """Blocks one group must hold live for a `seq_len`-token sequence:
+        the whole logical coverage for a global group, only the lookback
+        window's span for a windowed one (everything earlier is
+        slide-freed by the time the sequence reaches that length)."""
+        nb = -(-max(seq_len, 1) // self.block_size)
+        if not window:
+            return nb
+        q0 = max(seq_len - 1, 0)
+        return nb - max(0, (q0 - window + 1) // self.block_size)
 
     def try_allocate(self, request_id: str, seq_len: int, max_new: int,
-                     cached_blocks: int = 0) -> int | None:
+                     cached_blocks=0) -> int | None:
         """Claim a slot (no blocks yet: `ensure` grows them chunk by
-        chunk). None when no slot is free or the free pool cannot cover
-        the whole prompt (the admission watermark); `cached_blocks`
-        discounts prefix hits held live by other sequences."""
+        chunk). None when no slot is free or some group's free pool
+        cannot cover the whole prompt (the admission watermark);
+        `cached_blocks` (an int for every group, or one per group as
+        `prefix_admit_discount` gives) discounts prefix hits held live by
+        other sequences."""
         if seq_len + max_new > self.capacity:
             raise ValueError(
                 f"request {request_id}: {seq_len}+{max_new} exceeds paged "
                 f"capacity {self.capacity}")
-        if self.blocks_needed(seq_len + max_new) > self.n_blocks:
+        if any(self._group_need(seq_len + max_new, w) > self.n_blocks
+               for w in self.group_windows):
             raise ValueError(
-                f"request {request_id}: needs more blocks than the whole "
-                f"pool holds ({self.n_blocks}) — would preempt-thrash forever")
-        if self.blocks_needed(seq_len) - cached_blocks > self.free_blocks():
+                f"request {request_id}: needs more blocks than a whole "
+                f"group pool holds ({self.n_blocks}) — would preempt-thrash "
+                f"forever")
+        if isinstance(cached_blocks, int):
+            cached_blocks = (cached_blocks,) * self.n_groups
+        if any(self._group_need(seq_len, w) - c > self.free_blocks(g)
+               for g, (w, c) in enumerate(zip(self.group_windows,
+                                              cached_blocks))):
             return None
         for i, s in enumerate(self.seqs):
             if s is None:
                 self._admissions += 1
-                self.seqs[i] = _Seq(request_id, admitted=self._admissions)
+                self.seqs[i] = _Seq(
+                    request_id, [_Group() for _ in self.group_windows],
+                    0, self._admissions)
                 return i
         return None
 
-    def ensure(self, idx: int, n_tokens: int) -> bool:
-        """Grow slot `idx`'s block table to cover [0, n_tokens).
-        All-or-nothing; False when the pool runs dry."""
+    def slide_window(self, idx: int) -> int:
+        """Free every windowed-group block that has slid wholly out of the
+        lookback window of all FUTURE queries (the next query sits at
+        `seq.length`, so positions <= length - window are dead).
+        Exclusively held dead blocks go straight back to the free list and
+        leave the prefix index (a slide-freed block is never matched for
+        a local group again); blocks a neighbour still shares are only
+        decref'd. Returns the number of blocks freed."""
         seq = self.seqs[idx]
         assert seq is not None, idx
+        freed = 0
+        for gi, (g, w) in enumerate(zip(seq.groups, self.group_windows)):
+            if not w:
+                continue
+            sp = min(max(0, (seq.length - w + 1) // self.block_size),
+                     len(g.blocks))
+            for j in range(g.slid, sp):
+                b = g.blocks[j]
+                if b == TRASH_BLOCK:
+                    continue
+                self._ref[gi][b] -= 1
+                assert self._ref[gi][b] >= 0, \
+                    f"refcount underflow on block {gi}/{b}"
+                if self._ref[gi][b] == 0:
+                    h = self._hash_of.pop((gi, b), None)
+                    if h is not None:
+                        del self._index[(gi, h)]
+                    self._free[gi].append(b)
+                    freed += 1
+                g.blocks[j] = TRASH_BLOCK
+                self._set_table(gi, idx, j, TRASH_BLOCK)
+            g.slid = max(g.slid, sp)
+        self.window_freed_blocks += freed
+        return freed
+
+    def ensure(self, idx: int, n_tokens: int) -> bool:
+        """Grow slot `idx`'s block tables (every group) to cover
+        [0, n_tokens), sliding windowed groups first so dead local blocks
+        fund the growth. All-or-nothing; False when the pool runs dry."""
+        seq = self.seqs[idx]
+        assert seq is not None, idx
+        self.slide_window(idx)
         nb = -(-n_tokens // self.block_size)
-        if len(seq.blocks) >= nb:
+        if all(len(g.blocks) >= nb for g in seq.groups):
             return True
-        if n_tokens > self.capacity or nb - len(seq.blocks) > self.free_blocks():
+        if n_tokens > self.capacity or any(
+                max(0, nb - len(g.blocks)) > self.free_blocks(gi)
+                for gi, g in enumerate(seq.groups)):
             return False
-        while len(seq.blocks) < nb:
-            b = self._alloc_block()
-            assert b is not None          # guarded by free_blocks above
-            self._ref[b] = 1
-            self._set_table(idx, len(seq.blocks), b)
-            seq.blocks.append(b)
+        for gi, g in enumerate(seq.groups):
+            while len(g.blocks) < nb:
+                b = self._alloc_block(gi)
+                assert b is not None      # guarded by free_blocks above
+                self._ref[gi][b] = 1
+                self._set_table(gi, idx, len(g.blocks), b)
+                g.blocks.append(b)
         return True
 
     def max_coverable(self, idx: int, start: int, want: int) -> int:
         """Largest take <= want such that `ensure(idx, start + take)` will
-        succeed right now."""
+        succeed right now (window slides applied first)."""
         seq = self.seqs[idx]
         assert seq is not None, idx
-        avail = self.free_blocks() + len(seq.blocks)
+        self.slide_window(idx)
+        avail = [self.free_blocks(gi) + len(g.blocks)
+                 for gi, g in enumerate(seq.groups)]
         upper = min(start + want, self.capacity)
         bs = self.block_size
         take = 0
         for nb in range(-(-(start + 1) // bs), -(-upper // bs) + 1):
-            if nb > avail:
+            if any(nb > a for a in avail):
                 break
             take = min(nb * bs, upper) - start
         return take
@@ -266,15 +416,19 @@ class BlockManager:
         seq.length = n_tokens
 
     def release(self, idx: int) -> None:
-        """Decref (not free) every block the sequence holds — shared blocks
-        survive for their other holders, registered ones go to the LRU."""
+        """Decref (not free) every block the sequence holds in any group —
+        shared blocks survive for their other holders, registered ones go
+        to the LRU."""
         seq = self.seqs[idx]
         if seq is None:
             return
-        for b in reversed(seq.blocks):
-            self._release_block(b)
-        for j in range(len(seq.blocks)):
-            self._set_table(idx, j, TRASH_BLOCK)
+        for gi, g in enumerate(seq.groups):
+            for b in reversed(g.blocks):
+                if b != TRASH_BLOCK:
+                    self._release_block(gi, b)
+            for j, b in enumerate(g.blocks):
+                if b != TRASH_BLOCK:
+                    self._set_table(gi, idx, j, TRASH_BLOCK)
         self.seqs[idx] = None
 
     def youngest(self) -> int | None:
@@ -285,132 +439,205 @@ class BlockManager:
         return max(live)[1] if live else None
 
     # -- prefix caching --------------------------------------------------------
-    def _match(self, tokens) -> tuple[int, list[int], list[int]]:
-        """Longest cached full-block prefix of `tokens`: (matched tokens,
-        its block ids, their chain hashes)."""
-        if not self.prefix_cache:
-            return 0, [], []
+    def _match_plan(self, tokens) -> tuple[int, list[tuple[int, list[int]]],
+                                           list[int]]:
+        """Group-aware longest cached prefix of `tokens`: (matched tokens
+        m, per group (j_lo, block ids of logical blocks [j_lo, m/bs)),
+        chain hashes of the matched full blocks). A prefill resuming at
+        q0 = min(m, len(tokens)-1) needs, per group, every cached block
+        covering [q0 - window + 1, m); global groups need the whole run
+        [0, m) from the root."""
         bs = self.block_size
-        blocks: list[int] = []
+        empty = [(0, []) for _ in self.group_windows]
+        if not self.prefix_cache:
+            return 0, empty, []
         hashes: list[int] = []
         parent = _ROOT_HASH
         for i in range(min(len(tokens) // bs, self.max_blocks_per_seq)):
             h = _chain_hash(parent, tuple(tokens[i * bs: (i + 1) * bs]))
-            b = self._index.get(h)
-            if b is None:
-                break
-            blocks.append(b)
             hashes.append(h)
             parent = h
-        return len(blocks) * bs, blocks, hashes
+        m = len(hashes)
+        for gi, w in enumerate(self.group_windows):
+            if w:
+                continue
+            run = 0
+            for h in hashes:
+                if (gi, h) not in self._index:
+                    break
+                run += 1
+            m = min(m, run)
+        while m > 0:
+            q0 = min(m * bs, len(tokens) - 1)
+            plan: list[tuple[int, list[int]]] | None = []
+            # a windowed group missing block j rules out every m' in
+            # (j, m), so the next candidate is m' = j
+            next_m = m - 1
+            for gi, w in enumerate(self.group_windows):
+                j_lo = 0 if not w else max(0, q0 - w + 1) // bs
+                blks: list[int] = []
+                for j in range(j_lo, m):
+                    b = self._index.get((gi, hashes[j]))
+                    if b is None:
+                        plan = None
+                        next_m = min(next_m, j)
+                        break
+                    blks.append(b)
+                if plan is None:
+                    break
+                plan.append((j_lo, blks))
+            if plan is not None:
+                return m * bs, plan, hashes[:m]
+            m = next_m
+        return 0, empty, []
 
-    def prefix_admit_discount(self, tokens) -> int:
-        """Matched blocks held LIVE by other sequences (sharing them costs
-        nothing; LRU-parked ones are already counted as free)."""
-        _, blocks, _ = self._match(tokens)
-        return sum(1 for b in blocks if self._ref[b] > 0)
+    def prefix_admit_discount(self, tokens) -> tuple[int, ...]:
+        """Per-group matched blocks held LIVE by other sequences (sharing
+        them costs nothing; LRU-parked ones are already counted as free),
+        for `try_allocate(cached_blocks=...)`."""
+        if not self.prefix_cache:
+            return (0,) * self.n_groups
+        _, plan, _ = self._match_plan(tokens)
+        return tuple(sum(1 for b in blks if self._ref[gi][b] > 0)
+                     for gi, (_, blks) in enumerate(plan))
 
     def attach_prefix(self, idx: int, tokens) -> int:
         """Share the longest cached prefix of `tokens` into freshly
         allocated slot `idx` (incref each matched block, pulling zero-ref
-        ones out of the LRU). Returns the matched token count."""
+        ones out of the LRU). Windowed groups attach only the blocks of
+        the resume position's lookback window and start pre-slid below
+        it. Returns the matched token count."""
         seq = self.seqs[idx]
-        assert seq is not None and not seq.blocks, "attach before ensure"
+        assert seq is not None and not any(g.blocks for g in seq.groups), \
+            "attach before ensure"
         if not self.prefix_cache:
             return 0
-        m_tokens, blocks, hashes = self._match(tokens)
-        seq.blocks = list(blocks)
-        seq.hashes = list(hashes)
-        for j, b in enumerate(blocks):
-            if self._ref[b] == 0:
-                del self._lru[b]
-            self._ref[b] += 1
-            self._set_table(idx, j, b)
+        m_tokens, plan, hashes = self._match_plan(tokens)
+        shared = 0
+        for gi, (g, (j_lo, blks)) in enumerate(zip(seq.groups, plan)):
+            g.blocks = [TRASH_BLOCK] * j_lo + list(blks)
+            g.hashes = list(hashes)
+            g.slid = j_lo
+            for j, b in enumerate(blks, start=j_lo):
+                if self._ref[gi][b] == 0:
+                    del self._lru[gi][b]
+                self._ref[gi][b] += 1
+                self._set_table(gi, idx, j, b)
+            shared += len(blks)
         seq.length = m_tokens
         st = self.prefix_stats
         st["queries"] += 1
         st["lookup_tokens"] += len(tokens)
         st["hit_tokens"] += m_tokens
-        st["blocks_shared"] += len(blocks)
+        st["blocks_shared"] += shared
         return m_tokens
 
     def cow_for_write(self, idx: int, start: int, end: int
-                      ) -> list[tuple[int, int]] | None:
+                      ) -> list[tuple[int, int, int]] | None:
         """Copy-on-write fork of every shared block the write range
-        [start, end) touches: allocate a private replacement, decref the
-        shared original, and return (src, dst) pairs whose bytes the
-        CALLER copies before writing. None when a fork cannot be
-        allocated (caller preempts). All-or-nothing."""
+        [start, end) touches, in every group: allocate a private
+        replacement in that group's id space, decref the shared original,
+        and return (group, src, dst) triples whose bytes — the group's
+        layer rows only — the CALLER copies before writing. None when a
+        fork cannot be allocated (caller preempts). All-or-nothing;
+        slide-freed holes need no fork."""
         seq = self.seqs[idx]
         assert seq is not None and end <= len(seq.blocks) * self.block_size
         span = range(start // self.block_size, -(-end // self.block_size))
-        if sum(1 for bi in span if self._ref[seq.blocks[bi]] > 1) \
-                > self.free_blocks():
-            return None
-        pairs: list[tuple[int, int]] = []
-        for bi in span:
-            src = seq.blocks[bi]
-            if self._ref[src] <= 1:
-                continue
-            dst = self._alloc_block()
-            assert dst is not None        # guarded above
-            self._ref[dst] = 1
-            self._release_block(src)
-            seq.blocks[bi] = dst
-            self._set_table(idx, bi, dst)
-            pairs.append((src, dst))
-            self.prefix_stats["cow_forks"] += 1
-        return pairs
+        for gi, g in enumerate(seq.groups):
+            if sum(1 for bi in span
+                   if g.blocks[bi] != TRASH_BLOCK
+                   and self._ref[gi][g.blocks[bi]] > 1) \
+                    > self.free_blocks(gi):
+                return None
+        triples: list[tuple[int, int, int]] = []
+        for gi, g in enumerate(seq.groups):
+            for bi in span:
+                src = g.blocks[bi]
+                if src == TRASH_BLOCK or self._ref[gi][src] <= 1:
+                    continue
+                dst = self._alloc_block(gi)
+                assert dst is not None        # guarded above
+                self._ref[gi][dst] = 1
+                self._release_block(gi, src)
+                g.blocks[bi] = dst
+                self._set_table(gi, idx, bi, dst)
+                triples.append((gi, src, dst))
+                self.prefix_stats["cow_forks"] += 1
+        return triples
 
     def commit(self, idx: int, n_tokens: int, tokens) -> None:
         """Record that positions [0, n_tokens) hold the KV of
         `tokens[:n_tokens]`, and register every newly FULL block in the
-        content-hash index. `tokens` is the full committed stream."""
+        per-group content-hash index (slide-freed holes extend the hash
+        chain but register nothing). `tokens` is the full committed
+        stream."""
         self.set_length(idx, n_tokens)
         if not self.prefix_cache:
             return
         seq = self.seqs[idx]
         bs = self.block_size
-        parent = seq.hashes[-1] if seq.hashes else _ROOT_HASH
-        for bi in range(len(seq.hashes), n_tokens // bs):
-            h = _chain_hash(parent, tuple(tokens[bi * bs: (bi + 1) * bs]))
-            b = seq.blocks[bi]
-            if h not in self._index and b not in self._hash_of:
-                self._index[h] = b
-                self._hash_of[b] = h
-            seq.hashes.append(h)
-            parent = h
+        for gi, g in enumerate(seq.groups):
+            parent = g.hashes[-1] if g.hashes else _ROOT_HASH
+            for bi in range(len(g.hashes), n_tokens // bs):
+                h = _chain_hash(parent, tuple(tokens[bi * bs: (bi + 1) * bs]))
+                b = g.blocks[bi]
+                if b != TRASH_BLOCK and (gi, h) not in self._index \
+                        and (gi, b) not in self._hash_of:
+                    self._index[(gi, h)] = b
+                    self._hash_of[(gi, b)] = h
+                g.hashes.append(h)
+                parent = h
 
     # -- invariant audit (tests, NFP_DEBUG=1) -----------------------------------
     def check_invariants(self) -> None:
-        ref = [0] * (self.n_blocks + 1)
+        ref = [[0] * (self.n_blocks + 1) for _ in range(self.n_groups)]
         for s in self.seqs:
-            if s is not None:
-                for b in s.blocks:
-                    ref[b] += 1
+            if s is None:
+                continue
+            for gi, g in enumerate(s.groups):
+                for b in g.blocks:
+                    if b != TRASH_BLOCK:
+                        ref[gi][b] += 1
         assert ref == self._ref, (ref, self._ref)
-        free, lru = set(self._free), set(self._lru)
-        assert not (free & lru), "block both free and cached"
-        for b in range(1, self.n_blocks + 1):
-            if self._ref[b] == 0:
-                assert (b in free) ^ (b in lru), \
-                    f"zero-ref block {b} neither free nor cached (or both)"
-            else:
-                assert b not in free and b not in lru, \
-                    f"live block {b} on the free/cached list"
-        assert set(self._hash_of) == set(self._index.values())
-        for h, b in self._index.items():
-            assert self._hash_of[b] == h
-            assert b not in free, f"indexed block {b} on the free list"
+        for gi in range(self.n_groups):
+            free, lru = set(self._free[gi]), set(self._lru[gi])
+            assert not (free & lru), f"group {gi} block both free and cached"
+            for b in range(1, self.n_blocks + 1):
+                if self._ref[gi][b] == 0:
+                    assert (b in free) ^ (b in lru), \
+                        f"zero-ref block {gi}/{b} neither free nor cached " \
+                        f"(or both)"
+                else:
+                    assert b not in free and b not in lru, \
+                        f"live block {gi}/{b} on the free/cached list"
+        assert set(self._hash_of) == {(g, b) for (g, _h), b
+                                      in self._index.items()}
+        for (gi, h), b in self._index.items():
+            assert self._hash_of[(gi, b)] == h
+            assert b not in self._free[gi], \
+                f"indexed block {gi}/{b} on the free list"
         for i, s in enumerate(self.seqs):
-            row = np.full(self.max_blocks_per_seq, TRASH_BLOCK, np.int32)
-            if s is not None:
-                row[: len(s.blocks)] = s.blocks
-            assert (self._tables[i] == row).all(), f"stale table row {i}"
+            for gi in range(self.n_groups):
+                row = np.full(self.max_blocks_per_seq, TRASH_BLOCK, np.int32)
+                if s is not None:
+                    gl = s.groups[gi].blocks
+                    row[: len(gl)] = gl
+                assert (self._tables[gi, i] == row).all(), \
+                    f"stale table row (group {gi}, slot {i})"
+            if s is None:
+                continue
+            for g, w in zip(s.groups, self.group_windows):
+                if not w:
+                    assert g.slid == 0, "global group slid"
+                assert all(b == TRASH_BLOCK for b in g.blocks[: g.slid]), \
+                    "live block below the slide point"
+                assert all(b != TRASH_BLOCK for b in g.blocks[g.slid:]), \
+                    "hole above the slide point"
         if self._dev_tables is not None:
             # debug-only device read: overlay the pending dirty entries
             mirror = self._dev_tables.cpu().numpy().copy()
-            for (s, j), b in self._dirty.items():
-                mirror[s, j] = b
+            for (g, s, j), b in self._dirty.items():
+                mirror[g, s, j] = b
             assert (mirror == self._tables).all(), \
                 "device table mirror diverged from the host tables"

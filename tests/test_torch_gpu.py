@@ -482,6 +482,116 @@ def test_decode_split_grid_and_head_dims(dev):
                                                        device=dev), fp8=False)
 
 
+# -- K4 and K5 at gemma3-1b's heads: 4 q heads, 1 kv head, D = 256 ----------
+
+GEMMA_PAGED_LENS = [0, 1, 19, 20, 511, 512, 513, 1088]
+GEMMA_DENSE_LENS = [1, 19, 20, 512, 513, 1100]
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("window", [None, 19, 512])
+def test_paged_decode_attention_head_dim_256(dev, fp8, window):
+    """Lens on block edges (16) and split edges (512), up to the gemma
+    serve capacity of 1088; windows 19 (reduced gemma3) and 512."""
+    q, planes, tab, ln = _paged_case(dev, 21, GEMMA_PAGED_LENS, 16, 68, h=4,
+                                     hkv=1, d=256)
+    n0 = ops.all_launch_counters()["paged_planar_decode_attention"]
+    got = ops.paged_decode_attention(q, planes, tab, ln, fp8=fp8,
+                                     window=window)
+    assert ops.all_launch_counters()["paged_planar_decode_attention"] == n0 + 1
+    want = ref.paged_planar_decode_attention_ref(
+        q, planes["k_hi"], planes["k_lo"], planes["v_hi"], planes["v_lo"],
+        tab, ln, fp8=fp8, window=window)
+    live = ln > 0
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    torch.testing.assert_close(got[live], want[live], **ATTN_TOL)
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("window", [None, 19, 512])
+def test_planar_decode_attention_head_dim_256(dev, fp8, window):
+    b, h, hkv, d, cap = len(GEMMA_DENSE_LENS), 4, 1, 256, 1100
+    planes = _dense_planes(dev, b, cap, hkv, d, seed=22)
+    q = torch.randn((b, h, d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(22))
+    ln = torch.tensor(GEMMA_DENSE_LENS, dtype=torch.int32, device=dev)
+    n0 = ops.all_launch_counters()["planar_decode_attention"]
+    got = ops.planar_decode_attention(q, planes, ln, fp8=fp8, window=window)
+    assert ops.all_launch_counters()["planar_decode_attention"] == n0 + 1
+    want = ref.planar_decode_attention_ref(
+        q, planes["k_hi"], planes["k_lo"], planes["v_hi"], planes["v_lo"],
+        ln, fp8=fp8, window=window)
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("fp8", [False, True])
+def test_k4_never_reads_slid_out_blocks(dev, fp8, d):
+    """A local layer's table points the blocks that slid out of the window
+    at the trash block: with the trash block full of NaN bytes, K4 gives
+    what the plain version gives with it zeroed."""
+    lens, bs, w = [600, 1088, 45], 16, 512 if d == 256 else 19
+    q, planes, tab, ln = _paged_case(dev, 23, lens, bs, 68, h=4, hkv=1, d=d)
+    for r, n in enumerate(lens):
+        tab[r, :max(0, (n - w) // bs)] = 0     # wholly before the window
+    for p in planes.values():
+        p[0] = 0
+    want = ref.paged_planar_decode_attention_ref(
+        q, planes["k_hi"], planes["k_lo"], planes["v_hi"], planes["v_lo"],
+        tab, ln, fp8=fp8, window=w)
+    for p in planes.values():
+        p[0] = 0xFF                              # NaN as f16 and e5m2
+    got = ops.paged_decode_attention(q, planes, tab, ln, fp8=fp8, window=w)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("kernel", ["k4", "k5"])
+def test_decode_rows_do_not_depend_on_the_batch_at_head_dim_256(dev, kernel,
+                                                                fp8):
+    """As at D = 64 and 128: a row's output is bitwise the same alone, in
+    a batch of 8 and at another place in the batch."""
+    lens = [700, 1, 256, 1024, 333, 17, 999, 512]
+    d = 256
+    gen = torch.Generator(device=dev).manual_seed(24)
+    if kernel == "k5":
+        planes = _dense_planes(dev, 8, 1024, 1, d, seed=24)
+        q = torch.randn((8, 4, d), device=dev, generator=gen)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+        def run(rows):
+            return ops.planar_decode_attention(
+                q[rows].contiguous(),
+                {k: v[rows].contiguous() for k, v in planes.items()},
+                ln[rows].contiguous(), fp8=fp8, window=512)
+    else:
+        q, planes, tab, ln = _paged_case(dev, 24, lens, 16, 64, h=4, hkv=1,
+                                         d=d)
+
+        def run(rows):
+            return ops.paged_decode_attention(
+                q[rows].contiguous(), planes, tab[rows].contiguous(),
+                ln[rows].contiguous(), fp8=fp8, window=512)
+    batch = run(list(range(8)))
+    moved = run([3, 1, 2, 0, 4, 5, 6, 7])
+    for r in range(8):
+        assert torch.equal(batch[r:r + 1], run([r])), r
+    assert torch.equal(moved[0], batch[3]) and torch.equal(moved[3], batch[0])
+
+
+def test_decode_head_dim_256_instances(dev):
+    """Both C entries have D = 256 instances (the FP16 ring of 4 warps x
+    2 stages x 4 planes x 16 keys x 272 B, plus 8 KB of q fragments)."""
+    from repro_torch.kernels import planar_decode_attention as pda
+    for paged in (False, True):
+        assert pda.dynamic_smem_bytes(256, fp8=False, paged=paged) == \
+            4 * 2 * 4 * 16 * 272 + 16 * 32 * 16
+        assert pda.dynamic_smem_bytes(256, fp8=True, paged=paged) == \
+            4 * 2 * 2 * 16 * 272 + 16 * 32 * 16
+
+
 # (dtype, b, s, h, hkv, d): f32 runs the SIMT body, f16 and bf16 the
 # tensor-core body; the second group sits on the 64-key and 64-row tile
 # edges for every G = H / Hkv, the last is llama3.1-8b's prefill
@@ -845,3 +955,93 @@ def test_graphs_are_freed_with_their_engine(dev, llama_sp):
     torch.cuda.empty_cache()
     assert not [s for s in torch.cuda.memory_snapshot()
                 if tuple(s.get("segment_pool_id", ())) == pool]
+
+
+# -- sliding-window serving: gemma3-1b reduced (window 19, D = 64) ----------
+
+@pytest.fixture(scope="module")
+def gemma_sp():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    cfg = get_arch("gemma3-1b").reduced()
+    return cfg, to_serving(M.init_params(cfg, seed=0, device="cpu"))
+
+
+def _gemma_requests(vocab, n=6):
+    """A shared system prompt longer than the window; the first request
+    stops after one token and releases its blocks unslid, so later
+    requests attach the prefix (the local group only its last window)."""
+    rng = np.random.default_rng(5)
+    sys_prompt = [int(t) for t in rng.integers(1, vocab, 40)]
+    return [(f"r{i}", sys_prompt + [int(t) for t in rng.integers(
+        1, vocab, 1 if i == 0 else 5 + 4 * i)], 1 if i == 0 else 12)
+        for i in range(n)]
+
+
+def _gemma_engine(cfg, sp, device, **kw):
+    eng = Engine(cfg, params_to(sp, device), n_slots=3, capacity=96,
+                 block_size=8, forced_mode="fp16", kv_planar=True,
+                 device=device, **kw)
+    for rid, toks, mx in _gemma_requests(cfg.vocab_size):
+        eng.submit(Request(rid, toks, mx))
+    return eng
+
+
+def test_gemma_engine_on_the_card_matches_the_cpu(dev, gemma_sp):
+    """The same requests on the card and on the CPU, stepped together:
+    the same block tables of both window groups after every step, the
+    same window counters, and the same greedy tokens up to a near tie (a
+    token may differ only where the CPU's top-2 margin, recomputed by the
+    dense prefill, is within 2 x 1e-2, SLICE_TOL of the slice phase)."""
+    from repro_torch.models.layers import Runtime
+    cfg, sp = gemma_sp
+    on = {d: _gemma_engine(cfg, sp, d) for d in ("cuda", "cpu")}
+    before = ops.all_launch_counters()
+    while on["cpu"].queue or on["cpu"].active or on["cpu"].prefilling:
+        for e in on.values():
+            e.step()
+        assert (on["cuda"].blocks.group_tables()
+                == on["cpu"].blocks.group_tables()).all()
+        assert on["cuda"].blocks.window_freed_blocks == \
+            on["cpu"].blocks.window_freed_blocks
+    assert ops.all_launch_counters()["paged_planar_decode_attention"] > \
+        before["paged_planar_decode_attention"]
+    assert on["cpu"].stats["window_reclaimed_blocks"] > 0
+    assert on["cpu"].prefix_cache_stats()["hit_tokens"] > 0
+    got = {r.request_id: r.output for r in on["cuda"].finished}
+    want = {r.request_id: r.output for r in on["cpu"].finished}
+    prompts = {r: t for r, t, _ in _gemma_requests(cfg.vocab_size)}
+    rt = Runtime(mode="fp16", dtype=torch.float32)
+    agreed = 0
+    for rid, w in want.items():
+        for i, (a, b) in enumerate(zip(got[rid], w)):
+            if a != b:
+                seq = torch.tensor([prompts[rid] + w[:i]], dtype=torch.int32)
+                top2 = M.prefill(rt, sp, cfg, {"tokens": seq})[0][0].topk(2)
+                assert float(top2.values[0] - top2.values[1]) <= 2e-2, rid
+                break
+            agreed += 1
+    assert agreed >= len(want)
+
+
+def test_gemma_replays_are_their_eager_calls(dev, gemma_sp):
+    """Each key of a gemma3-reduced engine, right after its capture
+    (inside its step: the same step's decode slides blocks the prefill
+    wrote), and the decode after every step: one replay bitwise an eager
+    call on clones of the group tables and the pool."""
+    cfg, sp = gemma_sp
+    eng = _gemma_engine(cfg, sp, "cuda")
+    g = eng.graphs
+    assert tuple(g.tables.shape) == (2, 3, 12)
+    g.check_first_runs = True
+    n = 0
+    while eng.queue or eng.active or eng.prefilling:
+        d0 = eng.stats["decode_dispatches"]
+        eng.step()
+        if eng.stats["decode_dispatches"] > d0 and g.graph(("decode", "fp16")):
+            same = g.check_replay(("decode", "fp16"))
+            assert all(same.values()), same
+            n += 1
+    assert set(g.checks) == g.keys() and g.n_captured == len(g.keys())
+    assert all(all(v.values()) for v in g.checks.values()), g.checks
+    assert n > 5 and eng.stats["window_reclaimed_blocks"] > 0

@@ -467,7 +467,7 @@ class TestDecodeFragments:
         return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 16
 
     @pytest.mark.parametrize("fp8", [False, True])
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 256])
     def test_step_products_follow_the_fragment_maps(self, d, fp8):
         rng = np.random.default_rng(40)
         g_rows = 4
@@ -543,7 +543,7 @@ class TestDecodeFragments:
                     got, want_o[g, 16 * db + 4 * t:16 * db + 4 * t + 4],
                     rtol=1e-9, atol=1e-9)
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 256])
     def test_loads_and_reads_cover_the_slot_without_bank_conflicts(self, d):
         """cp.async: lane + 32 it covers every (key, 16-byte chunk) of a
         plane once; ldmatrix: the 8 rows of each matrix of every x4 read
@@ -663,6 +663,27 @@ class TestDecodeSplitDesign:
             *jnf.split_bytes(jnp.asarray(kv[0])),
             *jnf.split_bytes(jnp.asarray(kv[1])))]
         lens = np.asarray([1, 511, 512, 513, 785, 600], np.int32)
+        want = np.asarray(j_dense_attn(
+            jnp.asarray(q), *map(jnp.asarray, planes), jnp.asarray(lens),
+            fp8=fp8, block_c=256, window=window, interpret=True))
+        k, v = _planes_values(planes, fp8)
+        got = _split_design(_t(q), k, v, lens, limit=cap,
+                            split=_split_keys(1), window=window).numpy()
+        np.testing.assert_allclose(got, want, **ATTN_TOL)
+
+    @pytest.mark.parametrize("fp8", [False, True])
+    @pytest.mark.parametrize("window", [None, 19, 512])
+    def test_dense_split_design_at_head_dim_256(self, window, fp8):
+        """gemma3-1b's heads (4 q heads, 1 kv head, D = 256): window 512
+        starts row 1000 at key 488 and row 513 at key 1, one split each."""
+        rng = np.random.default_rng(43)
+        b, h, hkv, d, cap = 5, 4, 1, 256, 1024
+        q = rng.normal(size=(b, h, d)).astype(np.float32)
+        kv = rng.normal(size=(2, b, cap, hkv, d)).astype(np.float16)
+        planes = [np.asarray(p) for p in (
+            *jnf.split_bytes(jnp.asarray(kv[0])),
+            *jnf.split_bytes(jnp.asarray(kv[1])))]
+        lens = np.asarray([1, 20, 512, 513, 1000], np.int32)
         want = np.asarray(j_dense_attn(
             jnp.asarray(q), *map(jnp.asarray, planes), jnp.asarray(lens),
             fp8=fp8, block_c=256, window=window, interpret=True))

@@ -1,0 +1,561 @@
+"""Sliding-window serving (gemma3-1b) in the PyTorch port against the JAX
+package, on gemma3-1b reduced: 2 layers (layer 0 local with a window of
+19 tokens, layer 1 global), d_model 256, 4 q heads, 1 kv head, D = 64.
+
+- the config and the cache descriptor's window groups;
+- the port's `BlockManager(group_windows=(None, 19))` against JAX's under
+  a seeded op sequence that slides windows: tables, free lists,
+  refcounts, LRU, prefix index and `window_freed_blocks` after every op;
+- `paged_step` logits with one block table per group, fp16 and fp8,
+  planar and f16 pools, at tests/test_torch_model.py's tolerances;
+- the engines side by side on one seeded request set with shared system
+  prompts longer than the window, reclaim on and off: the same block
+  tables after every step, the same `window_reclaimed_blocks` and step
+  keys, and in FP16 mode the same greedy outputs;
+- the port's engine with reclaim on against reclaim off;
+- the dense-slot `prefill` + `decode_step` with per-layer windows, at
+  tests/test_torch_dense.py's tolerances;
+- each step key's staged run equal to the eager step on group tables.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from _torch_parity import configs, serving_pair  # noqa: E402
+from repro.configs import ARCHS as JARCHS  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.models.layers import Runtime as JRuntime  # noqa: E402
+from repro.serving.engine import Engine as JEngine  # noqa: E402
+from repro.serving.engine import Request as JRequest  # noqa: E402
+from repro.serving.kvcache import BlockManager as JBlockManager  # noqa: E402
+from repro_torch.configs import ARCHS as TARCHS  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models.layers import Runtime as TRuntime  # noqa: E402
+from repro_torch.serving.engine import Engine as TEngine  # noqa: E402
+from repro_torch.serving.engine import Request as TRequest  # noqa: E402
+from repro_torch.serving.kvcache import BlockManager as TBlockManager  # noqa: E402
+
+ARCH = "gemma3-1b"
+WINDOW = 19
+FP16_TOL = 3e-3           # tests/test_torch_model.py (F-port-1)
+FP8_TOL = 0.25
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tests run many small CPU ops. In a run of several workers on
+    one machine, torch's intra-op threads contend with the other workers'
+    (a test of 0.5 s alone took 200 s); one thread keeps each test's time
+    its own. The other tests of a worker get the count back."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def gemma():
+    jcfg, tcfg = configs(ARCH)
+    jsp, tsp = serving_pair(jcfg, tcfg.n_layers, plant_exception=True)
+    return jcfg, tcfg, jsp, tsp
+
+
+# ---------------------------------------------------------------------------
+# config and descriptor
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_config_matches_jax(reduced):
+    t, j = TARCHS[ARCH], JARCHS[ARCH]
+    if reduced:
+        t, j = t.reduced(), j.reduced()
+    for f in dataclasses.fields(t):
+        assert getattr(t, f.name) == getattr(j, f.name), f.name
+    if reduced:
+        assert (t.n_layers, t.sliding_window, t.swa_pattern,
+                t.resolved_head_dim, t.n_heads, t.n_kv_heads) == \
+            (2, WINDOW, 2, 64, 4, 1)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("planar", [False, True])
+def test_descriptor_groups_match_jax(reduced, planar):
+    t, j = TARCHS[ARCH], JARCHS[ARCH]
+    if reduced:
+        t, j = t.reduced(), j.reduced()
+    td, jd = TM.cache_descriptor(t, planar), JM.cache_descriptor(j, planar)
+    assert td.group_windows == jd.group_windows
+    assert td.group_windows == ((None, WINDOW) if reduced else (None, 512))
+    np.testing.assert_array_equal(td.layer_group_map(t.n_layers),
+                                  jd.layer_group_map(j.n_layers))
+    assert [(g.name, g.window, g.layers) for g in td.groups] == \
+        [(g.name, g.window, g.layers) for g in jd.groups]
+    assert [(p.name, p.token_shape, p.dtype) for p in td.planes] == \
+        [(p.name, p.token_shape, p.dtype) for p in jd.planes]
+    assert TM.window_schedule(t) == tuple(
+        int(w) for w in np.asarray(JM.window_schedule(j)))
+
+
+def test_model_no_longer_refuses_windows():
+    tcfg = TARCHS[ARCH].reduced()
+    params = TM.init_params(tcfg, seed=0, device="cpu")
+    assert len(params["layers"]) == 2
+    assert TM.cache_descriptor(tcfg).groups
+
+
+# ---------------------------------------------------------------------------
+# BlockManager
+# ---------------------------------------------------------------------------
+
+def _same_managers(jb, tb):
+    assert (jb.group_tables() == tb.group_tables()).all()
+    assert jb._ref == tb._ref and jb._free == tb._free
+    assert [list(x) for x in jb._lru] == [list(x) for x in tb._lru]
+    assert jb._index == tb._index and jb._hash_of == tb._hash_of
+    assert jb.window_freed_blocks == tb.window_freed_blocks
+    assert jb.prefix_stats["evictions"] == tb.prefix_stats["evictions"]
+    assert jb.prefix_stats["cow_forks"] == tb.prefix_stats["cow_forks"]
+    assert jb.n_free_blocks() == tb.n_free_blocks()
+    assert jb.free_block_frac() == tb.free_block_frac()
+    assert jb.utilization() == tb.utilization()
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_block_manager_matches_jax_with_window_groups(seed):
+    """One seeded sequence of allocate (+ attach_prefix), ensure (+ COW +
+    commit), explicit slides, max_coverable and release, on streams of 40
+    tokens over a window of 19 (so slides fire), a pool tight enough to
+    evict, and streams that share prefixes (so local groups attach
+    pre-slid)."""
+    rng = np.random.default_rng(seed)
+    kw = dict(n_slots=4, block_size=4, n_blocks=14, max_blocks_per_seq=12,
+              prefix_cache=True, group_windows=(None, WINDOW))
+    jb, tb = JBlockManager(**kw), TBlockManager(**kw)
+    base = list(rng.integers(1, 4, 24))
+    streams = [base + list(rng.integers(1, 4, 16)) for _ in range(3)]
+    live: dict[int, list[int]] = {}
+    for _ in range(400):
+        op = rng.integers(0, 5)
+        if op == 0 and len(live) < 4:
+            toks = list(streams[rng.integers(0, 3)][: rng.integers(4, 40)])
+            disc = tb.prefix_admit_discount(toks)
+            assert disc == jb.prefix_admit_discount(toks)
+            a = jb.try_allocate("r", len(toks), 2, cached_blocks=disc)
+            b = tb.try_allocate("r", len(toks), 2, cached_blocks=disc)
+            assert a == b
+            if a is not None:
+                m = jb.attach_prefix(a, toks)
+                assert m == tb.attach_prefix(b, toks)
+                jb.set_length(a, min(m, len(toks) - 1))
+                tb.set_length(b, min(m, len(toks) - 1))
+                live[a] = toks
+        elif op == 1 and live:
+            idx = list(live)[rng.integers(0, len(live))]
+            toks = live[idx]
+            n = min(len(toks), tb.seqs[idx].length + int(rng.integers(1, 9)))
+            start = tb.seqs[idx].length
+            want = n - start
+            assert jb.max_coverable(idx, start, want) == \
+                tb.max_coverable(idx, start, want)
+            ok = jb.ensure(idx, n)
+            assert ok == tb.ensure(idx, n)
+            if ok:
+                jp = jb.cow_for_write(idx, start, n)
+                tp = tb.cow_for_write(idx, start, n)
+                assert jp == tp
+                if tp is not None:
+                    jb.commit(idx, n, toks)
+                    tb.commit(idx, n, toks)
+        elif op == 2 and live:
+            idx = list(live)[rng.integers(0, len(live))]
+            assert jb.slide_window(idx) == tb.slide_window(idx)
+        elif op == 3 and live:
+            idx = list(live)[rng.integers(0, len(live))]
+            jb.release(idx)
+            tb.release(idx)
+            del live[idx]
+        elif op == 4 and live:
+            assert jb.youngest() == tb.youngest()
+        _same_managers(jb, tb)
+        tb.check_invariants()
+    assert tb.window_freed_blocks > 0
+    st = tb.prefix_stats
+    assert st["cow_forks"] > 0 and st["evictions"] > 0 and st["hit_tokens"] > 0
+    # some local group attached pre-slid below a matched prefix
+    assert any(s is not None and s.groups[1].slid > 0 for s in tb.seqs) or \
+        tb.window_freed_blocks > 0
+
+
+def test_group_need_and_device_mirror():
+    """Per-group need (a local group holds only its window's blocks),
+    and the (G, n_slots, MB) device mirror kept equal to the host tables
+    by in-place writes."""
+    tb = TBlockManager(2, 4, 30, 12, prefix_cache=True,
+                       group_windows=(None, WINDOW))
+    jb = JBlockManager(2, 4, 30, 12, prefix_cache=True,
+                       group_windows=(None, WINDOW))
+    for n in (1, 4, 19, 20, 23, 24, 40, 48):
+        assert [tb._group_need(n, w) for w in (None, WINDOW)] == \
+            [jb._group_need(n, w) for w in (None, WINDOW)]
+    dev = tb.device_tables()
+    assert tuple(dev.shape) == (2, 2, 12)
+    idx = tb.try_allocate("a", 40, 4)
+    toks = list(range(1, 45))
+    for n in range(4, 45, 4):
+        assert tb.ensure(idx, n)
+        tb.commit(idx, n, toks)
+        assert tb.device_tables().data_ptr() == dev.data_ptr()
+        np.testing.assert_array_equal(dev.numpy(), tb.group_tables())
+    tb.slide_window(idx)
+    np.testing.assert_array_equal(tb.device_tables().numpy(),
+                                  tb.group_tables())
+    assert tb.window_freed_blocks == (44 - WINDOW + 1) // 4
+    assert tb.seqs[idx].groups[1].blocks[:6] == [0] * 6
+    with pytest.raises(ValueError, match="whole group pool"):
+        TBlockManager(1, 4, 5, 12, group_windows=(None, WINDOW)) \
+            .try_allocate("b", 30, 4)
+
+
+# ---------------------------------------------------------------------------
+# paged_step with group tables
+# ---------------------------------------------------------------------------
+
+BS, MB = 4, 10
+
+
+def _group_tables(length: int) -> np.ndarray:
+    """(2, 2, MB) tables: group 0 (global) and group 1 (local) of two
+    rows, ids of the two groups overlapping (each group its own id
+    space); the local group's blocks wholly before position
+    length - WINDOW + 1 of row 0 point at the trash block, as slides
+    leave them."""
+    g0 = np.arange(1, 1 + 2 * MB, dtype=np.int32).reshape(2, MB)
+    g1 = np.random.default_rng(3).permutation(
+        np.arange(1, 1 + 2 * MB)).astype(np.int32).reshape(2, MB)
+    slid = max(0, (length - WINDOW + 1) // BS)
+    g1[0, :slid] = 0
+    return np.stack([g0, g1])
+
+
+def _schedule(seed, vocab):
+    """Row 0 prefills 30 tokens in chunks of 16 and 14, row 1 prefills 9
+    tokens, its first decode token riding the second chunk; then C=1
+    decode steps take row 0 past 30 (keys cut by the window)."""
+    rng = np.random.default_rng(seed)
+    p0 = rng.integers(1, vocab, 30)
+    p1 = rng.integers(1, vocab, 9)
+    c1 = np.zeros((2, 16), np.int32)
+    c1[0], c1[1, :9] = p0[:16], p1
+    c2 = np.zeros((2, 16), np.int32)
+    c2[0, :14] = p0[16:]
+    return [(c1, [0, 0], [16, 9], [15, 8]),
+            (c2, [16, 9], [30, 10], [13, 0])]
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("mode", ["fp16", "fp8"])
+def test_paged_step_group_tables_match_jax(gemma, mode, planar):
+    jcfg, tcfg, jsp, tsp = gemma
+    nb = 1 + 2 * MB
+    jrt = JRuntime(mode=mode, backend="ref", dtype=jnp.float32,
+                   act_quant="per_token")
+    trt = TRuntime(mode=mode, dtype=torch.float32, act_quant="per_token")
+    jc = JM.init_paged_cache(jcfg, nb, BS, planar=planar)
+    tc = TM.init_paged_cache(tcfg, nb, BS, planar=planar, device="cpu")
+    steps = _schedule(11, jcfg.vocab_size) + [None] * 4
+    lens = None
+    tol = FP16_TOL if mode == "fp16" else FP8_TOL
+    for s in steps:
+        if s is None:
+            toks = np.asarray(want.argmax(-1), np.int32)[:, None]
+            s = (toks, lens, lens + 1, None)
+        toks, qo, kvl, lp = (np.asarray(a, np.int32) if a is not None else None
+                             for a in s)
+        tables = _group_tables(int(qo[0]))
+        want, jc = JM.paged_step(
+            jrt, jsp, jcfg, jnp.asarray(toks), jc, jnp.asarray(tables),
+            q_offset=jnp.asarray(qo), kv_len=jnp.asarray(kvl), block_size=BS,
+            logit_position=None if lp is None else jnp.asarray(lp),
+            return_logits=True)
+        got = TM.paged_step(
+            trt, tsp, tcfg, torch.from_numpy(toks), tc,
+            torch.from_numpy(tables), q_offset=torch.from_numpy(qo),
+            kv_len=torch.from_numpy(kvl), block_size=BS,
+            logit_position=None if lp is None else torch.from_numpy(lp),
+            return_logits=True)
+        want = np.asarray(want)
+        err = np.abs(got.numpy() - want)
+        assert err.max() <= tol, err.max()
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > 2 * err.max()
+        np.testing.assert_array_equal(got.numpy().argmax(-1)[clear],
+                                      want.argmax(-1)[clear])
+        lens = kvl
+    assert lens[0] == 34                       # 15 keys cut from layer 0
+    # written where JAX wrote (the trash block 0 left out: pad columns
+    # collide there in no fixed order)
+    for kind in ("k", "v"):
+        g, w = _pool_values(tc, kind)[:, 1:], _pool_values(jc, kind)[:, 1:]
+        np.testing.assert_array_equal(g != 0, w != 0)
+        if mode == "fp16":
+            np.testing.assert_allclose(g, w, rtol=5e-3, atol=5e-3)
+
+
+def _pool_values(caches, kind):
+    c = {k: np.asarray(v) for k, v in caches["attn"].items()}
+    if kind in c:
+        return c[kind].astype(np.float32)
+    bits = (c[f"{kind}_hi"].astype(np.uint16) << 8) | c[f"{kind}_lo"]
+    return bits.view(np.float16).astype(np.float32)
+
+
+def test_two_dim_table_serves_every_group(gemma):
+    """A (B, MB) table is the table of every group: the same logits as
+    the (G, B, MB) stack of two copies of it."""
+    _, tcfg, _, tsp = gemma
+    trt = TRuntime(mode="fp16", dtype=torch.float32, act_quant="per_token")
+    tab = torch.from_numpy(_group_tables(0)[0])
+    c1, qo, kvl, lp = (torch.from_numpy(np.asarray(a, np.int32))
+                       for a in _schedule(4, tcfg.vocab_size)[0])
+    out = []
+    for t in (tab, torch.stack([tab, tab])):
+        tc = TM.init_paged_cache(tcfg, 1 + 2 * MB, BS, planar=True,
+                                 device="cpu")
+        out.append(TM.paged_step(trt, tsp, tcfg, c1, tc, t, q_offset=qo,
+                                 kv_len=kvl, block_size=BS,
+                                 logit_position=lp, return_logits=True))
+    assert torch.equal(out[0], out[1])
+
+
+# ---------------------------------------------------------------------------
+# the engines
+# ---------------------------------------------------------------------------
+
+def _requests(seed, n, vocab, sys_len=40, lo=2, hi=26, max_new=10):
+    """Two system prompts of `sys_len` tokens (longer than the window),
+    shared by alternate requests, then lo..hi random tokens each. The
+    first two requests add one token and stop after one: they release
+    their blocks unslid, so the requests admitted after them attach the
+    shared prefix, the local group only its last window's blocks."""
+    rng = np.random.default_rng(seed)
+    sys_prompts = [list(rng.integers(1, vocab, sys_len)) for _ in range(2)]
+    out = []
+    for i in range(n):
+        short = i < 2
+        tail = 1 if short else int(rng.integers(lo, hi))
+        out.append((f"r{i}", sys_prompts[i % 2]
+                    + list(rng.integers(1, vocab, tail)),
+                    1 if short else max_new))
+    return out
+
+
+def _lockstep(jeng, teng, reqs):
+    """Submit to both engines and step them together, holding the block
+    tables, lengths and window counters equal after every step."""
+    for rid, toks, mx in reqs:
+        jeng.submit(JRequest(rid, [int(t) for t in toks], mx))
+        teng.submit(TRequest(rid, [int(t) for t in toks], mx))
+    while jeng.queue or jeng.active or jeng.prefilling:
+        jeng.step()
+        teng.step()
+        assert (jeng.blocks.group_tables() ==
+                teng.blocks.group_tables()).all(), jeng.iteration
+        np.testing.assert_array_equal(jeng.lens, teng.lens)
+        assert jeng.blocks.window_freed_blocks == \
+            teng.blocks.window_freed_blocks
+        assert jeng.iteration < 400
+    assert not (teng.queue or teng.active or teng.prefilling)
+    return ({r.request_id: r for r in jeng.finished},
+            {r.request_id: r for r in teng.finished})
+
+
+# FP16 mode holds the greedy tokens equal. FP8 mode holds the schedule
+# (tables after every step, lengths, counters, step keys) but not the
+# tokens: an e4m3 step moves a logit by up to ~0.1 (F-port-1, FP8_TOL),
+# and this request set has top-2 margins of 0.006 in FP8 mode, where the
+# two engines pick different tokens (as they pick different tokens from
+# a dense recompute of the same sequence).
+ENGINE_CASES = {
+    # mode, window_reclaim, engine kwargs
+    "fp16-reclaim": ("fp16", True, {}),
+    "fp16-no-reclaim": ("fp16", False, {}),
+    "fp8-reclaim": ("fp8", True, {}),
+    # a pool too small for every request at once: preemption, LRU
+    # eviction and admission against slid local groups
+    "fp16-reclaim-scarce": ("fp16", True, {"n_blocks": 20,
+                                           "chunk_tokens": 32}),
+}
+
+
+def _settled_set_table(orig):
+    """JAX's BlockManager edits its host tables while the step it just
+    dispatched may still be reading them: under CPU load the JAX engine
+    then gives both one-token requests of this set the token 113, where a
+    dense recompute on either side gives 205 and 495 with top-2 margins
+    of 0.057 and 0.064 (2 of 18 runs, six processes at once; 0 of 18
+    with this wrapper; ROADMAP F-ref-3). The wrapper lets the dispatched
+    work finish before each table edit, so the reference runs its steps
+    in the order its engine states."""
+    def set_table(self, *args):
+        jax.block_until_ready(jax.live_arrays())
+        return orig(self, *args)
+    return set_table
+
+
+@pytest.mark.parametrize("case", sorted(ENGINE_CASES))
+def test_engine_matches_jax(gemma, case, monkeypatch):
+    jcfg, tcfg, jsp, tsp = gemma
+    monkeypatch.setattr(JBlockManager, "_set_table",
+                        _settled_set_table(JBlockManager._set_table))
+    mode, reclaim, extra = ENGINE_CASES[case]
+    kw = dict(n_slots=4, capacity=80, block_size=8, forced_mode=mode,
+              kv_planar=True, window_reclaim=reclaim, **extra)
+    jeng = JEngine(jcfg, jsp, host_offload=False, **kw)
+    teng = TEngine(tcfg, tsp, device="cpu", **kw)
+    reqs = _requests(2, 6, jcfg.vocab_size)
+    jfin, tfin = _lockstep(jeng, teng, reqs)
+    assert set(tfin) == set(jfin) == {r for r, _, _ in reqs}
+    for rid in jfin:
+        if mode == "fp16":
+            assert tfin[rid].output == jfin[rid].output, rid
+        assert len(tfin[rid].output) == len(jfin[rid].output), rid
+        assert tfin[rid].modes == jfin[rid].modes, rid
+    shared = set(teng.stats) & set(jeng.stats)
+    assert {k: teng.stats[k] for k in shared} == \
+        {k: jeng.stats[k] for k in shared}
+    assert teng.prefix_cache_stats() == jeng.prefix_cache_stats()
+    assert teng.graphs.keys("prefill") == set(jeng._fused_cache)
+    reclaimed = teng.stats["window_reclaimed_blocks"]
+    assert (reclaimed > 0) == reclaim
+    assert teng.prefix_cache_stats()["hit_tokens"] > 0
+    if case.endswith("scarce"):
+        assert teng.stats["preemptions"] > 0
+
+
+@pytest.mark.parametrize("planar", [True, False])
+def test_reclaim_on_equals_off(gemma, planar):
+    """Freeing slid-out local blocks changes no token: the same greedy
+    outputs with window_reclaim on and off, shared system prompts
+    attaching across the window, and fewer blocks in use with it on."""
+    _, tcfg, _, tsp = gemma
+    reqs = _requests(3, 8, tcfg.vocab_size, max_new=12)
+    out, peak = {}, {}
+    for reclaim in (True, False):
+        eng = TEngine(tcfg, tsp, device="cpu", n_slots=4, capacity=96,
+                      block_size=8, forced_mode="fp16", kv_planar=planar,
+                      window_reclaim=reclaim, debug_invariants=True)
+        for rid, toks, mx in reqs:
+            eng.submit(TRequest(rid, [int(t) for t in toks], mx))
+        out[reclaim] = {r.request_id: r.output for r in eng.run()}
+        peak[reclaim] = eng.stats["peak_block_util"]
+        assert (eng.stats["window_reclaimed_blocks"] > 0) == reclaim
+        assert eng.prefix_cache_stats()["hit_tokens"] > 0
+    assert out[True] == out[False]
+    assert peak[True] < peak[False]
+
+
+def test_engine_refuses_what_no_group_pool_covers(gemma):
+    """`submit` rejects a request whose need exceeds a whole group pool:
+    the global group needs every block of the sequence."""
+    _, tcfg, _, tsp = gemma
+    eng = TEngine(tcfg, tsp, device="cpu", n_slots=2, capacity=96,
+                  block_size=8, n_blocks=6, forced_mode="fp16")
+    with pytest.raises(ValueError, match="whole group pool"):
+        eng.submit(TRequest("a", list(range(1, 50)), 4))
+    eng.submit(TRequest("b", list(range(1, 40)), 4))
+
+
+def test_step_keys_replay_as_eager_with_group_tables(gemma):
+    """On the CPU each key's staged run equals the eager step on clones of
+    its inputs, the group tables and the pool: each key right after its
+    first run (inside its step: the same step's decode slides blocks the
+    prefill wrote), and the decode after every step; the device table is
+    (G, n_slots, MB)."""
+    _, tcfg, _, tsp = gemma
+    eng = TEngine(tcfg, tsp, device="cpu", n_slots=3, capacity=80,
+                  block_size=8, forced_mode="fp8", kv_planar=True)
+    assert tuple(eng.graphs.tables.shape) == (2, 3, 10)
+    for rid, toks, mx in _requests(4, 4, tcfg.vocab_size, max_new=14):
+        eng.submit(TRequest(rid, [int(t) for t in toks], mx))
+    eng.graphs.check_first_runs = True
+    n_decode = 0
+    while eng.queue or eng.active or eng.prefilling:
+        n0 = eng.stats["decode_dispatches"]
+        eng.step()
+        if eng.stats["decode_dispatches"] > n0:
+            same = eng.graphs.check_replay(("decode", "fp8"))
+            assert all(same.values()), same
+            n_decode += 1
+    checks = eng.graphs.checks
+    assert set(checks) == eng.graphs.keys() and len(checks) >= 2
+    assert all(all(same.values()) for same in checks.values()), checks
+    assert eng.stats["window_reclaimed_blocks"] > 0 and n_decode > 10
+
+
+# ---------------------------------------------------------------------------
+# the dense-slot steps with per-layer windows
+# ---------------------------------------------------------------------------
+
+S, CAP, STEPS = 45, 56, 3
+BF16_TOL = {"fp16": 0.1, "fp8": 0.5}
+
+
+def _check_logits(got, want, tol):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err = np.abs(got - want)
+    assert err.max() <= tol, err.max()
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * err.max()
+    np.testing.assert_array_equal(got.argmax(-1)[clear], want.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("mode", ["fp16", "fp8"])
+def test_dense_prefill_and_decode_match_jax(gemma, mode, planar):
+    """Prompts of 45 tokens (26 keys cut from the local layer's last
+    query), then greedy decode steps, against the JAX package's."""
+    jcfg, tcfg, jsp, tsp = gemma
+    jrt = JRuntime(mode=mode, backend="ref", dtype=jnp.float32)
+    trt = TRuntime(mode=mode, dtype=torch.float32)
+    toks = np.random.default_rng(0).integers(
+        1, jcfg.vocab_size, (3, S)).astype(np.int32)
+    want, jc, _ = JM.prefill(jrt, jsp, jcfg, {"tokens": jnp.asarray(toks)},
+                             capacity=CAP)
+    got, tc, _ = TM.prefill(trt, tsp, tcfg, {"tokens": torch.from_numpy(toks)},
+                            capacity=CAP)
+    tol = FP16_TOL if mode == "fp16" else FP8_TOL
+    _check_logits(got, want, tol)
+    if planar:
+        jc, tc = JM.planarize_cache(jc), TM.planarize_cache(tc)
+    nxt = np.asarray(want).argmax(-1).astype(np.int32)[:, None]
+    for i in range(STEPS):
+        want, jc = JM.decode_step(jrt, jsp, jcfg, jnp.asarray(nxt), jc, S + i)
+        got, tc = TM.decode_step(trt, tsp, tcfg, torch.from_numpy(nxt), tc,
+                                 S + i)
+        _check_logits(got, want, tol)
+        nxt = np.asarray(want).argmax(-1).astype(np.int32)[:, None]
+
+
+def test_dense_window_changes_the_local_layer_only(gemma):
+    """The per-layer window reaches the dense-slot steps: the same
+    prompt's logits change when the window is widened past the prompt
+    (layer 0 then sees every key), and a prompt inside the window gives
+    the same logits either way."""
+    _, tcfg, _, tsp = gemma
+    trt = TRuntime(mode="fp16", dtype=torch.float32)
+    wide = dataclasses.replace(tcfg, sliding_window=4096)
+    rng = np.random.default_rng(1)
+    for s, differ in ((S, True), (WINDOW, False)):
+        toks = torch.from_numpy(rng.integers(1, tcfg.vocab_size, (2, s))
+                                .astype(np.int32))
+        a = TM.prefill(trt, tsp, tcfg, {"tokens": toks})[0]
+        b = TM.prefill(trt, tsp, wide, {"tokens": toks})[0]
+        assert (not torch.equal(a, b)) == differ
