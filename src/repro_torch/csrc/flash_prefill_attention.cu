@@ -5,14 +5,16 @@
 // bf16 -> (B,S,H,D) f32. Same math as the TPU kernel: scores in f32 scaled
 // by D^-0.5, keys at kpos <= qpos, online softmax with NEG_INF = -1e30,
 // out = acc / max(l, 1e-30). Any S: keys and queries past S load as zero
-// and are masked or not stored; nothing is padded. D is 64 or 128 and
-// G = H / Hkv divides the 64 query rows of a block.
+// and are masked or not stored; nothing is padded. D is 64, 128 or 256
+// (gemma3-1b's global layers) and G = H / Hkv divides the 64 query rows
+// of a block.
 //
 // What bounds it on an H100: at llama3.1-8b's heads and (B, S) = (8, 1024)
 // the f32 output write, 134 MB in 0.070 ms at 3.35 TB/s; the causal half
 // of the operations, 4*B*H*S^2*D/2 = 68.7 GFLOP, takes 0.0695 ms at the
 // 989 TFLOP/s of the f16/bf16 tensor cores. Longer S moves it to the
-// operations.
+// operations. At gemma3-1b's (8, 1024), H = 4, Hkv = 1, D = 256 the
+// operations bound it: 17.2 GFLOP, 0.0174 ms, against 0.010 ms of output.
 //
 // Two bodies, chosen by the input type alone (the C entry point's switch):
 //
@@ -37,11 +39,18 @@
 //    memory by cp.async (16 bytes a thread, zero-filled past S), so the
 //    load of tile j+1 overlaps the products on tile j. Rows are padded by
 //    16 bytes, so the 8 rows of each ldmatrix phase hit distinct banks.
-//    Q goes once through the second stage's K slot into registers.
+//    At D <= 128, Q goes once through the second stage's K slot into
+//    registers.
+//  - D = 256 would hold 128 f32 of O, the scores and 64 registers of q
+//    fragments a thread, beyond the 255 registers a thread may use. There
+//    Q keeps a shared-memory slot of its own (33 KB) and each k-step loads
+//    its A fragment by ldmatrix, as the D = 256 decode kernels do; tiles
+//    are 32 keys, so the ring (66 KB) and Q fit two blocks on an SM.
 //  - The online-softmax state (m, l) of a thread's 2 rows stays in
 //    registers; the 4 threads of a row reduce its max by quad shuffles.
-//  - The key loop stops at the diagonal; only the last tile is masked
-//    element by element. Blocks take the query tiles longest first, so the
+//  - The key loop stops at the diagonal; only tiles that hold a key past
+//    the block's first query position (or past S) are masked element by
+//    element. Blocks take the query tiles longest first, so the
 //    causal imbalance leaves no tail of idle SMs.
 // It uses mma.sync, not wgmma with TMA: P must stay in registers as the
 // next product's A operand, split in two terms, which wgmma's
@@ -56,7 +65,8 @@
 // FMAs (67 TFLOP/s peak). Each thread keeps a 4x4 block of scores and a
 // 4x(D/16) block of the output in registers, with the running max and sum
 // of its 4 rows; the 16 threads of a row reduce by warp shuffles. K is
-// stored transposed and P goes through shared memory.
+// stored transposed and P goes through shared memory. At D = 256 that is
+// 215 KB of shared memory (under the 227 KB opt-in), one block an SM.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -91,7 +101,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int H, int Hkv, float q_scale) {
   constexpr int LDQ = D + 4, LDK = kKeys + 4, LDV = D + 4, LDP = kKeys + 4;
   constexpr int NDG = D / 64;           // output column groups of 64
-  static_assert(D % 64 == 0, "D is 64 or 128");
+  static_assert(D % 64 == 0, "D is 64, 128 or 256");
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // [kRows][LDQ] scaled q
   float* Kt = Qs + kRows * LDQ;                  // [D][LDK] keys, transposed
@@ -275,14 +285,23 @@ constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcRows = 16 * kTcWarps;   // = kRows: one 16-row strip a warp
 constexpr int kStages = 2;               // K/V tiles in flight
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kTcRows <= kKeys, "Q goes through one K slot");
+
+// D = 256 keeps q in a shared slot of its own and takes 32-key tiles;
+// smaller D loads q's fragments into registers through one K slot
+template <int D>
+__host__ __device__ constexpr bool tc_q_in_smem() { return D > 128; }
+
+template <int D>
+__host__ __device__ constexpr int tc_keys() { return tc_q_in_smem<D>() ? 32 : kKeys; }
 
 // halves a K or V tile in shared memory: rows of D padded by 8 halves
 template <int D>
-__host__ __device__ constexpr int tc_tile() { return kKeys * (D + 8); }
+__host__ __device__ constexpr int tc_tile() { return tc_keys<D>() * (D + 8); }
 
 template <int D>
-constexpr int tc_smem_bytes() { return kStages * 2 * tc_tile<D>() * 2; }
+constexpr int tc_smem_bytes() {
+  return (kStages * 2 * tc_tile<D>() + (tc_q_in_smem<D>() ? kTcRows * (D + 8) : 0)) * 2;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -380,11 +399,14 @@ flash_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         int B, int S, int H, int Hkv, float scale_log2,
                         int n_qt) {
   constexpr int LD = D + 8;            // halves a shared row
+  constexpr int KT = tc_keys<D>();     // keys a tile
   constexpr int TILE = tc_tile<D>();   // halves a K or V tile
   constexpr int C8 = D / 8;            // 16-byte chunks a row
   constexpr int KD = D / 16;           // k-steps of QK^T
-  constexpr int NB = kKeys / 8;        // key n-blocks of the scores
-  static_assert(D % 64 == 0, "D is 64 or 128");
+  constexpr int NB = KT / 8;           // key n-blocks of the scores
+  constexpr bool QS = tc_q_in_smem<D>();
+  static_assert(D % 64 == 0 && D <= 256, "D is 64, 128 or 256");
+  static_assert(QS || kTcRows <= KT, "Q goes through one K slot");
   extern __shared__ float4 smem4[];
   // stage st: K tile at sm + 2 * st * TILE, V tile right after it
   T* sm = reinterpret_cast<T*>(smem4);
@@ -399,13 +421,13 @@ flash_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (size_t)b * S * kstride + (size_t)hh * D;
 
   const int k_end = min(S, q0 + BQ);              // causal: the diagonal
-  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+  const int n_tiles = (k_end + KT - 1) / KT;
 
   auto load_kv = [&](int tile, int st) {
     T* ks = sm + 2 * st * TILE;
     T* vs = ks + TILE;
-    for (int c = tid; c < kKeys * C8; c += kTcThreads) {
-      const int t = c / C8, ch = (c % C8) * 8, pos = tile * kKeys + t;
+    for (int c = tid; c < KT * C8; c += kTcThreads) {
+      const int t = c / C8, ch = (c % C8) * 8, pos = tile * KT + t;
       const bool ok = pos < S;
       const size_t off = (size_t)(ok ? pos : 0) * kstride + ch;
       cp_async16(smem_u32(ks + t * LD + ch), kb + off, ok);
@@ -414,8 +436,9 @@ flash_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   // this block's G*BQ query rows, row r = g*BQ + qq at position q0 + qq,
-  // into the last stage's K slot, with the first kStages - 1 K/V tiles
-  T* qs = sm + 2 * (kStages - 1) * TILE;
+  // into Q's own slot past the ring (D = 256) or the last stage's K slot,
+  // with the first kStages - 1 K/V tiles
+  T* qs = QS ? sm + 2 * kStages * TILE : sm + 2 * (kStages - 1) * TILE;
   for (int c = tid; c < kTcRows * C8; c += kTcThreads) {
     const int r = c / C8, ch = (c % C8) * 8, g = r / BQ, pos = q0 + r % BQ;
     const bool ok = pos < S;
@@ -430,12 +453,15 @@ flash_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[KD][4];                  // A fragments of the warp's strip
+  // A fragments of the warp's strip: in registers, or (D = 256) read from
+  // Q's slot at each k-step
+  const uint32_t qa = smem_u32(qs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8);
+  uint32_t qf[QS ? 1 : KD][4];
+  if constexpr (!QS) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldsm_x4(qf[kk], smem_u32(qs + (warp * 16 + lane % 16) * LD + kk * 16 +
-                             (lane / 16) * 8));
-  __syncthreads();                     // the Q slot is refilled below
+    for (int kk = 0; kk < KD; ++kk) ldsm_x4(qf[kk], qa + kk * 32);
+    __syncthreads();                   // the Q slot is refilled below
+  }
 
   // this thread's rows of the strip: lane/4 and lane/4 + 8
   const int r0 = warp * 16 + lane / 4;
@@ -455,7 +481,7 @@ flash_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* ks = sm + 2 * (j % kStages) * TILE;
     const T* vs = ks + TILE;
 
-    // S = Q K^T (unscaled) for the strip's 16 rows x 64 keys
+    // S = Q K^T (unscaled) for the strip's 16 rows x KT keys
     float s[NB][4];
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
@@ -463,18 +489,22 @@ flash_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      if constexpr (QS) ldsm_x4(qf[0], qa + kk * 32);
+      const uint32_t(&a)[4] = qf[QS ? 0 : kk];
 #pragma unroll
       for (int np = 0; np < NB / 2; ++np) {
         uint32_t kf[4];   // B fragments of key n-blocks 2np and 2np + 1
         ldsm_x4(kf, smem_u32(ks + (16 * np + lane % 8 + (lane / 16) * 8) * LD +
                              16 * kk + ((lane / 8) % 2) * 8));
-        mma16816<T>(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma16816<T>(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+        mma16816<T>(s[2 * np], a, kf[0], kf[1]);
+        mma16816<T>(s[2 * np + 1], a, kf[2], kf[3]);
       }
     }
 
-    // scale, mask the diagonal tile, online softmax in the exp2 domain
-    const bool diag = j == n_tiles - 1;
+    // scale, mask a tile that reaches past the block's first query
+    // position (the diagonal, and keys past S), online softmax in the
+    // exp2 domain
+    const bool diag = (j + 1) * KT - 1 > q0;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
@@ -482,7 +512,7 @@ flash_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         float x = s[nb][e] * scale_log2;
         if (diag) {
-          const int kpos = j * kKeys + 8 * nb + 2 * (lane % 4) + (e & 1);
+          const int kpos = j * KT + 8 * nb + 2 * (lane % 4) + (e & 1);
           if (!(kpos <= qpos[e / 2] && kpos < S)) x = kNegInf;
         }
         s[nb][e] = x;
@@ -512,7 +542,7 @@ flash_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // O += P_hi V + P_lo V, 16 keys a step; P from the score registers
 #pragma unroll
-    for (int kc = 0; kc < kKeys / 16; ++kc) {
+    for (int kc = 0; kc < KT / 16; ++kc) {
       uint32_t ph[4], pl[4];
       ph[0] = split2<T>(s[2 * kc][0], s[2 * kc][1], &pl[0]);
       ph[1] = split2<T>(s[2 * kc][2], s[2 * kc][3], &pl[1]);
@@ -573,6 +603,8 @@ int launch_tc_d(const void* q, const void* k, const void* v, float* out, int B,
   if (D == 64) return launch_tc<T, 64>(q, k, v, out, B, S, H, Hkv, q_scale, s);
   if (D == 128)
     return launch_tc<T, 128>(q, k, v, out, B, S, H, Hkv, q_scale, s);
+  if (D == 256)
+    return launch_tc<T, 256>(q, k, v, out, B, S, H, Hkv, q_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -581,13 +613,15 @@ int launch_f32(const void* q, const void* k, const void* v, float* out, int B,
   if (D == 64) return launch<float, 64>(q, k, v, out, B, S, H, Hkv, q_scale, s);
   if (D == 128)
     return launch<float, 128>(q, k, v, out, B, S, H, Hkv, q_scale, s);
+  if (D == 256)   // 215 KB of shared memory, under the 227 KB opt-in
+    return launch<float, 256>(q, k, v, out, B, S, H, Hkv, q_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 f32 (the SIMT body), 1 f16, 2 bf16 (the tensor-core body); q,
-// k and v alike. Needs D in {64, 128} and (H / Hkv) dividing 64; the
+// k and v alike. Needs D in {64, 128, 256} and (H / Hkv) dividing 64; the
 // wrapper checks both.
 extern "C" int flash_prefill_attention(const void* q, const void* k,
                                        const void* v, void* out, int dtype,

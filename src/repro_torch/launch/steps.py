@@ -9,15 +9,29 @@ rounded GEMM outputs (`fast_accum`) and the paper's per-tensor FP8
 activation scale. The prefill caches are f16; `model.planarize_cache`
 turns them into the byte-planar form that FP8 decode reads half of.
 Decode writes the caches in place.
+
+The decode step is the port's counterpart of the JAX package's
+`jax.jit(make_decode_step(cfg, mode), donate_argnums=(1,))`
+(`repro/launch/dryrun.py`). Its key is JAX's jit key, shapes plus the
+donated buffers: the batch, the capacity, planar caches or f16, the
+caches' buffers and the params (the mode is fixed per step). On a card a
+key's first call runs the step eagerly and captures it into a CUDA graph
+(`serving/graphs.py::capture`); every later call with the key stages its
+inputs and replays the graph. The prefill step stays eager: its device
+is busy ~99 % of its wall time, so a graph would buy nothing.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import model as M
 from repro_torch.models.layers import Runtime
+from repro_torch.serving import graphs
 
 
 def serve_rt(mode: str) -> Runtime:
@@ -36,10 +50,144 @@ def make_prefill_step(cfg: ArchConfig, mode: str = "fp16",
     return step
 
 
-def make_decode_step(cfg: ArchConfig, mode: str = "fp16"):
-    rt = serve_rt(mode)
+def make_decode_step(cfg: ArchConfig, mode: str = "fp16") -> "DecodeStep":
+    return DecodeStep(cfg, mode)
 
-    def step(params, caches, tokens, cache_len):
-        return M.decode_step(rt, params, cfg, tokens, caches, cache_len)
 
-    return step
+@dataclasses.dataclass
+class _Key:
+    """One key's static buffers, and its graph once captured."""
+    params: dict                         # held: its id is in the key
+    dev: torch.Tensor                    # packed int32 inputs (2B,)
+    host: torch.Tensor                   # the same on the host (pinned)
+    tokens: torch.Tensor                 # (B, 1) view into `dev`
+    lens: torch.Tensor                   # (B,) view into `dev`
+    logits: torch.Tensor                 # (B, V) f32, the static output
+    graph: torch.cuda.CUDAGraph | None = None
+    launches: dict[str, int] | None = None   # recorded at capture
+    uploaded: torch.cuda.Event | None = None
+
+
+class DecodeStep:
+    """step(params, caches, tokens, cache_len) -> (logits, caches).
+
+    tokens: (B, 1) ints, on the caches' device or the host; cache_len: an
+    int (range-checked on the host, as `model.decode_step` does) or a
+    (B,) / 0-dim tensor (on the caches' device it is copied there, with
+    no host read). Both go into the key's static int32 buffer: what comes
+    from the host in one copy from a pinned buffer, what lies on the
+    device by a copy on the device. The caches are written in place.
+
+    The returned logits are the key's static (B, V) f32 buffer: they stay
+    valid until the next call with the same key, which overwrites them.
+    All of a step's graphs share one memory pool, which the step owns and
+    which goes with it; the static buffers live outside the pool. A key
+    holds its params (their id is in the key), never the caches: a
+    replay reads the buffers of the caches it is given, whose addresses
+    the key names. On the CPU the same buffers are staged and the step
+    runs eagerly on them, as `serving/graphs.py::StepGraphs` does."""
+
+    def __init__(self, cfg: ArchConfig, mode: str = "fp16"):
+        self.cfg, self.mode, self.rt = cfg, mode, serve_rt(mode)
+        self._keys: dict[tuple, _Key] = {}
+        self._pool = None
+
+    @staticmethod
+    def key(params, caches, tokens) -> tuple:
+        """(batch, capacity, planar, the caches' planes as (name, address,
+        shape, strides), id(params))."""
+        planes = caches["attn"]
+        return (tokens.shape[0], M.cache_capacity(caches), "k_hi" in planes,
+                tuple((n, p.data_ptr(), tuple(p.shape), p.stride())
+                      for n, p in planes.items()), id(params))
+
+    def keys(self) -> set:
+        return set(self._keys)
+
+    def graph(self, key: tuple) -> torch.cuda.CUDAGraph | None:
+        """The key's captured graph (None before its capture, and on the
+        CPU)."""
+        return self._keys[key].graph
+
+    @property
+    def n_captured(self) -> int:
+        """Keys whose graph has been captured."""
+        return sum(st.graph is not None for st in self._keys.values())
+
+    def pool_bytes(self) -> int:
+        """Bytes the card's allocator holds in the step's graph pool (0 on
+        the CPU)."""
+        return graphs.pool_bytes(self._pool)
+
+    def __call__(self, params, caches, tokens, cache_len):
+        key = self.key(params, caches, tokens)
+        st = self._keys.get(key) or self._new(key, params, caches)
+        self._stage(st, caches, tokens, cache_len)
+        if not st.dev.is_cuda:
+            self._body(st, caches)
+        elif st.graph is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            st.graph, st.launches = graphs.capture(
+                lambda: self._body(st, caches), self._pool, st.dev.device)
+        else:
+            graphs.replay(st.graph, st.launches)
+        return st.logits, caches
+
+    def _new(self, key: tuple, params, caches) -> _Key:
+        b = key[0]
+        dev = next(iter(caches["attn"].values())).device
+        buf = torch.zeros(2 * b, dtype=torch.int32, device=dev)
+        host = torch.zeros(2 * b, dtype=torch.int32,
+                           pin_memory=dev.type == "cuda")
+        st = _Key(params, buf, host, buf[:b].view(b, 1), buf[b:],
+                  torch.empty((b, self.cfg.vocab_size), dtype=torch.float32,
+                              device=dev))
+        self._keys[key] = st
+        return st
+
+    def _stage(self, st: _Key, caches, tokens, cache_len) -> None:
+        b, dev = st.lens.shape[0], st.dev.device
+        M.check_cache_len(M.cache_capacity(caches), cache_len)
+        tok_here = tokens.device == dev
+        len_here = (isinstance(cache_len, torch.Tensor)
+                    and cache_len.device == dev)
+        if not (tok_here and len_here):          # one upload of the host part
+            if st.uploaded is not None:
+                st.uploaded.synchronize()        # the last upload has left
+            if not tok_here:
+                st.host[:b].copy_(tokens.reshape(b))
+            if not len_here:
+                st.host[b:].copy_(torch.as_tensor(cache_len))
+            st.dev.copy_(st.host, non_blocking=st.dev.is_cuda)
+            if st.dev.is_cuda:
+                st.uploaded = torch.cuda.Event()
+                st.uploaded.record()
+        if tok_here:
+            st.tokens.copy_(tokens)
+        if len_here:
+            st.lens.copy_(cache_len)
+
+    def _body(self, st: _Key, caches) -> None:
+        st.logits.copy_(M.decode_logits(self.rt, st.params, self.cfg,
+                                        st.tokens, caches, st.lens))
+
+    def check_replay(self, params, caches, tokens, cache_len
+                     ) -> dict[str, bool]:
+        """Run the step once as a call does (a replay, once the key is
+        captured) and `model.decode_step` once eagerly on clones of the
+        same caches; compare the logits and every cache plane bitwise.
+        The caches are left as the step wrote them, and the launch
+        counters count the step and not the eager call. Returns
+        {"logits": equal, plane name: equal, ...}."""
+        clones = {"attn": {n: p.clone() for n, p in caches["attn"].items()}}
+        before = ops.all_launch_counters()
+        want, _ = M.decode_step(self.rt, params, self.cfg, tokens, clones,
+                                cache_len)
+        after = ops.all_launch_counters()
+        ops.add_launches({k: before[k] - after[k] for k in after})
+        got, _ = self(params, caches, tokens, cache_len)
+        same = {"logits": bool(torch.equal(got, want))}
+        for n, p in caches["attn"].items():
+            same[n] = bool(torch.equal(p, clones["attn"][n]))
+        return same

@@ -357,20 +357,43 @@ def prefill(rt, params, cfg, batch, *, capacity: int | None = None,
     return logits, caches, s
 
 
+def check_cache_len(cap: int, cache_len) -> None:
+    """decode_step's host check: an int cache_len must leave the new token
+    a free position in caches of capacity `cap` (a tensor is not read)."""
+    if isinstance(cache_len, int) and not 0 <= cache_len < cap:
+        raise ValueError(f"cache_len {cache_len}: the new token needs a free "
+                         f"position in a cache of capacity {cap}")
+
+
+def cache_capacity(caches) -> int:
+    """Positions a row of the dense per-slot caches holds."""
+    return next(iter(caches["attn"].values())).shape[2]
+
+
 def decode_step(rt, params, cfg, tokens, caches, cache_len):
     """One decoding step. tokens: (B, 1); cache_len: int or (B,) — tokens
     already in each row's cache, below its capacity (checked for an int).
     The new keys and values are written IN PLACE into `caches` (f16 or
-    planar) at position cache_len. Returns (logits (B, V) f32, caches)."""
+    planar) at position cache_len. Returns (logits (B, V) f32, caches).
+
+    The host part (the check, and the upload of an int cache_len) is done
+    here; `decode_logits` is the device part, which
+    `launch/steps.py::make_decode_step` captures with cache_len staged in
+    a device buffer of its own."""
     b = tokens.shape[0]
-    cap = next(iter(caches["attn"].values())).shape[2]
-    if isinstance(cache_len, int) and not 0 <= cache_len < cap:
-        raise ValueError(f"cache_len {cache_len}: the new token needs a free "
-                         f"position in a cache of capacity {cap}")
+    check_cache_len(cache_capacity(caches), cache_len)
     lens = torch.as_tensor(cache_len, device=tokens.device).to(torch.int32)
     lens = lens.expand(b) if lens.dim() == 0 else lens
+    return decode_logits(rt, params, cfg, tokens, caches, lens), caches
+
+
+def decode_logits(rt, params, cfg, tokens, caches, lens) -> torch.Tensor:
+    """decode_step's device part: tokens (B, 1), lens (B,) int32 on the
+    tokens' device (cache lengths, not read on the host) -> logits (B, V)
+    f32, the caches written in place. No host read and no host value
+    depends on lens, so a CUDA graph of it serves any lengths."""
     h = embed_tokens(rt, params, cfg, tokens)
     h = run_decoder_stack(rt, params["layers"], cfg, h, phase="decode",
                           positions=lens[:, None], caches=caches["attn"],
                           kv_len=lens + 1)
-    return lm_logits(rt, params, cfg, h[:, -1:])[:, 0], caches
+    return lm_logits(rt, params, cfg, h[:, -1:])[:, 0]

@@ -30,6 +30,9 @@ capture that fails raises; nothing runs the eager step in its place.
 On the CPU the same object stages the same buffers and calls the same
 function eagerly on them, so the keys, the staging and the buffers'
 lifetimes are those of the card.
+
+`capture` and `replay` are that discipline on its own, for any step
+function; the dense-slot decode step (`launch/steps.py`) uses them too.
 """
 
 from __future__ import annotations
@@ -42,6 +45,48 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
 from repro_torch.serving.kvcache import TRASH_BLOCK
+
+
+def capture(fn, pool, device) -> tuple[torch.cuda.CUDAGraph, dict[str, int]]:
+    """Run `fn()` once eagerly, then capture it into a CUDA graph that
+    allocates from `pool`. Both happen on PyTorch's capture stream, one
+    for the process, so the per-stream state made at first use (cuBLAS
+    workspaces) is made once, before any capture; the eager call is the
+    step's own run (it builds the kernels, sets their first-call
+    attributes and warms the allocator). Returns the graph and the launch
+    counts the capture recorded, which are taken back from the counters
+    (a capture runs nothing) for `replay` to add. A capture that fails
+    raises."""
+    graph = torch.cuda.CUDAGraph()
+    ctx = torch.cuda.graph(graph, pool=pool)
+    cur = torch.cuda.current_stream(device)
+    side = ctx.capture_stream
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        fn()
+    before = ops.all_launch_counters()
+    with ctx:
+        fn()
+    after = ops.all_launch_counters()
+    launches = {k: after[k] - before[k] for k in after}
+    ops.add_launches({k: -v for k, v in launches.items()})
+    cur.wait_stream(side)
+    return graph, launches
+
+
+def replay(graph: torch.cuda.CUDAGraph, launches: dict[str, int]) -> None:
+    """Replay a graph from `capture`, counting the launches it runs."""
+    graph.replay()
+    ops.add_launches(launches)
+
+
+def pool_bytes(pool) -> int:
+    """Bytes the card's allocator holds in a graph pool (0 for None)."""
+    if pool is None:
+        return 0
+    pool = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
 
 
 @dataclasses.dataclass
@@ -176,8 +221,7 @@ class StepGraphs:
         elif st.graph is None:
             self._capture(st)
         else:
-            st.graph.replay()
-            ops.add_launches(st.launches)
+            replay(st.graph, st.launches)
         if self.check_first_runs and key not in self.checks:
             self.checks[key] = {}            # check_replay runs the key too
             self.checks[key] = self.check_replay(key)
@@ -194,24 +238,8 @@ class StepGraphs:
             self._capture(st)
 
     def _capture(self, st: _Step) -> None:
-        """Warm up and capture on PyTorch's capture stream, one for the
-        process, so that the per-stream state made at first use (cuBLAS
-        workspaces) is made once, before any capture."""
-        graph = torch.cuda.CUDAGraph()
-        capture = torch.cuda.graph(graph, pool=self._pool)
-        cur = torch.cuda.current_stream(self.device)
-        side = capture.capture_stream
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self._call(st)               # this step's own run, eager
-        before = ops.all_launch_counters()
-        with capture:
-            self._call(st)
-        after = ops.all_launch_counters()
-        st.launches = {k: after[k] - before[k] for k in after}
-        ops.add_launches({k: -v for k, v in st.launches.items()})
-        cur.wait_stream(side)
-        st.graph = graph
+        st.graph, st.launches = capture(lambda: self._call(st), self._pool,
+                                        self.device)
 
     # -- checks and accounting ---------------------------------------------------
     def check_replay(self, key: tuple) -> dict[str, bool]:
@@ -251,8 +279,4 @@ class StepGraphs:
     def pool_bytes(self) -> int:
         """Bytes the card's allocator holds in the graphs' shared pool
         (0 on the CPU)."""
-        if self._pool is None:
-            return 0
-        pool = tuple(self._pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
+        return pool_bytes(self._pool)

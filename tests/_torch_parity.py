@@ -5,6 +5,8 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from repro.configs import ARCHS as JARCHS
 from repro.core.linear import NestedLinearParams
@@ -51,3 +53,17 @@ def serving_pair(jcfg, n_layers: int, plant_exception: bool, seed: int = 0):
     sp = j_to_serving(params)
     return sp, from_jax_serving(flatten_serving(sp), n_layers,
                                 device="cpu")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Torch on one intra-op thread for a test of many small CPU ops
+    (import it, then `pytest.mark.usefixtures("one_torch_thread")`). In a
+    run of several workers on one machine, torch's intra-op threads
+    contend with the other workers' (a test of 0.5 s alone took 200 s);
+    one thread keeps each test's time its own. The count comes back
+    after the test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

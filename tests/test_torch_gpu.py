@@ -594,14 +594,19 @@ def test_decode_head_dim_256_instances(dev):
 
 # (dtype, b, s, h, hkv, d): f32 runs the SIMT body, f16 and bf16 the
 # tensor-core body; the second group sits on the 64-key and 64-row tile
-# edges for every G = H / Hkv, the last is llama3.1-8b's prefill
+# edges for every G = H / Hkv, the third llama3.1-8b's prefill; then
+# D = 256 (gemma3-1b's global layers; the tensor-core body takes 32-key
+# tiles there) on the same edges, at gemma3-1b's prefill and in f32
 PREFILL_CASES = (
     [(dt, *shape) for shape in [(2, 128, 8, 2, 128), (1, 1000, 32, 8, 128),
                                 (3, 45, 4, 4, 64)]
      for dt in (torch.float32, torch.float16, torch.bfloat16)]
     + [(dt, 2, s, 2 * g, 2, d) for dt in (torch.float16, torch.bfloat16)
        for s in (1, 63, 64, 65) for g in (1, 2, 4, 8) for d in (64, 128)]
-    + [(torch.bfloat16, 8, 1024, 32, 8, 128)])
+    + [(torch.bfloat16, 8, 1024, 32, 8, 128)]
+    + [(dt, 2, s, 2 * g, 2, 256) for dt in (torch.float16, torch.bfloat16)
+       for s in (1, 63, 64, 65) for g in (1, 2, 4)]
+    + [(torch.bfloat16, 8, 1024, 4, 1, 256), (torch.float32, 2, 65, 4, 1, 256)])
 
 
 @pytest.mark.parametrize("dtype,b,s,h,hkv,d", PREFILL_CASES)
@@ -615,6 +620,18 @@ def test_flash_prefill_attention(dev, dtype, b, s, h, hkv, d):
     torch.testing.assert_close(got, ref.flash_prefill_attention_ref(q, k, v),
                                **ATTN_TOL)
     assert ops.all_launch_counters()["flash_prefill_attention"] == n0 + 1
+
+
+@pytest.mark.parametrize("d", [96, 512])
+def test_flash_prefill_raises_for_other_head_dims(dev, d):
+    """A head dim without an instance raises before any launch; the plain
+    version never runs in its place."""
+    q, k, v = (torch.zeros(shape, device=dev, dtype=torch.bfloat16)
+               for shape in ((1, 8, 4, d), (1, 8, 1, d), (1, 8, 1, d)))
+    n0 = ops.all_launch_counters()["flash_prefill_attention"]
+    with pytest.raises(ValueError, match="need D in"):
+        ops.flash_prefill_attention(q, k, v)
+    assert ops.all_launch_counters()["flash_prefill_attention"] == n0
 
 
 def test_flash_prefill_both_bodies_count_as_launches(dev):
@@ -671,6 +688,24 @@ def test_fused_quant_llama_shapes(dev, m, kn):
     torch.testing.assert_close(
         got, ref.nestedfp8_matmul_fused_quant_ref(x, u, amax), **GEMM_TOL)
     assert ops.all_launch_counters()["nestedfp8_matmul_fused_quant"] == n0 + 1
+
+
+# gemma3-1b's seven GEMMs of a layer (K, N): q k v o gate up down; the
+# dense-slot FP8 path runs K7 on them
+GEMMA_KN = [(1152, 1024), (1152, 256), (1152, 256), (1024, 1152),
+            (1152, 6912), (1152, 6912), (6912, 1152)]
+
+
+@pytest.mark.parametrize("kn", sorted(set(GEMMA_KN)))
+@pytest.mark.parametrize("m", [8, 2048])
+def test_fused_quant_gemma_shapes(dev, m, kn):
+    x, w = _gemm(dev, m, *kn, seed=13)
+    x = x.bfloat16()
+    u, _ = nf.encode(w)
+    amax = quant.absmax(x)
+    got = ops.matmul_nested_fp8_fused_quant(x, u, amax)
+    torch.testing.assert_close(
+        got, ref.nestedfp8_matmul_fused_quant_ref(x, u, amax), **GEMM_TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -777,8 +812,9 @@ def test_dense_steps_on_the_card(dev):
             nxt = toks[:, -1:]
             seq = [logits.float().cpu()]
             for i in range(3):
+                # the step's static logits: the next call overwrites them
                 logits, caches = decode(p, caches, nxt.to(d), 40 + i)
-                seq.append(logits.float().cpu())
+                seq.append(logits.float().cpu().clone())
             out[d] = torch.stack(seq)
         assert torch.isfinite(out["cuda"]).all()
         # bf16 activations on both sides; see tests/test_torch_dense.py
@@ -789,6 +825,81 @@ def test_dense_steps_on_the_card(dev):
                  "planar_decode_attention", "nestedfp16_matmul",
                  "nestedfp8_matmul_fused_quant"):
         assert after[name] > before[name], name
+
+
+# -- the dense-slot decode step as a CUDA graph (launch/steps.py) ----------
+
+def _dense_case(dev, arch, mode, **over):
+    import dataclasses
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
+    sp = to_serving(M.init_params(cfg, seed=0, device=dev))
+    toks = torch.randint(1, cfg.vocab_size, (3, 40), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(9),
+                         dtype=torch.int32)
+    logits, caches = steps.make_prefill_step(cfg, mode, capacity=48)(
+        sp, {"tokens": toks})
+    return cfg, sp, M.planarize_cache(caches), \
+        logits.argmax(-1).to(torch.int32)[:, None]
+
+
+DENSE_GRAPH_CASES = [("llama3.1-8b", {}), ("gemma3-1b", {"head_dim": 256})]
+
+
+@pytest.mark.parametrize("arch,over", DENSE_GRAPH_CASES)
+@pytest.mark.parametrize("mode", ["fp16", "fp8"])
+def test_decode_graph_first_replay_is_its_eager_call(dev, arch, over, mode):
+    """The first call captures; the next (the first replay) gives the
+    logits and every cache plane of an eager `decode_step` on clones of
+    the same caches, bitwise; its launches are counted as one step's."""
+    cfg, sp, caches, nxt = _dense_case(dev, arch, mode, **over)
+    step = steps.make_decode_step(cfg, mode)
+    step(sp, caches, nxt, 40)
+    assert step.n_captured == 1
+    n0 = ops.all_launch_counters()["planar_decode_attention"]
+    same = step.check_replay(sp, caches, nxt, 40)
+    assert all(same.values()), same
+    assert ops.all_launch_counters()["planar_decode_attention"] == \
+        n0 + cfg.n_layers
+    assert step.n_captured == len(step.keys()) == 1
+    assert step.pool_bytes() > 0
+
+
+@pytest.mark.parametrize("arch,over", DENSE_GRAPH_CASES)
+@pytest.mark.parametrize("length", ["int", "device"])
+def test_decode_graph_replays_follow_cache_len(dev, arch, over, length):
+    """Replays with cache_len advancing (an int staged from the host, or
+    a (B,) device tensor copied on the device) give each next eager
+    step's logits bitwise, and write the caches as the eager steps do."""
+    cfg, sp, caches, nxt = _dense_case(dev, arch, "fp16", **over)
+    eager = {"attn": {n: p.clone() for n, p in caches["attn"].items()}}
+    step, rt = steps.make_decode_step(cfg, "fp16"), steps.serve_rt("fp16")
+    for i in range(5):
+        cl = 40 + i if length == "int" else torch.full(
+            (3,), 40 + i, dtype=torch.int32, device=dev)
+        got, _ = step(sp, caches, nxt, cl)
+        want, _ = M.decode_step(rt, sp, cfg, nxt, eager, cl)
+        assert torch.equal(got, want), i
+        nxt = want.argmax(-1).to(torch.int32)[:, None]
+    assert step.n_captured == 1
+    for n, p in caches["attn"].items():
+        assert torch.equal(p, eager["attn"][n]), n
+
+
+def test_decode_graph_failed_capture_raises(dev, monkeypatch):
+    """An error while the step is captured reaches the caller; nothing
+    runs the eager step in its place."""
+    cfg, sp, caches, nxt = _dense_case(dev, "llama3.1-8b", "fp16")
+    step = steps.make_decode_step(cfg, "fp16")
+    real = M.decode_logits
+
+    def body(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused inside a capture")
+        return real(*a, **k)
+    monkeypatch.setattr(M, "decode_logits", body)
+    with pytest.raises(RuntimeError, match="refused inside a capture"):
+        step(sp, caches, nxt, 40)
+    assert step.n_captured == 0
 
 
 def test_engine_serves_on_the_card(dev):

@@ -38,6 +38,9 @@ from repro_torch.core.linear import NestedLinearParams as TNLP  # noqa: E402
 from repro_torch.core.linear import nested_linear as t_nested_linear  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.flash_prefill_attention import (  # noqa: E402
+    check_shape as k6_check_shape)
+from _torch_parity import one_torch_thread  # noqa: E402,F401
 
 GEMM_TOL = dict(rtol=1e-5, atol=1e-4)
 ATTN_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -730,6 +733,7 @@ class TestDecodeSplitDesign:
         np.testing.assert_allclose(got[live], want[live], **ATTN_TOL)
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 class TestFlashPrefillAttention:
     """K6: causal GQA prefill attention, q (B,S,H,D), k/v (B,S,Hkv,D)."""
 
@@ -820,6 +824,39 @@ class TestFlashPrefillAttention:
             *(jnp.asarray(x.numpy()) for x in (q, k, v)), block_k=16))
         got = self._tc_body(q, k, v, dtype).numpy()
         np.testing.assert_allclose(got, want, **ATTN_TOL)
+
+    # D = 256 (gemma3-1b's global layers): the card's tensor-core body
+    # takes tiles of 32 keys there (q's fragments stay in shared memory)
+    @pytest.mark.parametrize("h,hkv", [(4, 1), (8, 2)])
+    def test_plain_matches_pallas_at_head_dim_256(self, h, hkv):
+        q, k, v = self._qkv(20, 1, 128, h, hkv, 256)
+        want = np.asarray(j_flash_prefill(*map(jnp.asarray, (q, k, v)),
+                                          block=(32, 64), interpret=True))
+        got = tops.flash_prefill_attention(_t(q), _t(k), _t(v)).numpy()
+        np.testing.assert_allclose(got, want, **ATTN_TOL)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+    @pytest.mark.parametrize("h,hkv", [(4, 1), (8, 2)])
+    def test_tensor_core_design_at_head_dim_256(self, h, hkv, dtype):
+        q, k, v = self._rounded_qkv(21, 1, 128, h, hkv, 256, dtype)
+        want = tref.flash_prefill_attention_ref(q, k, v)
+        got = self._tc_body(q, k, v, dtype, tile=32)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **ATTN_TOL)
+
+    @pytest.mark.parametrize("d", [64, 128, 256, 96, 512])
+    def test_shape_rule(self, d):
+        """The card's instances: D in (64, 128, 256), and G = H / Hkv
+        dividing the 64 query rows of a block; anything else raises
+        before a launch (never the plain version in its place)."""
+        if d in (64, 128, 256):
+            for h, hkv in ((4, 1), (32, 8), (8, 8), (64, 1)):
+                k6_check_shape(h, hkv, d)
+        else:
+            with pytest.raises(ValueError, match="need D in"):
+                k6_check_shape(4, 1, d)
+        for h, hkv in ((6, 4), (3, 1), (128, 1), (0, 1)):
+            with pytest.raises(ValueError, match="need D in"):
+                k6_check_shape(h, hkv, 256)
 
     def test_one_term_of_p_misses_the_tolerance(self):
         """Why the split: P rounded once to bf16 for the PV product lands

@@ -29,7 +29,7 @@ pytest.importorskip("jax")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_parity import configs, serving_pair  # noqa: E402
+from _torch_parity import configs, one_torch_thread, serving_pair  # noqa: E402,F401
 from repro.configs import ARCHS as JARCHS  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models.layers import Runtime as JRuntime  # noqa: E402
@@ -43,22 +43,11 @@ from repro_torch.serving.engine import Engine as TEngine  # noqa: E402
 from repro_torch.serving.engine import Request as TRequest  # noqa: E402
 from repro_torch.serving.kvcache import BlockManager as TBlockManager  # noqa: E402
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 ARCH = "gemma3-1b"
 WINDOW = 19
 FP16_TOL = 3e-3           # tests/test_torch_model.py (F-port-1)
 FP8_TOL = 0.25
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """These tests run many small CPU ops. In a run of several workers on
-    one machine, torch's intra-op threads contend with the other workers'
-    (a test of 0.5 s alone took 200 s); one thread keeps each test's time
-    its own. The other tests of a worker get the count back."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
