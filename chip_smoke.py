@@ -52,6 +52,30 @@ Phases, in order; any failed check exits non-zero before the last line:
               steps, as phase 5: K6 must launch once a prefill for each
               of the 4 global layers; then the decode step at capacity
               32768 (7.0 GB of planar caches)
+  9. spec     llama3.1-8b at full width and depth through `Engine` with
+              n-gram speculation: 8 slots, capacity 512, planar KV, 8
+              prompts of a 16-token pattern repeated 8 times, 128 new
+              tokens, FP16 and FP8, speculation off and on, each engine
+              after a warm pass that captures its keys; every spec key is
+              captured and each one replayed is held bitwise against its
+              eager call; drafts must be accepted and decode dispatches
+              cut; each FP16 spec-on stream must equal its spec-off stream
+              or part only where the spec-off top-2 logit margin,
+              recomputed on the card, is below 1e-3 (FP8: a reading)
+ 10. tiered   llama3.1-8b at full width and depth with the host KV tier:
+              planar KV, 4 slots, capacity 1152, 120 blocks of 16; two
+              1024-token system prompts in bursts A, B, A of 4 requests
+              (64 own tokens, 32 new); FP16 tier on and off (the third
+              burst's TTFT, restore against recompute; tokens by the
+              margin rule), FP8 tier on (half the restored bytes a block)
+              then a fourth burst in FP16 (lazy lo planes); uploaded
+              blocks byte-equal to their host entries; then the prefix
+              store is saved, and a new engine on it serves burst A from
+              the host tier with the first engine's tokens
+ 11. gemma_spec  gemma3-1b at full width and depth with speculation: 4
+              slots, capacity 1024, 4 prompts of a 24-token pattern
+              repeated 32 times, 96 new tokens, FP16 off and on, as phase
+              9; the window must slide (local blocks reclaimed)
 The kernels phase also holds K4, K5 and K6 at gemma3-1b's heads
 (D = 256), and K7 at gemma3-1b's seven GEMM shapes.
 The second-to-last line is the kernels JSON, the last line
@@ -1877,6 +1901,505 @@ def gemma_serve_phase(torch, cfg) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: speculation and the tiered KV cache on the paged engine
+# ---------------------------------------------------------------------------
+
+MARGIN_RULE = 1e-3      # a spec-on or tier-on stream may part from its
+                        # control only where the control's top-2 logit
+                        # margin is below this: the two read the pool
+                        # through other attention paths (K4 for one-token
+                        # decodes, gathered attention for verify chunks),
+                        # or prefill in other chunks, so they sum in other
+                        # orders
+
+
+def top2_margin(torch, cfg, sp, mode, seq) -> float:
+    """The top-2 logit margin after `seq` (a prompt and the first tokens
+    of a stream): one f32 `paged_step` over the whole sequence on the
+    card, in a pool of its own."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Runtime
+
+    bs = 16
+    nb = -(-len(seq) // bs)
+    caches = M.init_paged_cache(cfg, nb + 1, bs, planar=True, device="cuda")
+    tables = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")[None]
+    rt = Runtime(mode=mode, dtype=torch.float32, act_quant="per_token")
+    n = torch.tensor([len(seq)], dtype=torch.int32, device="cuda")
+    logits = M.paged_step(
+        rt, sp, cfg, torch.tensor([seq], dtype=torch.int32, device="cuda"),
+        caches, tables, q_offset=torch.zeros(1, dtype=torch.int32,
+                                             device="cuda"),
+        kv_len=n, block_size=bs, logit_position=n - 1, return_logits=True)
+    top2 = logits[0].topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def margin_rule(torch, cfg, sp, mode, prompts, control, got, label,
+                gated=True) -> dict:
+    """Hold each stream of `got` to its `control` stream (request id ->
+    tokens; prompts: request id -> prompt): equal, or parting only at a
+    token where the control's top-2 margin, recomputed on the card, is
+    below MARGIN_RULE. Prints every parting with its margin; a parting at
+    a wider margin fails a gated check (FP8 is a reading, F-port-1)."""
+    partings = []
+    for rid, ref in sorted(control.items()):
+        out = got[rid]
+        j = next((i for i, (a, b) in enumerate(zip(ref, out)) if a != b),
+                 None)
+        if j is None:
+            check(len(out) == len(ref) or not gated,
+                  f"{label} {rid}: lengths differ")
+            continue
+        m = top2_margin(torch, cfg, sp, mode, list(prompts[rid]) + ref[:j])
+        partings.append({"request": rid, "position": j, "margin": m})
+        log(f"  {label}: {rid} parts from its control at token {j} "
+            f"(control {ref[j]}, got {out[j]}), control top-2 margin "
+            f"{m:.3e}")
+        check(m < MARGIN_RULE or not gated,
+              f"{label} {rid}: parts at token {j} with a top-2 margin of "
+              f"{m:.3e} (rule {MARGIN_RULE})")
+    equal = len(control) - len(partings)
+    log(f"  {label}: {equal}/{len(control)} streams equal to the control"
+        f"{'' if gated else ' (a reading, not gated)'}")
+    return {"equal_streams": equal, "streams": len(control),
+            "partings": partings, "gated": gated}
+
+
+def record_captures(eng) -> dict:
+    """Wrap the engine's graph capture to record, per key, the bytes its
+    capture added to the graphs' shared pool."""
+    g, grown = eng.graphs, {}
+    capture = g._capture
+
+    def recorded(st):
+        before = g.pool_bytes()
+        capture(st)
+        grown[st.key] = g.pool_bytes() - before
+    g._capture = recorded
+    return grown
+
+
+def serve_burst(torch, eng, reqs, label) -> dict:
+    """Submit [(request id, prompt, max_new)] and run to the end; returns
+    the outputs, the wall s and the mean TTFT from the submission."""
+    from repro_torch.serving.engine import Request
+
+    n0 = len(eng.finished)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for rid, p, mx in reqs:
+        eng.submit(Request(rid, list(p), max_new=mx))
+    while eng.queue or eng.active or eng.prefilling:
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    fin = eng.finished[n0:]
+    check(len(fin) == len(reqs), f"{label}: {len(fin)}/{len(reqs)} finished")
+    check(all(len(r.output) == mx and all(0 <= t < eng.cfg.vocab_size
+                                          for t in r.output)
+              for r, (_i, _p, mx) in zip(sorted(fin, key=lambda r: r.request_id),
+                                         sorted(reqs))),
+          f"{label}: outputs of the wrong length or out of vocab")
+    return {"outputs": {r.request_id: list(r.output) for r in fin},
+            "wall_s": wall,
+            "ttft_ms_mean": 1e3 * sum(r.first_token_s - t0 for r in fin)
+            / len(fin),
+            "tokens": sum(len(r.output) for r in fin)}
+
+
+def spec_runs(torch, cfg, sp, *, label, modes, n_slots, capacity, prompts,
+              warm, max_new, profile=False) -> dict:
+    """Serve `prompts` in each mode with speculation off, then on, each
+    engine after a warm pass over `warm` that captures its keys (each
+    key's first replay held bitwise against an eager call inside its
+    step, `serve_checked`); the spec-on engine then captures every spec
+    key its warm pass left, and the timed run checks the first replay of
+    each it uses the same way, so no key is captured in a timed run. Each
+    spec-on stream is held to its spec-off stream by the margin rule
+    (FP8: a reading). With `profile`, the widest spec key replayed and
+    the decode key are profiled after the run (replays, not counted as
+    launches of the path: the counts are read before)."""
+    from repro_torch.core.policy import AdaptiveKController, SpeculationConfig
+    from repro_torch.serving.engine import Engine, Request
+
+    reqs = [(f"r{i}", p, max_new) for i, p in enumerate(prompts)]
+    res = {}
+    for mode in modes:
+        outs = {}
+        for spec in (False, True):
+            tag = f"{label} {mode} spec {'on' if spec else 'off'}"
+            scfg = SpeculationConfig(ngram_min=1) if spec else None
+            eng = Engine(cfg, sp, n_slots=n_slots, capacity=capacity,
+                         kv_planar=True, forced_mode=mode, device="cuda",
+                         speculate=scfg)
+            grown = record_captures(eng)
+            t0 = time.monotonic()
+            if spec:
+                # the warm pass starts at the widest draft, so that every
+                # chunk bucket is used (captured and checked) before the
+                # timed run, which starts from a fresh K controller
+                eng._spec_k.k = scfg.k_max
+            for i, p in enumerate(warm):
+                eng.submit(Request(f"w{i}", list(p), max_new=max_new))
+            n_checked = serve_checked(eng, mode, tag)
+            spec_keys = []
+            if spec:
+                eng._spec_k = AdaptiveKController(scfg)
+                # the chunk buckets of 1 + K drafts, K <= k_max
+                spec_keys = sorted({("spec", mode, 1 << k.bit_length())
+                                    for k in range(1, scfg.k_max + 1)})
+                for key in spec_keys:
+                    eng.graphs.capture(key)
+            warm_s = time.monotonic() - t0
+            n_graphs = eng.graphs.n_captured
+            stats0 = dict(eng.stats)
+            eng.graphs.check_first_runs = True
+            run = serve_burst(torch, eng, reqs, tag)
+            eng.graphs.check_first_runs = False
+            check(eng.graphs.n_captured == n_graphs,
+                  f"{tag}: a step key was captured inside the timed run")
+            for key, same in eng.graphs.checks.items():
+                check(all(same.values()),
+                      f"{tag} {key}: replay differs from the eager call {same}")
+            st = {k: eng.stats[k] - stats0[k] for k in
+                  ("decode_dispatches", "spec_dispatches", "spec_drafted",
+                   "spec_accepted", "decode_rows", "decode_tokens",
+                   "window_reclaimed_blocks", "preemptions")}
+            r = {"wall_s": run["wall_s"], "tokens": run["tokens"],
+                 "wall_ms_per_token": 1e3 * run["wall_s"] / run["tokens"],
+                 "ttft_ms_mean": run["ttft_ms_mean"],
+                 "warm_pass_s": warm_s, "stats": st,
+                 "tokens_per_dispatch": st["decode_tokens"] / st["decode_rows"],
+                 "acceptance_rate": st["spec_accepted"] / st["spec_drafted"]
+                 if st["spec_drafted"] else 0.0,
+                 "keys_checked_warm": n_checked,
+                 "graph_pool_bytes": eng.graphs.pool_bytes()}
+            log(f"  {tag}: {run['tokens']} tokens in {run['wall_s']:.3f} s, "
+                f"{r['wall_ms_per_token']:.3f} wall ms an emitted token, "
+                f"decode dispatches {st['decode_dispatches']} (verify chunks "
+                f"{st['spec_dispatches']}), tokens a dispatch "
+                f"{r['tokens_per_dispatch']:.3f}, acceptance "
+                f"{r['acceptance_rate']:.3f} ({st['spec_accepted']}/"
+                f"{st['spec_drafted']}), window reclaimed "
+                f"{st['window_reclaimed_blocks']}, preemptions "
+                f"{st['preemptions']}; graphs {n_graphs}, pool "
+                f"{r['graph_pool_bytes'] / 2**20:.1f} MiB, warm pass "
+                f"{warm_s:.1f} s")
+            if spec:
+                r["k_history"] = list(eng._spec_k.history)
+                r["spec_keys"] = {}
+                for key in spec_keys:
+                    r["spec_keys"][str(key)] = v = {
+                        "device_ms": replay_ms(torch, eng.graphs.graph(key)),
+                        "pool_bytes_at_capture": grown.get(key, 0),
+                        "replayed_and_checked": key in eng.graphs.checks}
+                    log(f"  {tag} {key}: graph device ms "
+                        f"{v['device_ms']:.3f}, pool grew "
+                        f"{v['pool_bytes_at_capture'] / 2**20:.1f} MiB at its "
+                        f"capture; first replay bitwise its eager call: "
+                        f"{'yes' if v['replayed_and_checked'] else 'not replayed'}")
+                check(all(v["replayed_and_checked"]
+                          for v in r["spec_keys"].values()),
+                      f"{tag}: a spec key was never replayed and checked")
+                if profile:
+                    # where a verify chunk's time goes, beside the decode
+                    # step's: the widest spec key the run replayed
+                    key = max(k for k in spec_keys if k in eng.graphs.checks)
+                    for k in (key, ("decode", mode)):
+                        wall_p, by_name = device_ms_by_kernel(
+                            torch, eng.graphs.graph(k).replay, 4)
+                        r[f"profile {k}"] = profile_summary(
+                            f"{tag} profile {k}: 4 replays", wall_p,
+                            replay_ms(torch, eng.graphs.graph(k)), by_name)
+                h = r["k_history"]
+                log(f"  {tag}: K history ({len(h)} steps) {h[:96]}"
+                    f"{' ...' if len(h) > 96 else ''}")
+            outs[spec] = run["outputs"]
+            res[f"{mode}_{'on' if spec else 'off'}"] = r
+            del eng
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        on, off = res[f"{mode}_on"], res[f"{mode}_off"]
+        check(on["stats"]["spec_accepted"] > 0,
+              f"{label} {mode}: no draft was accepted")
+        check(on["stats"]["decode_dispatches"]
+              < off["stats"]["decode_dispatches"],
+              f"{label} {mode}: speculation cut no decode dispatch")
+        log(f"  {label} {mode}: decode dispatches on "
+            f"{on['stats']['decode_dispatches']} against off "
+            f"{off['stats']['decode_dispatches']}; wall ms an emitted token "
+            f"on {on['wall_ms_per_token']:.3f} against off "
+            f"{off['wall_ms_per_token']:.3f}")
+        res[f"{mode}_agreement"] = margin_rule(
+            torch, cfg, sp, mode, {rid: p for rid, p, _ in reqs}, outs[False],
+            outs[True], f"{label} {mode} spec on vs off",
+            gated=mode == "fp16")
+    return res
+
+
+def pattern_prompts(torch, vocab, n, period, reps, seed):
+    """n prompts, each a random `period`-token pattern repeated `reps`
+    times, from a seeded generator."""
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, vocab, (period,), generator=gen).tolist() * reps
+            for _ in range(n)]
+
+
+def spec_phase(torch, cfg, sp) -> dict:
+    """llama3.1-8b at full width and depth: 8 slots, capacity 512, planar
+    KV; 8 prompts of a 16-token pattern repeated 8 times, 128 new tokens;
+    FP16 and FP8, speculation off and on (`spec_runs`)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counters()          # this path's run starts here
+    prompts = pattern_prompts(torch, cfg.vocab_size, 16, 16, 8, seed=23)
+    res = spec_runs(torch, cfg, sp, label="spec", modes=("fp16", "fp8"),
+                    n_slots=8, capacity=512, prompts=prompts[:8],
+                    warm=prompts[8:], max_new=128, profile=True)
+    res["launches_total"] = ops.all_launch_counters()   # the run ends
+    for name in ("nestedfp16_matmul", "nestedfp8_matmul", "quant_per_token",
+                 "f16_matmul", "paged_planar_decode_attention"):
+        check(res["launches_total"][name] > 0, f"spec: {name} never launched")
+    return res
+
+
+def gemma_spec_phase(torch, cfg) -> dict:
+    """gemma3-1b at full width and depth: window 512 on the local layers,
+    4 slots, capacity 1024, planar KV; 4 prompts of a 24-token pattern
+    repeated 32 times (768 tokens), 96 new tokens; FP16, speculation off
+    and on. The window slides during verify chunks, so `truncate` meets
+    slide-freed holes."""
+    from repro_torch.kernels import ops
+
+    sp = make_serving_params(torch, cfg, 0, "cuda", plant_layer=5)
+    ops.reset_launch_counters()          # this path's run starts here
+    prompts = pattern_prompts(torch, cfg.vocab_size, 8, 24, 32, seed=29)
+    res = spec_runs(torch, cfg, sp, label="gemma spec", modes=("fp16",),
+                    n_slots=4, capacity=1024, prompts=prompts[:4],
+                    warm=prompts[4:], max_new=96, profile=True)
+    res["launches_total"] = ops.all_launch_counters()   # the run ends
+    check(res["fp16_on"]["stats"]["window_reclaimed_blocks"] > 0,
+          "gemma spec: no local-layer block was reclaimed")
+    check(res["launches_total"]["paged_planar_decode_attention"] > 0,
+          "gemma spec: K4 never launched")
+    return res
+
+
+def tiered_phase(torch, cfg, sp) -> dict:
+    """llama3.1-8b at full width and depth through `Engine` with the host
+    KV tier: planar KV, 4 slots, capacity 1152, blocks of 16, 120 blocks.
+    Two system prompts of 1024 tokens (64 blocks, 128 MiB of planes each)
+    and bursts of 4 requests (system prompt + 64 tokens of their own, 32
+    new tokens): A, then B, then A again. The pool holds one prefix beside
+    a burst but not two, so A's blocks spill during B and are restored in
+    the third burst.
+
+    FP16 with the tier on (the restore uploads are timed with a sync on
+    each side, for the h2d rate) and off; the third burst's TTFT, restore
+    against recompute; the tier-on tokens held to the tier-off tokens by
+    the margin rule. Then FP8 with the tier on through the same bursts
+    (hi planes restored only: half of FP16's bytes a block) and a fourth
+    burst A in FP16, which lands the deferred lo planes; every upload's
+    blocks are compared with their host entries byte for byte after the
+    burst. Last, the FP16 engine's prefix store is saved, the engine
+    freed, and a new `Engine(persist_dir=...)` serves burst A from the
+    host tier with the first engine's tokens."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+
+    store = ROOT / "prefix_store"
+    shutil.rmtree(store, ignore_errors=True)
+    gen = torch.Generator().manual_seed(31)
+    sysp = {s: torch.randint(1, cfg.vocab_size, (1024,), generator=gen)
+            .tolist() for s in "AB"}
+
+    def burst(s, b):
+        return [(f"{s}{b}.{i}", sysp[s] + torch.randint(
+            1, cfg.vocab_size, (64,), generator=torch.Generator()
+            .manual_seed(1000 * b + i)).tolist(), 32) for i in range(4)]
+    order = [("A", 0), ("B", 1), ("A", 2)]
+    prompts = {rid: p for s, b in order for rid, p, _ in burst(s, b)}
+
+    def engine(mode, host, **kw):
+        return Engine(cfg, sp, n_slots=4, capacity=1152, kv_planar=True,
+                      block_size=16, n_blocks=120, forced_mode=mode,
+                      host_offload=host, device="cuda", **kw)
+
+    def watch(eng, timed):
+        """Record every upload (and, if `timed`, its wall time between two
+        syncs) for the checks after the burst; with `timed`, also the
+        host seconds spent in host-entry checksums (at capture, match and
+        drain) and in spill captures, in `host_s`."""
+        seen, host_s = [], {"checksum_s": 0.0, "capture_s": 0.0}
+        upload = eng._tier_upload
+
+        def recorded(g, items, names):
+            if timed:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = upload(g, items, names)
+            if timed:
+                torch.cuda.synchronize()
+            seen.append((g, list(items), names, n, time.perf_counter() - t0))
+            return n
+        eng._tier_upload = recorded
+        if timed:
+            for obj, name, slot in ((eng.blocks.host, "checksum",
+                                     "checksum_s"),
+                                    (eng, "_capture_blocks", "capture_s")):
+                def timed_fn(*a, _f=getattr(obj, name), _slot=slot):
+                    t0 = time.perf_counter()
+                    out = _f(*a)
+                    host_s[_slot] += time.perf_counter() - t0
+                    return out
+                setattr(obj, name, timed_fn)
+        return seen, host_s
+
+    def bytes_match(eng, seen) -> int:
+        """Compare each uploaded block still holding its entry's content
+        with the entry, plane by plane; returns the blocks compared."""
+        bm, n = eng.blocks, 0
+        torch.cuda.synchronize()
+        for g, items, names, _n, _t in seen:
+            li = eng._group_layers[g]
+            for b, h in items:
+                if bm._hash_of.get((g, b)) != h or (g, h) not in bm.host:
+                    continue
+                entry = bm.host.entries[(g, h)]
+                for name in names:
+                    got = eng.caches["attn"][name][li, b].cpu().numpy()
+                    check(got.tobytes() == entry[name].tobytes(),
+                          f"tiered: block {g}/{b} {name} differs from its "
+                          f"host entry")
+                n += 1
+        return n
+
+    ops.reset_launch_counters()          # this path's run starts here
+    res, outs = {}, {}
+    for host in (True, False):
+        tag = f"tiered fp16 host {'on' if host else 'off'}"
+        eng = engine("fp16", host)
+        seen, host_s = watch(eng, timed=True) if host else ([], {})
+        bursts, parts = {}, {}
+        for s, b in order:
+            before = dict(host_s)
+            n_up = len(seen)
+            bursts[f"{s}{b}"] = serve_burst(torch, eng, burst(s, b),
+                                            f"{tag} {s}{b}")
+            if host:
+                parts[f"{s}{b}"] = dict(
+                    {k: host_s[k] - before[k] for k in host_s},
+                    upload_s=sum(x[-1] for x in seen[n_up:]))
+        outs[host] = {k: v for r in bursts.values()
+                      for k, v in r["outputs"].items()}
+        ts = eng.tiered_stats()
+        r = {"tiered_stats": ts,
+             "ttft_ms_mean": {k: v["ttft_ms_mean"] for k, v in bursts.items()},
+             "wall_s": {k: v["wall_s"] for k, v in bursts.items()},
+             "graphs": eng.graphs.n_captured, "host_s_by_burst": parts}
+        if host:
+            up_s = sum(t for *_x, t in seen)
+            r["restore_gb_s"] = ts["restored_bytes"] / up_s / 1e9
+            r["uploads"] = len(seen)
+            r["blocks_compared"] = bytes_match(eng, seen)
+            check(ts["restored_blocks"] > 0, f"{tag}: nothing restored")
+            check(eng.stats["corrupt_fallbacks"] == 0,
+                  f"{tag}: a host entry failed its checksum")
+            n_saved = eng.save_prefix_store(str(store))
+            r["store_entries"] = n_saved
+            r["store_bytes"] = sum(f.stat().st_size for f in store.iterdir())
+        log(f"  {tag}: spilled {ts['spilled_blocks']} blocks "
+            f"({ts['spilled_bytes'] / 2**20:.1f} MiB), restored "
+            f"{ts['restored_blocks']} ({ts['restored_bytes'] / 2**20:.1f} "
+            f"MiB, hi planes) and lo planes of {ts['lo_lazy_blocks']} "
+            f"({ts['lo_lazy_bytes'] / 2**20:.1f} MiB), restore fallbacks "
+            f"{ts['restore_fallbacks']}, host hits "
+            f"{ts['host_hit_blocks']} blocks; TTFT mean by burst "
+            f"{ {k: round(v, 1) for k, v in r['ttft_ms_mean'].items()} } ms"
+            + (f"; restore uploads {r['uploads']} at "
+               f"{r['restore_gb_s']:.2f} GB/s (host staging, h2d and "
+               f"scatter, between syncs); {r['blocks_compared']} restored "
+               f"blocks equal their host entries; prefix store "
+               f"{r['store_entries']} entries, "
+               f"{r['store_bytes'] / 2**20:.1f} MiB; host s by burst "
+               f"{ {k: {x: round(y, 4) for x, y in v.items()} for k, v in parts.items()} }"
+               if host else ""))
+        res[f"fp16_{'on' if host else 'off'}"] = r
+        del eng
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    on, off = res["fp16_on"], res["fp16_off"]
+    log(f"  tiered fp16: third burst TTFT mean {on['ttft_ms_mean']['A2']:.1f}"
+        f" ms restoring against {off['ttft_ms_mean']['A2']:.1f} ms "
+        f"recomputing")
+    res["fp16_agreement"] = margin_rule(
+        torch, cfg, sp, "fp16", prompts, outs[False], outs[True],
+        "tiered fp16 host on vs off")
+    # FP8 restores the hi planes only; a fourth burst A in FP16 lands the
+    # deferred lo planes
+    eng = engine("fp8", True)
+    seen, _ = watch(eng, timed=False)
+    for s, b in order:
+        serve_burst(torch, eng, burst(s, b), f"tiered fp8 {s}{b}")
+    ts8 = eng.tiered_stats()
+    eng.forced_mode = "fp16"
+    serve_burst(torch, eng, burst("A", 3), "tiered fp8 then fp16 A3")
+    ts = eng.tiered_stats()
+    n_cmp = bytes_match(eng, seen)
+    check(eng.stats["corrupt_fallbacks"] == 0,
+          "tiered fp8: a host entry failed its checksum")
+    # bytes uploaded a restored block: a planar restore sends the hi
+    # planes at once and the lo planes at the first FP16 step, which in
+    # FP16 mode is the restore's own step
+    ts16 = on["tiered_stats"]
+    per16 = (ts16["restored_bytes"] + ts16["lo_lazy_bytes"]) \
+        / ts16["restored_blocks"]
+    check(ts8["restored_blocks"] > 0, "tiered fp8: nothing restored")
+    per8 = (ts8["restored_bytes"] + ts8["lo_lazy_bytes"]) \
+        / ts8["restored_blocks"]
+    check(per8 * 2 == per16, f"tiered fp8: {per8} bytes uploaded a "
+          f"restored block against FP16's {per16}")
+    check(ts["lo_lazy_blocks"] > 0, "tiered fp8 then fp16: no lo plane landed")
+    res["fp8_on"] = {"tiered_stats_after_third_burst": ts8,
+                     "tiered_stats": ts, "blocks_compared": n_cmp,
+                     "restored_bytes_per_block": per8,
+                     "fp16_restored_bytes_per_block": per16}
+    log(f"  tiered fp8: restored {ts8['restored_blocks']} blocks, "
+        f"{per8 / 2**20:.2f} MiB uploaded a block against FP16's "
+        f"{per16 / 2**20:.2f}; then FP16 landed {ts['lo_lazy_blocks']} "
+        f"deferred lo planes ({ts['lo_lazy_bytes'] / 2**20:.1f} MiB); "
+        f"{n_cmp} uploaded blocks equal their host entries")
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # a new engine on the saved prefix store
+    eng = engine("fp16", True, persist_dir=str(store))
+    loaded = len(eng.blocks.host)
+    run = serve_burst(torch, eng, burst("A", 0), "tiered restart A0")
+    hits = eng.blocks.prefix_stats["host_hit_blocks"]
+    check(loaded > 0 and hits > 0,
+          f"tiered restart: {loaded} entries loaded, {hits} host hits")
+    res["restart"] = {"loaded_entries": loaded, "host_hit_blocks": hits,
+                      "ttft_ms_mean": run["ttft_ms_mean"],
+                      "restored_blocks": eng.stats["restored_blocks"]}
+    res["restart_agreement"] = margin_rule(
+        torch, cfg, sp, "fp16", prompts,
+        {k: v for k, v in outs[True].items() if k.startswith("A0.")},
+        run["outputs"], "tiered restart vs first engine")
+    log(f"  tiered restart: {loaded} entries loaded, {hits} host-tier hits, "
+        f"TTFT mean {run['ttft_ms_mean']:.1f} ms")
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    shutil.rmtree(store, ignore_errors=True)
+    res["launches_total"] = ops.all_launch_counters()   # the run ends
+    return res
+
+
 def _linears(tree, cls):
     if isinstance(tree, cls):
         return [tree]
@@ -2004,7 +2527,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="card,kernels,slice,serve,dense,gemma_slice,"
-                            "gemma_serve,gemma_dense")
+                            "gemma_serve,gemma_dense,spec,tiered,gemma_spec")
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--serve-layers", type=int, default=32)
@@ -2100,6 +2623,27 @@ def main() -> int:
             f"prefill and decode steps")
         results["gemma_dense"] = dense_phase(torch, gemma, "gemma dense",
                                              plant_layer=5)
+    if {"spec", "tiered"} & phases:
+        t0 = time.time()
+        sp = make_serving_params(torch, cfg, 0, "cuda", plant_layer=0)
+        log(f"== llama3.1-8b params for spec and tiered on the card in "
+            f"{time.time() - t0:.1f} s")
+        for name, fn in (("spec", spec_phase), ("tiered", tiered_phase)):
+            if name in phases:
+                log(f"== {name}: llama3.1-8b, {cfg.n_layers} layers")
+                t0 = time.time()
+                results[name] = fn(torch, cfg, sp)
+                results[name]["seconds"] = time.time() - t0
+                log(f"  {name} phase: {results[name]['seconds']:.1f} s")
+        del sp
+        torch.cuda.empty_cache()
+    if "gemma_spec" in phases:
+        log(f"== gemma spec: gemma3-1b, {gemma.n_layers} layers, window "
+            f"groups")
+        t0 = time.time()
+        results["gemma_spec"] = gemma_spec_phase(torch, gemma)
+        results["gemma_spec"]["seconds"] = time.time() - t0
+        log(f"  gemma_spec phase: {results['gemma_spec']['seconds']:.1f} s")
     results["total_s"] = time.time() - t_start
     log(f"== done in {results['total_s']:.1f} s")
     if args.out:
@@ -2108,10 +2652,12 @@ def main() -> int:
 
     if rows:
         # launches over the main paths' runs: the paged serve, the
-        # dense-slot steps, the sliding-window serve and gemma3-1b's
-        # dense-slot steps, each counted from 0 at its start
+        # dense-slot steps, the sliding-window serve, gemma3-1b's
+        # dense-slot steps, speculation (llama3.1-8b, gemma3-1b) and the
+        # tiered KV cache, each counted from 0 at its start
         paths = [results.get(p, {}).get("launches_total", {})
-                 for p in ("serve", "dense", "gemma_serve", "gemma_dense")]
+                 for p in ("serve", "dense", "gemma_serve", "gemma_dense",
+                           "spec", "gemma_spec", "tiered")]
         kernels = []
         for name, (src, replaces) in SOURCES.items():
             kernels.append({"name": name, "route": "cuda", "source": src,

@@ -10,7 +10,11 @@ per-token cost model and the current batch, and falls back to FP8
 whenever the estimate (or the recent measured p90) threatens the SLO, or
 when the paged KV pool's free-block headroom drops below
 `free_block_frac_min`. Hysteresis avoids oscillation on the boundary.
-Host-only logic, the same as the JAX package's controller.
+
+Also here: `RestorePolicy`, the SLO guard on the tiered-KV restore path,
+and `SpeculationConfig` / `AdaptiveKController`, the n-gram speculation
+knobs and the per-step draft-length policy. Host-only logic, the same as
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -110,3 +114,104 @@ class DualPrecisionController:
         if not self.history:
             return 1.0
         return self.history.count("fp16") / len(self.history)
+
+
+# ---------------------------------------------------------------------------
+# tiered-KV restore guard (serving/engine.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RestorePolicy:
+    """SLO guard for the tiered-KV restore path.
+
+    Restoring a host-tier prefix block is an upload that shares the step
+    with live decodes, so an unbounded restore queue would blow TPOT for
+    every active sequence. `max_restore_bytes_per_step` caps the bytes
+    each step uploads (the engine always grants at least one block, so
+    gated rows make progress); `max_queue_bytes` is the admission gate:
+    once the queued backlog reaches it, new prefix matches fall back to
+    recompute (counted in `stats["restore_fallbacks"]`). Zero disables
+    host-tier matching (spills still fill the tier for persistence)."""
+    max_restore_bytes_per_step: int = 32 << 20
+    max_queue_bytes: int = 256 << 20
+
+    def admit(self, queued_bytes: int) -> bool:
+        """May a new admission match host-tier blocks, given the current
+        restore backlog?"""
+        return queued_bytes < self.max_queue_bytes
+
+    def grant(self, queued_bytes: int) -> int:
+        """Restore-byte budget for this step."""
+        return self.max_restore_bytes_per_step
+
+    @classmethod
+    def from_slo(cls, slo: SLOConfig, *, h2d_gbps: float = 16.0,
+                 frac: float = 0.25, queue_steps: int = 8) -> RestorePolicy:
+        """`frac` of each step's TPOT budget goes to restore uploads at
+        `h2d_gbps`, and the admission gate tolerates a backlog worth
+        `queue_steps` steps of that budget."""
+        per_step = int(slo.tpot_ms * slo.headroom * frac / 1e3
+                       * h2d_gbps * 1e9)
+        return cls(max_restore_bytes_per_step=max(per_step, 1),
+                   max_queue_bytes=max(per_step * queue_steps, 1))
+
+    def scaled(self, scale: float) -> RestorePolicy:
+        """A tightened (or relaxed) copy: both the per-step grant and the
+        admission backlog scale together."""
+        return RestorePolicy(
+            max_restore_bytes_per_step=max(
+                1, int(self.max_restore_bytes_per_step * scale)),
+            max_queue_bytes=max(1, int(self.max_queue_bytes * scale)))
+
+
+# ---------------------------------------------------------------------------
+# speculation-length policy (serving/speculate.py drafting)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SpeculationConfig:
+    """Knobs for n-gram speculative decoding and the adaptive draft
+    length. Each decode step verifies up to K drafted tokens a row in one
+    C=K+1 ragged `paged_step` chunk; K walks inside [k_min, k_max] with
+    the recent acceptance rate."""
+    k_max: int = 8                   # draft-length ceiling
+    k_min: int = 1                   # > 0: K=0 would draft nothing and the
+                                     # acceptance signal would go silent
+    k_init: int = 4
+    ngram_max: int = 3               # longest suffix n-gram matched first
+    ngram_min: int = 1
+    adapt_window: int = 16           # recent steps in the acceptance window
+    adapt_min_drafted: int = 8       # don't adapt on fewer drafted tokens
+    accept_hi: float = 0.7           # grow K above this acceptance rate
+    accept_lo: float = 0.3           # shrink K below it
+
+
+class AdaptiveKController:
+    """Per-step draft-length selector, driven by the same
+    `StepObservation` stream the precision controller reads: the engine
+    reports how many draft tokens the last step verified and how many the
+    model confirmed."""
+
+    def __init__(self, cfg: SpeculationConfig):
+        assert 0 < cfg.k_min <= cfg.k_init <= cfg.k_max
+        self.cfg = cfg
+        self.k = cfg.k_init
+        self._recent = collections.deque(maxlen=cfg.adapt_window)
+        self.history: list[int] = []
+
+    def acceptance_rate(self) -> float:
+        drafted = sum(d for d, _ in self._recent)
+        return sum(a for _, a in self._recent) / drafted if drafted else 0.0
+
+    def decide(self, obs: StepObservation) -> int:
+        if obs.spec_drafted:
+            self._recent.append((obs.spec_drafted, obs.spec_accepted))
+        drafted = sum(d for d, _ in self._recent)
+        if drafted >= self.cfg.adapt_min_drafted:
+            rate = self.acceptance_rate()
+            if rate >= self.cfg.accept_hi:
+                self.k = min(self.k + 1, self.cfg.k_max)
+            elif rate <= self.cfg.accept_lo:
+                self.k = max(self.k - 1, self.cfg.k_min)
+        self.history.append(self.k)
+        return self.k

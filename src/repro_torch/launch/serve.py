@@ -7,10 +7,13 @@ Usage (the card is the default device):
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
       --reduced --device cpu --kv-planar --prompt-len 40
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --reduced --device cpu --speculate
 Prints a JSON summary (with `window_reclaimed_blocks`, the local-layer
 blocks freed by window slides, nonzero for a sliding-window arch such as
-gemma3-1b once sequences outgrow the window); exits 1 if any request
-failed to finish.
+gemma3-1b once sequences outgrow the window; with --speculate also
+`spec_acceptance_rate` and `spec_tokens_per_dispatch`); exits 1 if any
+request failed to finish.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ def main(argv=None) -> int:
                     help="shared prefix tokens prepended to every request "
                          "(exercises COW prefix caching)")
     ap.add_argument("--no-prefix-cache", action="store_true")
+    ap.add_argument("--speculate", action="store_true",
+                    help="n-gram speculative decoding (greedy outputs equal "
+                         "speculation off; summary gains spec_* fields)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--policy", default="dual",
                     choices=["dual", "fp16", "fp8"])
@@ -72,7 +78,8 @@ def main(argv=None) -> int:
     eng = Engine(cfg, sparams, n_slots=args.slots, capacity=args.capacity,
                  controller=controller, forced_mode=forced,
                  prefix_cache=not args.no_prefix_cache,
-                 kv_planar=args.kv_planar, device=device)
+                 kv_planar=args.kv_planar, device=device,
+                 speculate=args.speculate or None)
     rng = np.random.RandomState(args.seed)
     sys_prompt = list(rng.randint(1, cfg.vocab_size, args.system_prompt_len))
     for i in range(args.requests):
@@ -93,6 +100,11 @@ def main(argv=None) -> int:
         "prefix_hit_rate": round(ps["hit_rate"], 3),
         "blocks_saved": ps["blocks_saved"],
         "window_reclaimed_blocks": eng.stats["window_reclaimed_blocks"],
+        **({"spec_acceptance_rate":
+                round(eng.spec_stats()["acceptance_rate"], 3),
+            "spec_tokens_per_dispatch":
+                round(eng.spec_stats()["tokens_accepted_per_dispatch"], 3)}
+           if args.speculate else {}),
     }))
     return 0 if len(fin) == args.requests else 1
 

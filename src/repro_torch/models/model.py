@@ -269,7 +269,8 @@ def lm_logits(rt, params, cfg, h):
 
 def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
                q_offset, kv_len, block_size: int, logit_position=None,
-               rows=None, return_logits: bool = False):
+               rows=None, return_logits: bool = False,
+               sample_all: bool = False):
     """One step over the paged cache — batched decode (C=1 across all
     rows) and chunked prefill (ragged right-padded chunk rows) alike.
 
@@ -289,6 +290,11 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
                   b reads its row rows[b] of every group, gathered here,
                   inside the step (as the JAX engine gathers inside its
                   jit).
+    sample_all:   the greedy argmax at EVERY chunk column, (B, C) int32
+                  (or (B, C, V) logits with return_logits), in place of
+                  the `logit_position` selection: speculative
+                  verification, where column j's argmax is the greedy
+                  continuation after the chunk up to j.
 
     The pool planes in `caches` are updated in place. Returns next_ids
     (B,) int32 (greedy argmax, on the device) or, with return_logits,
@@ -325,6 +331,11 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
                           kv_len=kv_len,
                           paged=(phys_write, phys_read, q_offset, tables),
                           paged_groups=desc.layer_group_map(cfg.n_layers))
+    if sample_all:
+        logits = lm_logits(rt, params, cfg, h)             # (B, C, V)
+        if return_logits:
+            return logits
+        return torch.argmax(logits, dim=-1).to(torch.int32)
     if logit_position is None:
         hsel = h[:, -1:]
     else:

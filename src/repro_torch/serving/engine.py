@@ -41,15 +41,38 @@ of the local layers whose keys have left every future query's window
 are freed mid-generation and counted in `stats["window_reclaimed_blocks"]`;
 `window_reclaim=False` keeps the groups but never slides them.
 
+N-gram speculative decoding (`speculate=`): each decode row may carry up
+to K drafts proposed on the host from the request's own token history
+(serving/speculate.py). The batched decode then runs as one ragged
+C=K+1 verification chunk (the "spec" step keys) with the greedy argmax
+at every column and the longest accepted draft prefix selected on the
+device beside it, so the end-of-step sync still pulls one packed int32
+array. Rejected positions are rolled back by block bookkeeping
+(`BlockManager.truncate`), and K adapts to the acceptance rate
+(`core.policy.AdaptiveKController`). Drafting never preempts: drafts
+are clamped to `max_coverable` and given back if their COW fork cannot
+complete. Drafts decide how many tokens a dispatch confirms, never
+which.
+
+Tiered KV (`host_offload=True`, the default): registered prefix blocks
+the LRU evicts are captured to a host pool (`kvcache.HostPool`) instead
+of dropped, a later prefix match restores them by an upload into the
+pool under the `RestorePolicy` SLO guard, and `persist_dir` /
+`save_prefix_store` keep the prefix store across engine restarts, in
+the JAX package's file format. Planar pools restore the hi planes
+eagerly and the lo planes on the first FP16 step. Every write into the
+pool (restores, COW copies) is in place: the captured steps read the
+planes at fixed addresses.
+
 Not ported yet, and refused with NotImplementedError when asked for:
-speculative decoding, the host KV tier and its persistence, serving
-meshes and the fault-injection hook.
+serving meshes and the fault-injection hook.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import os
 import time
 from typing import Any, Callable
@@ -58,13 +81,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.policy import DualPrecisionController, StepObservation
+from repro_torch.core.policy import (AdaptiveKController,
+                                     DualPrecisionController, RestorePolicy,
+                                     SpeculationConfig, StepObservation)
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.convert import params_to
 from repro_torch.models.layers import Runtime
 from repro_torch.serving.graphs import StepGraphs
-from repro_torch.serving.kvcache import BlockManager
+from repro_torch.serving.kvcache import TRASH_BLOCK, BlockManager, HostPool
+from repro_torch.serving.speculate import NgramProposer
 
 
 @dataclasses.dataclass
@@ -73,7 +99,8 @@ class Request:
     tokens: list[int]
     max_new: int
     # generation stops right after one of these ids is emitted (the stop
-    # token itself is kept in `output`, EOS-style)
+    # token itself is kept in `output`, EOS-style); an accepted
+    # speculative run is cut at its first stop token
     stop_tokens: tuple[int, ...] = ()
     # filled by the engine:
     output: list[int] = dataclasses.field(default_factory=list)
@@ -115,13 +142,12 @@ class Engine:
                  chunk_tokens: int = 256, prefix_cache: bool = True,
                  window_reclaim: bool = True,
                  debug_invariants: bool = False, device=None,
-                 speculate=None, mesh=None, persist_dir: str | None = None,
-                 host_offload: bool = False,
+                 speculate: SpeculationConfig | bool | None = None,
+                 host_offload: bool = True, host_bytes: int | None = None,
+                 restore_policy: RestorePolicy | None = None,
+                 persist_dir: str | None = None, mesh=None,
                  fault_hook: Callable[["Engine"], None] | None = None):
-        for name, val in (("speculate", speculate), ("mesh", mesh),
-                          ("persist_dir", persist_dir),
-                          ("host_offload", host_offload),
-                          ("fault_hook", fault_hook)):
+        for name, val in (("mesh", mesh), ("fault_hook", fault_hook)):
             if val:
                 raise NotImplementedError(
                     f"Engine({name}=...) is not ported to repro_torch yet")
@@ -138,6 +164,15 @@ class Engine:
         self.debug_invariants = debug_invariants \
             or os.environ.get("NFP_DEBUG") == "1"
         self.kv_planar = kv_planar
+        # speculation: True picks the default SpeculationConfig
+        if speculate:
+            self._spec = speculate if isinstance(speculate, SpeculationConfig) \
+                else SpeculationConfig()
+            self._proposer = NgramProposer(self._spec)
+            self._spec_k = AdaptiveKController(self._spec)
+        else:
+            self._spec = self._proposer = self._spec_k = None
+        self._last_spec = (0, 0)     # (drafted, accepted) of the last step
         self.queue: collections.deque[Request] = collections.deque()
         self.active: dict[int, Request] = {}
         self.prefilling: dict[int, _Prefill] = {}
@@ -151,8 +186,22 @@ class Engine:
                       # flushes are counted by the BlockManager)
                       "prefill_dispatches": 0, "decode_dispatches": 0,
                       "aux_dispatches": 0, "h2d_bytes": 0,
-                      "decode_rows": 0, "decode_tokens": 0,
-                      "iters_exhausted": 0}
+                      # speculation (spec_stats()): decode_rows counts
+                      # row-dispatches, decode_tokens the tokens they
+                      # emitted (their ratio is 1.0 without speculation)
+                      "spec_dispatches": 0, "spec_drafted": 0,
+                      "spec_accepted": 0, "decode_rows": 0,
+                      "decode_tokens": 0,
+                      # tiered KV (tiered_stats()): blocks and bytes
+                      # captured to the host tier, restored, lazily
+                      # lo-completed, admissions the SLO guard sent to
+                      # recompute, and host entries whose checksum failed
+                      # (their rows recompute)
+                      "spilled_blocks": 0, "spilled_bytes": 0,
+                      "restored_blocks": 0, "restored_bytes": 0,
+                      "lo_lazy_blocks": 0, "lo_lazy_bytes": 0,
+                      "restore_fallbacks": 0, "iters_exhausted": 0,
+                      "corrupt_fallbacks": 0}
         self._last_step_ms: float | None = None
         # act_quant="per_token": fp8 generation must not depend on what
         # shares the batch (a per-tensor scale couples co-batched tokens)
@@ -169,21 +218,47 @@ class Engine:
             gw = (None,) * len(gw)
         if n_blocks is None:
             n_blocks = n_slots * mbs         # dense-equivalent pool by default
+        self.desc = desc
+        self._host_tier = bool(host_offload and prefix_cache)
+        self._restore_policy = restore_policy or RestorePolicy()
+        self.persist_dir = persist_dir
         self.blocks = BlockManager(n_slots, block_size, n_blocks, mbs,
                                    prefix_cache=prefix_cache,
-                                   group_windows=gw, device=self.device)
-        # the layers whose pool rows a COW fork of each group copies
+                                   group_windows=gw, device=self.device,
+                                   host_pool=HostPool(host_bytes)
+                                   if self._host_tier else None)
+        # the layers whose pool rows each group's block ids address (the
+        # same id may be live in another group with other content)
+        glayers = [g.layers for g in desc.groups] \
+            or [tuple(range(cfg.n_layers))]
         self._group_layers = {
-            gi: torch.tensor(g.layers, dtype=torch.long, device=self.device)
-            for gi, g in enumerate(desc.groups)} or {0: slice(None)}
+            gi: torch.tensor(ls, dtype=torch.long, device=self.device)
+            for gi, ls in enumerate(glayers)}
         self.caches = M.init_paged_cache(
             cfg, self.blocks.n_total_blocks, block_size, planar=kv_planar,
             device=self.device)
+        # tiered KV: a host entry holds, for each plane, the group's layer
+        # rows of one block, (group layers, block_size, *token_shape), as
+        # in the JAX package. Planar pools upload the hi planes at restore
+        # and the lo planes lazily on the first FP16 touch.
+        names = tuple(p.name for p in desc.planes)
+        self._lo_planes = tuple(n for n in names if n.endswith("_lo")) \
+            if kv_planar and self._host_tier else ()
+        self._hi_planes = tuple(n for n in names if n not in self._lo_planes)
+        self._entry_shapes = {
+            gi: {p.name: (len(ls), block_size) + p.token_shape
+                 for p in desc.planes}
+            for gi, ls in enumerate(glayers)}
+        # the restore backlog the SLO guard reads counts hi-plane bytes
+        self._eager_block_bytes = {gi: self._record_bytes(gi, self._hi_planes)
+                                   for gi in self._entry_shapes}
         # the device block table exists from here on and is only ever
         # written in place: the captured steps read it at a fixed address
         self.graphs = StepGraphs(self._rts, self.params, cfg, self.caches,
                                  self.blocks.device_tables(), block_size)
         self.iteration = 0
+        if self._host_tier and persist_dir:
+            self._load_prefix_store(persist_dir)
 
     # -- public API -----------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -240,6 +315,336 @@ class Engine:
                 "cow_forks": ps["cow_forks"],
                 "evictions": ps["evictions"]}
 
+    def spec_stats(self) -> dict:
+        """Speculation effectiveness: `tokens_accepted_per_dispatch` is
+        the mean tokens one decode dispatch confirms for a row (1.0
+        without speculation, > 1 iff drafts were accepted). A trace that
+        never decoded or never drafted reports 0.0."""
+        s = self.stats
+        return {"enabled": self._spec is not None,
+                "spec_dispatches": s["spec_dispatches"],
+                "drafted": s["spec_drafted"],
+                "accepted": s["spec_accepted"],
+                "acceptance_rate": s["spec_accepted"] / s["spec_drafted"]
+                if s["spec_drafted"] else 0.0,
+                "tokens_accepted_per_dispatch":
+                s["decode_tokens"] / s["decode_rows"]
+                if s["decode_rows"] else 0.0,
+                "k": self._spec_k.k if self._spec_k else 0}
+
+    @property
+    def restore_policy(self) -> RestorePolicy:
+        """The live SLO guard on the tiered-KV restore path (swappable at
+        run time)."""
+        return self._restore_policy
+
+    @restore_policy.setter
+    def restore_policy(self, policy: RestorePolicy) -> None:
+        self._restore_policy = policy
+
+    # -- tiered KV: spill / restore / persist ---------------------------------
+    def tiered_stats(self) -> dict:
+        """Host-tier effectiveness: blocks spilled, restored, lazily
+        lo-completed, admissions the SLO guard sent to recompute, and the
+        tier's occupancy."""
+        s, bm = self.stats, self.blocks
+        host = bm.host
+        return {"enabled": self._host_tier,
+                "host_blocks": len(host) if host is not None else 0,
+                "host_bytes": host.bytes if host is not None else 0,
+                "spilled_blocks": s["spilled_blocks"],
+                "spilled_bytes": s["spilled_bytes"],
+                "restored_blocks": s["restored_blocks"],
+                "restored_bytes": s["restored_bytes"],
+                "lo_lazy_blocks": s["lo_lazy_blocks"],
+                "lo_lazy_bytes": s["lo_lazy_bytes"],
+                "restore_fallbacks": s["restore_fallbacks"],
+                "host_hit_blocks": bm.prefix_stats["host_hit_blocks"],
+                "queued_restores": len(bm.restore_jobs)}
+
+    def _record_bytes(self, g: int, names) -> int:
+        """Bytes of one block's host entry for planes `names` of group g."""
+        dt = {p.name: np.dtype(p.dtype).itemsize for p in self.desc.planes}
+        return sum(int(np.prod(self._entry_shapes[g][n])) * dt[n]
+                   for n in names)
+
+    def _planes_of(self, g: int, names, rows: torch.Tensor):
+        """For each plane of `names`, in order: (name, byte offset and
+        bytes of its part of one block's record, the pool plane, that
+        part of `rows` — a (blocks, record bytes) uint8 staging buffer —
+        viewed as (blocks, *entry shape) in the plane's dtype)."""
+        off = 0
+        for n in names:
+            plane = self.caches["attn"][n]
+            shape = self._entry_shapes[g][n]
+            nb = int(np.prod(shape)) * plane.element_size()
+            region = rows[:, off: off + nb].view(plane.dtype).view(
+                rows.shape[0], *shape)
+            yield n, off, nb, plane, region
+            off += nb
+
+    def _capture_blocks(self, jobs: list[tuple[int, int, int]]) -> None:
+        """Copy (group, block, hash) pool bytes into the host tier: a
+        group's blocks (padded to a power of two by repeating the last
+        id) are gathered on the device into one staging buffer, their
+        layer rows only, then copied to host memory (pinned on a card) in
+        one transfer; each entry is a view of that buffer. Used by
+        `_flush_spills` (evicted blocks) and `save_prefix_store` (a
+        mirror that evicts nothing)."""
+        bm = self.blocks
+        by_g: dict[int, list[tuple[int, int]]] = {}
+        for g, b, h in jobs:
+            by_g.setdefault(g, []).append((b, h))
+        names = tuple(p.name for p in self.desc.planes)
+        on_card = self.device.type == "cuda"
+        for g, items in sorted(by_g.items()):
+            kb = _bucket(len(items), 1)
+            ids = np.full(kb, items[-1][0], np.int64)
+            ids[:len(items)] = [b for b, _h in items]
+            ids_dev = torch.from_numpy(ids).to(self.device)
+            li = self._group_layers[g]
+            rec = self._record_bytes(g, names)
+            stage = torch.empty((kb, rec), dtype=torch.uint8,
+                                device=self.device)
+            for _n, _off, _nb, plane, region in self._planes_of(g, names,
+                                                                stage):
+                region.copy_(plane[li[:, None], ids_dev[None, :]]
+                             .transpose(0, 1))
+            host = torch.empty((kb, rec), dtype=torch.uint8,
+                               pin_memory=on_card)
+            host.copy_(stage, non_blocking=on_card)
+            if on_card:
+                # tiered-KV spill capture: the one host sync besides the
+                # step's end; it waits for cold evicted blocks' bytes,
+                # never for the step's sampled ids. The checksums below
+                # must hash landed bytes, not the copy in flight.
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+            regions = [(n, r) for n, _o, _nb, _p, r
+                       in self._planes_of(g, names, host)]
+            for i, (_b, h) in enumerate(items):
+                entry = {n: r[i].numpy() for n, r in regions}
+                bm.store_spill(g, h, entry)
+                self.stats["spilled_blocks"] += 1
+                self.stats["spilled_bytes"] += sum(
+                    a.nbytes for a in entry.values())
+            self.stats["aux_dispatches"] += 1
+
+    def _flush_spills(self) -> None:
+        """Capture every queued evicted-block spill. MUST run before any
+        cache-writing step: the evicted ids are already reallocated, so
+        their bytes are intact only until the next write lands."""
+        if not self._host_tier:
+            return
+        jobs = self.blocks.take_spills()
+        if jobs:
+            self._capture_blocks(jobs)
+
+    def _tier_upload(self, g: int, items: list[tuple[int, int]],
+                     names: tuple[str, ...]) -> int:
+        """Write the host-tier bytes of planes `names` of [(block, hash)]
+        `items` into group g's pool rows: the entries and the block ids
+        are stacked in one host buffer (pinned on a card) and sent in one
+        copy, then each plane takes one in-place scatter on the same
+        stream, ahead of any later step. Block counts are padded to a
+        power of two; pads aim at the trash block. Returns bytes sent."""
+        bm = self.blocks
+        kb = _bucket(len(items), 1)
+        rec = self._record_bytes(g, names)
+        on_card = self.device.type == "cuda"
+        host = torch.empty(kb * (8 + rec), dtype=torch.uint8,
+                           pin_memory=on_card)
+        ids = host[:kb * 8].view(torch.int64).numpy()
+        ids[:] = TRASH_BLOCK
+        ids[:len(items)] = [b for b, _h in items]
+        rows = host[kb * 8:].view(kb, rec)
+        hv = rows.numpy()
+        # pad rows land in the trash block, which masked reads still
+        # multiply by zero: they must hold finite values
+        hv[len(items):] = 0
+        nbytes = 0
+        for i, (_b, h) in enumerate(items):
+            entry = bm.host.get((g, h))
+            for n, off, nb, _p, _r in self._planes_of(g, names, rows):
+                hv[i, off: off + nb] = entry[n].reshape(-1).view(np.uint8)
+                nbytes += nb
+        dev = host.to(self.device, non_blocking=on_card)
+        ids_dev = dev[:kb * 8].view(torch.int64)
+        li = self._group_layers[g]
+        for _n, _o, _nb, plane, region in self._planes_of(
+                g, names, dev[kb * 8:].view(kb, rec)):
+            plane.index_put_((li[:, None], ids_dev[None, :]),
+                             region.transpose(0, 1))
+        self.stats["aux_dispatches"] += 1
+        return nbytes
+
+    def _restore_queued_bytes(self) -> int:
+        """Eager (hi-plane) bytes waiting in the restore queue: the
+        backlog the RestorePolicy's admission gate reads."""
+        return sum(self._eager_block_bytes[g]
+                   for g, _b, _h, _t in self.blocks.restore_jobs)
+
+    def _host_admit(self) -> bool:
+        """May this admission match host-tier blocks? The SLO guard sends
+        it to recompute when the restore backlog is too long
+        (`stats["restore_fallbacks"]`)."""
+        if not self._host_tier:
+            return False
+        bm = self.blocks
+        if not (len(bm.host) or bm._spill_pending):
+            return True                      # nothing to restore anyway
+        if self._restore_policy.admit(self._restore_queued_bytes()):
+            return True
+        self.stats["restore_fallbacks"] += 1
+        return False
+
+    def _drain_restores(self) -> None:
+        """Upload queued restores at the top of the step, within the
+        RestorePolicy's per-step byte grant (at least one block, so gated
+        rows make progress). Spill captures run first: a restore may
+        target an entry still queued for capture."""
+        bm = self.blocks
+        if not self._host_tier or not bm.restore_jobs:
+            return
+        self._flush_spills()
+        budget = self._restore_policy.grant(self._restore_queued_bytes())
+        taken: dict[int, list[tuple[int, int]]] = {}
+        spent = 0
+        while bm.restore_jobs:
+            g, b, h, t = bm.restore_jobs[0]
+            if not bm.claim_restore(g, b, h, t):
+                bm.restore_jobs.popleft()    # voided by release/preempt
+                continue
+            if not bm.host_ok(g, h):
+                # checksum mismatch: never upload these bytes; the owners
+                # recompute and the entry is dropped
+                bm.restore_jobs.popleft()
+                self._corrupt_fallback(g, b, h)
+                continue
+            cost = self._eager_block_bytes[g]
+            if spent and spent + cost > budget:
+                break
+            bm.restore_jobs.popleft()
+            taken.setdefault(g, []).append((b, h))
+            spent += cost
+        lazy = bool(self._lo_planes)
+        for g, items in sorted(taken.items()):
+            nbytes = self._tier_upload(g, items, self._hi_planes)
+            for b, h in items:
+                bm.finish_restore(g, b, h, lo_pending=lazy)
+            self.stats["restored_blocks"] += len(items)
+            self.stats["restored_bytes"] += nbytes
+
+    def _corrupt_fallback(self, g: int, b: int, h: int) -> None:
+        """A claimed restore's host bytes failed their checksum: preempt
+        every row holding the block (they re-prefill exactly), then drop
+        the entry so later matches recompute too. Counted, never raised,
+        and the bytes are never uploaded."""
+        bm = self.blocks
+        for idx in bm.rows_holding(g, b):
+            self._preempt(idx)
+        if (g, h) in bm.host and not bm.host.pinned((g, h)):
+            bm.host.discard((g, h))
+        self.stats["corrupt_fallbacks"] += 1
+
+    def _sweep_corrupt_lo(self) -> None:
+        """Check the deferred lo-plane sources at the top of the step,
+        before planning, where preemption is safe: a corrupt entry's
+        block is purged, its owner rows recompute and the entry is
+        dropped, so the mid-step lo uploads may trust what they drain."""
+        bm = self.blocks
+        if not (self._host_tier and self._lo_planes and bm._lo_pending):
+            return
+        for (g, b), h in list(bm._lo_pending.items()):
+            if bm.host.verify((g, h)):
+                continue
+            del bm._lo_pending[(g, b)]
+            bm.host.unpin((g, h))
+            for idx in bm.rows_holding(g, b):
+                self._preempt(idx)
+            bm.purge_block(g, b)
+            if not bm.host.pinned((g, h)):
+                bm.host.discard((g, h))
+            self.stats["corrupt_fallbacks"] += 1
+
+    def _upload_lo(self, triples: list[tuple[int, int, int]]) -> None:
+        """Complete the deferred lo planes of (group, block, hash) triples
+        (the host-entry pins pass here and are released after)."""
+        if not triples:
+            return
+        bm = self.blocks
+        self._flush_spills()
+        by_g: dict[int, list[tuple[int, int]]] = {}
+        for g, b, h in triples:
+            by_g.setdefault(g, []).append((b, h))
+        for g, items in sorted(by_g.items()):
+            nbytes = self._tier_upload(g, items, self._lo_planes)
+            for _b, h in items:
+                bm.host.unpin((g, h))
+            self.stats["lo_lazy_blocks"] += len(items)
+            self.stats["lo_lazy_bytes"] += nbytes
+
+    def _ensure_lo(self, mode: str) -> None:
+        """FP16 joins hi and lo planes everywhere, so the first FP16 step
+        after a planar restore lands every deferred lo plane first."""
+        if mode == "fp16" and self._host_tier and self._lo_planes:
+            self._upload_lo(self.blocks.take_lo_pending())
+
+    def _store_meta(self) -> dict:
+        """Layout fingerprint of the persisted prefix store (the JAX
+        package's): a store loads only into an engine whose chain hashes
+        and pool planes mean the same thing."""
+        return {"version": 1, "arch_id": self.cfg.arch_id,
+                "kind": self.desc.kind, "planar": bool(self.kv_planar),
+                "block_size": self.block_size,
+                "group_windows": [w if w is None else int(w)
+                                  for w in self.blocks.group_windows],
+                "planes": {p.name: [list(p.token_shape), p.dtype]
+                           for p in self.desc.planes}}
+
+    def save_prefix_store(self, path: str | None = None) -> int:
+        """Mirror the whole prefix index into the host tier (a capture
+        that evicts nothing) and write it, chain-hash keys and block
+        bytes, to `path` (default `persist_dir`) as `prefix_store.npz` +
+        `prefix_store.json`. Chain hashes are stable content digests, so
+        a new `Engine(persist_dir=...)`, of either package, re-admits
+        these prefixes without recomputing them. Returns entries
+        written."""
+        path = path or self.persist_dir
+        if not self._host_tier or not path:
+            raise ValueError("save_prefix_store needs host_offload and a "
+                             "persist_dir/path")
+        self._flush_spills()
+        self._capture_blocks(self.blocks.mirror_jobs())
+        os.makedirs(path, exist_ok=True)
+        arrs = {f"{g}|{h}|{p}": a
+                for (g, h), planes in self.blocks.host.entries.items()
+                for p, a in planes.items()}
+        np.savez(os.path.join(path, "prefix_store.npz"), **arrs)
+        with open(os.path.join(path, "prefix_store.json"), "w") as f:
+            json.dump(self._store_meta(), f)
+        return len(self.blocks.host)
+
+    def _load_prefix_store(self, path: str) -> int:
+        """Load a persisted prefix store into the host tier. A missing
+        store or a fingerprint mismatch loads nothing."""
+        meta_p = os.path.join(path, "prefix_store.json")
+        npz_p = os.path.join(path, "prefix_store.npz")
+        if not (os.path.exists(meta_p) and os.path.exists(npz_p)):
+            return 0
+        with open(meta_p) as f:
+            if json.load(f) != self._store_meta():
+                return 0
+        entries: dict[tuple[int, int], dict[str, np.ndarray]] = {}
+        with np.load(npz_p) as data:
+            for key in data.files:
+                g, h, p = key.split("|", 2)
+                entries.setdefault((int(g), int(h)), {})[p] = data[key]
+        for key, planes in entries.items():
+            self.blocks.host.put(key, planes, loaded=True)
+        return len(entries)
+
     # -- mode selection -------------------------------------------------------
     def _mode(self, decode_tokens: int, prefill_tokens: int,
               free_block_frac: float | None = None) -> str:
@@ -260,18 +665,24 @@ class Engine:
         end; its wall time feeds the controller's next decision."""
         self.iteration += 1
         t0 = self.clock()
+        # land queued restores first (within the SLO grant): rows whose
+        # blocks arrive here are schedulable this very step
+        self._sweep_corrupt_lo()
+        self._drain_restores()
         plan = self._plan_chunks()
         mode = self._mode(len(self.active),
                           sum(take for _, _, take in plan),
                           free_block_frac=self.blocks.free_block_frac())
+        # the first FP16 step after a planar restore lands the lo planes
+        self._ensure_lo(mode)
         # pending: (req, output index, device ids, row, slot) patched at
         # the end-of-step sync; fresh: (slot, device ids, row) prefills
         # that completed this step and decode below with a device token
         pending: list[tuple[Request, int, Any, int, int]] = []
         fresh: list[tuple[int, Any, int]] = []
         chunk_ids = self._run_chunks_fused(mode, plan, pending, fresh)
-        decode_ids = self._decode_paged(mode, chunk_ids, fresh)
-        self._finalize_step(mode, pending, decode_ids, chunk_ids)
+        decode_ids, drafts = self._decode_paged(mode, chunk_ids, fresh)
+        self._finalize_step(mode, pending, decode_ids, chunk_ids, drafts)
         self._sample_peak()
         self._last_step_ms = (self.clock() - t0) * 1e3
         if self.debug_invariants:
@@ -299,6 +710,9 @@ class Engine:
         for idx in order:
             if budget <= 0:
                 break
+            if self.blocks.row_unrestored(idx):
+                continue    # a restore is in flight: its reads would be
+                            # garbage; _drain_restores ungates the row
             st = self.prefilling[idx]
             want = min(len(st.seq_tokens) - st.done, budget)
             take = self._ensure_take(idx, st.done, want)
@@ -318,10 +732,13 @@ class Engine:
             # the longest cached full-block prefix is shared; prefill
             # starts at the matched offset but always recomputes >= 1
             # token so the first-token logit is produced
-            matched = self.blocks.attach_prefix(idx, seq_tokens)
+            matched = self.blocks.attach_prefix(
+                idx, seq_tokens, allow_host=self._host_admit())
             start = min(matched, len(seq_tokens) - 1)
             self.blocks.set_length(idx, start)
             self.prefilling[idx] = _Prefill(req, seq_tokens, done=start)
+            if self.blocks.row_unrestored(idx):
+                continue    # the first chunk waits for the restores
             take = self._ensure_take(
                 idx, start, min(len(seq_tokens) - start, budget))
             if take > 0:
@@ -347,6 +764,13 @@ class Engine:
         pool, in place, for every plane and the owning group's layers
         only (the same id may be live in another group with other
         content)."""
+        if self._host_tier and triples:
+            # copies write the pool: capture queued spills first, and
+            # complete a fork source's deferred lo planes (the copy clones
+            # every plane, and the destination keeps no lo_pending record)
+            self._flush_spills()
+            self._upload_lo(self.blocks.take_lo_pending_for(
+                [(g, src) for g, src, _dst in triples]))
         for g, src, dst in triples:
             layers = self._group_layers[g]
             for plane in self.caches["attn"].values():
@@ -404,6 +828,16 @@ class Engine:
             x["q_offset"][r] = start
             x["kv_len"][r] = start + take
             x["logit_position"][r] = take - 1
+        if self._host_tier:
+            # the step writes the pool: queued spill captures go first,
+            # and a lo-pending block the write ranges touch completes its
+            # lo planes now (a later whole-block lo upload would clobber
+            # the fresh bytes)
+            self._flush_spills()
+            touched = [p for idx, start, take in entries
+                       for p in self.blocks.lo_pending_in_range(
+                           idx, start, start + take)]
+            self._upload_lo(self.blocks.take_lo_pending_for(touched))
         self._upload(key)
         self.blocks.device_tables()          # flush table edits first
         ids = self.graphs.run(key)
@@ -477,10 +911,54 @@ class Engine:
                 or self.lens[idx] >= self.capacity:
             self._retire(idx, now)
 
+    def _draft(self) -> dict[int, list[int]]:
+        """Propose n-gram drafts for the active rows and secure KV
+        coverage for their writes at positions L+1..L+K. Drafting never
+        preempts: a draft is clamped to what the pool covers without
+        evicting anyone (`max_coverable`), and if the COW fork of the
+        extension cannot complete, the extension is given back
+        (`truncate`) and the row decodes one token. A row whose input
+        token is still on the device (a fresh prefill) drafts nothing."""
+        k = self._spec_k.decide(StepObservation(
+            batch_tokens=max(len(self.active), 1),
+            queue_depth=len(self.queue),
+            measured_step_ms=self._last_step_ms,
+            spec_drafted=self._last_spec[0],
+            spec_accepted=self._last_spec[1]))
+        drafts: dict[int, list[int]] = {}
+        bm = self.blocks
+        for idx, req in self.active.items():
+            if req.output[-1] == _PENDING:
+                continue
+            L = int(self.lens[idx])
+            # position L's write and this step's own token are budgeted
+            # already: drafts get what is left of max_new and capacity
+            budget = min(k, req.max_new - len(req.output) - 1,
+                         self.capacity - L - 1)
+            if budget <= 0:
+                continue
+            d = self._proposer.propose(req.tokens + req.output, budget)
+            if d:
+                d = d[:bm.max_coverable(idx, L + 1, len(d))]
+            if not d:
+                continue
+            ok = bm.ensure(idx, L + 1 + len(d))
+            assert ok, idx           # max_coverable guarantees coverage
+            pairs = bm.cow_for_write(idx, L + 1, L + 1 + len(d))
+            if pairs is None:
+                bm.truncate(idx, L + 1)
+                continue
+            self._apply_cow(pairs)
+            drafts[idx] = d
+        return drafts
+
     def _decode_paged(self, mode: str, chunk_ids, fresh):
-        """Dispatch the batched decode over all slots; returns the device
-        ids (None when nothing is active). Host bookkeeping for the
-        decoded tokens happens in `_finalize_step`."""
+        """Dispatch the batched decode over all slots; returns (device
+        ids, drafts): ids None when nothing is active, drafts None for a
+        plain one-token step. When a row drafted, the decode runs as the
+        "spec" key's ragged C=cb chunk instead, whose ids pack
+        [ids | n_accepted]. Host bookkeeping for the decoded tokens
+        happens in `_finalize_step`."""
         # grow each active row's table to cover the write at lens[idx],
         # COW-forking it if shared; preempt the youngest on exhaustion
         for idx in sorted(self.active):
@@ -497,14 +975,24 @@ class Engine:
                 self._preempt(victim)
         self._sample_peak()                  # allocation peak, pre-retire
         if not self.active:
-            return None
-        key = ("decode", mode)
+            return None, None
+        drafts = self._draft() if self._spec is not None else {}
+        kmax = max(map(len, drafts.values()), default=0)
+        # no row drafted: the plain C=1 decode, the same step as with
+        # speculation off (on planar KV it keeps K4, which a C>1 chunk
+        # does not use)
+        key = ("spec", mode, _bucket(kmax + 1, 1)) if kmax \
+            else ("decode", mode)
         x = self.graphs.inputs(key)          # kv_len 0 disables idle rows
         for idx, req in self.active.items():
             if req.output[-1] != _PENDING:
                 x["tokens"][idx, 0] = req.output[-1]
+            d = drafts.get(idx, ())
+            if d:
+                x["tokens"][idx, 1:1 + len(d)] = d
+                x["dlen"][idx] = len(d)
             x["q_offset"][idx] = self.lens[idx]
-            x["kv_len"][idx] = self.lens[idx] + 1
+            x["kv_len"][idx] = self.lens[idx] + 1 + len(d)
         toks = self._upload(key)["tokens"]
         fresh = [(s, a, r) for s, a, r in fresh if s in self.active]
         if fresh:
@@ -515,25 +1003,42 @@ class Engine:
             toks[self._h2d(slots).long(), 0] = \
                 chunk_ids[self._h2d(rows).long()]
             self.stats["aux_dispatches"] += 1
+        # the decode writes the pool: capture queued spills (ensure() may
+        # have evicted LRU blocks above) before the write lands. Decode
+        # and draft writes land only in partly filled or COW-exclusive
+        # tail blocks, never in a restored one, so no lo guard here.
+        self._flush_spills()
         self.blocks.device_tables()          # flush table edits first
         ids = self.graphs.run(key)
         self.stats["decode_dispatches"] += 1
-        return ids
+        if kmax:
+            self.stats["spec_dispatches"] += 1
+            return ids, drafts
+        return ids, None
 
-    def _finalize_step(self, mode: str, pending, decode_ids,
-                       chunk_ids) -> None:
+    def _finalize_step(self, mode: str, pending, decode_ids, chunk_ids,
+                       drafts=None) -> None:
         """The step's ONLY device->host sync: pull the sampled token ids
         of the decode and of the fused prefill as ONE transfer, patch
         pending prefill outputs, then run decode bookkeeping
         (commit() must hash REAL token values, so it comes after the
         patch). A patched first token that is a stop token retires its
-        row here, and that row's same-step decode result is dropped."""
-        parts = [t for t in (decode_ids, chunk_ids) if t is not None]
+        row here, and that row's same-step decode result is dropped.
+
+        A speculative step (`drafts` not None) emits for each row the
+        accepted draft prefix plus the model's next token, cut at the
+        first stop token and at max_new; `truncate` gives back the blocks
+        of rejected positions, and one commit() registers any newly
+        filled blocks and advances the length. The last emitted token is
+        never in the cache: it is the next step's input."""
+        parts = [t.reshape(-1) for t in (decode_ids, chunk_ids)
+                 if t is not None]
         host = torch.cat(parts).cpu().numpy() if parts else None
         nxt = None
         if decode_ids is not None:
-            nxt = host[:decode_ids.shape[0]]
-            host = host[decode_ids.shape[0]:]
+            n = decode_ids.numel()
+            nxt = host[:n].reshape(decode_ids.shape)
+            host = host[n:]
         now = self.clock()
         for req, pos, _ids, row, idx in pending:
             req.output[pos] = int(host[row])
@@ -542,17 +1047,53 @@ class Engine:
                 self._retire(idx, now)
         if nxt is None:
             return
+        if drafts is None:
+            for idx, req in list(self.active.items()):
+                self.lens[idx] += 1
+                n = int(self.lens[idx])
+                if n % self.block_size == 0:
+                    # tail block just filled: register it in the index
+                    self.blocks.commit(idx, n, (req.tokens + req.output)[:n])
+                else:
+                    self.blocks.set_length(idx, n)
+                req.output.append(int(nxt[idx]))
+                req.token_times.append(now)
+                req.modes.append(mode)
+                self.stats["decode_rows"] += 1
+                self.stats["decode_tokens"] += 1
+                self._maybe_retire(idx, now)
+            if self._spec is not None:
+                self._last_spec = (0, 0)
+            return
+        drafted_total = accepted_total = 0
         for idx, req in list(self.active.items()):
-            self.lens[idx] += 1
-            n = int(self.lens[idx])
-            if n % self.block_size == 0:
-                # tail block just filled: register it in the prefix index
-                self.blocks.commit(idx, n, (req.tokens + req.output)[:n])
-            else:
-                self.blocks.set_length(idx, n)
-            req.output.append(int(nxt[idx]))
-            req.token_times.append(now)
-            req.modes.append(mode)
+            d = drafts.get(idx, ())
+            n_acc = int(nxt[idx, -1]) if d else 0
+            out = [int(t) for t in nxt[idx, :n_acc + 1]]
+            drafted_total += len(d)
+            accepted_total += n_acc
+            # a stop token ends an accepted run mid-run (what follows it
+            # is never emitted), and max_new bounds it the same way
+            for j, t in enumerate(out):
+                if t in req.stop_tokens:
+                    out = out[:j + 1]
+                    break
+            out = out[:req.max_new - len(req.output)]
+            new_n = int(self.lens[idx]) + len(out)
+            # rollback: drop the blocks of rejected positions (their
+            # writes landed in COW-exclusive unregistered blocks; what is
+            # left past new_n in the kept tail block is masked by kv_len
+            # and overwritten before it is read)
+            self.blocks.truncate(idx, new_n)
+            self.blocks.commit(idx, new_n,
+                               (req.tokens + req.output + out)[:new_n])
+            self.lens[idx] = new_n
+            req.output.extend(out)
+            req.token_times.extend([now] * len(out))
+            req.modes.extend([mode] * len(out))
             self.stats["decode_rows"] += 1
-            self.stats["decode_tokens"] += 1
+            self.stats["decode_tokens"] += len(out)
             self._maybe_retire(idx, now)
+        self.stats["spec_drafted"] += drafted_total
+        self.stats["spec_accepted"] += accepted_total
+        self._last_spec = (drafted_total, accepted_total)

@@ -7,12 +7,18 @@ keys, each made at its first use:
   whole device block table (the JAX engine's `_decode[mode]`);
 - `("prefill", mode, rows_bucket, chunk_bucket)`: the fused ragged
   prefill, whose rows gather their block-table rows of every window
-  group inside the step (the JAX engine's `_fused_cache`).
+  group inside the step (the JAX engine's `_fused_cache`);
+- `("spec", mode, chunk_bucket)`: the batched decode as a ragged C=cb
+  verification chunk (column 0 the pending token, then the drafts), the
+  greedy argmax at every column and the accept selection fused after it
+  (the JAX engine's `_spec_cache`); its output packs `[ids | n_accepted]`
+  as one (n_slots, cb + 1) int32 buffer, so the engine's end-of-step
+  sync stays one transfer.
 
 Each key owns static buffers: one int32 device buffer that packs the
-step's inputs (tokens, rows, q_offset, kv_len, logit_position), a host
-buffer of the same layout (pinned on a card) from which one copy a step
-fills it, and the sampled ids. The step reads the engine's persistent
+step's inputs (tokens, rows, q_offset, kv_len, logit_position, dlen), a
+host buffer of the same layout (pinned on a card) from which one copy a
+step fills it, and the sampled ids. The step reads the engine's persistent
 pool planes and device block table in place; none of these, the
 params or the static buffers is ever reallocated, so a graph's baked-in
 addresses stay valid.
@@ -97,20 +103,27 @@ class _Step:
     host: torch.Tensor                   # the same layout on the host
     views: dict[str, torch.Tensor]       # name -> view into `dev`
     host_views: dict[str, np.ndarray]    # name -> view into `host`
-    ids: torch.Tensor                    # (rows,) int32 sampled ids
+    ids: torch.Tensor                    # int32 sampled ids (_layout's out)
     graph: torch.cuda.CUDAGraph | None = None
     launches: dict[str, int] | None = None   # recorded at capture
     uploaded: torch.cuda.Event | None = None
 
 
-def _layout(key: tuple, n_slots: int) -> list[tuple[str, tuple[int, ...]]]:
-    """(name, shape) of each int32 input of a key, in packing order."""
+def _layout(key: tuple, n_slots: int
+            ) -> tuple[list[tuple[str, tuple[int, ...]]], tuple[int, ...]]:
+    """(name, shape) of each int32 input of a key, in packing order, and
+    the shape of its int32 output."""
     if key[0] == "decode":
         return [("tokens", (n_slots, 1)), ("q_offset", (n_slots,)),
-                ("kv_len", (n_slots,))]
+                ("kv_len", (n_slots,))], (n_slots,)
+    if key[0] == "spec":
+        cb = key[2]
+        return [("tokens", (n_slots, cb)), ("q_offset", (n_slots,)),
+                ("kv_len", (n_slots,)), ("dlen", (n_slots,))], \
+            (n_slots, cb + 1)
     _, _, rb, cb = key
     return [("tokens", (rb, cb)), ("rows", (rb,)), ("q_offset", (rb,)),
-            ("kv_len", (rb,)), ("logit_position", (rb,))]
+            ("kv_len", (rb,)), ("logit_position", (rb,))], (rb,)
 
 
 class StepGraphs:
@@ -141,10 +154,11 @@ class StepGraphs:
     def keys(self, kind: str | None = None) -> set:
         """Every key made so far; with a kind, that kind's keys without
         it: modes for "decode", (mode, rows_bucket, chunk_bucket) for
-        "prefill"."""
+        "prefill", (mode, chunk_bucket) for "spec" (the JAX engine's
+        cache keys)."""
         if kind is None:
             return set(self._steps)
-        return {k[1:] if kind == "prefill" else k[1]
+        return {k[1] if kind == "decode" else k[1:]
                 for k in self._steps if k[0] == kind}
 
     def graph(self, key: tuple) -> torch.cuda.CUDAGraph | None:
@@ -160,7 +174,7 @@ class StepGraphs:
     def _entry(self, key: tuple) -> _Step:
         st = self._steps.get(key)
         if st is None:
-            layout = _layout(key, self.n_slots)
+            layout, out = _layout(key, self.n_slots)
             n = sum(int(np.prod(shape)) for _, shape in layout)
             dev = torch.zeros(n, dtype=torch.int32, device=self.device)
             host = torch.zeros(n, dtype=torch.int32, pin_memory=self.on_card)
@@ -171,7 +185,7 @@ class StepGraphs:
                 host_views[name] = host.numpy()[at: at + size].reshape(shape)
                 at += size
             st = _Step(key, dev, host, views, host_views,
-                       torch.zeros(layout[0][1][0], dtype=torch.int32,
+                       torch.zeros(out, dtype=torch.int32,
                                    device=self.device))
             self._steps[key] = st
         return st
@@ -200,12 +214,32 @@ class StepGraphs:
     def _step(self, st: _Step, caches: dict, tables: torch.Tensor,
               inputs: dict[str, torch.Tensor]) -> torch.Tensor:
         mode = st.key[1]
+        if st.key[0] == "spec":
+            return self._verify(mode, caches, tables, inputs)
         return M.paged_step(
             self.rts[mode], self.params, self.cfg, inputs["tokens"], caches,
             tables, q_offset=inputs["q_offset"], kv_len=inputs["kv_len"],
             block_size=self.block_size,
             logit_position=inputs.get("logit_position"),
             rows=inputs.get("rows"))
+
+    def _verify(self, mode: str, caches: dict, tables: torch.Tensor,
+                inputs: dict[str, torch.Tensor]) -> torch.Tensor:
+        """The speculative verification step: greedy ids at every column,
+        then draft j (the input at column j) survives iff it equals the
+        argmax after column j - 1, lies within the row's dlen, and every
+        earlier draft survived (the cumprod). Returns [ids | n_accepted],
+        (n_slots, cb + 1) int32."""
+        toks, dlen = inputs["tokens"], inputs["dlen"]
+        ids = M.paged_step(
+            self.rts[mode], self.params, self.cfg, toks, caches, tables,
+            q_offset=inputs["q_offset"], kv_len=inputs["kv_len"],
+            block_size=self.block_size, sample_all=True)
+        cb = toks.shape[1]
+        cols = torch.arange(1, cb, device=toks.device)
+        m = (ids[:, :-1] == toks[:, 1:]) & (cols[None, :] <= dlen[:, None])
+        n_acc = torch.cumprod(m.to(torch.int32), dim=1).sum(dim=1)
+        return torch.cat([ids, n_acc[:, None].to(torch.int32)], dim=1)
 
     def _call(self, st: _Step) -> None:
         st.ids.copy_(self._step(st, self.caches, self.tables, st.views))

@@ -24,11 +24,22 @@ admission (a windowed group only the resume position's lookback window);
 released registered blocks park in a per-group LRU pool that is
 reclaimed before preemption ever triggers.
 
-This is the host side of the JAX package's `serving/kvcache.py` without
-the host tier and without `truncate`. The block tables keep a DEVICE
-mirror of shape (G, n_slots, MB): table mutations are recorded in a
-dirty set and flushed by one small in-place index write per step
-(`device_tables`), not by a re-upload of the whole table.
+Speculative decoding rolls rejected draft positions back with
+`truncate`: pure block bookkeeping, no cache bytes are touched.
+
+Tiered KV (`host_pool=HostPool(...)`): a registered block evicted from
+the LRU is queued for capture to a host pool instead of being dropped,
+and a later prefix match may re-admit host-resident blocks, which the
+engine restores by an upload into freshly allocated device blocks (rows
+holding an unrestored block wait). Host entries are keyed by (group,
+chain hash), each holding one block's bytes per plane in the JAX
+package's layout, so stores and checksums agree across the two.
+
+This is the host side of the JAX package's `serving/kvcache.py`. The
+block tables keep a DEVICE mirror of shape (G, n_slots, MB): table
+mutations are recorded in a dirty set and flushed by one small in-place
+index write per step (`device_tables`), not by a re-upload of the whole
+table.
 """
 
 from __future__ import annotations
@@ -113,6 +124,122 @@ _ROOT_HASH = int.from_bytes(
     "little", signed=True)
 
 
+class HostPool:
+    """Second KV tier: host memory holding evicted prefix blocks.
+
+    Entries are keyed by (group, chain hash), the identity the device
+    prefix index uses, and each holds one block's bytes per plane as a
+    numpy array shaped (group_layers, block_size, *token_shape) (on a
+    card, views of pinned host memory). The tier is INCLUSIVE: restoring
+    an entry keeps the host copy, so a restored-then-re-evicted block
+    (registered blocks are immutable under COW) needs no second capture,
+    and lazily restored lo planes always have a source.
+
+    `max_bytes` bounds the tier with drop-oldest LRU eviction; entries a
+    device block still depends on (a queued restore, or a pending lazy
+    lo-plane upload) are PINNED and skipped by the eviction scan. Every
+    entry carries a blake2b checksum taken at `put`; `verify` re-derives
+    it before a restore."""
+
+    def __init__(self, max_bytes: int | None = None):
+        self.entries: collections.OrderedDict[
+            tuple[int, int], dict[str, np.ndarray]] = collections.OrderedDict()
+        self.max_bytes = max_bytes
+        self.bytes = 0
+        self._pins: collections.Counter = collections.Counter()
+        self._sums: dict[tuple[int, int], bytes] = {}
+        self._corrupt: set[tuple[int, int]] = set()
+        self.stats = {"spilled_blocks": 0, "spilled_bytes": 0,
+                      "restored_blocks": 0, "restored_bytes": 0,
+                      "dropped_blocks": 0, "loaded_blocks": 0,
+                      "corrupt_blocks": 0}
+
+    def __contains__(self, key: tuple[int, int]) -> bool:
+        return key in self.entries
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    @staticmethod
+    def entry_bytes(planes: dict[str, np.ndarray]) -> int:
+        return sum(a.nbytes for a in planes.values())
+
+    def pin(self, key: tuple[int, int]) -> None:
+        assert key in self.entries, key
+        self._pins[key] += 1
+
+    def unpin(self, key: tuple[int, int]) -> None:
+        assert self._pins[key] > 0, key
+        self._pins[key] -= 1
+        if self._pins[key] == 0:
+            del self._pins[key]
+
+    def pinned(self, key: tuple[int, int]) -> bool:
+        return self._pins.get(key, 0) > 0
+
+    @staticmethod
+    def checksum(planes: dict[str, np.ndarray]) -> bytes:
+        """blake2b digest over a block's plane bytes (names sorted), the
+        JAX package's digest."""
+        h = hashlib.blake2b(digest_size=16)
+        for name in sorted(planes):
+            h.update(name.encode())
+            h.update(np.ascontiguousarray(planes[name]).tobytes())
+        return h.digest()
+
+    def put(self, key: tuple[int, int], planes: dict[str, np.ndarray],
+            loaded: bool = False) -> None:
+        """Insert (or refresh) one block's bytes; `loaded` marks entries
+        read from a persisted store rather than spilled live."""
+        if key in self.entries:
+            self.bytes -= self.entry_bytes(self.entries.pop(key))
+        self.entries[key] = planes
+        self._sums[key] = self.checksum(planes)
+        self._corrupt.discard(key)
+        nb = self.entry_bytes(planes)
+        self.bytes += nb
+        if loaded:
+            self.stats["loaded_blocks"] += 1
+        else:
+            self.stats["spilled_blocks"] += 1
+            self.stats["spilled_bytes"] += nb
+        self._shrink()
+
+    def get(self, key: tuple[int, int]) -> dict[str, np.ndarray]:
+        self.entries.move_to_end(key)        # LRU touch
+        return self.entries[key]
+
+    def verify(self, key: tuple[int, int]) -> bool:
+        """Re-derive the entry's checksum and compare with the one taken
+        at `put`. A mismatch is remembered and counted once; callers treat
+        the entry as absent and recompute, never restoring it."""
+        if key in self._corrupt:
+            return False
+        if self._sums.get(key) == self.checksum(self.entries[key]):
+            return True
+        self._corrupt.add(key)
+        self.stats["corrupt_blocks"] += 1
+        return False
+
+    def discard(self, key: tuple[int, int]) -> None:
+        """Drop one entry outright (corrupt payloads; must be unpinned)."""
+        assert not self.pinned(key), key
+        self.bytes -= self.entry_bytes(self.entries.pop(key))
+        self._sums.pop(key, None)
+        self._corrupt.discard(key)
+
+    def _shrink(self) -> None:
+        if self.max_bytes is None:
+            return
+        while self.bytes > self.max_bytes:
+            victim = next((k for k in self.entries if not self.pinned(k)),
+                          None)
+            if victim is None:
+                return                       # everything left is pinned
+            self.bytes -= self.entry_bytes(self.entries.pop(victim))
+            self._sums.pop(victim, None)
+            self._corrupt.discard(victim)
+            self.stats["dropped_blocks"] += 1
 
 
 @dataclasses.dataclass
@@ -157,7 +284,7 @@ class BlockManager:
     def __init__(self, n_slots: int, block_size: int, n_blocks: int,
                  max_blocks_per_seq: int, prefix_cache: bool = False,
                  group_windows: tuple[int | None, ...] = (None,),
-                 device="cpu"):
+                 device="cpu", host_pool: HostPool | None = None):
         assert block_size > 0 and n_blocks > 0
         assert group_windows and all(w is None or w > 0
                                      for w in group_windows)
@@ -188,8 +315,31 @@ class BlockManager:
         self.table_updates = 0
         self.prefix_stats = {"queries": 0, "lookup_tokens": 0,
                              "hit_tokens": 0, "blocks_shared": 0,
-                             "cow_forks": 0, "evictions": 0}
+                             "cow_forks": 0, "evictions": 0,
+                             "host_hit_blocks": 0}
         self.window_freed_blocks = 0     # blocks returned by window slides
+        # ---- tiered KV (HostPool) ----
+        # host: the second tier; None disables spilling.
+        # _spill_queue: (group, block, hash) of LRU-evicted registered
+        #   blocks whose bytes must be captured BEFORE the next
+        #   cache-writing step (the id is already reallocated: its bytes
+        #   are intact only until then); _spill_pending their keys.
+        # restore_jobs: (group, dst block, hash, ticket) uploads the
+        #   engine drains under the SLO guard.
+        # _unrestored: (group, block) -> (ticket, hash) of device blocks
+        #   whose bytes have not arrived; rows holding one wait, and a
+        #   stale ticket voids the job.
+        # _lo_pending: (group, block) -> hash of planar blocks whose hi
+        #   planes were restored and whose lo planes wait for the first
+        #   FP16 touch (the host entry stays pinned).
+        self.host = host_pool if prefix_cache else None
+        self._spill_queue: list[tuple[int, int, int]] = []
+        self._spill_pending: set[tuple[int, int]] = set()
+        self.restore_jobs: collections.deque[tuple[int, int, int, int]] = \
+            collections.deque()
+        self._unrestored: dict[tuple[int, int], tuple[int, int]] = {}
+        self._lo_pending: dict[tuple[int, int], int] = {}
+        self._ticket = 0
 
     # -- pool-level views ------------------------------------------------------
     @property
@@ -276,16 +426,36 @@ class BlockManager:
             h = self._hash_of.pop((g, b))
             del self._index[(g, h)]
             self.prefix_stats["evictions"] += 1
+            if self.host is not None:
+                # spill instead of discard: queue a capture of the
+                # block's bytes. A block already in the host tier (a
+                # lo-pending one's device lo bytes are garbage) needs
+                # none: the tier is inclusive.
+                lo = self._lo_pending.pop((g, b), None)
+                if lo is not None:
+                    self.host.unpin((g, lo))
+                if (g, h) not in self.host \
+                        and (g, h) not in self._spill_pending:
+                    self._spill_queue.append((g, b, h))
+                    self._spill_pending.add((g, h))
             return b
         return None
 
     def _release_block(self, g: int, b: int) -> None:
         """Decref; park registered zero-ref blocks in the group's LRU
-        cache, return unregistered ones to the group's free list."""
+        cache, return unregistered ones to the group's free list. A
+        zero-ref block whose restore never completed holds garbage: it is
+        deregistered and freed (its job dies at the ticket check)."""
         self._ref[g][b] -= 1
         assert self._ref[g][b] >= 0, f"refcount underflow on block {g}/{b}"
         if self._ref[g][b] == 0:
-            if (g, b) in self._hash_of:
+            if (g, b) in self._unrestored:
+                self._forget_restore(g, b)
+                h = self._hash_of.pop((g, b), None)
+                if h is not None:
+                    del self._index[(g, h)]
+                self._free[g].append(b)
+            elif (g, b) in self._hash_of:
                 self._lru[g][b] = None       # most-recent end
             else:
                 self._free[g].append(b)
@@ -359,6 +529,11 @@ class BlockManager:
                 assert self._ref[gi][b] >= 0, \
                     f"refcount underflow on block {gi}/{b}"
                 if self._ref[gi][b] == 0:
+                    if (gi, b) in self._unrestored:
+                        self._forget_restore(gi, b)
+                    lo = self._lo_pending.pop((gi, b), None)
+                    if lo is not None:
+                        self.host.unpin((gi, lo))
                     h = self._hash_of.pop((gi, b), None)
                     if h is not None:
                         del self._index[(gi, h)]
@@ -415,6 +590,51 @@ class BlockManager:
         assert seq is not None and n_tokens <= len(seq.blocks) * self.block_size
         seq.length = n_tokens
 
+    def truncate(self, idx: int, n_tokens: int) -> int:
+        """Un-write the sequence's tail back to `n_tokens`: the
+        speculative-decoding rollback of rejected draft positions.
+
+        Every block whose span lies wholly at or after `n_tokens` is
+        dropped from every window group through the release path (shared
+        blocks survive for their other holders, registered ones park in
+        the LRU, the rest go free), and its table entry is pointed at the
+        trash block through `_set_table`. No cache bytes are touched:
+        reads past `seq.length` are masked by kv_len and the next write
+        lands over them. The hash chain is cut back to the full blocks
+        still covered, and a kept tail block the cut partly invalidates
+        is evicted from the prefix index (a registered block's bytes must
+        never change). Slide-freed holes stay holes: the table only
+        shortens, and the slide point is clamped to it. Returns the
+        group-blocks dropped."""
+        seq = self.seqs[idx]
+        assert seq is not None and n_tokens >= 0, idx
+        bs = self.block_size
+        nb = -(-n_tokens // bs)              # blocks still covered
+        nfull = n_tokens // bs               # ... of which fully valid
+        dropped = 0
+        for gi, g in enumerate(seq.groups):
+            while len(g.blocks) > nb:
+                j = len(g.blocks) - 1
+                b = g.blocks.pop()
+                if b != TRASH_BLOCK:         # below-slide holes stay holes
+                    self._release_block(gi, b)
+                    self._set_table(gi, idx, j, TRASH_BLOCK)
+                    dropped += 1
+            if len(g.hashes) > nfull:
+                del g.hashes[nfull:]
+                if nfull < nb:
+                    b = g.blocks[nb - 1]
+                    h = self._hash_of.pop((gi, b), None)
+                    if h is not None:
+                        del self._index[(gi, h)]
+                        self.prefix_stats["evictions"] += 1
+                    lo = self._lo_pending.pop((gi, b), None)
+                    if lo is not None:
+                        self.host.unpin((gi, lo))
+            g.slid = min(g.slid, nb)
+        seq.length = min(seq.length, n_tokens)
+        return dropped
+
     def release(self, idx: int) -> None:
         """Decref (not free) every block the sequence holds in any group —
         shared blocks survive for their other holders, registered ones go
@@ -439,18 +659,36 @@ class BlockManager:
         return max(live)[1] if live else None
 
     # -- prefix caching --------------------------------------------------------
-    def _match_plan(self, tokens) -> tuple[int, list[tuple[int, list[int]]],
-                                           list[int]]:
-        """Group-aware longest cached prefix of `tokens`: (matched tokens
-        m, per group (j_lo, block ids of logical blocks [j_lo, m/bs)),
-        chain hashes of the matched full blocks). A prefill resuming at
-        q0 = min(m, len(tokens)-1) needs, per group, every cached block
-        covering [q0 - window + 1, m); global groups need the whole run
-        [0, m) from the root."""
+    def _match_plan(self, tokens, allow_host: bool = False
+                    ) -> tuple[int, list[tuple[int, list[int | None]]],
+                               list[int]]:
+        """Group-aware longest servable cached prefix of `tokens`:
+        (matched tokens m, per group (j_lo, block ids of logical blocks
+        [j_lo, m/bs)), chain hashes of the matched full blocks). A
+        prefill resuming at q0 = min(m, len(tokens)-1) needs, per group,
+        every cached block covering [q0 - window + 1, m); global groups
+        need the whole run [0, m) from the root.
+
+        With `allow_host`, hashes absent from the device index but in the
+        host tier (or queued for capture: the engine captures before it
+        uploads) are servable too; their plan entries are None, and
+        `attach_prefix` allocates device blocks and restore jobs for
+        them."""
         bs = self.block_size
         empty = [(0, []) for _ in self.group_windows]
         if not self.prefix_cache:
             return 0, empty, []
+        host = self.host if allow_host else None
+
+        def servable(gi: int, h: int) -> bool:
+            if (gi, h) in self._index:
+                return True
+            if host is None:
+                return False
+            # spill-pending hashes are still device bytes; only true
+            # host entries need the integrity check
+            return (gi, h) in self._spill_pending or self.host_ok(gi, h)
+
         hashes: list[int] = []
         parent = _ROOT_HASH
         for i in range(min(len(tokens) // bs, self.max_blocks_per_seq)):
@@ -463,22 +701,23 @@ class BlockManager:
                 continue
             run = 0
             for h in hashes:
-                if (gi, h) not in self._index:
+                if not servable(gi, h):
                     break
                 run += 1
             m = min(m, run)
         while m > 0:
             q0 = min(m * bs, len(tokens) - 1)
-            plan: list[tuple[int, list[int]]] | None = []
+            plan: list[tuple[int, list[int | None]]] | None = []
             # a windowed group missing block j rules out every m' in
             # (j, m), so the next candidate is m' = j
             next_m = m - 1
             for gi, w in enumerate(self.group_windows):
                 j_lo = 0 if not w else max(0, q0 - w + 1) // bs
-                blks: list[int] = []
+                blks: list[int | None] = []
                 for j in range(j_lo, m):
                     b = self._index.get((gi, hashes[j]))
-                    if b is None:
+                    if b is None and not (host is not None
+                                          and servable(gi, hashes[j])):
                         plan = None
                         next_m = min(next_m, j)
                         break
@@ -491,6 +730,13 @@ class BlockManager:
             m = next_m
         return 0, empty, []
 
+    def lookup_prefix(self, tokens, allow_host: bool = False) -> int:
+        """Matched-prefix length in tokens, without side effects: the
+        largest offset a prefill could resume at with every group's needed
+        blocks cached (on the device, or with `allow_host` restorable from
+        the host tier)."""
+        return self._match_plan(tokens, allow_host)[0]
+
     def prefix_admit_discount(self, tokens) -> tuple[int, ...]:
         """Per-group matched blocks held LIVE by other sequences (sharing
         them costs nothing; LRU-parked ones are already counted as free),
@@ -498,38 +744,83 @@ class BlockManager:
         if not self.prefix_cache:
             return (0,) * self.n_groups
         _, plan, _ = self._match_plan(tokens)
-        return tuple(sum(1 for b in blks if self._ref[gi][b] > 0)
+        return tuple(sum(1 for b in blks
+                         if b is not None and self._ref[gi][b] > 0)
                      for gi, (_, blks) in enumerate(plan))
 
-    def attach_prefix(self, idx: int, tokens) -> int:
-        """Share the longest cached prefix of `tokens` into freshly
-        allocated slot `idx` (incref each matched block, pulling zero-ref
-        ones out of the LRU). Windowed groups attach only the blocks of
-        the resume position's lookback window and start pre-slid below
-        it. Returns the matched token count."""
+    def attach_prefix(self, idx: int, tokens, allow_host: bool = False
+                      ) -> int:
+        """Share the longest cached servable prefix of `tokens` into
+        freshly allocated slot `idx` (incref each matched block, pulling
+        zero-ref ones out of the LRU). Windowed groups attach only the
+        blocks of the resume position's lookback window and start
+        pre-slid below it. Returns the matched token count.
+
+        With `allow_host`, prefix blocks only the host tier holds are
+        re-admitted: a fresh device block is allocated and registered for
+        each, a restore job is queued, and the block is marked unrestored
+        (rows holding one wait for it). If the free pool cannot cover the
+        host hits, the match falls back to device blocks only."""
         seq = self.seqs[idx]
         assert seq is not None and not any(g.blocks for g in seq.groups), \
             "attach before ensure"
         if not self.prefix_cache:
             return 0
-        m_tokens, plan, hashes = self._match_plan(tokens)
-        shared = 0
+        m_tokens, plan, hashes = self._match_plan(tokens, allow_host)
+        if allow_host:
+            # all or nothing: the host hits' fresh blocks come from the
+            # free list + LRU MINUS the plan's own LRU-parked device
+            # matches (about to be increfed, so not allocatable)
+            for gi, (_, blks) in enumerate(plan):
+                need = sum(1 for b in blks if b is None)
+                lru_held = sum(1 for b in blks
+                               if b is not None and self._ref[gi][b] == 0)
+                if need > self.free_blocks(gi) - lru_held:
+                    m_tokens, plan, hashes = self._match_plan(tokens, False)
+                    break
+        shared = restored = 0
+        # pass 1: incref every device-matched block first, so the host
+        # hits' allocations below never reclaim a plan block from the LRU
         for gi, (g, (j_lo, blks)) in enumerate(zip(seq.groups, plan)):
             g.blocks = [TRASH_BLOCK] * j_lo + list(blks)
             g.hashes = list(hashes)
             g.slid = j_lo
             for j, b in enumerate(blks, start=j_lo):
+                if b is None:
+                    continue
                 if self._ref[gi][b] == 0:
                     del self._lru[gi][b]
                 self._ref[gi][b] += 1
                 self._set_table(gi, idx, j, b)
             shared += len(blks)
+        # pass 2: allocate and queue a restore for each host hit
+        for gi, (g, (j_lo, blks)) in enumerate(zip(seq.groups, plan)):
+            for j, src in enumerate(blks, start=j_lo):
+                if src is not None:
+                    continue
+                b = self._alloc_block(gi)
+                assert b is not None, "host-hit feasibility pre-checked"
+                h = hashes[j]
+                self._ref[gi][b] = 1
+                self._index[(gi, h)] = b
+                self._hash_of[(gi, b)] = h
+                g.blocks[j] = b
+                self._set_table(gi, idx, j, b)
+                self._ticket += 1
+                self._unrestored[(gi, b)] = (self._ticket, h)
+                self.restore_jobs.append((gi, b, h, self._ticket))
+                if (gi, h) in self.host:
+                    self.host.pin((gi, h))   # spill-pending entries are
+                else:                        # pinned at capture time
+                    assert (gi, h) in self._spill_pending, (gi, h)
+                restored += 1
         seq.length = m_tokens
         st = self.prefix_stats
         st["queries"] += 1
         st["lookup_tokens"] += len(tokens)
         st["hit_tokens"] += m_tokens
         st["blocks_shared"] += shared
+        st["host_hit_blocks"] += restored
         return m_tokens
 
     def cow_for_write(self, idx: int, start: int, end: int
@@ -589,6 +880,128 @@ class BlockManager:
                 g.hashes.append(h)
                 parent = h
 
+    # -- tiered KV: host offload and restore ------------------------------------
+    def _forget_restore(self, g: int, b: int) -> None:
+        """Void block (g, b)'s pending restore: drop the ticket (the
+        queued job dies at claim time) and release its host-entry pin (a
+        job against a still spill-pending entry took none)."""
+        _, h = self._unrestored.pop((g, b))
+        if (g, h) in self.host and self.host.pinned((g, h)):
+            self.host.unpin((g, h))
+
+    def host_ok(self, g: int, h: int) -> bool:
+        """Is host entry (g, h) present and integrity-clean? A checksum
+        mismatch drops the entry (when unpinned; the restore drain handles
+        pinned ones), so later matches recompute."""
+        key = (g, h)
+        if self.host is None or key not in self.host:
+            return False
+        if self.host.verify(key):
+            return True
+        if not self.host.pinned(key):
+            self.host.discard(key)
+        return False
+
+    def rows_holding(self, g: int, b: int) -> list[int]:
+        """Slots whose group-g table references block b: the owners a
+        corrupt-restore fallback preempts."""
+        return [idx for idx, s in enumerate(self.seqs)
+                if s is not None and b in s.groups[g].blocks]
+
+    def purge_block(self, g: int, b: int) -> None:
+        """Evict a zero-ref block outright: deregister its content and
+        free it (its bytes must never be prefix-matched again)."""
+        assert self._ref[g][b] == 0, f"purge of live block {g}/{b}"
+        self._lru[g].pop(b, None)
+        h = self._hash_of.pop((g, b), None)
+        if h is not None:
+            del self._index[(g, h)]
+        if b not in self._free[g]:
+            self._free[g].append(b)
+
+    def take_spills(self) -> list[tuple[int, int, int]]:
+        """Drain the (group, block, hash) capture queue; the caller
+        captures these blocks' bytes (`store_spill`) BEFORE any
+        cache-writing step."""
+        out, self._spill_queue = self._spill_queue, []
+        self._spill_pending.clear()
+        return out
+
+    def store_spill(self, g: int, h: int, planes: dict) -> None:
+        """Deposit one captured block in the host tier and apply the pins
+        of restore jobs queued while it was spill-pending."""
+        self.host.put((g, h), planes)
+        pins = sum(1 for (gi, _b), (_t, hh) in self._unrestored.items()
+                   if gi == g and hh == h)
+        for _ in range(pins):
+            self.host.pin((g, h))
+
+    def claim_restore(self, g: int, b: int, h: int, ticket: int) -> bool:
+        """True iff a drained restore job is still wanted: the block is
+        still attached and the ticket current (a release or preemption
+        voids it; the id may since hold something else)."""
+        return self._unrestored.get((g, b)) == (ticket, h)
+
+    def finish_restore(self, g: int, b: int, h: int,
+                       lo_pending: bool = False) -> None:
+        """Mark block (g, b) device-resident again. `lo_pending` (planar
+        pools): only the hi planes were uploaded, and the host entry stays
+        pinned as the lazy lo source until the first FP16 touch."""
+        del self._unrestored[(g, b)]
+        if lo_pending:
+            self._lo_pending[(g, b)] = h     # inherits the job's pin
+        else:
+            self.host.unpin((g, h))
+
+    def row_unrestored(self, idx: int) -> bool:
+        """Does slot `idx` hold a block whose restore has not landed?"""
+        seq = self.seqs[idx]
+        if seq is None or not self._unrestored:
+            return False
+        return any((gi, b) in self._unrestored
+                   for gi, g in enumerate(seq.groups) for b in g.blocks)
+
+    def take_lo_pending(self) -> list[tuple[int, int, int]]:
+        """Drain every deferred lo-plane upload as (group, block, hash);
+        the pins pass to the caller, which unpins after the upload."""
+        out = [(g, b, h) for (g, b), h in self._lo_pending.items()]
+        self._lo_pending.clear()
+        return out
+
+    def take_lo_pending_for(self, pairs) -> list[tuple[int, int, int]]:
+        """Drain the lo-plane uploads of specific (group, block) pairs: a
+        write into a lo-pending block must not race a later whole-block
+        lo upload, which would clobber the fresh bytes."""
+        out = []
+        for g, b in pairs:
+            h = self._lo_pending.pop((g, b), None)
+            if h is not None:
+                out.append((g, b, h))
+        return out
+
+    def lo_pending_in_range(self, idx: int, start: int, end: int
+                            ) -> list[tuple[int, int]]:
+        """(group, block) pairs with deferred lo planes that the write
+        range [start, end) of slot `idx` touches."""
+        if not self._lo_pending:
+            return []
+        seq = self.seqs[idx]
+        span = range(start // self.block_size, -(-end // self.block_size))
+        return [(gi, g.blocks[bi]) for gi, g in enumerate(seq.groups)
+                for bi in span if bi < len(g.blocks)
+                and (gi, g.blocks[bi]) in self._lo_pending]
+
+    def mirror_jobs(self) -> list[tuple[int, int, int]]:
+        """(group, block, hash) of every registered device block not yet
+        in the host tier, for `save_prefix_store` (unrestored blocks hold
+        garbage and are hosted already)."""
+        if self.host is None:
+            return []
+        return [(g, b, h) for (g, h), b in self._index.items()
+                if (g, h) not in self.host
+                and (g, h) not in self._spill_pending
+                and (g, b) not in self._unrestored]
+
     # -- invariant audit (tests, NFP_DEBUG=1) -----------------------------------
     def check_invariants(self) -> None:
         ref = [[0] * (self.n_blocks + 1) for _ in range(self.n_groups)]
@@ -634,6 +1047,36 @@ class BlockManager:
                     "live block below the slide point"
                 assert all(b != TRASH_BLOCK for b in g.blocks[g.slid:]), \
                     "hole above the slide point"
+        # tiered KV: unrestored blocks are held, spill-pending entries are
+        # not yet hosted, lo-pending blocks are live or LRU-parked with a
+        # hosted and pinned source, and pins and bytes add up exactly
+        for (g, b), (_t, h) in self._unrestored.items():
+            assert self._ref[g][b] > 0, f"unrestored block {g}/{b} unheld"
+            assert b not in self._free[g] and b not in self._lru[g]
+        qhashes = {(g, h) for g, _b, h in self._spill_queue}
+        assert qhashes == self._spill_pending, \
+            (qhashes, self._spill_pending)
+        if self.host is not None:
+            for g, h in self._spill_pending:
+                assert (g, h) not in self.host, \
+                    f"spill queued for already-hosted entry {g}/{h}"
+            for (g, b), h in self._lo_pending.items():
+                assert (g, h) in self.host, f"lo-pending {g}/{b} unsourced"
+                assert self.host.pinned((g, h)), f"lo source {g}/{h} unpinned"
+                assert self._ref[g][b] > 0 or b in self._lru[g], \
+                    f"lo-pending block {g}/{b} neither live nor cached"
+            want_pins: collections.Counter = collections.Counter()
+            for (g, _b), h in self._lo_pending.items():
+                want_pins[(g, h)] += 1
+            for (g, _b), (_t, h) in self._unrestored.items():
+                if (g, h) in self.host:
+                    want_pins[(g, h)] += 1
+            assert want_pins == self.host._pins, \
+                (dict(want_pins), dict(self.host._pins))
+            assert self.host.bytes == sum(
+                self.host.entry_bytes(p) for p in self.host.entries.values())
+            assert set(self.host._sums) == set(self.host.entries), \
+                "host checksum map out of sync with entries"
         if self._dev_tables is not None:
             # debug-only device read: overlay the pending dirty entries
             mirror = self._dev_tables.cpu().numpy().copy()

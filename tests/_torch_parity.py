@@ -12,6 +12,7 @@ from repro.configs import ARCHS as JARCHS
 from repro.core.linear import NestedLinearParams
 from repro.models import model as JM
 from repro.models.convert import to_serving as j_to_serving
+from repro.serving.kvcache import BlockManager as JBlockManager
 from repro_torch.configs import ARCHS as TARCHS
 from repro_torch.models.convert import from_jax_serving
 
@@ -67,3 +68,25 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def _settled_set_table(orig):
+    """JAX's BlockManager edits its host tables while the step it just
+    dispatched may still be reading them: under CPU load the JAX engine
+    then gives both one-token requests of test_torch_window.py's set the
+    token 113, where a dense recompute on either side gives 205 and 495
+    with top-2 margins of 0.057 and 0.064 (2 of 18 runs, six processes at
+    once; 0 of 18 with this wrapper; ROADMAP F-ref-3). The wrapper lets
+    the dispatched work finish before each table edit, so the reference
+    runs its steps in the order its engine states."""
+    def set_table(self, *args):
+        jax.block_until_ready(jax.live_arrays())
+        return orig(self, *args)
+    return set_table
+
+
+@pytest.fixture
+def settled_jax_tables(monkeypatch):
+    """The JAX engine with `_settled_set_table` (F-ref-3) for one test."""
+    monkeypatch.setattr(JBlockManager, "_set_table",
+                        _settled_set_table(JBlockManager._set_table))

@@ -1,5 +1,6 @@
 """The PyTorch port's serving engine on the CPU against the JAX package's
-`Engine(host_offload=False)`, on the same weights and request sets:
+`Engine`, both with their default host KV tier, on the same weights and
+request sets:
 equal greedy outputs, equal scheduling decisions, and equal host-side
 counters; plus the port's BlockManager against the JAX one under a
 seeded op sequence, and the device rule (no GPU => a default Engine
@@ -62,7 +63,7 @@ def _run_both(qwen, reqs, *, dual=False, **kw):
                    clock=_fake_clock())
         tkw.update(controller=TController(TSLO(**slo), **rates),
                    clock=_fake_clock())
-    jeng = JEngine(jcfg, jsp, host_offload=False, **jkw)
+    jeng = JEngine(jcfg, jsp, **jkw)
     teng = TEngine(tcfg, tsp, device="cpu", **tkw)
     for rid, toks, max_new in reqs:
         jeng.submit(JRequest(rid, [int(t) for t in toks], max_new))
@@ -146,9 +147,7 @@ def test_default_device_needs_a_gpu(qwen):
         TEngine(tcfg, tsp, n_slots=2, capacity=64)
 
 
-@pytest.mark.parametrize("arg", [{"speculate": True}, {"host_offload": True},
-                                 {"persist_dir": "x"}, {"mesh": object()},
-                                 {"fault_hook": print}])
+@pytest.mark.parametrize("arg", [{"mesh": object()}, {"fault_hook": print}])
 def test_deferred_features_raise(qwen, arg):
     _, tcfg, _, tsp = qwen
     with pytest.raises(NotImplementedError):

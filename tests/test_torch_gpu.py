@@ -1156,3 +1156,96 @@ def test_gemma_replays_are_their_eager_calls(dev, gemma_sp):
     assert set(g.checks) == g.keys() and g.n_captured == len(g.keys())
     assert all(all(v.values()) for v in g.checks.values()), g.checks
     assert n > 5 and eng.stats["window_reclaimed_blocks"] > 0
+
+
+# -- speculation and the tiered KV cache on the card ----------------------------
+
+def test_spec_key_replay_is_its_eager_call(dev, llama_sp):
+    """Repetitive prompts draft and verify: each spec key's first replay
+    (checked inside the step that captured it) is bitwise an eager call
+    of the verification step on clones of its inputs, table and pool."""
+    from repro_torch.core.policy import SpeculationConfig
+    cfg, sp = llama_sp
+    eng = Engine(cfg, sp, n_slots=4, capacity=96, kv_planar=True,
+                 forced_mode="fp16", speculate=SpeculationConfig(ngram_min=1))
+    for i in range(3):
+        eng.submit(Request(f"r{i}", [5 + i, 6, 7, 8] * 6, 16))
+    eng.graphs.check_first_runs = True
+    eng.run()
+    spec = [k for k in eng.graphs.checks if k[0] == "spec"]
+    assert spec and eng.spec_stats()["spec_dispatches"] > 0
+    for key in spec:
+        assert all(eng.graphs.checks[key].values()), (key,
+                                                       eng.graphs.checks[key])
+        assert eng.graphs.graph(key) is not None
+
+
+@pytest.fixture(scope="module")
+def tiered_run(llama_sp):
+    """Two system prompts through an 11-block pool, bursts A, B, A (FP8
+    on planar KV, then a fourth burst B in FP16): A's blocks spill during
+    B and are restored in the third burst, lazily lo-completed in the
+    fourth. Every upload is checked right after it lands: the pool bytes
+    of each written block against its host entry, and the addresses of
+    the pool planes, the device table and every step key's buffers
+    against those before it."""
+    cfg, sp = llama_sp
+    eng = Engine(cfg, sp, n_slots=2, capacity=128, forced_mode="fp8",
+                 kv_planar=True, block_size=16, n_blocks=11,
+                 chunk_tokens=64, debug_invariants=True)
+    seen = {"uploads": 0, "bytes_equal": True, "addresses_equal": True}
+
+    def addresses():
+        out = {n: p.data_ptr() for n, p in eng.caches["attn"].items()}
+        out["tables"] = eng.blocks.device_tables().data_ptr()
+        out.update({k: st.dev.data_ptr() for k, st in eng.graphs._steps.items()})
+        return out
+
+    upload = eng._tier_upload
+
+    def checked_upload(g, items, names):
+        before = addresses()
+        n = upload(g, items, names)
+        torch.cuda.synchronize()
+        li = eng._group_layers[g]
+        for b, h in items:
+            entry = eng.blocks.host.entries[(g, h)]
+            for name in names:
+                got = eng.caches["attn"][name][li, b].cpu().numpy()
+                seen["bytes_equal"] &= got.tobytes() == entry[name].tobytes()
+        seen["addresses_equal"] &= addresses() == before
+        seen["uploads"] += 1
+        return n
+    eng._tier_upload = checked_upload
+    rng = np.random.default_rng(0)
+    sysp = [[int(t) for t in rng.integers(1, cfg.vocab_size, 96)]
+            for _ in range(2)]
+    for b, (s, mode) in enumerate([(0, "fp8"), (1, "fp8"), (0, "fp8"),
+                                   (1, "fp16")]):
+        eng.forced_mode = mode
+        for i in range(2):
+            eng.submit(Request(f"{b}.{i}", sysp[s] + [7 + i, 9, 11 + b], 6))
+        eng.run()
+    return eng, seen
+
+
+def test_restored_bytes_are_the_host_entries(dev, tiered_run):
+    eng, seen = tiered_run
+    ts = eng.tiered_stats()
+    assert ts["restored_blocks"] > 0 and ts["lo_lazy_blocks"] > 0, ts
+    assert eng.stats["corrupt_fallbacks"] == 0
+    assert seen["uploads"] > 0 and seen["bytes_equal"]
+
+
+def test_host_entries_are_pinned(dev, tiered_run):
+    eng, _ = tiered_run
+    entries = eng.blocks.host.entries
+    assert entries
+    for planes in entries.values():
+        for a in planes.values():
+            assert torch.from_numpy(a).is_pinned()
+
+
+def test_restore_keeps_the_graphs_addresses(dev, tiered_run):
+    eng, seen = tiered_run
+    assert eng.graphs.n_captured > 0 and seen["addresses_equal"]

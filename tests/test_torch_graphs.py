@@ -78,7 +78,7 @@ def test_step_keys_are_the_jax_engines(qwen, case):
                    clock=_fake_clock())
         tkw.update(controller=TController(TSLO(**slo), **rates),
                    clock=_fake_clock())
-    jeng = JEngine(jcfg, jsp, host_offload=False, n_slots=4, capacity=64,
+    jeng = JEngine(jcfg, jsp, n_slots=4, capacity=64,
                    kv_planar=True, **jkw)
     teng = TEngine(tcfg, tsp, device="cpu", n_slots=4, capacity=64,
                    kv_planar=True, **tkw)

@@ -29,7 +29,7 @@ pytest.importorskip("jax")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_parity import configs, one_torch_thread, serving_pair  # noqa: E402,F401
+from _torch_parity import _settled_set_table, configs, one_torch_thread, serving_pair  # noqa: E402,F401
 from repro.configs import ARCHS as JARCHS  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models.layers import Runtime as JRuntime  # noqa: E402
@@ -384,21 +384,6 @@ ENGINE_CASES = {
 }
 
 
-def _settled_set_table(orig):
-    """JAX's BlockManager edits its host tables while the step it just
-    dispatched may still be reading them: under CPU load the JAX engine
-    then gives both one-token requests of this set the token 113, where a
-    dense recompute on either side gives 205 and 495 with top-2 margins
-    of 0.057 and 0.064 (2 of 18 runs, six processes at once; 0 of 18
-    with this wrapper; ROADMAP F-ref-3). The wrapper lets the dispatched
-    work finish before each table edit, so the reference runs its steps
-    in the order its engine states."""
-    def set_table(self, *args):
-        jax.block_until_ready(jax.live_arrays())
-        return orig(self, *args)
-    return set_table
-
-
 @pytest.mark.parametrize("case", sorted(ENGINE_CASES))
 def test_engine_matches_jax(gemma, case, monkeypatch):
     jcfg, tcfg, jsp, tsp = gemma
@@ -407,7 +392,7 @@ def test_engine_matches_jax(gemma, case, monkeypatch):
     mode, reclaim, extra = ENGINE_CASES[case]
     kw = dict(n_slots=4, capacity=80, block_size=8, forced_mode=mode,
               kv_planar=True, window_reclaim=reclaim, **extra)
-    jeng = JEngine(jcfg, jsp, host_offload=False, **kw)
+    jeng = JEngine(jcfg, jsp, **kw)
     teng = TEngine(tcfg, tsp, device="cpu", **kw)
     reqs = _requests(2, 6, jcfg.vocab_size)
     jfin, tfin = _lockstep(jeng, teng, reqs)
