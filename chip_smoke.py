@@ -1077,13 +1077,16 @@ SLICE_TOL = {"fp16": 1e-2, "fp8": 0.25}
 BF16_TOL = {"fp16": 0.1, "fp8": 0.5}
 
 
-def serve_phase(torch, cfg, n_layers: int) -> dict:
+def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True) -> dict:
     """The paged engine at full width and depth, forced FP16, forced FP8
     and dual. Each engine first serves 8 other prompts of the same
     shapes (the warm pass: it captures every step key and holds each
     key's replay bitwise against an eager call; in dual mode a pass for
     each mode), then the 8 timed prompts; then the engine is freed with
-    its graphs."""
+    its graphs. `host_tier` is the engine's `host_offload` (on by
+    default, as in the engine): the timed run spills the warm pass's
+    evicted prefix blocks, and its host seconds in captures and
+    checksums are logged."""
     import dataclasses
 
     from repro_torch.core.policy import DualPrecisionController, SLOConfig
@@ -1116,7 +1119,8 @@ def serve_phase(torch, cfg, n_layers: int) -> dict:
         eng = Engine(cfgn, sp, n_slots=8, capacity=256, kv_planar=True,
                      controller=ctrl,
                      forced_mode=None if policy == "dual" else policy,
-                     device="cuda")
+                     host_offload=host_tier, device="cuda")
+        host_s = host_tier_timers(eng)
         # warm pass: 8 other prompts of the same shapes (in dual mode one
         # set forced to each mode), so that the timed run finds every key
         # captured; each key's first replay is held against an eager call
@@ -1135,6 +1139,7 @@ def serve_phase(torch, cfg, n_layers: int) -> dict:
               f"{len(eng.graphs.keys())}")
         n_graphs = eng.graphs.n_captured
         stats0, n_warm = dict(eng.stats), len(eng.finished)
+        host0 = dict(host_s)
         for i, p in enumerate(prompts):
             eng.submit(Request(f"r{i}", list(p), max_new=32))
         before = ops.all_launch_counters()
@@ -1182,7 +1187,8 @@ def serve_phase(torch, cfg, n_layers: int) -> dict:
                "graph_pool_bytes": eng.graphs.pool_bytes(),
                "launches": launches,
                "stats": {k: v - stats0[k] if isinstance(v, int) else v
-                         for k, v in eng.stats.items()}}
+                         for k, v in eng.stats.items()},
+               "host_tier_s": {k: v - host0[k] for k, v in host_s.items()}}
         log(f"  serve {policy}: {n_tok} tokens in {wall:.3f} s "
             f"({res['tokens_per_s']:.1f} tok/s), {len(step_ms)} steps, "
             f"step ms mean {res['step_ms_mean']:.2f} median "
@@ -1195,8 +1201,13 @@ def serve_phase(torch, cfg, n_layers: int) -> dict:
             f"{res['fp16_fraction']:.2f}; {n_graphs} graphs, pool "
             f"{res['graph_pool_bytes'] / 2**20:.1f} MiB, warm pass "
             f"{warm_s:.2f} s; launches {launches}")
+        log(f"  serve {policy}: host tier {'on' if host_tier else 'off'}, "
+            f"{res['stats']['spilled_blocks']} blocks spilled in the timed "
+            f"run, host s in captures {res['host_tier_s']['capture_s']:.4f}"
+            f" (checksums {res['host_tier_s']['checksum_s']:.4f})")
         res["replays_bitwise"] = n_checked
         pool = tuple(eng.graphs._pool)
+        unwrap(eng)
         del eng
         torch.cuda.synchronize()
         left = torch.cuda.memory_allocated() - mem0
@@ -1731,7 +1742,7 @@ def gemma_slice_phase(torch, cfg) -> dict:
     return out
 
 
-def gemma_serve_phase(torch, cfg) -> dict:
+def gemma_serve_phase(torch, cfg, host_tier: bool = True) -> dict:
     """gemma3-1b at full width and depth (26 layers) through `Engine`,
     planar KV, window groups: 8 requests of 1024 prompt tokens and 64 new
     tokens in forced FP16, forced FP8 and dual mode, then forced FP16 with
@@ -1741,7 +1752,8 @@ def gemma_serve_phase(torch, cfg) -> dict:
     the local layers in every mode with reclaim on (none with it off),
     forced-FP16 tokens bitwise equal with reclaim on and off, no key
     captured in a timed run, K4 launched, each engine's graphs freed
-    with it."""
+    with it. `host_tier` is the engines' `host_offload`, as in
+    `serve_phase`."""
     from repro_torch.core.policy import DualPrecisionController, SLOConfig
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
@@ -1776,7 +1788,9 @@ def gemma_serve_phase(torch, cfg) -> dict:
         eng = Engine(cfg, sp, n_slots=8, capacity=cap, kv_planar=True,
                      chunk_tokens=2 * plen, controller=ctrl,
                      forced_mode=None if policy == "dual" else policy,
-                     window_reclaim=reclaim, device="cuda")
+                     window_reclaim=reclaim, host_offload=host_tier,
+                     device="cuda")
+        host_s = host_tier_timers(eng)
         t0 = time.monotonic()
         n_checked = 0
         for wi, mode in enumerate(["fp16", "fp8"] if ctrl else [policy]):
@@ -1792,6 +1806,7 @@ def gemma_serve_phase(torch, cfg) -> dict:
               f"{len(eng.graphs.keys())}")
         n_graphs = eng.graphs.n_captured
         stats0, n_warm = dict(eng.stats), len(eng.finished)
+        host0 = dict(host_s)
         for i, p in enumerate(prompts):
             eng.submit(Request(f"r{i}", list(p), max_new=max_new))
         before = ops.all_launch_counters()
@@ -1847,7 +1862,10 @@ def gemma_serve_phase(torch, cfg) -> dict:
                "graphs": n_graphs,
                "keys": sorted(map(str, eng.graphs.keys())),
                "graph_pool_bytes": eng.graphs.pool_bytes(),
-               "launches": launches, "replays_bitwise": n_checked}
+               "launches": launches, "replays_bitwise": n_checked,
+               "spilled_blocks": eng.stats["spilled_blocks"]
+               - stats0["spilled_blocks"],
+               "host_tier_s": {k: v - host0[k] for k, v in host_s.items()}}
         log(f"  gemma serve {label}: {n_tok} tokens in {wall:.3f} s "
             f"({res['tokens_per_s']:.1f} tok/s), {len(step_ms)} steps, "
             f"decode-only step ms median {res['decode_step_ms_median']:.2f}, "
@@ -1860,7 +1878,10 @@ def gemma_serve_phase(torch, cfg) -> dict:
             f"blocks, peak blocks in use {peak} of "
             f"{eng.blocks.n_groups} x {eng.blocks.n_blocks}; {n_graphs} "
             f"graphs, pool {res['graph_pool_bytes'] / 2**20:.1f} MiB; "
-            f"launches {launches}")
+            f"launches {launches}; host tier {'on' if host_tier else 'off'}"
+            f", {res['spilled_blocks']} blocks spilled, host s in captures "
+            f"{res['host_tier_s']['capture_s']:.4f} (checksums "
+            f"{res['host_tier_s']['checksum_s']:.4f})")
         if reclaim and policy != "dual":
             wall_p, by_name = device_ms_by_kernel(
                 torch, eng.graphs.graph(("decode", policy)).replay, 4)
@@ -1873,6 +1894,7 @@ def gemma_serve_phase(torch, cfg) -> dict:
                 f"{res['k4_device_ms_per_step']:.3f} ms of device time a "
                 f"decode step")
         pool = tuple(eng.graphs._pool)
+        unwrap(eng)
         del eng
         torch.cuda.synchronize()
         left = torch.cuda.memory_allocated() - mem0
@@ -1917,10 +1939,12 @@ MARGIN_RULE = 1e-3      # a spec-on or tier-on stream may part from its
 def top2_margin(torch, cfg, sp, mode, seq) -> float:
     """The top-2 logit margin after `seq` (a prompt and the first tokens
     of a stream): one f32 `paged_step` over the whole sequence on the
-    card, in a pool of its own."""
+    card, in a pool of its own. Leaves the launch counters as they were."""
+    from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.models.layers import Runtime
 
+    before = ops.all_launch_counters()
     bs = 16
     nb = -(-len(seq) // bs)
     caches = M.init_paged_cache(cfg, nb + 1, bs, planar=True, device="cuda")
@@ -1933,6 +1957,9 @@ def top2_margin(torch, cfg, sp, mode, seq) -> float:
                                              device="cuda"),
         kv_len=n, block_size=bs, logit_position=n - 1, return_logits=True)
     top2 = logits[0].topk(2).values
+    after = ops.all_launch_counters()
+    # a reference recompute, not a launch of the path being counted
+    ops.add_launches({k: before[k] - after[k] for k in after})
     return float(top2[0] - top2[1])
 
 
@@ -1965,6 +1992,43 @@ def margin_rule(torch, cfg, sp, mode, prompts, control, got, label,
         f"{'' if gated else ' (a reading, not gated)'}")
     return {"equal_streams": equal, "streams": len(control),
             "partings": partings, "gated": gated}
+
+
+def host_tier_timers(eng) -> dict:
+    """Wrap the engine's spill capture and the host tier's checksums to
+    add their host seconds to the returned dict (`capture_s`: whole
+    captures, enqueue and settle (which overlaps the step's graph on the
+    card), their checksums included; `checksum_s`: every checksum, at
+    capture (`checksums`, on worker threads), match and drain). `unwrap`
+    takes the wrappers off."""
+    host_s = {"checksum_s": 0.0, "capture_s": 0.0}
+    if eng.blocks.host is None:
+        return host_s
+    for obj, name, slot in ((eng.blocks.host, "checksum", "checksum_s"),
+                            (eng.blocks.host, "checksums", "checksum_s"),
+                            (eng, "_capture_blocks", "capture_s"),
+                            (eng, "_settle_captures", "capture_s")):
+        def timed_fn(*a, _f=getattr(obj, name), _slot=slot):
+            t0 = time.perf_counter()
+            out = _f(*a)
+            host_s[_slot] += time.perf_counter() - t0
+            return out
+        setattr(obj, name, timed_fn)
+    return host_s
+
+
+def unwrap(eng) -> None:
+    """Take `host_tier_timers`' wrappers and the tiered phase's upload
+    recorder off the engine and its host tier: each holds a bound method
+    of the object it is set on, a reference cycle that would keep the
+    engine, its graph pool and its host entries alive past `del eng`;
+    so does `record_captures`' wrapper, taken off too."""
+    vars(eng.graphs).pop("_capture", None)
+    for obj in (eng, eng.blocks.host):
+        for name in ("_capture_blocks", "_settle_captures", "_tier_upload",
+                     "checksum", "checksums"):
+            if obj is not None and name in vars(obj):
+                delattr(obj, name)
 
 
 def record_captures(eng) -> dict:
@@ -2118,6 +2182,7 @@ def spec_runs(torch, cfg, sp, *, label, modes, n_slots, capacity, prompts,
                     f"{' ...' if len(h) > 96 else ''}")
             outs[spec] = run["outputs"]
             res[f"{mode}_{'on' if spec else 'off'}"] = r
+            unwrap(eng)
             del eng
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -2232,9 +2297,10 @@ def tiered_phase(torch, cfg, sp) -> dict:
     def watch(eng, timed):
         """Record every upload (and, if `timed`, its wall time between two
         syncs) for the checks after the burst; with `timed`, also the
-        host seconds spent in host-entry checksums (at capture, match and
-        drain) and in spill captures, in `host_s`."""
-        seen, host_s = [], {"checksum_s": 0.0, "capture_s": 0.0}
+        host seconds spent in host-entry checksums and in spill captures
+        (`host_tier_timers`)."""
+        seen = []
+        host_s = host_tier_timers(eng) if timed else {}
         upload = eng._tier_upload
 
         def recorded(g, items, names):
@@ -2247,16 +2313,6 @@ def tiered_phase(torch, cfg, sp) -> dict:
             seen.append((g, list(items), names, n, time.perf_counter() - t0))
             return n
         eng._tier_upload = recorded
-        if timed:
-            for obj, name, slot in ((eng.blocks.host, "checksum",
-                                     "checksum_s"),
-                                    (eng, "_capture_blocks", "capture_s")):
-                def timed_fn(*a, _f=getattr(obj, name), _slot=slot):
-                    t0 = time.perf_counter()
-                    out = _f(*a)
-                    host_s[_slot] += time.perf_counter() - t0
-                    return out
-                setattr(obj, name, timed_fn)
         return seen, host_s
 
     def bytes_match(eng, seen) -> int:
@@ -2302,8 +2358,13 @@ def tiered_phase(torch, cfg, sp) -> dict:
              "wall_s": {k: v["wall_s"] for k, v in bursts.items()},
              "graphs": eng.graphs.n_captured, "host_s_by_burst": parts}
         if host:
+            # every timed upload (hi planes at restore, lo planes at the
+            # first FP16 touch) against the bytes each returned
             up_s = sum(t for *_x, t in seen)
-            r["restore_gb_s"] = ts["restored_bytes"] / up_s / 1e9
+            r["upload_bytes"] = sum(x[3] for x in seen)
+            check(r["upload_bytes"] == ts["restored_bytes"]
+                  + ts["lo_lazy_bytes"], f"{tag}: upload bytes disagree")
+            r["restore_gb_s"] = r["upload_bytes"] / up_s / 1e9
             r["uploads"] = len(seen)
             r["blocks_compared"] = bytes_match(eng, seen)
             check(ts["restored_blocks"] > 0, f"{tag}: nothing restored")
@@ -2320,7 +2381,8 @@ def tiered_phase(torch, cfg, sp) -> dict:
             f"{ts['restore_fallbacks']}, host hits "
             f"{ts['host_hit_blocks']} blocks; TTFT mean by burst "
             f"{ {k: round(v, 1) for k, v in r['ttft_ms_mean'].items()} } ms"
-            + (f"; restore uploads {r['uploads']} at "
+            + (f"; restore uploads {r['uploads']} "
+               f"({r['upload_bytes'] / 2**20:.1f} MiB, hi and lo planes) at "
                f"{r['restore_gb_s']:.2f} GB/s (host staging, h2d and "
                f"scatter, between syncs); {r['blocks_compared']} restored "
                f"blocks equal their host entries; prefix store "
@@ -2329,6 +2391,7 @@ def tiered_phase(torch, cfg, sp) -> dict:
                f"{ {k: {x: round(y, 4) for x, y in v.items()} for k, v in parts.items()} }"
                if host else ""))
         res[f"fp16_{'on' if host else 'off'}"] = r
+        unwrap(eng)
         del eng
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2373,6 +2436,7 @@ def tiered_phase(torch, cfg, sp) -> dict:
         f"{per16 / 2**20:.2f}; then FP16 landed {ts['lo_lazy_blocks']} "
         f"deferred lo planes ({ts['lo_lazy_bytes'] / 2**20:.1f} MiB); "
         f"{n_cmp} uploaded blocks equal their host entries")
+    unwrap(eng)
     del eng
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2392,6 +2456,7 @@ def tiered_phase(torch, cfg, sp) -> dict:
         run["outputs"], "tiered restart vs first engine")
     log(f"  tiered restart: {loaded} entries loaded, {hits} host-tier hits, "
         f"TTFT mean {run['ttft_ms_mean']:.1f} ms")
+    unwrap(eng)
     del eng
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2531,6 +2596,9 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--serve-layers", type=int, default=32)
+    ap.add_argument("--host-tier", choices=("on", "off"), default="on",
+                    help="host_offload of the serve and gemma_serve "
+                         "phases' engines (the engine's default is on)")
     ap.add_argument("--out", default="",
                     help="also write the full results as JSON to this file")
     args = ap.parse_args()
@@ -2604,7 +2672,8 @@ def main() -> int:
         results["slice"] = slice_phase(torch, cfg)
     if "serve" in phases:
         log(f"== serve: llama3.1-8b, {args.serve_layers} layers")
-        results["serve"] = serve_phase(torch, cfg, args.serve_layers)
+        results["serve"] = serve_phase(torch, cfg, args.serve_layers,
+                                       args.host_tier == "on")
     if "dense" in phases:
         log(f"== dense: llama3.1-8b, {cfg.n_layers} layers, dense-slot "
             f"prefill and decode steps")
@@ -2617,7 +2686,8 @@ def main() -> int:
     if "gemma_serve" in phases:
         log(f"== gemma serve: gemma3-1b, {gemma.n_layers} layers, window "
             f"groups")
-        results["gemma_serve"] = gemma_serve_phase(torch, gemma)
+        results["gemma_serve"] = gemma_serve_phase(torch, gemma,
+                                                   args.host_tier == "on")
     if "gemma_dense" in phases:
         log(f"== gemma dense: gemma3-1b, {gemma.n_layers} layers, dense-slot "
             f"prefill and decode steps")

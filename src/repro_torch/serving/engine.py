@@ -222,6 +222,9 @@ class Engine:
         self._host_tier = bool(host_offload and prefix_cache)
         self._restore_policy = restore_policy or RestorePolicy()
         self.persist_dir = persist_dir
+        # spill captures enqueued on the device, stored by
+        # `_settle_captures` (group, [(block, hash)], host buffer, event)
+        self._captures: list[tuple[int, list, torch.Tensor, Any]] = []
         self.blocks = BlockManager(n_slots, block_size, n_blocks, mbs,
                                    prefix_cache=prefix_cache,
                                    group_windows=gw, device=self.device,
@@ -383,15 +386,29 @@ class Engine:
             yield n, off, nb, plane, region
             off += nb
 
-    def _capture_blocks(self, jobs: list[tuple[int, int, int]]) -> None:
+    def _host_buffer(self, nbytes: int) -> torch.Tensor:
+        """A host uint8 buffer for one tier transfer: page-locked on a card,
+        from PyTorch's caching host allocator, so that a buffer freed after
+        its transfer is reused by the next transfer of its size rather
+        than pinned anew."""
+        return torch.empty(nbytes, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+
+    def _capture_blocks(self, jobs: list[tuple[int, int, int]],
+                        defer: bool = False) -> None:
         """Copy (group, block, hash) pool bytes into the host tier: a
         group's blocks (padded to a power of two by repeating the last
         id) are gathered on the device into one staging buffer, their
-        layer rows only, then copied to host memory (pinned on a card) in
-        one transfer; each entry is a view of that buffer. Used by
+        layer rows only, then copied to a host buffer (`_host_buffer`) in
+        one transfer; `_settle_captures` then copies each block's row out
+        into memory of its own (as the JAX package's entries do, so the
+        tier holds, and frees, exactly its entries' bytes), checksums and
+        stores it. With `defer`, only the device work is enqueued: the
+        caller launches its step next and settles after the launch, so
+        the host work overlaps the step on the card (the copy reads the
+        blocks before the step's writes land: one stream). Used by
         `_flush_spills` (evicted blocks) and `save_prefix_store` (a
         mirror that evicts nothing)."""
-        bm = self.blocks
         by_g: dict[int, list[tuple[int, int]]] = {}
         for g, b, h in jobs:
             by_g.setdefault(g, []).append((b, h))
@@ -399,9 +416,12 @@ class Engine:
         on_card = self.device.type == "cuda"
         for g, items in sorted(by_g.items()):
             kb = _bucket(len(items), 1)
-            ids = np.full(kb, items[-1][0], np.int64)
-            ids[:len(items)] = [b for b, _h in items]
-            ids_dev = torch.from_numpy(ids).to(self.device)
+            # the ids go up without a host wait: a flush may find the
+            # step's prefill graph still running ahead of it
+            ids = self._host_buffer(kb * 8).view(torch.int64)
+            ids.numpy()[:] = [b for b, _h in items] \
+                + [items[-1][0]] * (kb - len(items))
+            ids_dev = ids.to(self.device, non_blocking=on_card)
             li = self._group_layers[g]
             rec = self._record_bytes(g, names)
             stage = torch.empty((kb, rec), dtype=torch.uint8,
@@ -410,42 +430,65 @@ class Engine:
                                                                 stage):
                 region.copy_(plane[li[:, None], ids_dev[None, :]]
                              .transpose(0, 1))
-            host = torch.empty((kb, rec), dtype=torch.uint8,
-                               pin_memory=on_card)
+            host = self._host_buffer(kb * rec).view(kb, rec)
             host.copy_(stage, non_blocking=on_card)
+            done = None
             if on_card:
-                # tiered-KV spill capture: the one host sync besides the
-                # step's end; it waits for cold evicted blocks' bytes,
-                # never for the step's sampled ids. The checksums below
-                # must hash landed bytes, not the copy in flight.
                 done = torch.cuda.Event()
                 done.record()
+            self._captures.append((g, items, host, done))
+            self.stats["aux_dispatches"] += 1
+        if not defer:
+            self._settle_captures()
+
+    def _settle_captures(self) -> None:
+        """Store the captures `_capture_blocks` enqueued, in order: each
+        block's row is copied out of the host buffer, checksummed (on
+        worker threads) and put in the host tier."""
+        bm = self.blocks
+        names = tuple(p.name for p in self.desc.planes)
+        while self._captures:
+            g, items, host, done = self._captures.pop(0)
+            if done is not None:
+                # tiered-KV spill capture: the one host sync besides the
+                # step's end; it waits for cold evicted blocks' bytes
+                # (work enqueued before the step's graph), never for the
+                # step's sampled ids. The copies and checksums below must
+                # read landed bytes.
                 done.synchronize()
-            regions = [(n, r) for n, _o, _nb, _p, r
-                       in self._planes_of(g, names, host)]
-            for i, (_b, h) in enumerate(items):
-                entry = {n: r[i].numpy() for n, r in regions}
-                bm.store_spill(g, h, entry)
+            layout = [(n, off, nb, r.numpy().dtype, r.shape[1:])
+                      for n, off, nb, _p, r in self._planes_of(g, names, host)]
+            rows = host.numpy()
+            entries = []
+            for i in range(len(items)):
+                own = rows[i].copy()
+                entries.append({n: own[off: off + nb].view(dt).reshape(shape)
+                                for n, off, nb, dt, shape in layout})
+            for entry, digest, (_b, h) in zip(
+                    entries, bm.host.checksums(entries), items):
+                bm.store_spill(g, h, entry, digest)
                 self.stats["spilled_blocks"] += 1
                 self.stats["spilled_bytes"] += sum(
                     a.nbytes for a in entry.values())
-            self.stats["aux_dispatches"] += 1
 
-    def _flush_spills(self) -> None:
-        """Capture every queued evicted-block spill. MUST run before any
-        cache-writing step: the evicted ids are already reallocated, so
-        their bytes are intact only until the next write lands."""
+    def _flush_spills(self, defer: bool = False) -> None:
+        """Capture every queued evicted-block spill (captures still in
+        flight are stored first, so entries land in eviction order). MUST
+        run before any cache-writing step: the evicted ids are already
+        reallocated, so their bytes are intact only until the next write
+        lands. `defer`: see `_capture_blocks`."""
         if not self._host_tier:
             return
+        self._settle_captures()
         jobs = self.blocks.take_spills()
         if jobs:
-            self._capture_blocks(jobs)
+            self._capture_blocks(jobs, defer)
 
     def _tier_upload(self, g: int, items: list[tuple[int, int]],
                      names: tuple[str, ...]) -> int:
         """Write the host-tier bytes of planes `names` of [(block, hash)]
         `items` into group g's pool rows: the entries and the block ids
-        are stacked in one host buffer (pinned on a card) and sent in one
+        are stacked in one host buffer (`_host_buffer`) and sent in one
         copy, then each plane takes one in-place scatter on the same
         stream, ahead of any later step. Block counts are padded to a
         power of two; pads aim at the trash block. Returns bytes sent."""
@@ -453,8 +496,7 @@ class Engine:
         kb = _bucket(len(items), 1)
         rec = self._record_bytes(g, names)
         on_card = self.device.type == "cuda"
-        host = torch.empty(kb * (8 + rec), dtype=torch.uint8,
-                           pin_memory=on_card)
+        host = self._host_buffer(kb * (8 + rec))
         ids = host[:kb * 8].view(torch.int64).numpy()
         ids[:] = TRASH_BLOCK
         ids[:len(items)] = [b for b, _h in items]
@@ -833,7 +875,7 @@ class Engine:
             # and a lo-pending block the write ranges touch completes its
             # lo planes now (a later whole-block lo upload would clobber
             # the fresh bytes)
-            self._flush_spills()
+            self._flush_spills(defer=True)
             touched = [p for idx, start, take in entries
                        for p in self.blocks.lo_pending_in_range(
                            idx, start, start + take)]
@@ -841,6 +883,7 @@ class Engine:
         self._upload(key)
         self.blocks.device_tables()          # flush table edits first
         ids = self.graphs.run(key)
+        self._settle_captures()              # while the step runs
         self.stats["prefill_dispatches"] += 1
         for idx, start, take in entries:
             self._commit_chunk(idx, start, take)
@@ -1007,9 +1050,10 @@ class Engine:
         # have evicted LRU blocks above) before the write lands. Decode
         # and draft writes land only in partly filled or COW-exclusive
         # tail blocks, never in a restored one, so no lo guard here.
-        self._flush_spills()
+        self._flush_spills(defer=True)
         self.blocks.device_tables()          # flush table edits first
         ids = self.graphs.run(key)
+        self._settle_captures()              # while the step runs
         self.stats["decode_dispatches"] += 1
         if kmax:
             self.stats["spec_dispatches"] += 1

@@ -45,13 +45,17 @@ table.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import hashlib
+import os
 
 import numpy as np
 import torch
 
 TRASH_BLOCK = 0
+# worker threads of `HostPool.checksums`, made at their first use
+_HASHERS: concurrent.futures.ThreadPoolExecutor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,8 +133,9 @@ class HostPool:
 
     Entries are keyed by (group, chain hash), the identity the device
     prefix index uses, and each holds one block's bytes per plane as a
-    numpy array shaped (group_layers, block_size, *token_shape) (on a
-    card, views of pinned host memory). The tier is INCLUSIVE: restoring
+    numpy array shaped (group_layers, block_size, *token_shape) (a
+    spilled entry's planes view one host buffer of its own, so dropping
+    the entry frees its bytes). The tier is INCLUSIVE: restoring
     an entry keeps the host copy, so a restored-then-re-evicted block
     (registered blocks are immutable under COW) needs no second capture,
     and lazily restored lo planes always have a source.
@@ -184,17 +189,32 @@ class HostPool:
         h = hashlib.blake2b(digest_size=16)
         for name in sorted(planes):
             h.update(name.encode())
-            h.update(np.ascontiguousarray(planes[name]).tobytes())
+            h.update(np.ascontiguousarray(planes[name]))   # no copy
         return h.digest()
 
+    @staticmethod
+    def checksums(entries: list[dict[str, np.ndarray]]) -> list[bytes]:
+        """`checksum` of each entry, taken on worker threads (blake2b
+        releases the GIL while it hashes a large buffer): a spill capture
+        hashes its blocks at once rather than one after another."""
+        global _HASHERS
+        if len(entries) < 2:
+            return [HostPool.checksum(e) for e in entries]
+        if _HASHERS is None:
+            _HASHERS = concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(8, os.cpu_count() or 1),
+                thread_name_prefix="host-tier-checksum")
+        return list(_HASHERS.map(HostPool.checksum, entries))
+
     def put(self, key: tuple[int, int], planes: dict[str, np.ndarray],
-            loaded: bool = False) -> None:
+            loaded: bool = False, digest: bytes | None = None) -> None:
         """Insert (or refresh) one block's bytes; `loaded` marks entries
-        read from a persisted store rather than spilled live."""
+        read from a persisted store rather than spilled live; `digest` is
+        the planes' `checksum` where the caller has taken it already."""
         if key in self.entries:
             self.bytes -= self.entry_bytes(self.entries.pop(key))
         self.entries[key] = planes
-        self._sums[key] = self.checksum(planes)
+        self._sums[key] = self.checksum(planes) if digest is None else digest
         self._corrupt.discard(key)
         nb = self.entry_bytes(planes)
         self.bytes += nb
@@ -927,10 +947,12 @@ class BlockManager:
         self._spill_pending.clear()
         return out
 
-    def store_spill(self, g: int, h: int, planes: dict) -> None:
-        """Deposit one captured block in the host tier and apply the pins
-        of restore jobs queued while it was spill-pending."""
-        self.host.put((g, h), planes)
+    def store_spill(self, g: int, h: int, planes: dict,
+                    digest: bytes | None = None) -> None:
+        """Deposit one captured block (and its checksum, if taken) in the
+        host tier and apply the pins of restore jobs queued while it was
+        spill-pending."""
+        self.host.put((g, h), planes, digest=digest)
         pins = sum(1 for (gi, _b), (_t, hh) in self._unrestored.items()
                    if gi == g and hh == h)
         for _ in range(pins):

@@ -1193,7 +1193,8 @@ def tiered_run(llama_sp):
     eng = Engine(cfg, sp, n_slots=2, capacity=128, forced_mode="fp8",
                  kv_planar=True, block_size=16, n_blocks=11,
                  chunk_tokens=64, debug_invariants=True)
-    seen = {"uploads": 0, "bytes_equal": True, "addresses_equal": True}
+    seen = {"uploads": 0, "bytes_equal": True, "addresses_equal": True,
+            "host_buffers": []}
 
     def addresses():
         out = {n: p.data_ptr() for n, p in eng.caches["attn"].items()}
@@ -1217,6 +1218,13 @@ def tiered_run(llama_sp):
         seen["uploads"] += 1
         return n
     eng._tier_upload = checked_upload
+    host_buffer = eng._host_buffer
+
+    def recorded_buffer(nbytes):
+        buf = host_buffer(nbytes)
+        seen["host_buffers"].append(buf.is_pinned())
+        return buf
+    eng._host_buffer = recorded_buffer
     rng = np.random.default_rng(0)
     sysp = [[int(t) for t in rng.integers(1, cfg.vocab_size, 96)]
             for _ in range(2)]
@@ -1237,13 +1245,28 @@ def test_restored_bytes_are_the_host_entries(dev, tiered_run):
     assert seen["uploads"] > 0 and seen["bytes_equal"]
 
 
-def test_host_entries_are_pinned(dev, tiered_run):
+def test_tier_transfers_use_pinned_host_buffers(dev, tiered_run):
+    """Every spill capture and restore upload moves its bytes through a
+    page-locked host buffer (one copy each way, `non_blocking`)."""
+    _eng, seen = tiered_run
+    assert seen["host_buffers"] and all(seen["host_buffers"])
+
+
+def test_host_entries_own_their_storage(dev, tiered_run):
+    """Each entry's planes view one host buffer of exactly the entry's
+    bytes, shared with no other entry and not the (pinned) staging
+    buffer: the host memory the tier holds is `host.bytes`."""
     eng, _ = tiered_run
-    entries = eng.blocks.host.entries
-    assert entries
-    for planes in entries.values():
-        for a in planes.values():
-            assert torch.from_numpy(a).is_pinned()
+    host = eng.blocks.host
+    owners = {}
+    for planes in host.entries.values():
+        bases = {id(a.base) for a in planes.values()}
+        assert len(bases) == 1
+        own = next(iter(planes.values())).base
+        assert isinstance(own, np.ndarray)
+        assert own.nbytes == host.entry_bytes(planes)
+        owners[id(own)] = own.nbytes
+    assert len(owners) == len(host) and sum(owners.values()) == host.bytes
 
 
 def test_restore_keeps_the_graphs_addresses(dev, tiered_run):

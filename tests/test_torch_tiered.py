@@ -205,6 +205,74 @@ def test_host_pool_cap_drops_oldest(qwen):
     assert _port_off(qwen, _abc(qwen))[1] == outs
 
 
+def test_spill_captures_settle_within_their_step(qwen):
+    """A flush right before a step's launch only enqueues its captures;
+    they are stored after the launch (overlapping the step on a card),
+    and none is left in flight when the step returns."""
+    e = _mk(qwen, "torch")
+    in_flight, run, step = [], e.graphs.run, e.step
+
+    def recorded_run(key):
+        in_flight.append(len(e._captures))
+        return run(key)
+
+    def checked_step():
+        step()
+        assert not e._captures
+    e.graphs.run, e.step = recorded_run, checked_step
+    out = _serve(e, "torch", qwen[0].vocab_size, _abc(qwen))
+    assert max(in_flight) > 0 and e.stats["spilled_blocks"] > 0
+    assert out == _port_off(qwen, _abc(qwen))[1]
+
+
+def test_threaded_checksums_are_the_jax_digests():
+    """`HostPool.checksums` (worker threads) gives each entry the JAX
+    package's blake2b digest, strided planes included."""
+    from repro.serving.kvcache import HostPool as JHost
+    from repro_torch.serving.kvcache import HostPool as THost
+    rng = np.random.default_rng(3)
+    entries = [{"k_hi": rng.integers(0, 256, (2, 16, 4, 64), np.uint8),
+                "v": rng.standard_normal((2, 16, 8, 64))
+                .astype(np.float16)[:, :, ::2]} for _ in range(5)]
+    want = [JHost.checksum(e) for e in entries]
+    assert THost.checksums(entries) == want
+    assert THost.checksums(entries[:1]) == want[:1]
+    assert [THost.checksum(e) for e in entries] == want
+
+
+def _owners(host):
+    """{id: bytes} of the host buffers the tier's entries view."""
+    return {id(o): o.nbytes
+            for planes in host.entries.values() for a in planes.values()
+            for o in [a if a.base is None else a.base]}
+
+
+def test_dropped_host_entries_free_their_memory(qwen):
+    """Each spilled entry owns exactly its bytes: the storages the live
+    entries view add up to `host.bytes` (no staging rows or dropped
+    neighbours kept alive), and an entry the cap drops leaves nothing
+    referenced, so its memory goes with it."""
+    import gc
+    import weakref
+    cap = _mk(qwen, "torch")._eager_block_bytes[0]
+    e = _mk(qwen, "torch", host_bytes=2 * cap)
+    host, refs = e.blocks.host, []
+    put = host.put
+
+    def recorded(key, planes, **kw):
+        refs.append([weakref.ref(a.base) for a in planes.values()])
+        put(key, planes, **kw)
+    host.put = recorded
+    _serve(e, "torch", qwen[0].vocab_size, _abc(qwen))
+    del host.put
+    gc.collect()
+    assert host.stats["dropped_blocks"] > 0 and len(host) > 0
+    assert sum(_owners(host).values()) == host.bytes
+    alive = [rs for rs in refs if any(r() is not None for r in rs)]
+    assert len(alive) == len(host)
+    assert all(r() is not None for rs in alive for r in rs)
+
+
 @pytest.mark.parametrize("slo,kw", [
     (dict(tpot_ms=10.0), dict(h2d_gbps=10.0, frac=0.5, queue_steps=4)),
     ({}, {}),
