@@ -77,7 +77,30 @@ Phases, in order; any failed check exits non-zero before the last line:
               repeated 32 times, 96 new tokens, FP16 off and on, as phase
               9; the window must slide (local blocks reclaimed)
 The kernels phase also holds K4, K5 and K6 at gemma3-1b's heads
-(D = 256), and K7 at gemma3-1b's seven GEMM shapes.
+(D = 256), and K7 at gemma3-1b's seven GEMM shapes; K4, K5 and K6 at
+deepseek-coder-33b's (56 q heads over 8 kv heads, G = 7), and K1, K2,
+K3 and K7 at qwen3-8b's and deepseek-coder-33b's seven GEMM shapes.
+The rest of the dense family runs in six more phases: the three of
+deepseek-coder-33b right after the kernels phase, while the card holds
+nothing else, the three of qwen3-8b last:
+  ds_slice    deepseek-coder-33b at full width, 2 layers (one planted
+              exception tensor), card against CPU as phase 3: paged
+              steps FP16 and FP8 (gated), FP8 at 1, 4 and 8 layers
+              (readings, not gated), the dense-slot prefill (K6 at G = 7)
+              and decode steps in f32 (gated)
+  ds_serve    all 62 layers through `Engine` as phase 4, the weights
+              streamed onto the card layer by layer (67.6 GB): free and
+              total bytes and the structural reckoning of the serving
+              tree before the load, the bytes it allocated held to the
+              reckoning, what two copies (FP16 + FP8) would take beside
+              the card's total; each key's graph pool growth; dual
+              mode's FP16 fraction and the controller's reasons
+  ds_dense    all 62 layers through the dense-slot steps as phase 5 (K6
+              at G = 7 in every layer); the 32k decode is reckoned, not
+              run (its caches would not fit beside the weights)
+  qwen3_slice, qwen3_serve, qwen3_dense  the same for qwen3-8b (36
+              layers, qk_norm): FP8 readings at 1 and 4 layers, and the
+              32k decode run as llama3.1-8b's
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 GPU is present or the port is missing.
@@ -86,6 +109,7 @@ GPU is present or the port is missing.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -292,6 +316,139 @@ def gemm_layer_sums(rows: dict) -> None:
             f"{k1['device_ms'] / k1['library_device_ms']:.3f})")
 
 
+# (K, N) of one layer's seven GEMMs, q k v o gate up down
+QWEN3_KN = [(4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
+            (4096, 12288), (4096, 12288), (12288, 4096)]
+DS_KN = [(7168, 7168), (7168, 1024), (7168, 1024), (7168, 7168),
+         (7168, 19200), (7168, 19200), (19200, 7168)]
+
+
+def family_gemm_phase(torch, rows: dict, model: str, kn) -> None:
+    """K1, K2, K3 and K7 at one model's seven GEMM shapes, M = 8 (a decode
+    step of 8 rows) and 256: each against its plain version on fresh
+    inputs, its device ms by CUDA-graph replay beside its library call's
+    (torch.matmul f16 for K1 and K3, torch._scaled_mm row-wise for K2 and
+    tensor-wise for K7), and its bound. Rows go to `rows` tagged with the
+    model (the kernels line counts llama3.1-8b's alone); then one layer's
+    sums a kernel."""
+    from repro_torch.core import nestedfp as nf
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.f16_matmul import f16_matmul
+    from repro_torch.kernels.nestedfp16_matmul import nestedfp16_matmul
+    from repro_torch.kernels.nestedfp8_matmul import nestedfp8_matmul
+    from repro_torch.kernels.nestedfp8_matmul_fused_quant import (
+        nestedfp8_matmul_fused_quant)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    names = ("nestedfp16_matmul", "nestedfp8_matmul", "f16_matmul",
+             "nestedfp8_matmul_fused_quant")
+    mine = []
+    for k, n in dict.fromkeys(kn):
+        n_sets = max(2, math.ceil(2 * L2_BYTES / (k * n)) + 1)
+        ws = [(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+               ).half() for _ in range(n_sets)]
+        planes = [nf.encode(w) for w in ws]
+        for m in (8, 256):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            x16, xb = x.half(), x.bfloat16()
+            xq, xs = quant.quantize_act_per_token(x)
+            amax = quant.absmax(xb).reshape(1)
+            tq, ts = quant.quantize_act_per_tensor(xb)
+            out_b = m * n * 4
+            cases = {
+                "nestedfp16_matmul": (
+                    lambda i: nestedfp16_matmul(x16, *planes[i]),
+                    lambda i: ref.nestedfp16_matmul_ref(x16, *planes[i]),
+                    lambda i: torch.matmul(x16, ws[i]),
+                    m * k * 2 + 2 * k * n + out_b, "f16"),
+                "nestedfp8_matmul": (
+                    lambda i: nestedfp8_matmul(xq, planes[i][0], xs),
+                    lambda i: ref.nestedfp8_matmul_ref(xq, planes[i][0], xs),
+                    scaled_mm_yardstick(torch, xq, xs, [p[0] for p in planes]),
+                    m * k + k * n + m * 4 + out_b, "fp8"),
+                "f16_matmul": (
+                    lambda i: f16_matmul(x16, ws[i]),
+                    lambda i: ref.matmul_f16_ref(x16, ws[i]),
+                    lambda i: torch.matmul(x16, ws[i]),
+                    m * k * 2 + 2 * k * n + out_b, "f16"),
+                "nestedfp8_matmul_fused_quant": (
+                    lambda i: nestedfp8_matmul_fused_quant(xb, planes[i][0],
+                                                           amax),
+                    lambda i: ref.nestedfp8_matmul_fused_quant_ref(
+                        xb, planes[i][0], amax),
+                    scaled_mm_yardstick(torch, tq, ts, [p[0] for p in planes]),
+                    m * k * 2 + k * n + 4 + out_b, "fp8"),
+            }
+            for name in names:
+                kern, plain, lib, nbytes, kind = cases[name]
+                err = max_err(torch, kern(0), plain(0), GEMM_RTOL, GEMM_ATOL)
+                b_ms, b_kind = bound(nbytes, 2.0 * m * k * n, kind)
+                row = {"model": model, "m": m, "k": k, "n": n,
+                       "max_abs_err": err, "bound_ms": b_ms,
+                       "bound_by": b_kind,
+                       "device_ms": graph_ms(torch, kern, n_sets),
+                       "library_device_ms": None if lib is None
+                       else graph_ms(torch, lib, n_sets)}
+                rows[name].append(row)
+                mine.append((name, row))
+                lib_d = row["library_device_ms"]
+                log(f"  {name:28s} {model} M={m:3d} K={k:5d} N={n:5d} "
+                    f"err={err:.2e} device={row['device_ms']:.4f} lib_device="
+                    f"{None if lib_d is None else round(lib_d, 4)} "
+                    f"bound={b_ms:.4f} ({b_kind})")
+            del x, x16, xb, xq, tq
+        del ws, planes
+    for m in (8, 256):
+        for name in names:
+            sel = [(r, kn.count((r["k"], r["n"]))) for nm, r in mine
+                   if nm == name and r["m"] == m]
+            dev_ms = sum(r["device_ms"] * w for r, w in sel)
+            lib = (None if any(r["library_device_ms"] is None for r, _ in sel)
+                   else sum(r["library_device_ms"] * w for r, w in sel))
+            b_ms = sum(r["bound_ms"] * w for r, w in sel)
+            log(f"  layer {model} M={m}: {name} device {dev_ms:.4f} ms, "
+                f"library {None if lib is None else round(lib, 4)}"
+                f"{'' if lib is None else f' (ratio {dev_ms / lib:.3f})'}, "
+                f"bound {b_ms:.4f} (share {b_ms / dev_ms:.3f})")
+
+
+def k6_baseline(torch, source: str):
+    """K6's C entry point built from another checkout's
+    `flash_prefill_attention.cu` (same nvcc flags), wrapped like
+    `flash_prefill_attention`, for a bitwise comparison of the two
+    builds."""
+    import ctypes
+    import hashlib
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_prefill_attention as k6
+    from repro_torch.kernels._common import stream_handle
+
+    src = Path(source)
+    lib = _build.BUILD_DIR / (
+        "k6_baseline-" + hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        + ".so")
+    if not lib.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                        str(lib), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).flash_prefill_attention
+    fn.argtypes, fn.restype = k6._ARGS, ctypes.c_int
+
+    def call(q, k, v):
+        b, s, h, d = q.shape
+        out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), k6._DTYPES[q.dtype], b, s, h,
+                        k.shape[2], d, float(d ** -0.5),
+                        stream_handle(q.device)), "K6 baseline")
+        return out
+    log(f"  K6 baseline built from {source}")
+    return call
+
+
 def scaled_mm_yardstick(torch, xq, xs, uppers):
     """torch._scaled_mm on the same e4m3 operands (weights copied to the
     column-major layout it requires, M padded to 16; bf16 output), with
@@ -385,14 +542,16 @@ def attention_phase(torch, iters: int, *, h=32, hkv=8, d=128, mb=16,
             flops = 4.0 * keys * (h // hkv) * hkv * d
             b_ms, b_kind = bound(nbytes, flops, "f32")
             lib = sdpa_yardstick(torch, F, q, pools, tables, lens, fp8, w)
-            row = {"d": d, "fp8": fp8, "window": window, "max_abs_err": err,
+            row = {"h": h, "hkv": hkv, "d": d, "fp8": fp8, "window": window,
+                   "max_abs_err": err,
                    "ms": time_ms(torch, kern, n_sets, iters),
                    "plain_ms": time_ms(torch, plain, n_sets, iters),
                    "library_ms": time_ms(torch, lib, n_sets, iters),
                    "bound_ms": b_ms, "bound_by": b_kind,
                    **device_times(torch, kern, lib, n_sets, b_ms)}
             rows.append(row)
-            log(f"  paged_planar_decode_attention D={d} fp8={fp8} "
+            log(f"  paged_planar_decode_attention H={h} Hkv={hkv} D={d} "
+                f"fp8={fp8} "
                 f"window={window} kept keys={keys} "
                 f"err={err:.2e} ms={row['ms']:.4f} plain={row['plain_ms']:.4f}"
                 f" lib={row['library_ms']:.4f} bound={b_ms:.5f} ({b_kind}) "
@@ -740,7 +899,8 @@ def dense_decode_phase(torch, iters: int, *, h=32, hkv=8, d=128,
             nbytes = (keys * hkv * d * 2 * (1 if fp8 else 2) + q.numel() * 4
                       + b * 4 + b * h * d * 4)
             b_ms, b_kind = bound(nbytes, 4.0 * keys * h * d, "f32")
-            row = {"d": d, "cap": cap, "fp8": fp8, "window": window,
+            row = {"h": h, "hkv": hkv, "d": d, "cap": cap, "fp8": fp8,
+                   "window": window,
                    "max_abs_err": err,
                    "ms": time_ms(torch, kern, n_sets, iters),
                    "plain_ms": time_ms(torch, plain, n_sets, iters),
@@ -748,7 +908,8 @@ def dense_decode_phase(torch, iters: int, *, h=32, hkv=8, d=128,
                    "bound_ms": b_ms, "bound_by": b_kind,
                    **device_times(torch, kern, lib, n_sets, b_ms)}
             rows.append(row)
-            log(f"  planar_decode_attention D={d} cap={cap} fp8={fp8} "
+            log(f"  planar_decode_attention H={h} Hkv={hkv} D={d} cap={cap} "
+                f"fp8={fp8} "
                 f"window={window} kept keys={keys} err={err:.2e} "
                 f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
                 f"lib={row['library_ms']:.4f} bound={b_ms:.5f} ({b_kind}) "
@@ -766,13 +927,22 @@ def dense_decode_phase(torch, iters: int, *, h=32, hkv=8, d=128,
 K6_CASES = (("bfloat16", 8, 1024, 32, 8, 128), ("bfloat16", 1, 8192, 32, 8, 128),
             ("bfloat16", 8, 1000, 32, 8, 128), ("float16", 8, 1024, 32, 8, 128),
             ("bfloat16", 8, 1024, 4, 1, 256), ("float16", 8, 1024, 4, 1, 256),
-            ("float32", 2, 65, 4, 1, 256))
+            ("float32", 2, 65, 4, 1, 256),
+            # deepseek-coder-33b's heads, 56 over 8 (G = 7: 9 positions a
+            # block, one dead row), at the dense prefill, and f32 at a
+            # ragged S (65 = 7 blocks of 9 positions + 2)
+            ("bfloat16", 8, 1024, 56, 8, 128),
+            ("float16", 8, 1024, 56, 8, 128),
+            ("float32", 2, 65, 56, 8, 128))
 
 
-def prefill_attention_phase(torch, iters: int) -> list[dict]:
+def prefill_attention_phase(torch, iters: int, baseline=None) -> list[dict]:
     """K6 at each of K6_CASES against its plain version, timed with its
     plain version and SDPA (causal, k and v expanded; yardstick only);
-    the D = 256 cases also by CUDA-graph replay (device ms)."""
+    the D = 256 and G = 7 cases also by CUDA-graph replay (device ms).
+    With `baseline` (a K6 library built from another checkout's source,
+    `k6_baseline`), every case whose G divides 64 must give that build's
+    output bitwise."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -804,6 +974,12 @@ def prefill_attention_phase(torch, iters: int) -> list[dict]:
             return F.scaled_dot_product_attention(*expanded[i], is_causal=True)
 
         err = max_err(torch, kern(0), plain(0), ATTN_TOL, ATTN_TOL)
+        same = None
+        if baseline is not None and 64 % (h // hkv) == 0:
+            same = all(bool(torch.equal(kern(i), baseline(*sets[i])))
+                       for i in range(n_sets))
+            check(same, f"K6 {dname} B={b} S={s} H={h} Hkv={hkv} D={d}: "
+                  f"output differs from the baseline build's")
         esz = sets[0][0].element_size()
         nbytes = esz * (b * s * h * d + 2 * b * s * hkv * d) + b * s * h * d * 4
         b_ms, b_kind = bound(nbytes, 4.0 * b * h * s * s * d / 2,
@@ -813,18 +989,20 @@ def prefill_attention_phase(torch, iters: int) -> list[dict]:
                "ms": time_ms(torch, kern, n_sets, iters),
                "plain_ms": time_ms(torch, plain, n_sets, iters),
                "library_ms": time_ms(torch, lib, n_sets, iters),
-               "bound_ms": b_ms, "bound_by": b_kind}
-        if d == 256:
+               "bound_ms": b_ms, "bound_by": b_kind, "bitwise_baseline": same}
+        timed = d == 256 or 64 % (h // hkv)
+        if timed:
             row.update(device_times(torch, kern, lib, n_sets, b_ms))
         rows.append(row)
-        extra = "" if d != 256 else (
+        extra = "" if not timed else (
             f" device={row['device_ms']:.4f} lib_device="
             f"{row['library_device_ms']:.4f} "
             f"({row['bound_share']:.3f} of bound)")
         log(f"  flash_prefill_attention {dname} B={b} S={s} H={h} Hkv={hkv} "
             f"D={d} err={err:.2e} ms={row['ms']:.4f} "
             f"plain={row['plain_ms']:.4f} lib={row['library_ms']:.4f} "
-            f"bound={b_ms:.4f} ({b_kind}){extra}")
+            f"bound={b_ms:.4f} ({b_kind}){extra}"
+            + ("" if same is None else "; bitwise the baseline build's"))
         del sets, expanded
     return rows
 
@@ -889,28 +1067,23 @@ def summarize(rows: list[dict], weight) -> dict:
 # ---------------------------------------------------------------------------
 
 def make_serving_params(torch, cfg, seed, device, plant_layer):
-    """Random llama params from a seeded generator on `device`, nested
-    layer by layer (keeps the f32 originals of one layer at a time), with
-    one exception tensor planted: wo[0, 0] = 2.0 in layer `plant_layer`."""
+    """Random params from a seeded generator on `device`, streamed layer
+    by layer (`model.init_serving_params`: the device holds the f32
+    weights of one layer at a time), with one exception tensor planted:
+    wo[0, 0] = 2.0 in layer `plant_layer`."""
     from repro_torch.models import model as M
-    from repro_torch.models.convert import to_serving
-    params = M.init_params(cfg, seed=seed, device=device)
-    params["layers"][plant_layer]["attn"]["wo"]["w"][0, 0] = 2.0
-    for i, layer in enumerate(params["layers"]):
-        params["layers"][i] = to_serving(layer, path="layers")
-    sp = to_serving(params)
+
+    def plant(i, layer):
+        if i == plant_layer:
+            layer["attn"]["wo"]["w"][0, 0] = 2.0
+    sp = M.init_serving_params(cfg, seed=seed, device=device, plant=plant)
     check(sp["layers"][plant_layer]["attn"]["wo"].weight.is_exception,
           "planted exception tensor was nested")
     return sp
 
 
 def slice_phase(torch, cfg) -> dict:
-    import dataclasses
-
-    from repro_torch.kernels import ops
-    from repro_torch.models import model as M
     from repro_torch.models.convert import params_to
-    from repro_torch.models.layers import Runtime
 
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     t0 = time.time()
@@ -918,46 +1091,103 @@ def slice_phase(torch, cfg) -> dict:
     sp_gpu = params_to(sp_cpu, "cuda")
     log(f"  2-layer full-width params made on the CPU in "
         f"{time.time() - t0:.1f} s")
-    bs, mb = 16, 4
+    params = {"cpu": sp_cpu, "cuda": sp_gpu}
+    out = {mode: paged_slice(torch, cfg2, params, mode)
+           for mode in ("fp16", "fp8")}
+    out["dense"] = dense_slice(torch, cfg2, params)
+    return out
+
+
+def paged_slice(torch, cfg, params, mode, *, n_layers=None, gated=True,
+                label="slice", n_steps=5) -> dict:
+    """`paged_step` on the first n_layers layers of `params` ({"cpu": ...,
+    "cuda": ...}), card against CPU, planar KV: a prefill of 2 prompts
+    (32 and 20 tokens) and n_steps - 1 decode steps (K4), teacher-forced
+    by the CPU's greedy tokens; logits held to SLICE_TOL[mode] when
+    `gated`, printed as a reading otherwise."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Runtime
+
+    n_layers = n_layers or cfg.n_layers
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    prm = {d: {**params[d], "layers": params[d]["layers"][:n_layers]}
+           for d in params}
+    bs = 16
     tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
     rng = torch.Generator().manual_seed(3)
     plens = [32, 20]
     prompt = torch.randint(1, cfg.vocab_size, (2, 32), generator=rng,
                            dtype=torch.int32)
     prompt[1, plens[1]:] = 0
-    out = {}
-    for mode in ("fp16", "fp8"):
-        rt = Runtime(mode=mode, dtype=torch.float32, act_quant="per_token")
-        caches = {dev: M.init_paged_cache(cfg2, 9, bs, planar=True, device=dev)
-                  for dev in ("cpu", "cuda")}
-        params = {"cpu": sp_cpu, "cuda": sp_gpu}
+    rt = Runtime(mode=mode, dtype=torch.float32, act_quant="per_token")
+    caches = {dev: M.init_paged_cache(cut, 9, bs, planar=True, device=dev)
+              for dev in ("cpu", "cuda")}
 
-        def step(dev, toks, qo, kvl, lp=None):
-            return M.paged_step(
-                rt, params[dev], cfg2, toks.to(dev), caches[dev],
-                tables.to(dev), q_offset=qo.to(dev), kv_len=kvl.to(dev),
-                block_size=bs, return_logits=True,
-                logit_position=None if lp is None else lp.to(dev))
+    def step(dev, toks, qo, kvl, lp=None):
+        return M.paged_step(
+            rt, prm[dev], cut, toks.to(dev), caches[dev],
+            tables.to(dev), q_offset=qo.to(dev), kv_len=kvl.to(dev),
+            block_size=bs, return_logits=True,
+            logit_position=None if lp is None else lp.to(dev))
 
-        lens = torch.tensor(plens, dtype=torch.int32)
-        args = (prompt, torch.zeros(2, dtype=torch.int32), lens,
-                lens - 1)
-        cmp = LogitCheck(torch, mode, SLICE_TOL[mode])
-        for s in range(5):
-            before = ops.all_launch_counters()
-            want = step("cpu", *args)
-            got = step("cuda", *args)
-            after = ops.all_launch_counters()
-            cmp.add(got, want, f"paged step {s}")
-            if s > 0:   # decode steps go through K4
-                check(after["paged_planar_decode_attention"]
-                      > before["paged_planar_decode_attention"],
-                      "decode step did not launch K4")
-            nxt = want.argmax(-1).to(torch.int32)[:, None]  # teacher forcing
-            args = (nxt, lens.clone(), lens + 1)
-            lens = lens + 1
-        out[mode] = cmp.done("slice")
-    out["dense"] = dense_slice(torch, cfg2, {"cpu": sp_cpu, "cuda": sp_gpu})
+    lens = torch.tensor(plens, dtype=torch.int32)
+    args = (prompt, torch.zeros(2, dtype=torch.int32), lens, lens - 1)
+    cmp = LogitCheck(torch, mode, SLICE_TOL[mode], gated)
+    t0 = time.time()
+    for s in range(n_steps):
+        before = ops.all_launch_counters()
+        want = step("cpu", *args)
+        got = step("cuda", *args)
+        after = ops.all_launch_counters()
+        cmp.add(got, want, f"paged step {s}")
+        if s > 0:   # decode steps go through K4
+            check(after["paged_planar_decode_attention"]
+                  > before["paged_planar_decode_attention"],
+                  "decode step did not launch K4")
+        nxt = want.argmax(-1).to(torch.int32)[:, None]  # teacher forcing
+        args = (nxt, lens.clone(), lens + 1)
+        lens = lens + 1
+    res = cmp.done(f"{label} {n_layers} layers")
+    res["seconds"] = time.time() - t0
+    return res
+
+
+def family_slice_phase(torch, cfg, label: str, readings=()) -> dict:
+    """A cut of qwen3-8b or deepseek-coder-33b at full width, card against
+    the CPU plain versions, layer 1's wo an exception tensor: the paged
+    step at 2 layers in FP16 and FP8 (gated at SLICE_TOL), FP8 at each
+    layer count of `readings` (a prefill and 2 decode steps, printed, not
+    gated: ROADMAP F-port-7), and the dense-slot prefill (K6 at the
+    model's G) and decode steps at 2 layers in f32 (gated). The weights
+    are streamed onto the card (K8 nests them there) and copied to the
+    CPU, whose plain GEMMs take one weight at a time (and sum in f64,
+    F-port-5). The CPU's plain versions take most of the phase's time."""
+    from repro_torch.models.convert import params_to
+
+    n = max((2, *readings))
+    t0 = time.time()
+    sp_gpu = make_serving_params(torch, dataclasses.replace(cfg, n_layers=n),
+                                 0, "cuda", plant_layer=1)
+    sp_cpu = params_to(sp_gpu, "cpu")
+    log(f"  {n}-layer full-width params on the card and copied to the CPU "
+        f"in {time.time() - t0:.1f} s")
+    params = {"cpu": sp_cpu, "cuda": sp_gpu}
+    out = {mode: paged_slice(torch, cfg, params, mode, n_layers=2,
+                             label=label)
+           for mode in ("fp16", "fp8")}
+    for n_l in readings:
+        out[f"fp8_{n_l}l"] = paged_slice(torch, cfg, params, "fp8",
+                                         n_layers=n_l, gated=False,
+                                         label=label, n_steps=3)
+    t0 = time.time()
+    out["dense"] = dense_slice(
+        torch, dataclasses.replace(cfg, n_layers=2), params,
+        runs=[("fp16", "f32", 2, True), ("fp8", "f32", 2, True)],
+        label=f"{label} dense")
+    out["dense"]["seconds"] = time.time() - t0
+    del params, sp_gpu, sp_cpu
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1010,8 +1240,6 @@ def dense_slice(torch, cfg, params, *, s=48, cap=56, runs=None,
     outputs) at BF16_TOL, on the first n_layers layers of `params`; a run
     that is not gated is printed only. Default: fp16 and fp8, f32 and
     bf16, all layers, gated."""
-    import dataclasses
-
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models import model as M
@@ -1077,7 +1305,8 @@ SLICE_TOL = {"fp16": 1e-2, "fp8": 0.25}
 BF16_TOL = {"fp16": 0.1, "fp8": 0.5}
 
 
-def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True) -> dict:
+def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
+                label: str = "serve", memory: bool = False) -> dict:
     """The paged engine at full width and depth, forced FP16, forced FP8
     and dual. Each engine first serves 8 other prompts of the same
     shapes (the warm pass: it captures every step key and holds each
@@ -1086,28 +1315,50 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True) -> dict:
     its graphs. `host_tier` is the engine's `host_offload` (on by
     default, as in the engine): the timed run spills the warm pass's
     evicted prefix blocks, and its host seconds in captures and
-    checksums are logged."""
-    import dataclasses
-
+    checksums are logged. Each key's capture logs what it added to the
+    graphs' pool, and dual mode the controller's reasons for FP8. With
+    `memory`, the load is reckoned first (`memory_reckoning`) and the
+    bytes it allocates are held to the reckoning."""
     from repro_torch.core.policy import DualPrecisionController, SLOConfig
     from repro_torch.kernels import ops
     from repro_torch.models.convert import serving_memory_bytes
     from repro_torch.serving.engine import Engine, Request
 
     cfgn = dataclasses.replace(cfg, n_layers=n_layers)
+    results = {}
+    if memory:
+        results["memory"] = memory_reckoning(torch, cfgn, label)
     torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated()
+    req0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
     t0 = time.time()
     sp = make_serving_params(torch, cfgn, 0, "cuda", plant_layer=0)
     torch.cuda.synchronize()
+    load_s = time.time() - t0
     mem = serving_memory_bytes(sp)
-    log(f"  {n_layers}-layer params on the card in {time.time() - t0:.1f} s: "
+    log(f"  {label}: {n_layers}-layer params on the card in {load_s:.1f} s: "
         f"{mem['nested_bytes'] / 1e9:.2f} GB nested, "
         f"{mem['other_bytes'] / 1e9:.2f} GB other")
+    if memory:
+        # the bytes the load's tensors asked for, and the allocator's
+        # blocks that hold them (a cached block is handed out whole when
+        # what would be left of it is 1 MiB or less)
+        got = torch.cuda.memory_stats()["requested_bytes.all.current"] - req0
+        blocks = torch.cuda.memory_allocated() - alloc0
+        want = results["memory"]["structural_total_bytes"]
+        results["memory"].update(
+            load_s=load_s, requested_by_load=got, allocated_by_load=blocks,
+            load_peak_bytes=torch.cuda.max_memory_allocated())
+        log(f"  {label}: the load's tensors took {got} B against the "
+            f"structural {want} B (allocator blocks {blocks} B, "
+            f"{blocks / 1e9:.3f} GB); peak during the load "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        check(abs(got - want) <= 2**20,
+              f"{label}: the load took {got} B for a reckoned {want} B")
     rng = torch.Generator().manual_seed(7)
     prompts = [torch.randint(1, cfg.vocab_size, (128,), generator=rng).tolist()
                for _ in range(24)]
     warm, prompts = [prompts[8:16], prompts[16:]], prompts[:8]
-    results = {}
     ops.reset_launch_counters()          # the main path's run starts here
     for policy in ("fp16", "fp8", "dual"):
         ctrl = None
@@ -1121,6 +1372,8 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True) -> dict:
                      forced_mode=None if policy == "dual" else policy,
                      host_offload=host_tier, device="cuda")
         host_s = host_tier_timers(eng)
+        grown = record_captures(eng)
+        reasons = record_reasons(ctrl) if ctrl else {}
         # warm pass: 8 other prompts of the same shapes (in dual mode one
         # set forced to each mode), so that the timed run finds every key
         # captured; each key's first replay is held against an eager call
@@ -1130,7 +1383,7 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True) -> dict:
             eng.forced_mode = mode
             for i, p in enumerate(warm[w]):
                 eng.submit(Request(f"w{w}.{i}", list(p), max_new=32))
-            n_checked += serve_checked(eng, policy)
+            n_checked += serve_checked(eng, policy, label)
         eng.forced_mode = None if ctrl else policy
         torch.cuda.synchronize()
         warm_s = time.monotonic() - t0
@@ -1138,6 +1391,9 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True) -> dict:
               f"{policy}: {n_checked} keys checked of "
               f"{len(eng.graphs.keys())}")
         n_graphs = eng.graphs.n_captured
+        log(f"  {label} {policy}: pool bytes each key's capture added: "
+            f"{ {str(k): v for k, v in grown.items()} }")
+        reasons.clear()                  # the timed run's decisions only
         stats0, n_warm = dict(eng.stats), len(eng.finished)
         host0 = dict(host_s)
         for i, p in enumerate(prompts):
@@ -1189,7 +1445,7 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True) -> dict:
                "stats": {k: v - stats0[k] if isinstance(v, int) else v
                          for k, v in eng.stats.items()},
                "host_tier_s": {k: v - host0[k] for k, v in host_s.items()}}
-        log(f"  serve {policy}: {n_tok} tokens in {wall:.3f} s "
+        log(f"  {label} {policy}: {n_tok} tokens in {wall:.3f} s "
             f"({res['tokens_per_s']:.1f} tok/s), {len(step_ms)} steps, "
             f"step ms mean {res['step_ms_mean']:.2f} median "
             f"{res['step_ms_median']:.2f}, decode-only step ms median "
@@ -1201,11 +1457,17 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True) -> dict:
             f"{res['fp16_fraction']:.2f}; {n_graphs} graphs, pool "
             f"{res['graph_pool_bytes'] / 2**20:.1f} MiB, warm pass "
             f"{warm_s:.2f} s; launches {launches}")
-        log(f"  serve {policy}: host tier {'on' if host_tier else 'off'}, "
+        log(f"  {label} {policy}: host tier {'on' if host_tier else 'off'}, "
             f"{res['stats']['spilled_blocks']} blocks spilled in the timed "
             f"run, host s in captures {res['host_tier_s']['capture_s']:.4f}"
             f" (checksums {res['host_tier_s']['checksum_s']:.4f})")
         res["replays_bitwise"] = n_checked
+        res["capture_pool_growth"] = {str(k): v for k, v in grown.items()}
+        if ctrl:
+            res["controller_reasons"] = dict(reasons)
+            log(f"  {label} dual: controller decisions in the timed run by "
+                f"reason {dict(reasons)} (cost model 0.5 / 0.25 ms a "
+                f"token; fp16 fraction {res['fp16_fraction']:.2f})")
         pool = tuple(eng.graphs._pool)
         unwrap(eng)
         del eng
@@ -1215,7 +1477,7 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True) -> dict:
         check(not [s for s in torch.cuda.memory_snapshot()
                    if tuple(s.get("segment_pool_id", ())) == pool],
               f"{policy}: the graphs' pool outlived its engine")
-        log(f"  serve {policy}: engine freed, {left / 2**20:.1f} MiB left "
+        log(f"  {label} {policy}: engine freed, {left / 2**20:.1f} MiB left "
             f"allocated against before it (the capture stream's cuBLAS "
             f"workspace stays after the first engine)")
         check(left <= 128 * 2**20, f"{policy}: {left} bytes outlived the engine")
@@ -1352,7 +1614,7 @@ def profile_summary(label, wall_ms, step_ms, by_name) -> dict:
 
 
 def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
-                n_dec: int = 32) -> dict:
+                n_dec: int = 32, long_ctx: bool = True) -> dict:
     """The dense-slot serving steps at full width and depth: weights
     nested on the card (K8), 8 x 1024-token prefill (K6 on every global
     layer, K1 / K7, K3), planarize at capacity 1056, then the decode step
@@ -1377,7 +1639,7 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
     mem = serving_memory_bytes(sp)
     nested = sum(not p.weight.is_exception for layer in sp["layers"]
                  for p in _linears(layer, NestedLinearParams))
-    log(f"  {cfg.n_layers}-layer params nested on the card in "
+    log(f"  {label}: {cfg.n_layers}-layer params nested on the card in "
         f"{time.time() - t0:.1f} s: {mem['nested_bytes'] / 1e9:.2f} GB "
         f"nested, {mem['other_bytes'] / 1e9:.2f} GB other; {nested} "
         f"applicable tensors")
@@ -1522,8 +1784,54 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
         res[f"profile_decode_{mode}"] = prof
         del decode, caches
     torch.cuda.empty_cache()
-    res["long_decode"] = long_decode(torch, cfg, sp, label)
+    if long_ctx:
+        res["long_decode"] = long_decode(torch, cfg, sp, label)
+    else:
+        # what the 32k decode's caches would need beside the weights
+        kv_token = (2 * cfg.n_layers * cfg.n_kv_heads
+                    * cfg.resolved_head_dim * 2)
+        kv_bytes = 8 * 32768 * kv_token
+        weights = serving_memory_bytes(sp)["total_bytes"]
+        free, total = torch.cuda.mem_get_info()
+        res["long_decode"] = {"run": False, "kv_bytes_per_token": kv_token,
+                              "kv_bytes": kv_bytes, "weight_bytes": weights,
+                              "card_total_bytes": total}
+        log(f"  {label} long decode not run: 8 rows x 32768 tokens x "
+            f"{kv_token} B = {kv_bytes / 1e9:.1f} GB of KV beside "
+            f"{weights / 1e9:.1f} GB of weights on a card of "
+            f"{total / 1e9:.1f} GB")
     return res
+
+
+def memory_reckoning(torch, cfg, label: str) -> dict:
+    """Before a load: the card's free and total bytes, the serving tree's
+    bytes reckoned on meta tensors (`to_serving(structural=True)`, nothing
+    allocated), and what two copies would take instead (an FP16 copy and a
+    separate FP8 copy of every linear weight, 3 bytes a weight, beside the
+    same embedding and head). Fails loudly where the tree does not fit
+    the free bytes: no phase runs fewer layers in its place."""
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import serving_memory_bytes, to_serving
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    mem = serving_memory_bytes(to_serving(M.init_params(cfg, device="meta"),
+                                          structural=True))
+    two = mem["nested_bytes"] * 3 // 2 + mem["other_bytes"]
+    log(f"  {label}: card {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB "
+        f"(mem_get_info) before the load; {torch.cuda.memory_allocated()} B "
+        f"allocated; structural reckoning of the serving tree "
+        f"{mem['total_bytes']} B ({mem['nested_bytes'] / 1e9:.2f} GB nested "
+        f"+ {mem['other_bytes'] / 1e9:.2f} GB embedding, head and norms); "
+        f"two copies (FP16 + FP8) would take {two / 1e9:.2f} GB against the "
+        f"card's {total / 1e9:.2f} GB")
+    check(mem["total_bytes"] < free,
+          f"{label}: {mem['total_bytes']} B of weights do not fit the "
+          f"{free} B free")
+    return {"free_bytes_before": free, "card_total_bytes": total,
+            "structural_nested_bytes": mem["nested_bytes"],
+            "structural_total_bytes": mem["total_bytes"],
+            "two_copy_bytes": two}
 
 
 def long_decode(torch, cfg, sp, label: str, n_steps: int = 5,
@@ -1629,6 +1937,23 @@ def long_decode(torch, cfg, sp, label: str, n_steps: int = 5,
 # phases 6 and 7: sliding-window serving, gemma3-1b
 # ---------------------------------------------------------------------------
 
+# K4 and K5 at deepseek-coder-33b's heads (56 q heads over 8 kv heads,
+# G = 7: one group of 7 rows a kv head in their split kernels), D = 128,
+# FP16 and FP8: K4 at the llama lens (<= 256), K5 at the dense capacity
+DS_K4 = dict(h=56, hkv=8, d=128, windows=(None,))
+DS_K5 = dict(h=56, hkv=8, d=128, cases=(
+    (1056, [1056, 1040, 17, 1, 700, 1056, 333, 1024], (None,)),))
+
+
+def timed_phase(run) -> dict:
+    """run() -> its result dict, with the phase's seconds added (logged)."""
+    t0 = time.time()
+    res = run()
+    res["seconds"] = time.time() - t0
+    log(f"  phase took {res['seconds']:.1f} s")
+    return res
+
+
 # K4 and K5 at gemma3-1b's heads (4 q heads, 1 kv head, D = 256), windows
 # 0 (global) and 512 (a local layer): K4 over blocks of 16 keys at lens
 # <= 1088 (the serve phase's capacity), K5 at lens <= 4096
@@ -1647,8 +1972,6 @@ def gemma_slice_phase(torch, cfg) -> dict:
     256, then 4 decode steps (K4) run past them, so the local layers'
     window of 512 cuts keys; the local table's blocks wholly before the
     window point at the trash block, as the engine's slides leave them."""
-    import dataclasses
-
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.models.convert import params_to
@@ -2043,6 +2366,32 @@ def record_captures(eng) -> dict:
         grown[st.key] = g.pool_bytes() - before
     g._capture = recorded
     return grown
+
+
+def record_reasons(ctrl) -> dict:
+    """Wrap a DualPrecisionController's `decide` to count its decisions by
+    reason: each FP8 decision by the overload tests that held (the cost
+    model's prediction over budget, the measured FP16 p90 over budget, a
+    KV pool below its free-block floor), and FP16 and FP8 dwell steps.
+    The controller decides as before."""
+    counts: dict[str, int] = {}
+    decide = ctrl.decide
+
+    def recorded(obs):
+        mode = decide(obs)
+        budget = ctrl.slo.tpot_ms * ctrl.slo.headroom
+        why = [name for name, hit in (
+            ("predicted", ctrl.predict_step_ms(
+                obs.batch_tokens + obs.prefill_tokens, "fp16") > budget),
+            ("measured", (ctrl._p90("fp16") or 0.0) > budget),
+            ("kv_pool", obs.free_block_frac is not None
+             and obs.free_block_frac < ctrl.slo.free_block_frac_min)) if hit]
+        key = f"{mode}: " + ("+".join(why) if why and mode == "fp8" else
+                             "dwell" if mode == "fp8" else "within budget")
+        counts[key] = counts.get(key, 0) + 1
+        return mode
+    ctrl.decide = recorded
+    return counts
 
 
 def serve_burst(torch, eng, reqs, label) -> dict:
@@ -2502,22 +2851,23 @@ SOURCES = {
 # which measured calls make up each kernel's numbers in the kernels line
 LINE_WEIGHTS = {
     # the seven GEMMs of one layer in one decode step (M = 8)
-    **{name: (lambda r: LLAMA_KN.count((r["k"], r["n"])) if r["m"] == 8
-              else 0)
+    **{name: (lambda r: LLAMA_KN.count((r["k"], r["n"]))
+              if r["m"] == 8 and "model" not in r else 0)
        for name in ("nestedfp16_matmul", "nestedfp8_matmul", "f16_matmul",
                     "nestedfp8_matmul_fused_quant")},
     # one fp16-mode paged decode call of one llama layer
     "paged_planar_decode_attention": (
-        lambda r: int(r["d"] == 128 and not r["fp8"] and r["window"] is None)),
+        lambda r: int(r["h"] == 32 and r["d"] == 128 and not r["fp8"]
+                      and r["window"] is None)),
     # one fp16-mode dense decode call of one llama layer at the dense
     # capacity
     "planar_decode_attention": (
-        lambda r: int(r["d"] == 128 and not r["fp8"] and r["cap"] == 1056
-                      and r["window"] is None)),
+        lambda r: int(r["h"] == 32 and r["d"] == 128 and not r["fp8"]
+                      and r["cap"] == 1056 and r["window"] is None)),
     # one llama layer's bf16 prefill attention of 8 x 1024 tokens
     "flash_prefill_attention": (
-        lambda r: int((r["dtype"], r["b"], r["s"], r["d"])
-                      == ("bfloat16", 8, 1024, 128))),
+        lambda r: int((r["dtype"], r["b"], r["s"], r["h"], r["d"])
+                      == ("bfloat16", 8, 1024, 32, 128))),
     # one 4096 x 14336 weight
     "nestedfp_encode": lambda r: 1,
     # the seven quantizations of one layer in one fp8 decode step (M = 8,
@@ -2591,14 +2941,20 @@ def k7_sass_ops(_build) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="card,kernels,slice,serve,dense,gemma_slice,"
-                            "gemma_serve,gemma_dense,spec,tiered,gemma_spec")
+                    default="card,kernels,ds_slice,ds_serve,ds_dense,slice,"
+                            "serve,dense,gemma_slice,gemma_serve,gemma_dense,"
+                            "spec,tiered,gemma_spec,qwen3_slice,qwen3_serve,"
+                            "qwen3_dense")
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--serve-layers", type=int, default=32)
     ap.add_argument("--host-tier", choices=("on", "off"), default="on",
                     help="host_offload of the serve and gemma_serve "
                          "phases' engines (the engine's default is on)")
+    ap.add_argument("--k6-baseline", default="",
+                    help="another checkout's csrc/flash_prefill_attention.cu:"
+                         " the kernels phase builds it too and holds K6 "
+                         "bitwise to it at every case whose G divides 64")
     ap.add_argument("--out", default="",
                     help="also write the full results as JSON to this file")
     args = ap.parse_args()
@@ -2657,15 +3013,43 @@ def main() -> int:
             torch, args.iters, **GEMMA_K4)
         rows["planar_decode_attention"] += dense_decode_phase(
             torch, args.iters, **GEMMA_K5)
+        log("== K4 and K5 at deepseek-coder-33b's heads (56 / 8, G = 7)")
+        rows["paged_planar_decode_attention"] += attention_phase(
+            torch, args.iters, **DS_K4)
+        rows["planar_decode_attention"] += dense_decode_phase(
+            torch, args.iters, **DS_K5)
         rows["flash_prefill_attention"] = prefill_attention_phase(
-            torch, args.iters)
+            torch, args.iters, baseline=k6_baseline(torch, args.k6_baseline)
+            if args.k6_baseline else None)
         rows["nestedfp8_matmul_fused_quant"] = fused_quant_phase(
             torch, args.iters)
         log("== K7 at gemma3-1b's seven GEMM shapes")
         rows["nestedfp8_matmul_fused_quant"] += fused_quant_gemma(torch)
+        for model, kn in (("qwen3-8b", QWEN3_KN),
+                          ("deepseek-coder-33b", DS_KN)):
+            log(f"== K1, K2, K3 and K7 at {model}'s seven GEMM shapes")
+            family_gemm_phase(torch, rows, model, kn)
         rows["nestedfp_encode"] = encode_phase(torch, args.iters)
         rows["quant_per_token"] = quant_phase(torch, args.iters)
         results["kernel_rows"] = rows
+    ds = get_arch("deepseek-coder-33b")
+    if "ds_slice" in phases:
+        log("== ds slice: deepseek-coder-33b at full width, 2 layers (FP8 "
+            "readings at 1, 4 and 8), card vs CPU plain versions")
+        results["ds_slice"] = timed_phase(
+            lambda: family_slice_phase(torch, ds, "ds slice", (1, 4, 8)))
+    if "ds_serve" in phases:
+        log(f"== ds serve: deepseek-coder-33b, {ds.n_layers} layers")
+        results["ds_serve"] = timed_phase(lambda: serve_phase(
+            torch, ds, ds.n_layers, args.host_tier == "on", label="ds serve",
+            memory=True))
+    if "ds_dense" in phases:
+        log(f"== ds dense: deepseek-coder-33b, {ds.n_layers} layers, "
+            f"dense-slot prefill and decode steps")
+        mem = memory_reckoning(torch, ds, "ds dense")
+        results["ds_dense"] = timed_phase(lambda: dense_phase(
+            torch, ds, "ds dense", long_ctx=False))
+        results["ds_dense"]["memory"] = mem
     cfg = get_arch("llama3.1-8b")
     if "slice" in phases:
         log("== slice: 2-layer llama3.1-8b, card vs CPU plain versions")
@@ -2714,6 +3098,22 @@ def main() -> int:
         results["gemma_spec"] = gemma_spec_phase(torch, gemma)
         results["gemma_spec"]["seconds"] = time.time() - t0
         log(f"  gemma_spec phase: {results['gemma_spec']['seconds']:.1f} s")
+    qwen3 = get_arch("qwen3-8b")
+    if "qwen3_slice" in phases:
+        log("== qwen3 slice: qwen3-8b at full width, 2 layers (FP8 "
+            "readings at 1 and 4), card vs CPU plain versions")
+        results["qwen3_slice"] = timed_phase(
+            lambda: family_slice_phase(torch, qwen3, "qwen3 slice", (1, 4)))
+    if "qwen3_serve" in phases:
+        log(f"== qwen3 serve: qwen3-8b, {qwen3.n_layers} layers")
+        results["qwen3_serve"] = timed_phase(lambda: serve_phase(
+            torch, qwen3, qwen3.n_layers, args.host_tier == "on",
+            label="qwen3 serve"))
+    if "qwen3_dense" in phases:
+        log(f"== qwen3 dense: qwen3-8b, {qwen3.n_layers} layers, dense-slot "
+            f"prefill and decode steps")
+        results["qwen3_dense"] = timed_phase(lambda: dense_phase(
+            torch, qwen3, "qwen3 dense"))
     results["total_s"] = time.time() - t_start
     log(f"== done in {results['total_s']:.1f} s")
     if args.out:
@@ -2723,11 +3123,13 @@ def main() -> int:
     if rows:
         # launches over the main paths' runs: the paged serve, the
         # dense-slot steps, the sliding-window serve, gemma3-1b's
-        # dense-slot steps, speculation (llama3.1-8b, gemma3-1b) and the
-        # tiered KV cache, each counted from 0 at its start
+        # dense-slot steps, speculation (llama3.1-8b, gemma3-1b), the
+        # tiered KV cache, and deepseek-coder-33b's and qwen3-8b's serve
+        # and dense-slot steps, each counted from 0 at its start
         paths = [results.get(p, {}).get("launches_total", {})
                  for p in ("serve", "dense", "gemma_serve", "gemma_dense",
-                           "spec", "gemma_spec", "tiered")]
+                           "spec", "gemma_spec", "tiered", "ds_serve",
+                           "ds_dense", "qwen3_serve", "qwen3_dense")]
         kernels = []
         for name, (src, replaces) in SOURCES.items():
             kernels.append({"name": name, "route": "cuda", "source": src,

@@ -1,9 +1,11 @@
 """Config registry of the port: --arch <id> resolution (dense archs)."""
-from repro_torch.configs import gemma3_1b, llama31_8b, qwen15_0p5b
+from repro_torch.configs import (deepseek_coder_33b, gemma3_1b, llama31_8b,
+                                 qwen3_8b, qwen15_0p5b)
 from repro_torch.configs.base import ArchConfig
 
 ARCHS: dict[str, ArchConfig] = {
-    m.CONFIG.arch_id: m.CONFIG for m in (qwen15_0p5b, llama31_8b, gemma3_1b)
+    m.CONFIG.arch_id: m.CONFIG for m in (qwen15_0p5b, llama31_8b, gemma3_1b,
+                                         qwen3_8b, deepseek_coder_33b)
 }
 
 

@@ -75,3 +75,30 @@ def nested_linear(params: NestedLinearParams, x: torch.Tensor, *,
     if params.bias is not None:
         y = y + params.bias
     return y.to(out_dtype)
+
+
+def keystr(path: tuple) -> str:
+    """A tree path as the JAX package's `jax.tree_util.keystr` writes it:
+    ['key'] for a dict key, [i] for a list index."""
+    return "".join(f"[{k!r}]" if isinstance(k, str) else f"[{k}]"
+                   for k in path)
+
+
+def nest_weight_tree(params, path_filter=None, _path: tuple = ()):
+    """Convert every 2-D (or higher) f16/f32 weight leaf of a tree of
+    dicts and lists into a NestedTensor (an exception tensor where any
+    |w| > 1.75), as the JAX package's `nest_weight_tree` does to a
+    pytree. `path_filter(path) -> bool`, called with the leaf's path in
+    `keystr` form (e.g. "['layers'][0]['attn']['wq']['w']"), limits the
+    conversion (e.g. to exclude embeddings)."""
+    if isinstance(params, dict):
+        return {k: nest_weight_tree(v, path_filter, _path + (k,))
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(nest_weight_tree(v, path_filter, _path + (i,))
+                            for i, v in enumerate(params))
+    is_mat = (isinstance(params, torch.Tensor) and params.dim() >= 2
+              and params.dtype in (torch.float16, torch.float32))
+    if is_mat and (path_filter is None or path_filter(keystr(_path))):
+        return nf.NestedTensor.from_f16(params)
+    return params

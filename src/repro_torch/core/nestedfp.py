@@ -71,12 +71,17 @@ def encode(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def decode(upper: torch.Tensor, lower: torch.Tensor) -> torch.Tensor:
-    """Lossless FP16 reconstruction (Fig 4b / Fig 6), branch-free."""
-    u = upper.to(torch.int32)
-    l = lower.to(torch.int32)
-    corrected = (u & 0x7F) - (l >> 7)     # never underflows
-    bits = ((u >> 7) << 15) | ((corrected >> 1) << 8) | l
-    return _bits_to_f16(bits)
+    """Lossless FP16 reconstruction (Fig 4b / Fig 6), branch-free, on
+    bytes: the high byte is sign | ((upper & 0x7F) - (lower >> 7)) >> 1,
+    the low byte is `lower`, laid side by side (little-endian) and read
+    as f16. The subtraction never underflows for what `encode` emits;
+    for any other pair the high byte is 0xFF, as the int32 form of the
+    same formula gives."""
+    dropped = lower >> 7
+    payload = upper & 0x7F
+    hi = ((upper & 0x80) | ((payload - dropped) >> 1)
+          | ((payload < dropped).to(torch.uint8) << 7))
+    return torch.stack((lower, hi), dim=-1).view(torch.float16).squeeze(-1)
 
 
 def fp8_view(upper: torch.Tensor) -> torch.Tensor:
@@ -144,6 +149,96 @@ class NestedTensor:
         if self.is_exception:
             raise ValueError("exception tensor has no FP8 form; use read_f16()")
         return fp8_view(self.upper), FP8_DEQUANT_SCALE
+
+
+# ---------------------------------------------------------------------------
+# Power-of-two per-channel scaling (the JAX package's beyond-paper format).
+# Multiplying an f16 value by 2^k only shifts its exponent, bit-exact while
+# the result stays normal and in range, so per-channel exponents k_c give
+# each output channel the full E4M3 resolution and rescue channels with
+# absmax > 1.75, while FP16 reads stay lossless. A channel whose shift
+# would be inexact (a subnormal shifted down) keeps k_c = 0. The FP8-mode
+# dequant scale becomes the vector 2^-8 * 2^-k. Plain tensor functions:
+# no kernel reads pow2 planes (none does in the JAX package either).
+# ---------------------------------------------------------------------------
+
+def _scaled(w: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(w * 2^k) in f32, rounded to f16; k broadcasts over the channels on
+    w's last axis."""
+    scale = torch.exp2(k.to(torch.float32)).to(torch.float16)
+    return (w.to(torch.float32) * scale.to(torch.float32)).to(torch.float16)
+
+
+def _exact_shift(w: torch.Tensor, k: torch.Tensor, ws: torch.Tensor
+                 ) -> torch.Tensor:
+    """Elementwise: does ws / 2^k give back w's f16 bits?"""
+    scale = torch.exp2(k.to(torch.float32)).to(torch.float16)
+    back = (ws.to(torch.float32) / scale.to(torch.float32)).to(torch.float16)
+    return _f16_bits(back) == _f16_bits(w)
+
+
+def pow2_channel_exponents(w: torch.Tensor) -> torch.Tensor:
+    """Per-output-channel exponent k so that absmax_c * 2^k <= 1.75, k in
+    [-14, 14], int32. w: (..., N) with channels on the last axis."""
+    lead = tuple(range(w.dim() - 1))
+    absmax = w.to(torch.float32).abs().amax(dim=lead) if lead else \
+        w.to(torch.float32).abs()
+    k = torch.floor(torch.log2(1.75 / torch.clamp(absmax, min=1e-30)))
+    return torch.clamp(k, -14, 14).to(torch.int32)
+
+
+def encode_pow2(w: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(upper, lower, k): the channel-scaled nested encoding. FP16 reads
+    stay bit-exact: a channel whose shift is inexact, or still out of
+    range, falls back to k_c = 0; the caller checks the tensor's
+    applicability on the scaled values."""
+    w = w.to(torch.float16)
+    lead = tuple(range(w.dim() - 1))
+    k = pow2_channel_exponents(w)
+    ws = _scaled(w, k)
+    ok = _exact_shift(w, k, ws) & is_applicable_values(ws)
+    ok = ok.all(dim=lead) if lead else ok
+    k = torch.where(ok, k, torch.zeros_like(k))
+    upper, lower = encode(_scaled(w, k))
+    return upper, lower, k
+
+
+def decode_pow2(upper: torch.Tensor, lower: torch.Tensor, k: torch.Tensor
+                ) -> torch.Tensor:
+    """Bit-exact inverse of encode_pow2 (for applicable channels)."""
+    inv = torch.exp2(-k.to(torch.float32))
+    return (decode(upper, lower).to(torch.float32) * inv).to(torch.float16)
+
+
+def fp8_dequant_scale_pow2(k: torch.Tensor) -> torch.Tensor:
+    """Per-channel FP8 dequant vector: 2^-8 * 2^-k, f32."""
+    return (FP8_DEQUANT_SCALE * torch.exp2(-k.to(torch.float32))
+            ).to(torch.float32)
+
+
+def is_applicable_pow2(w: torch.Tensor) -> torch.Tensor:
+    """Tensor applicability under per-channel pow2 scaling (a superset of
+    the paper's fixed-scale applicability)."""
+    w = w.to(torch.float16)
+    k = pow2_channel_exponents(w)
+    ws = _scaled(w, k)
+    return torch.all(_exact_shift(w, k, ws)) & is_applicable(ws)
+
+
+def split_stats(w: torch.Tensor) -> dict:
+    """Applicability diagnostics for a weight tensor (paper Table 3)."""
+    w = w.to(torch.float16)
+    elem_ok = is_applicable_values(w)
+    return {
+        "numel": int(w.numel()),
+        # the mean as XLA takes it: the f32 sum times the f32 1/n
+        "applicable_fraction": float(
+            elem_ok.to(torch.float32).sum()
+            * torch.tensor(1.0 / max(w.numel(), 1), dtype=torch.float32)),
+        "tensor_applicable": bool(elem_ok.all()),
+        "abs_max": float(w.to(torch.float32).abs().max()),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,13 @@
-"""Dynamic FP8 (E4M3) activation quantization for NestedFP's FP8 mode.
+"""FP8 (E4M3) quantization: NestedFP's activation quant and the paper's
+FP8 baseline.
 
-Per-tensor absmax is the paper's scheme; per-token absmax gives every
-activation row its own scale, which the serving engine uses so that a
-token's FP8 result does not depend on what else shares the batch.
+Per-tensor absmax is the paper's activation scheme; per-token absmax
+gives every activation row its own scale, which the serving engine uses
+so that a token's FP8 result does not depend on what else shares the
+batch. The baseline ("FP8(B)", paper Table 2) quantizes weights with
+per-channel absmax scales; NestedFP ("FP8(N)") uses one global weight
+scale (2^8, `nestedfp.encode`). `quant_error_metrics` compares a weight
+with its quantized form, as the JAX package's accuracy benchmark does.
 """
 
 from __future__ import annotations
@@ -48,3 +53,44 @@ def quantize_act_per_token(x: torch.Tensor
     amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=_EPS)
     scale = _dequant_scale(amax)
     return _to_e4m3(xf / scale), scale
+
+
+# -- weights (baseline only; NestedFP weights come from nestedfp.encode) ------
+
+def quantize_weight_per_channel(w: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Static per-output-channel absmax E4M3 quant. w: (in, out); returns
+    (q, dequant scale (1, out))."""
+    amax = torch.clamp(w.to(torch.float32).abs().amax(dim=0, keepdim=True),
+                       min=_EPS)
+    scale = _dequant_scale(amax)
+    return _to_e4m3(w.to(torch.float32) / scale), scale
+
+
+def quantize_weight_per_tensor(w: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Static per-tensor absmax E4M3 quant; returns (q, dequant scale ())."""
+    scale = _dequant_scale(absmax(w))
+    return _to_e4m3(w.to(torch.float32) / scale), scale
+
+
+def quant_error_metrics(w: torch.Tensor, w_hat: torch.Tensor
+                        ) -> dict[str, float]:
+    """MSE, SQNR (dB), cosine similarity and max |error| of w_hat against
+    w, summed in f32 as the JAX package does by default."""
+    w = w.to(torch.float32)
+    w_hat = w_hat.to(torch.float32)
+    err = w - w_hat
+    mse = torch.mean(err * err)
+    sig = torch.mean(w * w)
+    eps = torch.tensor(_EPS)
+    cos = torch.sum(w * w_hat) / torch.maximum(
+        torch.linalg.vector_norm(w.reshape(-1))
+        * torch.linalg.vector_norm(w_hat.reshape(-1)), eps)
+    return {
+        "mse": float(mse),
+        "sqnr_db": float(10.0 * torch.log10(torch.maximum(sig, eps)
+                                            / torch.maximum(mse, eps))),
+        "cosine": float(cos),
+        "max_abs_err": float(err.abs().max()),
+    }

@@ -6,8 +6,11 @@
 // by D^-0.5, keys at kpos <= qpos, online softmax with NEG_INF = -1e30,
 // out = acc / max(l, 1e-30). Any S: keys and queries past S load as zero
 // and are masked or not stored; nothing is padded. D is 64, 128 or 256
-// (gemma3-1b's global layers) and G = H / Hkv divides the 64 query rows
-// of a block.
+// (gemma3-1b's global layers) and G = H / Hkv is any whole number up to
+// 64. A block holds BQ = 64 / G (rounded down) positions of all G heads;
+// where G does not divide 64 (deepseek-coder-33b's G = 7: BQ = 9, 63
+// rows) the block's last 64 - G * BQ rows are dead: their q loads as
+// zero and they are never stored.
 //
 // What bounds it on an H100: at llama3.1-8b's heads and (B, S) = (8, 1024)
 // the f32 output write, 134 MB in 0.070 ms at 3.35 TB/s; the causal half
@@ -113,11 +116,12 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
   constexpr int C4 = D / 4;            // float4 chunks a row
 
-  // this block's G*BQ query rows, row r = g*BQ + qq at position q0 + qq
+  // this block's G*BQ query rows, row r = g*BQ + qq at position q0 + qq;
+  // rows past G*BQ (g == G) are dead and load as zero
   for (int c = tid; c < kRows * C4; c += kThreads) {
     const int r = c / C4, d = (c % C4) * 4, g = r / BQ, pos = q0 + r % BQ;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (pos < S)
+    if (pos < S && g < G)
       x = load4(q + (((size_t)b * S + pos) * H + (size_t)hh * G + g) * D + d);
     *reinterpret_cast<float4*>(&Qs[r * LDQ + d]) =
         make_float4(x.x * q_scale, x.y * q_scale, x.z * q_scale, x.w * q_scale);
@@ -249,7 +253,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = tr + 16 * i, g = r / BQ, pos = q0 + r % BQ;
-    if (pos >= S) continue;
+    if (pos >= S || g >= G) continue;    // past S, or a dead row
     const float den = fmaxf(l[i], 1e-30f);
     float* o = out + (((size_t)b * S + pos) * H + (size_t)hh * G + g) * D;
 #pragma unroll
@@ -437,11 +441,12 @@ flash_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // this block's G*BQ query rows, row r = g*BQ + qq at position q0 + qq,
   // into Q's own slot past the ring (D = 256) or the last stage's K slot,
-  // with the first kStages - 1 K/V tiles
+  // with the first kStages - 1 K/V tiles; rows past G*BQ (g == G) are
+  // dead and load as zero
   T* qs = QS ? sm + 2 * kStages * TILE : sm + 2 * (kStages - 1) * TILE;
   for (int c = tid; c < kTcRows * C8; c += kTcThreads) {
     const int r = c / C8, ch = (c % C8) * 8, g = r / BQ, pos = q0 + r % BQ;
-    const bool ok = pos < S;
+    const bool ok = pos < S && g < G;
     const T* src =
         q + (((size_t)b * S + (ok ? pos : 0)) * H + (size_t)hh * G + g) * D + ch;
     cp_async16(smem_u32(qs + r * LD + ch), src, ok);
@@ -571,7 +576,7 @@ flash_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i, g = r / BQ, pos = q0 + r % BQ;
-    if (pos >= S) continue;
+    if (pos >= S || g >= G) continue;    // past S, or a dead row
     const float den = fmaxf(l[i], 1e-30f);
     float* orow = out + (((size_t)b * S + pos) * H + (size_t)hh * G + g) * D;
 #pragma unroll
@@ -621,8 +626,8 @@ int launch_f32(const void* q, const void* k, const void* v, float* out, int B,
 }  // namespace
 
 // dtype: 0 f32 (the SIMT body), 1 f16, 2 bf16 (the tensor-core body); q,
-// k and v alike. Needs D in {64, 128, 256} and (H / Hkv) dividing 64; the
-// wrapper checks both.
+// k and v alike. Needs D in {64, 128, 256} and H / Hkv a whole number up
+// to 64; the wrapper checks both.
 extern "C" int flash_prefill_attention(const void* q, const void* k,
                                        const void* v, void* out, int dtype,
                                        int B, int S, int H, int Hkv, int D,

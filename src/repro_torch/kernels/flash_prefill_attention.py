@@ -5,10 +5,12 @@ Port of `repro/kernels/flash_prefill_attention.py::flash_prefill_attention`
 `csrc/flash_prefill_attention.cu`. The input type alone picks the body:
 f16 and bf16 run on the tensor cores (mma.sync, cp.async), f32 on f32
 FMAs; both count as launches of this kernel. Both bodies have instances
-for head dims 64, 128 and 256 (gemma3-1b's global layers); on the card
-any other D raises (`check_shape`). Any S is taken: the kernel masks the
-ragged last tiles itself (the JAX wrapper required S to divide its
-blocks). CPU tensors take the plain version
+for head dims 64, 128 and 256 (gemma3-1b's global layers) and take any
+GQA group G = H / Hkv up to 64 (deepseek-coder-33b's G = 7 too: a block's
+rows past G * (64 // G) are dead, masked on load and never stored); on
+the card any other shape raises (`check_shape`). Any S is taken: the
+kernel masks the ragged last tiles itself (the JAX wrapper required S to
+divide its blocks). CPU tensors take the plain version
 (`ref.flash_prefill_attention_ref`), which takes any shape.
 """
 
@@ -23,18 +25,18 @@ from repro_torch.kernels import _build, _common, ref
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
          + [ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_ROWS = 64        # query rows a block of the kernel: G * (positions)
+_ROWS = 64        # query rows a block of the kernel: G * (64 // G) live
 HEAD_DIMS = (64, 128, 256)   # the head dims the kernel has instances for
 
 
 def check_shape(h: int, hkv: int, d: int) -> None:
     """The kernel's shape rule: D one of HEAD_DIMS, and G = H / Hkv a
-    whole number that divides the 64 query rows of a block. Raises
+    whole number no larger than the 64 query rows of a block. Raises
     ValueError otherwise."""
     if (d not in HEAD_DIMS or min(h, hkv) <= 0 or h % hkv
-            or _ROWS % (h // hkv)):
-        raise ValueError(f"need D in {HEAD_DIMS} and H/Hkv dividing {_ROWS} "
-                         f"(H={h}, Hkv={hkv}, D={d})")
+            or h // hkv > _ROWS):
+        raise ValueError(f"need D in {HEAD_DIMS} and H/Hkv a whole number "
+                         f"up to {_ROWS} (H={h}, Hkv={hkv}, D={d})")
 
 
 def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,

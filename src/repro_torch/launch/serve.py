@@ -1,19 +1,29 @@
-"""Serving launcher of the port: dual-precision engine over a random model.
+"""Serving launcher of the port: dual-precision engine over a random or
+restored model.
 
 Usage (the card is the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.1-8b \
       --requests 8 --policy dual|fp16|fp8 --kv-planar
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-coder-33b --kv-planar      # 67.6 GB served
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+      --reduced --device cpu --ckpt CKPT_DIR
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
       --reduced --device cpu --kv-planar --prompt-len 40
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --reduced --device cpu --speculate
-Prints a JSON summary (with `window_reclaimed_blocks`, the local-layer
-blocks freed by window slides, nonzero for a sliding-window arch such as
-gemma3-1b once sequences outgrow the window; with --speculate also
-`spec_acceptance_rate` and `spec_tokens_per_dispatch`); exits 1 if any
-request failed to finish.
+--arch takes every config of `repro_torch.configs` (qwen1.5-0.5b,
+llama3.1-8b, gemma3-1b, qwen3-8b, deepseek-coder-33b). Random weights are
+built layer by layer (`model.init_serving_params`); --ckpt restores the
+JAX package's checkpoint format instead (`{"params": ...}`, as its
+`launch/serve.py --ckpt` reads), nesting each layer's weights as they are
+read (`checkpoint/io.py`). Prints a JSON summary (with
+`window_reclaimed_blocks`, the local-layer blocks freed by window slides,
+nonzero for a sliding-window arch such as gemma3-1b once sequences
+outgrow the window; with --speculate also `spec_acceptance_rate` and
+`spec_tokens_per_dispatch`); exits 1 if any request failed to finish.
 """
 
 from __future__ import annotations
@@ -28,6 +38,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--ckpt", default="",
+                    help="a checkpoint in the JAX package's format holding "
+                         "{'params': ...} of this config")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--capacity", type=int, default=256)
@@ -51,18 +64,25 @@ def main(argv=None) -> int:
                          "hi planes only)")
     args = ap.parse_args(argv)
 
+    from repro_torch.checkpoint import io
     from repro_torch.configs import get_arch
     from repro_torch.core.policy import DualPrecisionController, SLOConfig
     from repro_torch.device import resolve_device
     from repro_torch.models import model as M
-    from repro_torch.models.convert import serving_memory_bytes, to_serving
+    from repro_torch.models.convert import serving_memory_bytes
     from repro_torch.serving.engine import Engine, Request
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    sparams = to_serving(M.init_params(cfg, seed=args.seed, device=device))
+    if args.ckpt:
+        restored, _ = io.restore(
+            args.ckpt, {"params": M.init_params(cfg, device="meta")},
+            device=device, serving=True)
+        sparams = restored["params"]
+    else:
+        sparams = M.init_serving_params(cfg, seed=args.seed, device=device)
     mem = serving_memory_bytes(sparams)
     print(f"serving params: {mem['total_bytes']/2**20:.1f} MiB "
           f"({mem['nested_bytes']/max(mem['total_bytes'],1)*100:.0f}% nested)")

@@ -2,9 +2,13 @@
 
 NestedFP applies to linear layers only (paper §2.2/Table 1 note):
 embeddings, the LM head, norms and biases stay in their original
-precision. `from_jax_serving` builds the port's serving params from the
-JAX package's serving tree, flattened to numpy arrays by the caller
-(the port imports nothing of JAX), keeping every byte plane exactly.
+precision. `structural=True` builds the same tree on the meta device (no
+data, applicability assumed), PyTorch's form of the JAX package's
+ShapeDtypeStruct tree: `serving_memory_bytes` of it reckons a model's
+serving bytes without allocating them. `from_jax_serving` builds the
+port's serving params from the JAX package's serving tree, flattened to
+numpy arrays by the caller (the port imports nothing of JAX), keeping
+every byte plane exactly.
 """
 
 from __future__ import annotations
@@ -25,17 +29,31 @@ def _is_linear_dict(node) -> bool:
             and isinstance(node["w"], torch.Tensor) and node["w"].dim() >= 2)
 
 
-def to_serving(tree, *, path: str = ""):
+def _nest_tensor(w: torch.Tensor, structural: bool) -> NestedTensor:
+    if structural:
+        return NestedTensor(
+            upper=torch.empty(w.shape, dtype=torch.uint8, device="meta"),
+            lower=torch.empty(w.shape, dtype=torch.uint8, device="meta"),
+            raw=None)
+    return NestedTensor.from_f16(w)
+
+
+def to_serving(tree, *, structural: bool = False, path: str = ""):
     """Recursively nest every eligible linear weight (cast to f16 first;
-    a tensor with any |w| > 1.75 stays f16 as an exception tensor)."""
+    a tensor with any |w| > 1.75 stays f16 as an exception tensor). With
+    `structural`, each nested weight is a pair of meta uint8 planes of its
+    shape and nothing is read or encoded."""
     excluded = any(e in path for e in _EXCLUDE)
     if isinstance(tree, dict):
         if _is_linear_dict(tree) and not excluded:
             return NestedLinearParams(
-                weight=NestedTensor.from_f16(tree["w"]), bias=tree.get("b"))
-        return {k: to_serving(v, path=f"{path}/{k}") for k, v in tree.items()}
+                weight=_nest_tensor(tree["w"], structural),
+                bias=tree.get("b"))
+        return {k: to_serving(v, structural=structural, path=f"{path}/{k}")
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_serving(v, path=f"{path}[{i}]")
+        return type(tree)(to_serving(v, structural=structural,
+                                     path=f"{path}[{i}]")
                           for i, v in enumerate(tree))
     return tree
 

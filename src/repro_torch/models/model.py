@@ -30,6 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.nestedfp import split_bytes
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.convert import to_serving
 from repro_torch.models.layers import Runtime
 from repro_torch.serving import kvcache as KV
 
@@ -38,12 +39,24 @@ from repro_torch.serving import kvcache as KV
 # params
 # ---------------------------------------------------------------------------
 
-def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
-                bias: bool = False) -> dict:
-    p = {"w": torch.randn((d_in, d_out), generator=gen, device=gen.device,
-                          dtype=torch.float32) * d_in ** -0.5}
+def _randn(gen, shape) -> torch.Tensor:
+    """f32 normal draws from `gen`; a meta device in its place gives the
+    shape alone (no data, no draw)."""
+    if isinstance(gen, torch.device):
+        return torch.empty(shape, dtype=torch.float32, device=gen)
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
+def _device_of(gen) -> torch.device:
+    return gen if isinstance(gen, torch.device) else gen.device
+
+
+def init_linear(gen, d_in: int, d_out: int, *, bias: bool = False) -> dict:
+    p = {"w": _randn(gen, (d_in, d_out)) * d_in ** -0.5}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=gen.device)
+        p["b"] = torch.zeros((d_out,), dtype=torch.float32,
+                             device=_device_of(gen))
     return p
 
 
@@ -51,41 +64,79 @@ def init_rms_norm(d: int, device) -> torch.Tensor:
     return torch.zeros((d,), dtype=torch.float32, device=device)
 
 
-def init_attention(gen: torch.Generator, cfg: ArchConfig) -> dict:
+def init_attention(gen, cfg: ArchConfig) -> dict:
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     p = {"wq": init_linear(gen, d, h * hd, bias=cfg.qkv_bias),
          "wk": init_linear(gen, d, hkv * hd, bias=cfg.qkv_bias),
          "wv": init_linear(gen, d, hkv * hd, bias=cfg.qkv_bias),
          "wo": init_linear(gen, h * hd, d)}
     if cfg.qk_norm:
-        p["q_norm"] = init_rms_norm(hd, gen.device)
-        p["k_norm"] = init_rms_norm(hd, gen.device)
+        p["q_norm"] = init_rms_norm(hd, _device_of(gen))
+        p["k_norm"] = init_rms_norm(hd, _device_of(gen))
     return p
 
 
-def init_decoder_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
-    return {"ln1": init_rms_norm(cfg.d_model, gen.device),
-            "ln2": init_rms_norm(cfg.d_model, gen.device),
+def init_decoder_block(gen, cfg: ArchConfig) -> dict:
+    dev = _device_of(gen)
+    return {"ln1": init_rms_norm(cfg.d_model, dev),
+            "ln2": init_rms_norm(cfg.d_model, dev),
             "attn": init_attention(gen, cfg),
             "mlp": {"gate": init_linear(gen, cfg.d_model, cfg.d_ff),
                     "up": init_linear(gen, cfg.d_model, cfg.d_ff),
                     "down": init_linear(gen, cfg.d_ff, cfg.d_model)}}
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
-    """Training-form params of a dense decoder, from a seeded generator."""
-    _check_dense(cfg)
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-    d = cfg.d_model
+def _generator(seed: int, device):
+    """A seeded generator on `device` (None = the card); on the meta
+    device the device itself, so that init draws shapes only."""
+    dev = resolve_device(device)
+    return dev if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
+
+
+def _init_top(gen, cfg: ArchConfig) -> dict:
+    """Embedding, final norm and (untied) LM head, drawn first."""
     params: dict[str, Any] = {
-        "embed": {"tok": torch.randn((cfg.vocab_size, d), generator=gen,
-                                     device=gen.device) * 0.02},
-        "final_norm": init_rms_norm(d, gen.device),
+        "embed": {"tok": _randn(gen, (cfg.vocab_size, cfg.d_model)) * 0.02},
+        "final_norm": init_rms_norm(cfg.d_model, _device_of(gen)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = init_linear(gen, d, cfg.vocab_size)
+        params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size)
+    return params
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
+    """Training-form params of a dense decoder, from a seeded generator.
+    device="meta" gives the tree's shapes and dtypes without data."""
+    _check_dense(cfg)
+    gen = _generator(seed, device)
+    params = _init_top(gen, cfg)
     params["layers"] = [init_decoder_block(gen, cfg)
                         for _ in range(cfg.n_layers)]
+    return params
+
+
+def init_serving_params(cfg: ArchConfig, seed: int = 0, device=None,
+                        plant=None) -> dict:
+    """Serving params streamed layer by layer: bitwise
+    `to_serving(init_params(cfg, seed, device))`, drawn from the same
+    generator in the same order, but each layer is nested
+    (`convert.to_serving`, K8 on the card) before the next is drawn, so
+    the device holds one layer's f32 weights at a time. A model whose
+    f32 tree outgrows the card (deepseek-coder-33b: 133 GB f32, 67.6 GB
+    served) loads this way. `plant(i, layer)`, if given, may edit layer
+    i's f32 tree in place before it is nested (tests plant an exception
+    tensor with it)."""
+    _check_dense(cfg)
+    gen = _generator(seed, device)
+    params = to_serving(_init_top(gen, cfg))
+    params["layers"] = []
+    for i in range(cfg.n_layers):
+        layer = init_decoder_block(gen, cfg)
+        if plant is not None:
+            plant(i, layer)
+        params["layers"].append(to_serving(layer, path="layers"))
+        del layer
     return params
 
 

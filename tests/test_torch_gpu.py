@@ -622,6 +622,33 @@ def test_flash_prefill_attention(dev, dtype, b, s, h, hkv, d):
     assert ops.all_launch_counters()["flash_prefill_attention"] == n0 + 1
 
 
+# G = H / Hkv that does not divide the 64 rows of a block: deepseek-coder-
+# 33b's G = 7 (BQ = 9 positions, one dead row) on the 9-position and
+# 64-key tile edges, G = 3, 5 and 33, both bodies
+PREFILL_ODD_G_CASES = (
+    [(dt, 2, s, 7 * hkv, hkv, 128) for dt in (torch.float16, torch.bfloat16)
+     for s in (1, 8, 9, 10, 63, 64, 65, 200) for hkv in (1, 2)]
+    + [(dt, 2, 70, g, 1, d) for dt in (torch.float16, torch.bfloat16)
+       for g in (3, 5, 33) for d in (64, 256)]
+    + [(torch.float32, 2, s, 14, 2, d) for s in (9, 65)
+       for d in (64, 128, 256)]
+    + [(torch.bfloat16, 8, 1024, 56, 8, 128)])
+
+
+@pytest.mark.parametrize("dtype,b,s,h,hkv,d", PREFILL_ODD_G_CASES)
+def test_flash_prefill_attention_groups_not_dividing_64(dev, dtype, b, s, h,
+                                                        hkv, d):
+    """Dead rows load as zero and are never stored: every output row equals
+    the plain version's, including each kv head's last query head."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn((b, s, h, d), device=dev, generator=gen).to(dtype)
+    k = torch.randn((b, s, hkv, d), device=dev, generator=gen).to(dtype)
+    v = torch.randn((b, s, hkv, d), device=dev, generator=gen).to(dtype)
+    got = ops.flash_prefill_attention(q, k, v)
+    torch.testing.assert_close(got, ref.flash_prefill_attention_ref(q, k, v),
+                               **ATTN_TOL)
+
+
 @pytest.mark.parametrize("d", [96, 512])
 def test_flash_prefill_raises_for_other_head_dims(dev, d):
     """A head dim without an instance raises before any launch; the plain

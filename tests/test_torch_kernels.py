@@ -44,6 +44,8 @@ from _torch_parity import one_torch_thread  # noqa: E402,F401
 
 GEMM_TOL = dict(rtol=1e-5, atol=1e-4)
 ATTN_TOL = dict(rtol=2e-4, atol=2e-4)
+# deepseek-coder-33b's GQA group of 7 (56 q heads over 8 kv heads)
+G7_TOL = dict(rtol=1e-5, atol=2e-4)
 BLOCK = (64, 128, 128)
 GEMM_SHAPES = [(16, 256, 128), (100, 200, 90), (1, 300, 77), (33, 64, 128)]
 
@@ -316,6 +318,24 @@ class TestPagedPlanarDecodeAttention:
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got[live], want[live], **ATTN_TOL)
 
+    @pytest.mark.parametrize("fp8", [False, True])
+    @pytest.mark.parametrize("window", [None, 19])
+    @pytest.mark.parametrize("h,hkv,d", [(7, 1, 64), (14, 2, 128)])
+    def test_plain_matches_pallas_at_group_7(self, h, hkv, d, fp8, window):
+        """deepseek-coder-33b's GQA group (56 q heads over 8 kv heads)."""
+        q, planes, tables, lens = _paged_inputs(8, h=h, hkv=hkv, d=d)
+        jargs = dict(fp8=fp8, interpret=True)
+        if window:
+            jargs["window"] = window
+        want = np.asarray(j_paged_attn(
+            jnp.asarray(q), *map(jnp.asarray, planes), jnp.asarray(tables),
+            jnp.asarray(lens), **jargs))
+        tp = dict(zip(("k_hi", "k_lo", "v_hi", "v_lo"), map(_t, planes)))
+        got = tops.paged_decode_attention(_t(q), tp, _t(tables), _t(lens),
+                                          fp8=fp8, window=window).numpy()
+        live = lens > 0
+        np.testing.assert_allclose(got[live], want[live], **G7_TOL)
+
     def test_gqa_head_mapping(self):
         # q head i reads kv head i // G: permuting kv heads moves outputs
         q, planes, tables, lens = _paged_inputs(7, h=4, hkv=2)
@@ -355,6 +375,19 @@ class TestPlanarDecodeAttention:
         got = tops.planar_decode_attention(_t(q), tp, _t(lens), fp8=fp8,
                                            window=window).numpy()
         np.testing.assert_allclose(got, want, **ATTN_TOL)
+
+    @pytest.mark.parametrize("fp8", [False, True])
+    @pytest.mark.parametrize("window", [None, 7])
+    @pytest.mark.parametrize("h,hkv,d", [(7, 1, 64), (14, 2, 128)])
+    def test_plain_matches_pallas_at_group_7(self, h, hkv, d, fp8, window):
+        q, planes, lens = _dense_inputs(14, h=h, hkv=hkv, d=d)
+        want = np.asarray(j_dense_attn(
+            jnp.asarray(q), *map(jnp.asarray, planes), jnp.asarray(lens),
+            fp8=fp8, block_c=16, window=window, interpret=True))
+        tp = dict(zip(("k_hi", "k_lo", "v_hi", "v_lo"), map(_t, planes)))
+        got = tops.planar_decode_attention(_t(q), tp, _t(lens), fp8=fp8,
+                                           window=window).numpy()
+        np.testing.assert_allclose(got, want, **G7_TOL)
 
     def test_equals_paged_over_an_identity_table(self):
         """K5 and K4 share their math: dense row b is paged blocks
@@ -675,6 +708,27 @@ class TestDecodeSplitDesign:
         np.testing.assert_allclose(got, want, **ATTN_TOL)
 
     @pytest.mark.parametrize("fp8", [False, True])
+    @pytest.mark.parametrize("window", [None, 300])
+    def test_dense_split_design_at_group_7(self, window, fp8):
+        """56 q heads over 8 kv heads: one group of 7 rows a kv head in
+        the card's split kernels (their groups hold up to 8)."""
+        rng = np.random.default_rng(44)
+        b, h, hkv, d, cap = 4, 56, 8, 128, 1024
+        q = rng.normal(size=(b, h, d)).astype(np.float32)
+        kv = rng.normal(size=(2, b, cap, hkv, d)).astype(np.float16)
+        planes = [np.asarray(p) for p in (
+            *jnf.split_bytes(jnp.asarray(kv[0])),
+            *jnf.split_bytes(jnp.asarray(kv[1])))]
+        lens = np.asarray([1, 512, 513, 1000], np.int32)
+        want = np.asarray(j_dense_attn(
+            jnp.asarray(q), *map(jnp.asarray, planes), jnp.asarray(lens),
+            fp8=fp8, block_c=256, window=window, interpret=True))
+        k, v = _planes_values(planes, fp8)
+        got = _split_design(_t(q), k, v, lens, limit=cap,
+                            split=_split_keys(1), window=window).numpy()
+        np.testing.assert_allclose(got, want, **G7_TOL)
+
+    @pytest.mark.parametrize("fp8", [False, True])
     @pytest.mark.parametrize("window", [None, 19, 512])
     def test_dense_split_design_at_head_dim_256(self, window, fp8):
         """gemma3-1b's heads (4 q heads, 1 kv head, D = 256): window 512
@@ -751,6 +805,26 @@ class TestFlashPrefillAttention:
                                           block=(32, 64), interpret=True))
         got = tops.flash_prefill_attention(_t(q), _t(k), _t(v)).numpy()
         np.testing.assert_allclose(got, want, **ATTN_TOL)
+
+    @pytest.mark.parametrize("h,hkv,d", [(7, 1, 64), (14, 2, 128)])
+    def test_plain_matches_pallas_at_group_7(self, h, hkv, d):
+        """A block of the card's kernel holds 9 positions of all 7 heads
+        (63 live rows); the plain version takes any G."""
+        q, k, v = self._qkv(22, 2, 128, h, hkv, d)
+        want = np.asarray(j_flash_prefill(*map(jnp.asarray, (q, k, v)),
+                                          block=(32, 64), interpret=True))
+        got = tops.flash_prefill_attention(_t(q), _t(k), _t(v)).numpy()
+        np.testing.assert_allclose(got, want, **G7_TOL)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+    @pytest.mark.parametrize("h,hkv,d", [(7, 1, 64), (14, 2, 128)])
+    def test_tensor_core_design_at_group_7(self, h, hkv, d, dtype):
+        q, k, v = self._rounded_qkv(23, 2, 128, h, hkv, d, dtype)
+        want = np.asarray(j_flash_prefill(
+            *(jnp.asarray(x.numpy()) for x in (q, k, v)), block=(32, 64),
+            interpret=True))
+        got = self._tc_body(q, k, v, dtype).numpy()
+        np.testing.assert_allclose(got, want, **G7_TOL)
 
     def test_ragged_s_matches_jax_reference_prefill(self):
         # the Pallas kernel needs S to divide its blocks; the port does not
@@ -845,16 +919,19 @@ class TestFlashPrefillAttention:
 
     @pytest.mark.parametrize("d", [64, 128, 256, 96, 512])
     def test_shape_rule(self, d):
-        """The card's instances: D in (64, 128, 256), and G = H / Hkv
-        dividing the 64 query rows of a block; anything else raises
-        before a launch (never the plain version in its place)."""
+        """The card's instances: D in (64, 128, 256), and G = H / Hkv a
+        whole number up to the 64 query rows of a block (one that does not
+        divide 64, as deepseek-coder-33b's 56 / 8, leaves dead rows);
+        anything else raises before a launch (never the plain version in
+        its place)."""
         if d in (64, 128, 256):
-            for h, hkv in ((4, 1), (32, 8), (8, 8), (64, 1)):
+            for h, hkv in ((4, 1), (32, 8), (8, 8), (64, 1), (56, 8),
+                           (3, 1), (7, 1)):
                 k6_check_shape(h, hkv, d)
         else:
             with pytest.raises(ValueError, match="need D in"):
                 k6_check_shape(4, 1, d)
-        for h, hkv in ((6, 4), (3, 1), (128, 1), (0, 1)):
+        for h, hkv in ((6, 4), (65, 1), (128, 1), (0, 1)):
             with pytest.raises(ValueError, match="need D in"):
                 k6_check_shape(h, hkv, 256)
 
