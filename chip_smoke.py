@@ -2814,6 +2814,373 @@ def tiered_phase(torch, cfg, sp) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the fleet (router, fault injection, degradation), llama3.1-8b
+# ---------------------------------------------------------------------------
+
+# each replica: 4 slots, planar KV, host tier on, 112 blocks of 16: the
+# four prompts a replica admits (two or three system prompts among them)
+# fill the pool, so the first decode blocks preempt the youngest row and
+# its blocks spill to the host tier before any request finishes
+FLEET_ENGINE = dict(n_slots=4, capacity=640, kv_planar=True, block_size=16,
+                    n_blocks=112, forced_mode="fp16")
+FLEET_SLACK = 608       # a primary two requests ahead of the least loaded
+                        # yields: the burst lands 3 / 4 / 5
+# (router step, replica, kind[, ms]): the corrupt lands on replica 2 while
+# its host tier holds only the blocks of preempted rows, which re-admit
+# later and walk their chains through the corrupted entry
+FLEET_PLAN = [(3, 1, "stall", 50.0), (10, 1, "raise"), (20, 0, "kill"),
+              (45, 2, "corrupt"), (50, 0, "revive")]
+FLEET_REBUILD_STEP = 16
+FLEET_CHAOS = dict(seed=2, replicas=3, steps=90, p_raise=0.02, p_stall=0.1,
+                   p_corrupt=0.05, p_kill=0.02, revive_after=20)
+FLEET_SHED_BUDGET = 2400
+
+
+def fleet_phase(torch, cfg, sp, device="cuda") -> dict:
+    """llama3.1-8b at full width and depth behind the port's `Router`: three
+    replicas built by `Router.build` from one serving tree (one copy of the
+    weights, asserted by address; a pool and a graph pool each), forced
+    FP16, planar KV, host tier on. Traffic: 4 system prompts of 512 tokens,
+    each shared by 3 requests of 32 own tokens and 64 new tokens, spread
+    over the replicas by a balance slack.
+
+    1. control: no faults.
+    2. planned: a 50 ms stall, a raise on replica 1, a kill of replica 0
+       mid-decode, a corrupted host entry on replica 2 and the revive of
+       replica 0. Nothing lost, every request complete, failover tokens
+       restored and recomputed, the corruption caught and recomputed, and
+       every stream equal to the control's or parting below MARGIN_RULE.
+    3. rebuild: replica 0 raises mid-decode and its drain fails; the
+       router rebuilds it from its factory. The old engine must be gone
+       (no reference, its pool returned) before the new one is built, and
+       the rebuild grows the allocated bytes by no more than the new
+       engine's pool.
+    4. chaos: a seeded `FaultPlan` over the 3 replicas with requests
+       arriving over the run, under a `VirtualClock` and a
+       `StepCostModel` fitted to this run's measured FP16 and FP8 step
+       times, with and without `DegradePolicy(force_fp8=True,
+       shed_budget_tokens=...)`: nothing lost, sheds counted; the modelled
+       p90 TPOT of both is printed.
+
+    On one card the replicas step one after another, so the wall time of a
+    router step is the sum of its replicas' steps; the modelled latency
+    comes from the VirtualClock. `device="cpu"` runs the same schedule on
+    the CPU (a rehearsal: the schedule depends on token ids and counts,
+    not on the model's numbers)."""
+    import gc
+    import weakref
+
+    import numpy as np
+
+    from repro_torch.core.policy import DegradePolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models.convert import leaves
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    from repro_torch.serving.router import Router, StepCostModel, VirtualClock
+
+    on_card = device == "cuda"
+
+    def allocated() -> int:
+        gc.collect()
+        if not on_card:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def pool_bytes(eng) -> int:
+        return sum(p.numel() * p.element_size()
+                   for p in eng.caches["attn"].values())
+
+    gen = torch.Generator().manual_seed(41)
+    sysp = [torch.randint(1, cfg.vocab_size, (512,), generator=gen).tolist()
+            for _ in range(4)]
+    prompts = {f"p{s}.{i}": sysp[s] + torch.randint(
+        1, cfg.vocab_size, (32,), generator=gen).tolist()
+        for s in range(4) for i in range(3)}
+    max_new = 64
+
+    def fleet(plan=None, engine=None, **kw) -> Router:
+        ekw = dict(FLEET_ENGINE, device=device, **(engine or {}))
+        return Router.build(cfg, sp, 3, engine_kwargs=ekw, plan=plan,
+                            affinity_blocks=1,
+                            balance_slack_tokens=FLEET_SLACK, **kw)
+
+    def finish(r, label, t0, n=len(prompts)) -> dict:
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = r.stats()
+        check(st["lost"] == 0, f"{label}: {st['lost']} requests lost")
+        check(st["completed"] + st["shed"] == n and st["in_flight"] == 0,
+              f"{label}: {st['completed']} completed + {st['shed']} shed "
+              f"of {n}")
+        check(st["shed"] == len(r.shed_requests),
+              f"{label}: sheds not counted")
+        outs = {q.request_id: list(q.output) for q in r.finished}
+        check(all(len(o) == max_new and all(0 <= t < cfg.vocab_size
+                                            for t in o)
+                  for o in outs.values()),
+              f"{label}: outputs of the wrong length or out of vocab")
+        return {"outputs": outs, "stats": st, "wall_s": wall,
+                "steps": r.step_count}
+
+    def serve(r, label) -> dict:
+        t0 = time.perf_counter()
+        for rid, p in prompts.items():
+            r.submit(Request(rid, list(p), max_new))
+        r.run()
+        return finish(r, label, t0)
+
+    def brief(st) -> str:
+        keys = ("steps", "replicas", "kills", "revives", "step_errors",
+                "rebuilds", "failover_requests", "failover_restored_tokens",
+                "failover_recomputed_tokens", "corrupt_detected",
+                "corrupt_fallbacks", "degrade_fp8_steps", "shed", "stall_ms")
+        return ", ".join(f"{k} {st[k]}" for k in keys)
+
+    def timed_steps(eng, samples):
+        """Record each launched step's wall ms (each step ends in the
+        engine's one host sync), mode, decode and prefill tokens; steps
+        that captured a graph are left out (a capture runs the step
+        eagerly first)."""
+        step = eng.step
+
+        def timed():
+            d0, c0 = eng.stats["decode_tokens"], eng.stats["chunk_tokens"]
+            n0 = eng.graphs.n_captured
+            t0 = time.perf_counter()
+            step()
+            ms = (time.perf_counter() - t0) * 1e3
+            dt = (eng.stats["decode_tokens"] - d0,
+                  eng.stats["chunk_tokens"] - c0)
+            if any(dt) and eng.graphs.n_captured == n0:
+                samples.append((ms, eng.last_mode) + dt)
+        eng.step = timed
+
+    res: dict = {}
+    ops.reset_launch_counters()          # this path's run starts here
+    a_start = allocated()
+
+    # 1. control, its step times (FP16), then FP8 step times on the same
+    # engines
+    r = fleet()
+    engines = [rep.engine for rep in r.replicas]
+    ptrs = [[t.data_ptr() for t in leaves(e.params)] for e in engines]
+    check(ptrs[0] == ptrs[1] == ptrs[2]
+          == [t.data_ptr() for t in leaves(sp)],
+          "fleet: the replicas do not share one copy of the weights")
+    samples: list = []
+    for e in engines:
+        timed_steps(e, samples)
+    control = serve(r, "fleet control")
+    placed = {q.request_id: i for i, e in enumerate(engines)
+              for q in e.finished}
+    for i, e in enumerate(engines):
+        # FP8 step samples: four fresh prompts of the same length a replica
+        e.forced_mode = "fp8"
+        for j in range(4):
+            e.submit(Request(f"fp8.{i}.{j}", torch.randint(
+                1, cfg.vocab_size, (544,), generator=gen).tolist(), 32))
+        e.run()
+        del e.step                       # the timer held a bound method
+    res["replicas"] = [{"requests": sorted(k for k, v in placed.items()
+                                           if v == i),
+                        "pool_bytes": pool_bytes(e),
+                        "graph_pool_bytes": e.graphs.pool_bytes(),
+                        "graphs": e.graphs.n_captured}
+                       for i, e in enumerate(engines)]
+    weights = sum(t.numel() * t.element_size() for t in leaves(sp))
+    for i, x in enumerate(res["replicas"]):
+        log(f"  fleet replica {i}: requests {x['requests']}, pool "
+            f"{x['pool_bytes'] / 2**20:.1f} MiB, graph pool "
+            f"{x['graph_pool_bytes'] / 2**20:.1f} MiB ({x['graphs']} graphs)")
+    log(f"  fleet: 3 replicas share one copy of the weights "
+        f"({weights / 2**30:.2f} GiB, same addresses)")
+    res["control"] = {k: v for k, v in control.items() if k != "outputs"}
+    log(f"  fleet control: {control['steps']} router steps, "
+        f"{control['wall_s']:.2f} s wall; {brief(control['stats'])}")
+    del r, engines, e
+    # fit StepCostModel per mode: decode-only steps by least squares, ms =
+    # a + d * rows; prefill steps give the median ms a prefill token over
+    # that line. The model's one fixed cost is the smaller intercept; a
+    # mode's excess intercept is spread over its mean decode rows.
+    modes = ("fp16", "fp8")
+    fit, per_token, prefill = {}, {}, {}
+    for m in modes:
+        dec = [(ms, d) for ms, mm, d, c in samples if mm == m and not c]
+        A = np.array([[1.0, d] for _ms, d in dec])
+        a, d = np.linalg.lstsq(A, np.array([ms for ms, _d in dec]),
+                               rcond=None)[0]
+        a, d = float(a), max(float(d), 0.0)
+        pre = [(ms - a - d * dd) / c for ms, mm, dd, c in samples
+               if mm == m and c]
+        fit[m] = {"a": a, "d": d, "decode_steps": len(dec),
+                  "prefill_steps": len(pre),
+                  "mean_rows": float(np.mean([dd for _ms, dd in dec]))}
+        prefill[m] = max(float(np.median(pre)), 0.0)
+    fixed = min(f["a"] for f in fit.values())
+    for m in modes:
+        per_token[m] = fit[m]["d"] + (fit[m]["a"] - fixed) \
+            / fit[m]["mean_rows"]
+    cost = StepCostModel(fixed_ms=fixed, ms_per_token=per_token,
+                         prefill_ms_per_token=prefill)
+    res["cost_model"] = dataclasses.asdict(cost)
+    res["cost_fit"] = fit
+    log(f"  fleet cost model from this run's steps (captures left out): "
+        + "; ".join(f"{m} decode {f['decode_steps']} steps, ms = "
+                    f"{f['a']:.3f} + {f['d']:.4f} x rows (mean rows "
+                    f"{f['mean_rows']:.2f}), {f['prefill_steps']} prefill "
+                    f"steps" for m, f in fit.items())
+        + f"; model: fixed {cost.fixed_ms:.3f} ms, decode ms a token "
+        f"{ {m: round(v, 4) for m, v in per_token.items()} }, prefill ms a "
+        f"token { {m: round(v, 4) for m, v in prefill.items()} }")
+
+    def agree(run, label):
+        return margin_rule(torch, cfg, sp, "fp16", prompts,
+                           control["outputs"], run["outputs"], label)
+
+    # 2. the planned plan
+    plan = FaultPlan([FaultEvent(*e) for e in FLEET_PLAN])
+    r = fleet(plan, clock=VirtualClock(), cost_model=cost)
+    planned = serve(r, "fleet planned")
+    st = planned["stats"]
+    fired = sorted({e.kind for e in r.injector.fired}
+                   | {k for k in ("kill", "revive") if st[k + "s"]})
+    check(fired == sorted(e[2] for e in FLEET_PLAN),
+          f"fleet planned: fired {fired}")
+    check(st["kills"] == 1 and st["revives"] == 1 and st["step_errors"] == 1,
+          f"fleet planned: {brief(st)}")
+    check(st["failover_restored_tokens"] > 0
+          and st["failover_recomputed_tokens"] > 0,
+          f"fleet planned: failover tokens restored "
+          f"{st['failover_restored_tokens']}, recomputed "
+          f"{st['failover_recomputed_tokens']}")
+    preempted = sum(rep.engine.stats["preemptions"] for rep in r.replicas)
+    check(st["corrupt_detected"] >= 1,
+          f"fleet planned: the corrupted host entry was never caught")
+    log(f"  fleet planned: {planned['steps']} router steps, "
+        f"{planned['wall_s']:.2f} s wall; {brief(st)}; preemptions "
+        f"{preempted}; host entries by replica "
+        f"{[len(rep.engine.blocks.host) for rep in r.replicas]}")
+    res["planned"] = {k: v for k, v in planned.items() if k != "outputs"}
+    res["planned"]["agreement"] = agree(planned, "fleet planned vs control")
+    del r
+
+    # 3. a drain failure rebuilt from the factory
+    r = fleet(FaultPlan([FaultEvent(FLEET_REBUILD_STEP, 0, "raise")]))
+    rep = r.replicas[0]
+
+    def failed_drain():
+        raise RuntimeError("fleet rebuild: drain failed")
+    rep.engine.drain_requests = failed_drain
+    mem: dict = {}
+    build = rep.factory
+
+    def factory():
+        mem["free"] = allocated()        # the old engine must be gone here
+        mem["old_alive"] = old() is not None
+        eng = build()
+        mem["built"] = allocated()
+        mem["new_pool"] = pool_bytes(eng)
+        return eng
+    rep.factory = factory
+    t0 = time.perf_counter()
+    for rid, p in prompts.items():
+        r.submit(Request(rid, list(p), max_new))
+    while r.in_flight():
+        if r.step_count == FLEET_REBUILD_STEP:
+            old = weakref.ref(rep.engine)
+            old_pool = rep.engine.graphs._pool
+            mem["old_pool"] = pool_bytes(rep.engine)
+            mem["old_graphs"] = rep.engine.graphs.pool_bytes()
+            mem["before"] = allocated()
+        r.step()
+    rebuild = finish(r, "fleet rebuild", t0)
+    st = rebuild["stats"]
+    check(st["rebuilds"] == 1 and st["step_errors"] == 1,
+          f"fleet rebuild: {brief(st)}")
+    check(not mem["old_alive"] and old() is None,
+          "fleet rebuild: the old engine outlived its rebuild")
+    if on_card:
+        returned = mem["before"] - mem["free"]
+        check(returned >= mem["old_pool"],
+              f"fleet rebuild: {returned} bytes returned, the old pool "
+              f"alone is {mem['old_pool']}")
+        grown = mem["built"] - mem["before"]
+        check(grown <= mem["new_pool"],
+              f"fleet rebuild grew the allocated bytes by {grown}, more "
+              f"than the new engine's pool ({mem['new_pool']})")
+        torch.cuda.empty_cache()
+        check(not [g for g in torch.cuda.memory_snapshot()
+                   if tuple(g.get("segment_pool_id", ()))
+                   == tuple(old_pool)],
+              "fleet rebuild: the old engine's graph pool is still held")
+        mem["returned"] = returned
+        mem["grown"] = grown
+    res["rebuild"] = {k: v for k, v in rebuild.items() if k != "outputs"}
+    res["rebuild"]["memory"] = mem
+    log(f"  fleet rebuild: {brief(st)}; old engine freed before the new "
+        f"one was built: {mem.get('returned', 0) / 2**20:.1f} MiB returned "
+        f"(its pool {mem['old_pool'] / 2**20:.1f} MiB, graph pool "
+        f"{mem['old_graphs'] / 2**20:.1f} MiB), the rebuild grew the "
+        f"allocated bytes by {mem.get('grown', 0) / 2**20:.1f} MiB (the new "
+        f"pool {mem['new_pool'] / 2**20:.1f} MiB)")
+    res["rebuild"]["agreement"] = agree(rebuild, "fleet rebuild vs control")
+    del r, rep
+
+    # 4. seeded chaos, requests arriving over the run, with and without
+    # degradation; both on the fitted cost model's virtual clock
+    seed = FLEET_CHAOS["seed"]
+    plan = FaultPlan.seeded(seed, **{k: v for k, v in FLEET_CHAOS.items()
+                                     if k != "seed"})
+    arrivals = {rid: 3 * i for i, rid in enumerate(prompts)}
+    res["chaos_plan"] = plan.to_dict()
+    for degrade in (True, False):
+        label = f"fleet chaos {'degrade' if degrade else 'no degrade'}"
+        vc = VirtualClock()
+        pol = DegradePolicy(force_fp8=True,
+                            shed_budget_tokens=FLEET_SHED_BUDGET) \
+            if degrade else None
+        r = fleet(plan, engine={"clock": vc}, clock=vc, cost_model=cost,
+                  policy=pol)
+        t0 = time.perf_counter()
+        waiting = dict(arrivals)
+        while waiting or r.in_flight():
+            for rid in [k for k, at in waiting.items() if at <= r.step_count]:
+                if any(x.serving for x in r.replicas):
+                    r.submit(Request(rid, list(prompts[rid]), max_new))
+                    del waiting[rid]
+            r.step()
+            check(r.step_count < 2000, f"{label}: no end")
+        run = finish(r, label, t0)
+        st = run["stats"]
+        tpot = [(q.token_times[-1] - q.token_times[0]) * 1e3
+                / (len(q.token_times) - 1) for q in r.finished]
+        run["p90_tpot_ms"] = float(np.percentile(tpot, 90))
+        run["virtual_s"] = vc.now
+        run["modes"] = {m: sum(q.modes.count(m) for q in r.finished)
+                        for m in modes}
+        log(f"  {label}: {run['steps']} router steps, {run['wall_s']:.2f} s "
+            f"wall, {vc.now:.3f} s modelled; modelled p90 TPOT "
+            f"{run['p90_tpot_ms']:.2f} ms; tokens by mode {run['modes']}; "
+            f"{brief(st)}")
+        res["chaos_degrade" if degrade else "chaos_plain"] = {
+            k: v for k, v in run.items() if k != "outputs"}
+        del r
+    d, p = res["chaos_degrade"], res["chaos_plain"]
+    check(d["stats"]["degrade_fp8_steps"] > 0,
+          "fleet chaos: degradation never pinned a survivor to FP8")
+    log(f"  fleet chaos: modelled p90 TPOT {d['p90_tpot_ms']:.2f} ms with "
+        f"degradation ({d['stats']['degrade_fp8_steps']} FP8 replica-steps, "
+        f"{d['stats']['shed']} shed) against {p['p90_tpot_ms']:.2f} ms "
+        f"without")
+    res["allocated_bytes"] = {"start": a_start, "end": allocated()}
+    res["launches_total"] = ops.all_launch_counters()   # the run ends
+    return res
+
+
 def _linears(tree, cls):
     if isinstance(tree, cls):
         return [tree]
@@ -2943,8 +3310,8 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="card,kernels,ds_slice,ds_serve,ds_dense,slice,"
                             "serve,dense,gemma_slice,gemma_serve,gemma_dense,"
-                            "spec,tiered,gemma_spec,qwen3_slice,qwen3_serve,"
-                            "qwen3_dense")
+                            "spec,tiered,fleet,gemma_spec,qwen3_slice,"
+                            "qwen3_serve,qwen3_dense")
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--serve-layers", type=int, default=32)
@@ -3077,12 +3444,13 @@ def main() -> int:
             f"prefill and decode steps")
         results["gemma_dense"] = dense_phase(torch, gemma, "gemma dense",
                                              plant_layer=5)
-    if {"spec", "tiered"} & phases:
+    if {"spec", "tiered", "fleet"} & phases:
         t0 = time.time()
         sp = make_serving_params(torch, cfg, 0, "cuda", plant_layer=0)
-        log(f"== llama3.1-8b params for spec and tiered on the card in "
-            f"{time.time() - t0:.1f} s")
-        for name, fn in (("spec", spec_phase), ("tiered", tiered_phase)):
+        log(f"== llama3.1-8b params for spec, tiered and fleet on the card "
+            f"in {time.time() - t0:.1f} s")
+        for name, fn in (("spec", spec_phase), ("tiered", tiered_phase),
+                         ("fleet", fleet_phase)):
             if name in phases:
                 log(f"== {name}: llama3.1-8b, {cfg.n_layers} layers")
                 t0 = time.time()
@@ -3124,12 +3492,13 @@ def main() -> int:
         # launches over the main paths' runs: the paged serve, the
         # dense-slot steps, the sliding-window serve, gemma3-1b's
         # dense-slot steps, speculation (llama3.1-8b, gemma3-1b), the
-        # tiered KV cache, and deepseek-coder-33b's and qwen3-8b's serve
+        # tiered KV cache, the fleet, and deepseek-coder-33b's and qwen3-8b's serve
         # and dense-slot steps, each counted from 0 at its start
         paths = [results.get(p, {}).get("launches_total", {})
                  for p in ("serve", "dense", "gemma_serve", "gemma_dense",
-                           "spec", "gemma_spec", "tiered", "ds_serve",
-                           "ds_dense", "qwen3_serve", "qwen3_dense")]
+                           "spec", "gemma_spec", "tiered", "fleet",
+                           "ds_serve", "ds_dense", "qwen3_serve",
+                           "qwen3_dense")]
         kernels = []
         for name, (src, replaces) in SOURCES.items():
             kernels.append({"name": name, "route": "cuda", "source": src,

@@ -12,7 +12,8 @@ when the paged KV pool's free-block headroom drops below
 `free_block_frac_min`. Hysteresis avoids oscillation on the boundary.
 
 Also here: `RestorePolicy`, the SLO guard on the tiered-KV restore path,
-and `SpeculationConfig` / `AdaptiveKController`, the n-gram speculation
+`DegradePolicy`, the router's response to lost replicas, and
+`SpeculationConfig` / `AdaptiveKController`, the n-gram speculation
 knobs and the per-step draft-length policy. Host-only logic, the same as
 the JAX package's.
 """
@@ -162,6 +163,67 @@ class RestorePolicy:
             max_restore_bytes_per_step=max(
                 1, int(self.max_restore_bytes_per_step * scale)),
             max_queue_bytes=max(1, int(self.max_queue_bytes * scale)))
+
+
+# ---------------------------------------------------------------------------
+# fleet-level graceful degradation (serving/router.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DegradeDecision:
+    """What the router applies to the surviving replicas this step."""
+    active: bool                     # running short-handed (or dwelling)
+    force_fp8: bool                  # pin survivors to FP8
+    shed_budget_tokens: int | None   # per-replica outstanding-token cap for
+                                     # NEW admissions (None: admit all)
+    restore_scale: float             # RestorePolicy tightening factor
+
+
+class DegradePolicy:
+    """The fleet's counterpart of the `DualPrecisionController`: while live
+    replicas are fewer than the fleet, survivors absorb the dead ones'
+    load. FP8 is the free knob for that (same weights, switched per
+    iteration), shedding bounds the backlog a survivor may take on, and a
+    tightened `RestorePolicy` keeps host-tier uploads from competing with
+    the extra decode work.
+
+    Recovery dwells: after capacity returns, the degraded regime holds for
+    `hysteresis_steps` more decisions before FP16 (and full grants and
+    admissions) come back, so a flapping replica does not flap the fleet's
+    precision with it."""
+
+    def __init__(self, *, force_fp8: bool = True,
+                 shed_budget_tokens: int | None = None,
+                 restore_scale: float = 0.5,
+                 hysteresis_steps: int = 8):
+        self.force_fp8 = force_fp8
+        self.shed_budget_tokens = shed_budget_tokens
+        self.restore_scale = restore_scale
+        self.hysteresis_steps = hysteresis_steps
+        self.active = False
+        self._dwell = 0
+        self.history: list[bool] = []
+
+    def decide(self, live: int, total: int) -> DegradeDecision:
+        if live < total:
+            self.active = True
+            self._dwell = self.hysteresis_steps
+        elif self.active:
+            self._dwell -= 1
+            if self._dwell <= 0:
+                self.active = False
+        self.history.append(self.active)
+        return DegradeDecision(
+            active=self.active,
+            force_fp8=self.force_fp8 and self.active,
+            shed_budget_tokens=self.shed_budget_tokens if self.active
+            else None,
+            restore_scale=self.restore_scale if self.active else 1.0)
+
+    def degraded_step_fraction(self) -> float:
+        if not self.history:
+            return 0.0
+        return sum(self.history) / len(self.history)
 
 
 # ---------------------------------------------------------------------------

@@ -64,8 +64,15 @@ eagerly and the lo planes on the first FP16 step. Every write into the
 pool (restores, COW copies) is in place: the captured steps read the
 planes at fixed addresses.
 
+Fleet hooks (`serving/router.py`): `fault_hook(engine)` is called at the
+very top of `step()`, before anything mutates, so a raise there leaves
+the engine drainable; `inject_stall_ms` is added to the step's measured
+time (the controller reacts to it) and reported as `last_stall_ms`, and
+`last_mode` is the step's precision. `drain_requests()` exports every
+in-flight request for failover, releasing its blocks and slot.
+
 Not ported yet, and refused with NotImplementedError when asked for:
-serving meshes and the fault-injection hook.
+serving meshes.
 """
 
 from __future__ import annotations
@@ -147,10 +154,9 @@ class Engine:
                  restore_policy: RestorePolicy | None = None,
                  persist_dir: str | None = None, mesh=None,
                  fault_hook: Callable[["Engine"], None] | None = None):
-        for name, val in (("mesh", mesh), ("fault_hook", fault_hook)):
-            if val:
-                raise NotImplementedError(
-                    f"Engine({name}=...) is not ported to repro_torch yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                "Engine(mesh=...) is not ported to repro_torch yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params_to(serving_params, self.device)
@@ -203,6 +209,13 @@ class Engine:
                       "restore_fallbacks": 0, "iters_exhausted": 0,
                       "corrupt_fallbacks": 0}
         self._last_step_ms: float | None = None
+        # fault injection (serving/faults.py): the hook runs at the top of
+        # every step; inject_stall_ms is consumed into _last_step_ms (so
+        # the controller reacts) and reported as last_stall_ms
+        self.fault_hook = fault_hook
+        self.inject_stall_ms = 0.0
+        self.last_stall_ms = 0.0
+        self.last_mode: str | None = None
         # act_quant="per_token": fp8 generation must not depend on what
         # shares the batch (a per-tensor scale couples co-batched tokens)
         self._rts = {m: Runtime(mode=m, dtype=torch.float32,
@@ -287,6 +300,51 @@ class Engine:
                 f"whole group pool holds ({bm.n_blocks}) — the pool can "
                 f"never cover it")
         self.queue.append(req)
+
+    def drain_requests(self) -> list[Request]:
+        """Export every in-flight request (admission order, then queue
+        order), releasing all KV blocks and slots: the router's failover
+        export. A trailing `_PENDING` placeholder of an interrupted step is
+        dropped with its time and mode entries, so a survivor can resubmit
+        each request as it is: re-prefilling prompt + output continues
+        greedy generation exactly.
+
+        What the released rows leave behind is settled too: spill captures
+        an interrupted step enqueued are stored (their blocks stay
+        servable by the prefix index), queued restores die with their
+        tickets, and blocks whose lo planes were never landed are purged
+        from the device index with their host entries unpinned (the entry
+        stays in the tier), so afterwards no capture is pending and no
+        host entry is pinned."""
+        self._settle_captures()
+        bm = self.blocks
+        order = sorted(set(self.active) | set(self.prefilling),
+                       key=lambda i: bm.seqs[i].admitted)
+        out: list[Request] = []
+        for idx in order:
+            if idx in self.active:
+                out.append(self.active.pop(idx))
+            else:
+                out.append(self.prefilling.pop(idx).req)
+            bm.release(idx)
+            self.lens[idx] = 0
+        out.extend(self.queue)
+        self.queue.clear()
+        if bm.host is not None:
+            bm.abandon_restores()
+        # the last step's draft counts describe rows that left
+        self._last_spec = (0, 0)
+        for req in out:
+            while req.output and req.output[-1] == _PENDING:
+                req.output.pop()
+                if req.token_times:
+                    req.token_times.pop()
+                if req.modes:
+                    req.modes.pop()
+            if not req.output:
+                req.first_token_s = None     # the dropped placeholder was
+                                             # the first token
+        return out
 
     def run(self, max_iters: int = 10_000,
             allow_partial: bool = False) -> list[Request]:
@@ -704,7 +762,12 @@ class Engine:
     # -- step -----------------------------------------------------------------
     def step(self) -> None:
         """One engine iteration, synced to the host exactly once at the
-        end; its wall time feeds the controller's next decision."""
+        end; its wall time, plus any injected stall, feeds the
+        controller's next decision."""
+        if self.fault_hook is not None:
+            # containment point: nothing has mutated yet, so a raise here
+            # leaves the engine fully drainable
+            self.fault_hook(self)
         self.iteration += 1
         t0 = self.clock()
         # land queued restores first (within the SLO grant): rows whose
@@ -726,7 +789,9 @@ class Engine:
         decode_ids, drafts = self._decode_paged(mode, chunk_ids, fresh)
         self._finalize_step(mode, pending, decode_ids, chunk_ids, drafts)
         self._sample_peak()
-        self._last_step_ms = (self.clock() - t0) * 1e3
+        self.last_mode = mode
+        self.last_stall_ms, self.inject_stall_ms = self.inject_stall_ms, 0.0
+        self._last_step_ms = (self.clock() - t0) * 1e3 + self.last_stall_ms
         if self.debug_invariants:
             self.blocks.check_invariants()
 

@@ -939,6 +939,20 @@ class BlockManager:
         if b not in self._free[g]:
             self._free[g].append(b)
 
+    def abandon_restores(self) -> None:
+        """After every row is released (an engine drain): drop the restore
+        jobs (all voided: an unrestored block is always held) and purge the
+        blocks whose lo planes never landed, unpinning their host entries,
+        which stay in the tier. A purged block's device lo bytes are
+        garbage, so its content must not be matched on the device again;
+        a later match restores it from the host."""
+        assert all(s is None for s in self.seqs), "abandon with rows live"
+        self.restore_jobs.clear()
+        for (g, b), h in list(self._lo_pending.items()):
+            del self._lo_pending[(g, b)]
+            self.host.unpin((g, h))
+            self.purge_block(g, b)
+
     def take_spills(self) -> list[tuple[int, int, int]]:
         """Drain the (group, block, hash) capture queue; the caller
         captures these blocks' bytes (`store_spill`) BEFORE any

@@ -149,9 +149,15 @@ def test_default_device_needs_a_gpu(qwen):
 
 @pytest.mark.parametrize("arg", [{"mesh": object()}, {"fault_hook": print}])
 def test_deferred_features_raise(qwen, arg):
+    """Serving meshes are still refused; the fault hook is ported (the
+    router's, serving/faults.py) and is kept as given."""
     _, tcfg, _, tsp = qwen
-    with pytest.raises(NotImplementedError):
-        TEngine(tcfg, tsp, n_slots=2, capacity=64, device="cpu", **arg)
+    if "mesh" in arg:
+        with pytest.raises(NotImplementedError):
+            TEngine(tcfg, tsp, n_slots=2, capacity=64, device="cpu", **arg)
+    else:
+        eng = TEngine(tcfg, tsp, n_slots=2, capacity=64, device="cpu", **arg)
+        assert eng.fault_hook is print
 
 
 def test_submit_validation(qwen):

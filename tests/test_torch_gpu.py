@@ -1079,8 +1079,13 @@ def test_graphs_are_freed_with_their_engine(dev, llama_sp):
     segments leave the allocator, and the allocated bytes return to
     where they were before the engine (after a first engine has made
     the capture stream's cuBLAS workspace, which stays)."""
+    import gc
     cfg, sp = llama_sp
     _graph_engine(cfg, sp, forced_mode="fp8").run()
+    # earlier tests' garbage goes first: collected during this test, it
+    # would lower the bytes below the base (the engine itself must still
+    # go by reference counting alone)
+    gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     eng = _graph_engine(cfg, sp, dual=True)
@@ -1093,6 +1098,98 @@ def test_graphs_are_freed_with_their_engine(dev, llama_sp):
     torch.cuda.empty_cache()
     assert not [s for s in torch.cuda.memory_snapshot()
                 if tuple(s.get("segment_pool_id", ())) == pool]
+
+
+# -- the fleet: two replicas behind the router (serving/router.py) ---------
+
+def _fleet(cfg, sp, plan=None):
+    from repro_torch.serving.router import Router
+    r = Router.build(cfg, sp, 2, plan=plan, affinity_blocks=1,
+                     balance_slack_tokens=40,
+                     engine_kwargs=dict(n_slots=4, capacity=64,
+                                        kv_planar=True, forced_mode="fp16",
+                                        device="cuda"))
+    rng = np.random.default_rng(5)
+    sysp = [int(t) for t in rng.integers(1, cfg.vocab_size, 32)]
+    for i in range(4):
+        r.submit(Request(f"r{i}", sysp + [
+            int(t) for t in rng.integers(1, cfg.vocab_size, 6)], 12))
+    return r
+
+
+def _allocated():
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def test_router_replicas_share_weights_and_fail_over(dev, llama_sp):
+    """Replicas built from one serving tree hold one copy of the weights
+    (same addresses) and a pool each; a kill mid-generation loses nothing,
+    and its requests finish on the survivor with their failover tokens
+    counted (the shared prefix restored, the rest recomputed)."""
+    from repro_torch.models.convert import leaves
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    cfg, sp = llama_sp
+    r = _fleet(cfg, sp)
+    a, b = (rep.engine for rep in r.replicas)
+    ptrs = [t.data_ptr() for t in leaves(sp)]
+    assert [t.data_ptr() for t in leaves(a.params)] == ptrs
+    assert [t.data_ptr() for t in leaves(b.params)] == ptrs
+    assert {p.data_ptr() for p in a.caches["attn"].values()}.isdisjoint(
+        p.data_ptr() for p in b.caches["attn"].values())
+    assert a.queue and b.queue           # the burst spreads over both
+    r.run()
+    control = {q.request_id: q.output for q in r.finished}
+    r = _fleet(cfg, sp, FaultPlan([FaultEvent(4, 0, "kill")]))
+    r.run()
+    st = r.stats()
+    assert st["lost"] == 0 and st["completed"] == 4 and st["kills"] == 1
+    assert st["failover_requests"] > 0
+    assert st["failover_restored_tokens"] > 0
+    assert st["failover_recomputed_tokens"] > 0
+    assert {q.request_id: len(q.output) for q in r.finished} \
+        == {k: len(v) for k, v in control.items()}
+
+
+def test_router_rebuild_returns_the_old_engine(dev, llama_sp):
+    """A replica whose drain fails is rebuilt from its factory: by the time
+    the factory runs, the old engine is gone (no reference left, its pool
+    returned to the allocator), its graph pool's segments leave the
+    allocator, and the fleet finishes its requests."""
+    import weakref
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    cfg, sp = llama_sp
+    r = _fleet(cfg, sp, FaultPlan([FaultEvent(3, 0, "raise")]))
+    for _ in range(3):
+        r.step()
+    rep = r.replicas[0]
+    old = rep.engine
+
+    def fail():
+        raise RuntimeError("drain failed")
+    old.drain_requests = fail
+    ref, pool = weakref.ref(old), tuple(old.graphs._pool)
+    pool_bytes = sum(p.numel() * p.element_size()
+                     for p in old.caches["attn"].values())
+    assert old.graphs.pool_bytes() > 0
+    del old
+    build, seen = rep.factory, {}
+
+    def factory():
+        seen["free"], seen["alive"] = _allocated(), ref() is not None
+        return build()
+    rep.factory = factory
+    before = _allocated()
+    r.step()
+    assert r.stats()["rebuilds"] == 1 and not seen["alive"]
+    assert before - seen["free"] >= pool_bytes
+    torch.cuda.empty_cache()
+    assert not [g for g in torch.cuda.memory_snapshot()
+                if tuple(g.get("segment_pool_id", ())) == pool]
+    r.run()
+    assert r.stats()["lost"] == 0 and r.stats()["completed"] == 4
 
 
 # -- sliding-window serving: gemma3-1b reduced (window 19, D = 64) ----------
