@@ -2837,7 +2837,7 @@ FLEET_CHAOS = dict(seed=2, replicas=3, steps=90, p_raise=0.02, p_stall=0.1,
 FLEET_SHED_BUDGET = 2400
 
 
-def fleet_phase(torch, cfg, sp, device="cuda") -> dict:
+def fleet_phase(torch, cfg, sp) -> dict:
     """llama3.1-8b at full width and depth behind the port's `Router`: three
     replicas built by `Router.build` from one serving tree (one copy of the
     weights, asserted by address; a pool and a graph pool each), forced
@@ -2863,11 +2863,15 @@ def fleet_phase(torch, cfg, sp, device="cuda") -> dict:
        shed_budget_tokens=...)`: nothing lost, sheds counted; the modelled
        p90 TPOT of both is printed.
 
+    Every run is held to its plan: the router catches any exception of a
+    replica's step and fails its requests over, so a run's step errors
+    must be exactly its fired injected raises, its kills and revives no
+    more than planned, and a rebuild only where the phase failed a drain.
+
     On one card the replicas step one after another, so the wall time of a
     router step is the sum of its replicas' steps; the modelled latency
-    comes from the VirtualClock. `device="cpu"` runs the same schedule on
-    the CPU (a rehearsal: the schedule depends on token ids and counts,
-    not on the model's numbers)."""
+    comes from the VirtualClock."""
+    import collections
     import gc
     import weakref
 
@@ -2880,12 +2884,8 @@ def fleet_phase(torch, cfg, sp, device="cuda") -> dict:
     from repro_torch.serving.faults import FaultEvent, FaultPlan
     from repro_torch.serving.router import Router, StepCostModel, VirtualClock
 
-    on_card = device == "cuda"
-
     def allocated() -> int:
         gc.collect()
-        if not on_card:
-            return 0
         torch.cuda.synchronize()
         return torch.cuda.memory_allocated()
 
@@ -2902,16 +2902,29 @@ def fleet_phase(torch, cfg, sp, device="cuda") -> dict:
     max_new = 64
 
     def fleet(plan=None, engine=None, **kw) -> Router:
-        ekw = dict(FLEET_ENGINE, device=device, **(engine or {}))
+        ekw = dict(FLEET_ENGINE, **(engine or {}))
         return Router.build(cfg, sp, 3, engine_kwargs=ekw, plan=plan,
                             affinity_blocks=1,
                             balance_slack_tokens=FLEET_SLACK, **kw)
 
-    def finish(r, label, t0, n=len(prompts)) -> dict:
-        if on_card:
-            torch.cuda.synchronize()
+    def finish(r, label, t0, plan=None, rebuilds=0) -> dict:
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         st = r.stats()
+        n = len(prompts)
+        # only injected faults may be absorbed: any other exception of a
+        # step would count as a step error and fail over unseen
+        fired = r.injector.fired if r.injector is not None else []
+        planned = collections.Counter(
+            e.kind for e in (plan.events if plan is not None else []))
+        check(st["step_errors"] == sum(e.kind == "raise" for e in fired)
+              and st["kills"] <= planned["kill"]
+              and st["revives"] <= planned["revive"]
+              and st["rebuilds"] == rebuilds
+              and all(x.usable for x in r.replicas),
+              f"{label}: a failure that was not injected: {brief(st)}; "
+              f"fired {collections.Counter(e.kind for e in fired)}, "
+              f"planned {dict(planned)}")
         check(st["lost"] == 0, f"{label}: {st['lost']} requests lost")
         check(st["completed"] + st["shed"] == n and st["in_flight"] == 0,
               f"{label}: {st['completed']} completed + {st['shed']} shed "
@@ -2926,12 +2939,12 @@ def fleet_phase(torch, cfg, sp, device="cuda") -> dict:
         return {"outputs": outs, "stats": st, "wall_s": wall,
                 "steps": r.step_count}
 
-    def serve(r, label) -> dict:
+    def serve(r, label, plan=None) -> dict:
         t0 = time.perf_counter()
         for rid, p in prompts.items():
             r.submit(Request(rid, list(p), max_new))
         r.run()
-        return finish(r, label, t0)
+        return finish(r, label, t0, plan)
 
     def brief(st) -> str:
         keys = ("steps", "replicas", "kills", "revives", "step_errors",
@@ -3044,7 +3057,7 @@ def fleet_phase(torch, cfg, sp, device="cuda") -> dict:
     # 2. the planned plan
     plan = FaultPlan([FaultEvent(*e) for e in FLEET_PLAN])
     r = fleet(plan, clock=VirtualClock(), cost_model=cost)
-    planned = serve(r, "fleet planned")
+    planned = serve(r, "fleet planned", plan)
     st = planned["stats"]
     fired = sorted({e.kind for e in r.injector.fired}
                    | {k for k in ("kill", "revive") if st[k + "s"]})
@@ -3069,7 +3082,8 @@ def fleet_phase(torch, cfg, sp, device="cuda") -> dict:
     del r
 
     # 3. a drain failure rebuilt from the factory
-    r = fleet(FaultPlan([FaultEvent(FLEET_REBUILD_STEP, 0, "raise")]))
+    plan = FaultPlan([FaultEvent(FLEET_REBUILD_STEP, 0, "raise")])
+    r = fleet(plan)
     rep = r.replicas[0]
 
     def failed_drain():
@@ -3097,35 +3111,33 @@ def fleet_phase(torch, cfg, sp, device="cuda") -> dict:
             mem["old_graphs"] = rep.engine.graphs.pool_bytes()
             mem["before"] = allocated()
         r.step()
-    rebuild = finish(r, "fleet rebuild", t0)
+    rebuild = finish(r, "fleet rebuild", t0, plan, rebuilds=1)
     st = rebuild["stats"]
     check(st["rebuilds"] == 1 and st["step_errors"] == 1,
           f"fleet rebuild: {brief(st)}")
     check(not mem["old_alive"] and old() is None,
           "fleet rebuild: the old engine outlived its rebuild")
-    if on_card:
-        returned = mem["before"] - mem["free"]
-        check(returned >= mem["old_pool"],
-              f"fleet rebuild: {returned} bytes returned, the old pool "
-              f"alone is {mem['old_pool']}")
-        grown = mem["built"] - mem["before"]
-        check(grown <= mem["new_pool"],
-              f"fleet rebuild grew the allocated bytes by {grown}, more "
-              f"than the new engine's pool ({mem['new_pool']})")
-        torch.cuda.empty_cache()
-        check(not [g for g in torch.cuda.memory_snapshot()
-                   if tuple(g.get("segment_pool_id", ()))
-                   == tuple(old_pool)],
-              "fleet rebuild: the old engine's graph pool is still held")
-        mem["returned"] = returned
-        mem["grown"] = grown
+    returned = mem["before"] - mem["free"]
+    check(returned >= mem["old_pool"],
+          f"fleet rebuild: {returned} bytes returned, the old pool alone "
+          f"is {mem['old_pool']}")
+    grown = mem["built"] - mem["before"]
+    check(grown <= mem["new_pool"],
+          f"fleet rebuild grew the allocated bytes by {grown}, more than "
+          f"the new engine's pool ({mem['new_pool']})")
+    torch.cuda.empty_cache()
+    check(not [g for g in torch.cuda.memory_snapshot()
+               if tuple(g.get("segment_pool_id", ())) == tuple(old_pool)],
+          "fleet rebuild: the old engine's graph pool is still held")
+    mem["returned"] = returned
+    mem["grown"] = grown
     res["rebuild"] = {k: v for k, v in rebuild.items() if k != "outputs"}
     res["rebuild"]["memory"] = mem
     log(f"  fleet rebuild: {brief(st)}; old engine freed before the new "
-        f"one was built: {mem.get('returned', 0) / 2**20:.1f} MiB returned "
+        f"one was built: {returned / 2**20:.1f} MiB returned "
         f"(its pool {mem['old_pool'] / 2**20:.1f} MiB, graph pool "
         f"{mem['old_graphs'] / 2**20:.1f} MiB), the rebuild grew the "
-        f"allocated bytes by {mem.get('grown', 0) / 2**20:.1f} MiB (the new "
+        f"allocated bytes by {grown / 2**20:.1f} MiB (the new "
         f"pool {mem['new_pool'] / 2**20:.1f} MiB)")
     res["rebuild"]["agreement"] = agree(rebuild, "fleet rebuild vs control")
     del r, rep
@@ -3154,7 +3166,7 @@ def fleet_phase(torch, cfg, sp, device="cuda") -> dict:
                     del waiting[rid]
             r.step()
             check(r.step_count < 2000, f"{label}: no end")
-        run = finish(r, label, t0)
+        run = finish(r, label, t0, plan)
         st = run["stats"]
         tpot = [(q.token_times[-1] - q.token_times[0]) * 1e3
                 / (len(q.token_times) - 1) for q in r.finished]

@@ -139,6 +139,21 @@ def _bucket(n: int, minimum: int = 16) -> int:
 _PENDING = -1
 
 
+def _strip_pending(req: Request) -> Request:
+    """Drop an interrupted step's trailing `_PENDING` placeholder with its
+    time and mode entries, so the request can be resubmitted as it is."""
+    while req.output and req.output[-1] == _PENDING:
+        req.output.pop()
+        if req.token_times:
+            req.token_times.pop()
+        if req.modes:
+            req.modes.pop()
+    if not req.output:
+        req.first_token_s = None         # the dropped placeholder was the
+                                         # first token
+    return req
+
+
 class Engine:
     def __init__(self, cfg: ArchConfig, serving_params, *, n_slots: int,
                  capacity: int,
@@ -334,17 +349,7 @@ class Engine:
             bm.abandon_restores()
         # the last step's draft counts describe rows that left
         self._last_spec = (0, 0)
-        for req in out:
-            while req.output and req.output[-1] == _PENDING:
-                req.output.pop()
-                if req.token_times:
-                    req.token_times.pop()
-                if req.modes:
-                    req.modes.pop()
-            if not req.output:
-                req.first_token_s = None     # the dropped placeholder was
-                                             # the first token
-        return out
+        return [_strip_pending(req) for req in out]
 
     def run(self, max_iters: int = 10_000,
             allow_partial: bool = False) -> list[Request]:

@@ -47,7 +47,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.core.policy import DegradeDecision, DegradePolicy
-from repro_torch.serving.engine import _PENDING, Request
+from repro_torch.serving.engine import Request, _strip_pending
 from repro_torch.serving.faults import ROUTER_KINDS, FaultInjector, FaultPlan
 from repro_torch.serving.kvcache import _ROOT_HASH, _chain_hash
 
@@ -227,20 +227,6 @@ class Router:
         return True
 
     # -- failure containment --------------------------------------------------
-    def _sanitize(self, req: Request) -> Request:
-        """Strip an interrupted step's trailing `_PENDING` placeholder
-        (mirror of `Engine.drain_requests`' sanitization, for requests
-        recovered from the router's registry instead)."""
-        while req.output and req.output[-1] == _PENDING:
-            req.output.pop()
-            if req.token_times:
-                req.token_times.pop()
-            if req.modes:
-                req.modes.pop()
-        if not req.output:
-            req.first_token_s = None
-        return req
-
     def _restore_overrides(self, rep: _Replica) -> None:
         if rep.saved is not None:
             rep.engine.forced_mode, rep.engine.restore_policy = rep.saved
@@ -258,7 +244,7 @@ class Router:
             pass
         # outside the handler: the traceback's frames no longer hold the
         # old engine, so its pool and graphs go before the new ones come
-        reqs = [self._sanitize(r) for r in self._live[rep.rid].values()]
+        reqs = [_strip_pending(r) for r in self._live[rep.rid].values()]
         if rep.factory is not None:
             rep.engine = None
             rep.engine = rep.factory()
