@@ -85,7 +85,7 @@ deepseek-coder-33b right after the kernels phase, while the card holds
 nothing else, the three of qwen3-8b last:
   ds_slice    deepseek-coder-33b at full width, 2 layers (one planted
               exception tensor), card against CPU as phase 3: paged
-              steps FP16 and FP8 (gated), FP8 at 1, 4 and 8 layers
+              steps FP16 and FP8 (gated), FP8 at 1 and 4 layers
               (readings, not gated), the dense-slot prefill (K6 at G = 7)
               and decode steps in f32 (gated)
   ds_serve    all 62 layers through `Engine` as phase 4, the weights
@@ -101,6 +101,30 @@ nothing else, the three of qwen3-8b last:
   qwen3_slice, qwen3_serve, qwen3_dense  the same for qwen3-8b (36
               layers, qk_norm): FP8 readings at 1 and 4 layers, and the
               32k decode run as llama3.1-8b's
+The MoE family runs in five more phases: the two of deepseek-v3 right
+after deepseek-coder-33b's, the three of granite-moe-3b after llama's:
+  ds3_mla     one deepseek-v3 MLA attention module at full width (128
+              heads, latent rank 512), card against CPU in f32: the paged
+              phase (a chunk, a chunk over COW-shared blocks, a decode
+              step) and the dense-slot prefill and decode phases; FP16
+              within 1e-2, FP8 within 0.25, outputs of order 1
+  ds3_serve   deepseek-v3 at full width, 1 layer (31.6 GB, streamed leaf
+              by leaf, wo an exception tensor), through `Engine` with f16
+              latent planes: 4 slots,
+              8 requests of 512 tokens sharing a 256-token system prompt,
+              32 new, FP16 and FP8; the load held to its reckoning,
+              nothing lost, prefix hits on latent blocks, every replay
+              bitwise its eager call
+  granite_slice  granite-moe-3b at full width, 2 layers (an exception wo
+              and an exception bank in layer 1), card against CPU, paged,
+              planar KV, f32: held to SLICE_TOL under the routing rule
+              (`RoutingCheck`: logits compared where the row's own token
+              chose the same experts, flips only at router near-ties); 1
+              and 4 layers as readings
+  granite_serve  all 32 layers through `Engine` as phase 4 at 8 x (1024 +
+              64), capacity 1088, planar KV, FP16 / FP8 / dual
+  granite_dense  all 32 layers through the dense-slot steps as phase 5
+              (K6 at G = 3 in every layer; the 32k decode reckoned)
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 GPU is present or the port is missing.
@@ -933,7 +957,9 @@ K6_CASES = (("bfloat16", 8, 1024, 32, 8, 128), ("bfloat16", 1, 8192, 32, 8, 128)
             # ragged S (65 = 7 blocks of 9 positions + 2)
             ("bfloat16", 8, 1024, 56, 8, 128),
             ("float16", 8, 1024, 56, 8, 128),
-            ("float32", 2, 65, 56, 8, 128))
+            ("float32", 2, 65, 56, 8, 128),
+            # granite-moe-3b's heads, 24 over 8 (G = 3), D = 64
+            ("bfloat16", 8, 1024, 24, 8, 64))
 
 
 def prefill_attention_phase(torch, iters: int, baseline=None) -> list[dict]:
@@ -1043,7 +1069,25 @@ def encode_phase(torch, iters: int) -> list[dict]:
     log(f"  nestedfp_encode all 65536 f16 patterns byte-identical; "
         f"{k}x{n}: ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
         f"bound={b_ms:.4f} ({b_kind}); no single PyTorch call encodes")
-    return [row]
+    # one granite-moe-3b expert bank, a 3-D tensor (48 x 1536 x 512)
+    shape = (48, 1536, 512)
+    nel = math.prod(shape)
+    banks = [(torch.randn(shape, generator=gen, device=dev) * 1536 ** -0.5
+              ).half() for _ in range(2)]
+    got, want = nestedfp_encode(banks[0]), ref.nestedfp_encode_ref(banks[0])
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "nestedfp_encode of a 3-D bank differs from its plain version")
+    b_ms, b_kind = bound(4 * nel, 0.0, "f32")
+    bank = {"model": "granite-moe-3b", "shape": shape, "max_abs_err": 0.0,
+            "ms": time_ms(torch, lambda i: nestedfp_encode(banks[i]), 2,
+                          iters),
+            "plain_ms": time_ms(torch, lambda i: ref.nestedfp_encode_ref(
+                banks[i]), 2, iters),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_kind}
+    log(f"  nestedfp_encode granite bank {shape} bitwise its plain version: "
+        f"ms={bank['ms']:.4f} plain={bank['plain_ms']:.4f} "
+        f"bound={b_ms:.4f} ({b_kind})")
+    return [row, bank]
 
 
 def summarize(rows: list[dict], weight) -> dict:
@@ -1067,15 +1111,15 @@ def summarize(rows: list[dict], weight) -> dict:
 # ---------------------------------------------------------------------------
 
 def make_serving_params(torch, cfg, seed, device, plant_layer):
-    """Random params from a seeded generator on `device`, streamed layer
-    by layer (`model.init_serving_params`: the device holds the f32
-    weights of one layer at a time), with one exception tensor planted:
+    """Random params from a seeded generator on `device`, streamed weight
+    by weight (`model.init_serving_params`: the device holds one f32
+    weight at a time), with one exception tensor planted:
     wo[0, 0] = 2.0 in layer `plant_layer`."""
     from repro_torch.models import model as M
 
-    def plant(i, layer):
-        if i == plant_layer:
-            layer["attn"]["wo"]["w"][0, 0] = 2.0
+    def plant(i, path, w):
+        if (i, path) == (plant_layer, "attn/wo/w"):
+            w[0, 0] = 2.0
     sp = M.init_serving_params(cfg, seed=seed, device=device, plant=plant)
     check(sp["layers"][plant_layer]["attn"]["wo"].weight.is_exception,
           "planted exception tensor was nested")
@@ -1104,7 +1148,10 @@ def paged_slice(torch, cfg, params, mode, *, n_layers=None, gated=True,
     "cuda": ...}), card against CPU, planar KV: a prefill of 2 prompts
     (32 and 20 tokens) and n_steps - 1 decode steps (K4), teacher-forced
     by the CPU's greedy tokens; logits held to SLICE_TOL[mode] when
-    `gated`, printed as a reading otherwise."""
+    `gated`, printed as a reading otherwise. An MoE model is held under
+    the routing rule (`RoutingCheck`): a row's logits are compared at a
+    step only where its own token chose the same experts on both devices
+    in every layer."""
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.models.layers import Runtime
@@ -1124,23 +1171,37 @@ def paged_slice(torch, cfg, params, mode, *, n_layers=None, gated=True,
     caches = {dev: M.init_paged_cache(cut, 9, bs, planar=True, device=dev)
               for dev in ("cpu", "cuda")}
 
+    aux = {"cpu": [], "cuda": []} if cut.moe is not None else None
+
     def step(dev, toks, qo, kvl, lp=None):
         return M.paged_step(
             rt, prm[dev], cut, toks.to(dev), caches[dev],
             tables.to(dev), q_offset=qo.to(dev), kv_len=kvl.to(dev),
             block_size=bs, return_logits=True,
-            logit_position=None if lp is None else lp.to(dev))
+            logit_position=None if lp is None else lp.to(dev),
+            aux=None if aux is None else aux[dev])
 
     lens = torch.tensor(plens, dtype=torch.int32)
     args = (prompt, torch.zeros(2, dtype=torch.int32), lens, lens - 1)
     cmp = LogitCheck(torch, mode, SLICE_TOL[mode], gated)
+    route = RoutingCheck(torch, cut.moe.top_k) if aux is not None else None
     t0 = time.time()
     for s in range(n_steps):
         before = ops.all_launch_counters()
         want = step("cpu", *args)
         got = step("cuda", *args)
         after = ops.all_launch_counters()
-        cmp.add(got, want, f"paged step {s}")
+        if route is None:
+            cmp.add(got, want, f"paged step {s}")
+        else:
+            own = args[3] if s == 0 else torch.zeros(2, dtype=torch.long)
+            real = torch.arange(args[0].shape[1])[None, :] < (
+                args[2] - args[1])[:, None]
+            ok = route.add(aux["cuda"], aux["cpu"], own, real)
+            aux["cpu"].clear()
+            aux["cuda"].clear()
+            if ok.any():
+                cmp.add(got[ok.cuda()], want[ok], f"paged step {s}")
         if s > 0:   # decode steps go through K4
             check(after["paged_planar_decode_attention"]
                   > before["paged_planar_decode_attention"],
@@ -1149,8 +1210,73 @@ def paged_slice(torch, cfg, params, mode, *, n_layers=None, gated=True,
         args = (nxt, lens.clone(), lens + 1)
         lens = lens + 1
     res = cmp.done(f"{label} {n_layers} layers")
+    if route is not None:
+        res["routing"] = route.done(f"{label} {n_layers} layers {mode}",
+                                    gated)
     res["seconds"] = time.time() - t0
     return res
+
+
+class RoutingCheck:
+    """The routing rule of an MoE comparison (card against CPU): for each
+    step, every layer's chosen experts on both devices at every real
+    position. A flip (a position whose expert set differs in some layer)
+    must sit where the CPU's gap between its k-th and (k+1)-th router
+    logit is below 4x the largest router-logit difference seen at
+    positions that agree; a row's logits are compared only at steps
+    whose own token (its logit position) routed alike in every layer,
+    and at least 3/4 of the (step, row) pairs must so qualify."""
+
+    def __init__(self, torch, k):
+        self.torch, self.k = torch, k
+        self.gaps, self.diff, self.flips, self.pos = [], 0.0, 0, 0
+        self.rows, self.held = 0, 0
+
+    def _sets(self, logits):
+        idx = self.torch.sort(logits, dim=-1, descending=True,
+                              stable=True)[1][..., :self.k]
+        return self.torch.sort(idx, dim=-1)[0]
+
+    def add(self, got_aux, want_aux, own, real):
+        """got_aux / want_aux: each layer's aux dict of one step (card,
+        CPU); own (B,): each row's logit column; real (B, C) bool: the
+        row's real (not pad) columns. Returns (B,) bool: rows to hold."""
+        torch = self.torch
+        agree = torch.ones_like(real)
+        for g, w in zip(got_aux, want_aux):
+            gl = g["router_logits"].float().cpu()
+            wl = w["router_logits"].float()
+            same = (self._sets(gl) == self._sets(wl)).all(-1)
+            agree &= same
+            flip = ~same & real
+            srt = wl[flip].sort(dim=-1, descending=True)[0]
+            self.gaps += (srt[:, self.k - 1] - srt[:, self.k]).tolist()
+            ok = same & real
+            if ok.any():
+                self.diff = max(self.diff, float((gl - wl).abs()[ok].max()))
+        self.flips += int((~agree & real).sum())
+        self.pos += int(real.sum())
+        rows = agree[torch.arange(len(own)), own.long()]
+        self.rows += len(own)
+        self.held += int(rows.sum())
+        return rows
+
+    def done(self, label, gated: bool = True) -> dict:
+        near = all(g < 4 * self.diff for g in self.gaps)
+        log(f"  {label} routing: {self.flips} flipped positions of "
+            f"{self.pos} (layer flips {len(self.gaps)}); CPU k/k+1 router "
+            f"logit gaps at flips {[f'{g:.2e}' for g in self.gaps[:8]]}"
+            f"{' ...' if len(self.gaps) > 8 else ''} against 4 x the "
+            f"largest difference where routing agreed "
+            f"{4 * self.diff:.2e}; rows held {self.held}/{self.rows}")
+        if gated:
+            check(near, f"{label}: a routing flip away from a near-tie")
+            check(self.held >= 0.75 * self.rows,
+                  f"{label}: only {self.held}/{self.rows} rows routed alike")
+        return {"flipped_positions": self.flips, "positions": self.pos,
+                "layer_flips": len(self.gaps), "gaps": self.gaps,
+                "max_router_diff": self.diff, "near_ties": near,
+                "rows_held": self.held, "rows": self.rows}
 
 
 def family_slice_phase(torch, cfg, label: str, readings=()) -> dict:
@@ -1306,7 +1432,11 @@ BF16_TOL = {"fp16": 0.1, "fp8": 0.5}
 
 
 def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
-                label: str = "serve", memory: bool = False) -> dict:
+                label: str = "serve", memory: bool = False, *,
+                n_slots: int = 8, capacity: int = 256, prompt_len: int = 128,
+                max_new: int = 32, sys_len: int = 0,
+                policies=("fp16", "fp8", "dual"), plant_layer: int = 0,
+                need: dict | None = None) -> dict:
     """The paged engine at full width and depth, forced FP16, forced FP8
     and dual. Each engine first serves 8 other prompts of the same
     shapes (the warm pass: it captures every step key and holds each
@@ -1318,7 +1448,12 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
     checksums are logged. Each key's capture logs what it added to the
     graphs' pool, and dual mode the controller's reasons for FP8. With
     `memory`, the load is reckoned first (`memory_reckoning`) and the
-    bytes it allocates are held to the reckoning."""
+    bytes it allocates are held to the reckoning. The shape (slots,
+    capacity, prompt_len tokens of which the first sys_len are one system
+    prompt shared by every request, max_new), the policies, the layer
+    whose wo is planted as an exception tensor and the kernels each mode
+    must launch
+    (`need`) default to llama3.1-8b's serve phase."""
     from repro_torch.core.policy import DualPrecisionController, SLOConfig
     from repro_torch.kernels import ops
     from repro_torch.models.convert import serving_memory_bytes
@@ -1332,7 +1467,7 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
     alloc0 = torch.cuda.memory_allocated()
     req0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
     t0 = time.time()
-    sp = make_serving_params(torch, cfgn, 0, "cuda", plant_layer=0)
+    sp = make_serving_params(torch, cfgn, 0, "cuda", plant_layer=plant_layer)
     torch.cuda.synchronize()
     load_s = time.time() - t0
     mem = serving_memory_bytes(sp)
@@ -1356,19 +1491,21 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
         check(abs(got - want) <= 2**20,
               f"{label}: the load took {got} B for a reckoned {want} B")
     rng = torch.Generator().manual_seed(7)
-    prompts = [torch.randint(1, cfg.vocab_size, (128,), generator=rng).tolist()
+    sysp = torch.randint(1, cfg.vocab_size, (sys_len,), generator=rng).tolist()
+    prompts = [sysp + torch.randint(1, cfg.vocab_size, (prompt_len - sys_len,),
+                                    generator=rng).tolist()
                for _ in range(24)]
     warm, prompts = [prompts[8:16], prompts[16:]], prompts[:8]
     ops.reset_launch_counters()          # the main path's run starts here
-    for policy in ("fp16", "fp8", "dual"):
+    for policy in policies:
         ctrl = None
         if policy == "dual":
             ctrl = DualPrecisionController(SLOConfig(), fp16_ms_per_token=0.5,
                                            fp8_ms_per_token=0.25)
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
-        eng = Engine(cfgn, sp, n_slots=8, capacity=256, kv_planar=True,
-                     controller=ctrl,
+        eng = Engine(cfgn, sp, n_slots=n_slots, capacity=capacity,
+                     kv_planar=True, controller=ctrl,
                      forced_mode=None if policy == "dual" else policy,
                      host_offload=host_tier, device="cuda")
         host_s = host_tier_timers(eng)
@@ -1382,7 +1519,7 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
         for w, mode in enumerate(["fp16", "fp8"] if ctrl else [policy]):
             eng.forced_mode = mode
             for i, p in enumerate(warm[w]):
-                eng.submit(Request(f"w{w}.{i}", list(p), max_new=32))
+                eng.submit(Request(f"w{w}.{i}", list(p), max_new=max_new))
             n_checked += serve_checked(eng, policy, label)
         eng.forced_mode = None if ctrl else policy
         torch.cuda.synchronize()
@@ -1396,8 +1533,9 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
         reasons.clear()                  # the timed run's decisions only
         stats0, n_warm = dict(eng.stats), len(eng.finished)
         host0 = dict(host_s)
+        prefix0 = eng.prefix_cache_stats()
         for i, p in enumerate(prompts):
-            eng.submit(Request(f"r{i}", list(p), max_new=32))
+            eng.submit(Request(f"r{i}", list(p), max_new=max_new))
         before = ops.all_launch_counters()
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -1416,7 +1554,7 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
               f"{policy}: a step key was captured inside the timed run")
         fin = eng.finished[n_warm:]
         check(len(fin) == 8, f"{policy}: {len(fin)}/8 requests finished")
-        check(all(len(r.output) == 32 and all(0 <= t < cfg.vocab_size
+        check(all(len(r.output) == max_new and all(0 <= t < cfg.vocab_size
                                                for t in r.output) for r in fin),
               f"{policy}: outputs of the wrong length or out of vocab")
         modes = [m for r in fin for m in r.modes]
@@ -1439,6 +1577,8 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
                                          / (len(r.output) - 1)
                                          for r in fin) / 8,
                "fp16_fraction": modes.count("fp16") / len(modes),
+               "prefix_hit_tokens": eng.prefix_cache_stats()["hit_tokens"]
+               - prefix0["hit_tokens"],
                "graphs": n_graphs, "keys": sorted(map(str, eng.graphs.keys())),
                "graph_pool_bytes": eng.graphs.pool_bytes(),
                "launches": launches,
@@ -1456,7 +1596,8 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
             f"{res['tpot_ms_mean']:.2f} ms, fp16 fraction "
             f"{res['fp16_fraction']:.2f}; {n_graphs} graphs, pool "
             f"{res['graph_pool_bytes'] / 2**20:.1f} MiB, warm pass "
-            f"{warm_s:.2f} s; launches {launches}")
+            f"{warm_s:.2f} s, prefix hit tokens {res['prefix_hit_tokens']} "
+            f"({eng.desc.kind} blocks); launches {launches}")
         log(f"  {label} {policy}: host tier {'on' if host_tier else 'off'}, "
             f"{res['stats']['spilled_blocks']} blocks spilled in the timed "
             f"run, host s in captures {res['host_tier_s']['capture_s']:.4f}"
@@ -1483,10 +1624,10 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
         check(left <= 128 * 2**20, f"{policy}: {left} bytes outlived the engine")
         res["bytes_left_after_engine"] = left
         results[policy] = res
-    need = {"fp16": ("nestedfp16_matmul", "f16_matmul",
-                     "paged_planar_decode_attention"),
-            "fp8": ("nestedfp8_matmul", "quant_per_token", "f16_matmul",
-                    "paged_planar_decode_attention")}
+    need = need or {"fp16": ("nestedfp16_matmul", "f16_matmul",
+                             "paged_planar_decode_attention"),
+                    "fp8": ("nestedfp8_matmul", "quant_per_token",
+                            "f16_matmul", "paged_planar_decode_attention")}
     for policy, names in need.items():
         for name in names:
             check(results[policy]["launches"][name] > 0,
@@ -1495,7 +1636,8 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
     for mode in ("fp16", "fp8"):
         results[f"profile_{mode}"] = profile_decode(
             torch, Engine, Request, cfgn, sp, prompts, mode,
-            results[mode]["decode_step_ms_median"])
+            results[mode]["decode_step_ms_median"], n_slots=n_slots,
+            capacity=capacity, max_new=max_new)
     results["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"  peak device memory {results['peak_mem_gb']:.1f} GB")
     return results
@@ -1541,16 +1683,17 @@ def replay_ms(torch, graph, reps: int = 20) -> float:
 
 
 def profile_decode(torch, Engine, Request, cfg, sp, prompts, mode,
-                   step_ms: float, n_steps: int = 4) -> dict:
+                   step_ms: float, n_steps: int = 4, n_slots: int = 8,
+                   capacity: int = 256, max_new: int = 32) -> dict:
     """Device time by kernel over `n_steps` decode-only steps (the torch
     profiler lists the kernels inside each graph replay), after the
     run's prefill is done; run after the main path's launch counts were
     read, and outside the timed runs. The idle share is taken against
     `step_ms`, the unprofiled decode-only step time."""
-    eng = Engine(cfg, sp, n_slots=8, capacity=256, kv_planar=True,
+    eng = Engine(cfg, sp, n_slots=n_slots, capacity=capacity, kv_planar=True,
                  forced_mode=mode, device="cuda")
     for i, p in enumerate(prompts):
-        eng.submit(Request(f"p{i}", list(p), max_new=32))
+        eng.submit(Request(f"p{i}", list(p), max_new=max_new))
     while eng.queue or eng.prefilling or eng.iteration < 8:
         eng.step()
     torch.cuda.synchronize()
@@ -1624,6 +1767,7 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
     fp8. Launch counts are read over this whole run. Then profiles (the
     eager prefill, the decode replays) and the step at long context."""
     from repro_torch.core.linear import NestedLinearParams
+    from repro_torch.core.nestedfp import NestedTensor
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models import model as M
@@ -1638,7 +1782,9 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
     torch.cuda.synchronize()
     mem = serving_memory_bytes(sp)
     nested = sum(not p.weight.is_exception for layer in sp["layers"]
-                 for p in _linears(layer, NestedLinearParams))
+                 for p in _linears(layer, NestedLinearParams)) \
+        + sum(not t.is_exception for layer in sp["layers"]     # MoE banks
+              for t in _linears(layer, NestedTensor))
     log(f"  {label}: {cfg.n_layers}-layer params nested on the card in "
         f"{time.time() - t0:.1f} s: {mem['nested_bytes'] / 1e9:.2f} GB "
         f"nested, {mem['other_bytes'] / 1e9:.2f} GB other; {nested} "
@@ -3193,6 +3339,181 @@ def fleet_phase(torch, cfg, sp) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the MoE family: granite-moe-3b (GQA, 40 experts top-8 in banks of 48) and
+# deepseek-v3 (MLA latent attention, 256 experts top-8 + 1 shared)
+# ---------------------------------------------------------------------------
+
+# K4 and K5 at granite-moe-3b's heads (24 q heads over 8 kv heads, G = 3,
+# D = 64): K4 at the granite serve phase's lens (<= 1088), K5 at the
+# dense capacity
+GRANITE_K4 = dict(h=24, hkv=8, d=64, mb=68,
+                  lens_l=(1088, 1024, 513, 1, 600, 0, 512, 1087),
+                  windows=(None,))
+GRANITE_K5 = dict(h=24, hkv=8, d=64, cases=(
+    (1056, [1056, 1040, 17, 1, 700, 1056, 333, 1024], (None,)),))
+# granite's four attention GEMMs (q, k, v, o); deepseek-v3's paged-path
+# GEMMs: MLA wq_a, wq_b, wkv_a (N = 576), wo (K = 16384), and the shared
+# expert's gate, up and down
+GRANITE_KN = [(1536, 1536), (1536, 512), (1536, 512), (1536, 1536)]
+DS3_KN = [(7168, 1536), (1536, 24576), (7168, 576), (16384, 7168),
+          (7168, 2048), (7168, 2048), (2048, 7168)]
+
+
+def granite_plant(layer_index: int):
+    """plant(i, path, w) for `init_serving_params`: in layer
+    `layer_index`, wo[0, 0] = 2.0 (an exception tensor, K3) and
+    w_down[0, 0, 0] = 2.0 (an exception bank, read as f16 in both
+    modes)."""
+    def plant(i, path, w):
+        if i == layer_index and path in ("attn/wo/w", "moe/w_down"):
+            w.view(-1)[0] = 2.0
+    return plant
+
+
+def granite_slice_phase(torch, cfg) -> dict:
+    """granite-moe-3b at full width, card against the CPU plain versions,
+    planar KV, f32: the paged step at 2 layers in FP16 and FP8, held to
+    SLICE_TOL under the routing rule (`RoutingCheck`), and 1 and 4 layers
+    as readings. Layer 1 holds an exception wo and an exception bank."""
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_to
+
+    t0 = time.time()
+    sp_gpu = M.init_serving_params(dataclasses.replace(cfg, n_layers=4),
+                                   seed=0, device="cuda",
+                                   plant=granite_plant(1))
+    moe1 = sp_gpu["layers"][1]
+    check(moe1["attn"]["wo"].weight.is_exception
+          and moe1["moe"]["w_down"].is_exception
+          and not moe1["moe"]["w_gate"].is_exception,
+          "granite slice: the planted exception wo / bank was nested")
+    sp_cpu = params_to(sp_gpu, "cpu")
+    log(f"  4-layer full-width params on the card and copied to the CPU in "
+        f"{time.time() - t0:.1f} s")
+    params = {"cpu": sp_cpu, "cuda": sp_gpu}
+    out = {mode: paged_slice(torch, cfg, params, mode, n_layers=2,
+                             label="granite slice")
+           for mode in ("fp16", "fp8")}
+    for n_l in (1, 4):
+        for mode in ("fp16", "fp8"):
+            out[f"{mode}_{n_l}l"] = paged_slice(
+                torch, cfg, params, mode, n_layers=n_l, gated=False,
+                label="granite slice", n_steps=3)
+    del params, sp_gpu, sp_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def ds3_mla_phase(torch, cfg) -> dict:
+    """One deepseek-v3 MLA attention module at full width (128 heads,
+    latent rank 512), card against the CPU plain versions, f32
+    activations: the paged phase (row 0 prefills 64 tokens as a chunk,
+    row 1 shares its first two blocks (COW) and prefills 32 more, then
+    both decode a token), and the dense-slot prefill and decode phases.
+    Outputs of order 1; max |error| <= SLICE_TOL[mode]."""
+    from repro_torch.core.nestedfp import NestedTensor
+    from repro_torch.models import mla as MLA
+    from repro_torch.models.convert import params_to, wrap_nested_linears
+    from repro_torch.models.layers import Runtime
+
+    m = cfg.mla
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p_gpu = wrap_nested_linears(MLA.init_mla(gen, cfg,
+                                             NestedTensor.from_f16))
+    params = {"cuda": p_gpu, "cpu": params_to(p_gpu, "cpu")}
+    rng = torch.Generator().manual_seed(9)
+    bs, nb = 16, 10
+    steps_ = [  # (tables, q_offset, kv_len, chunk width)
+        ([[1, 2, 3, 4], [0, 0, 0, 0]], [0, 0], [64, 0], 64),
+        ([[1, 2, 3, 4], [1, 2, 5, 6]], [64, 32], [64, 64], 32),
+        ([[1, 2, 3, 4], [1, 2, 5, 6]], [64, 64], [65, 65], 1)]
+    out = {}
+    for mode in ("fp16", "fp8"):
+        rt = Runtime(mode=mode, dtype=torch.float32)
+        tol = SLICE_TOL[mode]
+        pools = {d: {"c_kv": torch.zeros((nb, bs, m.kv_lora_rank),
+                                         dtype=torch.float16, device=d),
+                     "k_rope": torch.zeros((nb, bs, m.qk_rope_dim),
+                                           dtype=torch.float16, device=d)}
+                 for d in params}
+        errs, scale = [], []
+        for tables, qoff, klen, c in steps_:
+            tab = torch.tensor(tables)
+            qo, kl = torch.tensor(qoff), torch.tensor(klen, dtype=torch.int32)
+            pos = qo[:, None] + torch.arange(c)[None, :]
+            real = pos < kl[:, None]
+            blk = torch.gather(tab, 1, (pos // bs).clamp(max=3))
+            write = torch.where(real, blk * bs + pos % bs,
+                                torch.arange(c)[None, :] % bs)
+            read = (tab[..., None] * bs + torch.arange(bs)).reshape(2, -1)
+            x = torch.randn((2, c, cfg.d_model), generator=rng)
+            res = {}
+            for d in params:
+                res[d] = MLA.mla_attention(
+                    rt, params[d], cfg, x.to(d), phase="paged",
+                    positions=pos.to(d), cache=pools[d], kv_len=kl.to(d),
+                    paged=(write.to(d), read.to(d), qo.to(d), tab.to(d)))[0]
+            live = kl > 0
+            got, want = res["cuda"].cpu()[live], res["cpu"][live]
+            errs.append(float((got - want).abs().max()))
+            scale.append(float(want.abs().max()))
+        # the dense-slot phases: a 64-token prefill, then 2 decode steps
+        x = torch.randn((2, 64, cfg.d_model), generator=rng)
+        pos = torch.arange(64)[None, :]
+        caches, res = {}, {}
+        for d in params:
+            res[d], lat = MLA.mla_attention(rt, params[d], cfg, x.to(d),
+                                            phase="prefill",
+                                            positions=pos.to(d))
+            caches[d] = {n: torch.zeros((2, 80) + t.shape[2:],
+                                        dtype=torch.float16, device=d)
+                         for n, t in lat.items()}
+            for n, t in lat.items():
+                caches[d][n][:, :64] = t
+        errs.append(float((res["cuda"].cpu() - res["cpu"]).abs().max()))
+        scale.append(float(res["cpu"].abs().max()))
+        for i in range(2):
+            xd = torch.randn((2, 1, cfg.d_model), generator=rng)
+            lens = torch.full((2,), 65 + i, dtype=torch.int32)
+            for d in params:
+                res[d] = MLA.mla_attention(
+                    rt, params[d], cfg, xd.to(d), phase="decode",
+                    positions=(lens - 1)[:, None].to(d), cache=caches[d],
+                    kv_len=lens.to(d))[0]
+            errs.append(float((res["cuda"].cpu() - res["cpu"]).abs().max()))
+            scale.append(float(res["cpu"].abs().max()))
+        log(f"  ds3 mla {mode}: max |err| per call (paged chunk, shared "
+            f"chunk, paged decode, prefill, 2 decode) "
+            f"{[f'{e:.2e}' for e in errs]} (tol {tol}); max |out| "
+            f"{[f'{v:.2f}' for v in scale]}")
+        check(max(errs) <= tol, f"ds3 mla {mode}: error beyond {tol}")
+        check(all(0.1 < v < 100 for v in scale),
+              f"ds3 mla {mode}: outputs not of order 1: {scale}")
+        out[mode] = {"max_abs_err": errs, "max_abs_out": scale, "tol": tol}
+    del params, p_gpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def ds3_serve_phase(torch, cfg, host_tier: bool) -> dict:
+    """deepseek-v3 at full width, 1 layer (31.6 GB served: the banks,
+    MLA, the shared expert, mtp, and the f32 embedding and head), through
+    `Engine` with f16 latent planes (the engine keeps MLA f16 though
+    planar KV is asked for): 4 slots, 8 requests of 512 prompt tokens
+    that share a 256-token system prompt, 32 new, FP16 and FP8, each
+    after a warm pass. The weights stream leaf by leaf (a bank drawn in
+    f32, 15 GB, nested by K8, freed), with wo planted as an exception
+    tensor (K3 at K = 16384); the load is held to its structural
+    reckoning."""
+    return serve_phase(
+        torch, cfg, 1, host_tier, label="ds3 serve", memory=True,
+        n_slots=4, capacity=544, prompt_len=512, max_new=32, sys_len=256,
+        policies=("fp16", "fp8"),
+        need={"fp16": ("nestedfp16_matmul", "f16_matmul"),
+              "fp8": ("nestedfp8_matmul", "quant_per_token", "f16_matmul")})
+
+
 def _linears(tree, cls):
     if isinstance(tree, cls):
         return [tree]
@@ -3248,7 +3569,7 @@ LINE_WEIGHTS = {
         lambda r: int((r["dtype"], r["b"], r["s"], r["h"], r["d"])
                       == ("bfloat16", 8, 1024, 32, 128))),
     # one 4096 x 14336 weight
-    "nestedfp_encode": lambda r: 1,
+    "nestedfp_encode": lambda r: int("model" not in r),
     # the seven quantizations of one layer in one fp8 decode step (M = 8,
     # f32 rows as the engine gives them): six of width 4096, one of 14336
     "quant_per_token": (lambda r: (r["m"] == 8 and r["dtype"] == "float32")
@@ -3320,8 +3641,10 @@ def k7_sass_ops(_build) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="card,kernels,ds_slice,ds_serve,ds_dense,slice,"
-                            "serve,dense,gemma_slice,gemma_serve,gemma_dense,"
+                    default="card,kernels,ds_slice,ds_serve,ds_dense,"
+                            "ds3_mla,ds3_serve,slice,serve,dense,"
+                            "granite_slice,granite_serve,granite_dense,"
+                            "gemma_slice,gemma_serve,gemma_dense,"
                             "spec,tiered,fleet,gemma_spec,qwen3_slice,"
                             "qwen3_serve,qwen3_dense")
     ap.add_argument("--iters", type=int, default=20,
@@ -3405,18 +3728,25 @@ def main() -> int:
         log("== K7 at gemma3-1b's seven GEMM shapes")
         rows["nestedfp8_matmul_fused_quant"] += fused_quant_gemma(torch)
         for model, kn in (("qwen3-8b", QWEN3_KN),
-                          ("deepseek-coder-33b", DS_KN)):
-            log(f"== K1, K2, K3 and K7 at {model}'s seven GEMM shapes")
+                          ("deepseek-coder-33b", DS_KN),
+                          ("granite-moe-3b", GRANITE_KN),
+                          ("deepseek-v3", DS3_KN)):
+            log(f"== K1, K2, K3 and K7 at {model}'s {len(kn)} GEMM shapes")
             family_gemm_phase(torch, rows, model, kn)
+        log("== K4 and K5 at granite-moe-3b's heads (24 / 8, G = 3, D = 64)")
+        rows["paged_planar_decode_attention"] += attention_phase(
+            torch, args.iters, **GRANITE_K4)
+        rows["planar_decode_attention"] += dense_decode_phase(
+            torch, args.iters, **GRANITE_K5)
         rows["nestedfp_encode"] = encode_phase(torch, args.iters)
         rows["quant_per_token"] = quant_phase(torch, args.iters)
         results["kernel_rows"] = rows
     ds = get_arch("deepseek-coder-33b")
     if "ds_slice" in phases:
         log("== ds slice: deepseek-coder-33b at full width, 2 layers (FP8 "
-            "readings at 1, 4 and 8), card vs CPU plain versions")
+            "readings at 1 and 4), card vs CPU plain versions")
         results["ds_slice"] = timed_phase(
-            lambda: family_slice_phase(torch, ds, "ds slice", (1, 4, 8)))
+            lambda: family_slice_phase(torch, ds, "ds slice", (1, 4)))
     if "ds_serve" in phases:
         log(f"== ds serve: deepseek-coder-33b, {ds.n_layers} layers")
         results["ds_serve"] = timed_phase(lambda: serve_phase(
@@ -3429,6 +3759,16 @@ def main() -> int:
         results["ds_dense"] = timed_phase(lambda: dense_phase(
             torch, ds, "ds dense", long_ctx=False))
         results["ds_dense"]["memory"] = mem
+    ds3 = get_arch("deepseek-v3-671b")
+    if "ds3_mla" in phases:
+        log("== ds3 mla: one deepseek-v3 MLA module at full width, card vs "
+            "CPU plain versions")
+        results["ds3_mla"] = timed_phase(lambda: ds3_mla_phase(torch, ds3))
+    if "ds3_serve" in phases:
+        log("== ds3 serve: deepseek-v3 at full width, 1 layer, paged engine, "
+            "f16 latent planes")
+        results["ds3_serve"] = timed_phase(
+            lambda: ds3_serve_phase(torch, ds3, args.host_tier == "on"))
     cfg = get_arch("llama3.1-8b")
     if "slice" in phases:
         log("== slice: 2-layer llama3.1-8b, card vs CPU plain versions")
@@ -3441,6 +3781,24 @@ def main() -> int:
         log(f"== dense: llama3.1-8b, {cfg.n_layers} layers, dense-slot "
             f"prefill and decode steps")
         results["dense"] = dense_phase(torch, cfg)
+    granite = get_arch("granite-moe-3b-a800m")
+    if "granite_slice" in phases:
+        log("== granite slice: granite-moe-3b at full width, 2 layers (1 and "
+            "4 as readings), card vs CPU plain versions, routing rule")
+        results["granite_slice"] = timed_phase(
+            lambda: granite_slice_phase(torch, granite))
+    if "granite_serve" in phases:
+        log(f"== granite serve: granite-moe-3b, {granite.n_layers} layers, "
+            f"8 x (1024 + 64)")
+        results["granite_serve"] = timed_phase(lambda: serve_phase(
+            torch, granite, granite.n_layers, args.host_tier == "on",
+            label="granite serve", capacity=1088, prompt_len=1024,
+            max_new=64))
+    if "granite_dense" in phases:
+        log(f"== granite dense: granite-moe-3b, {granite.n_layers} layers, "
+            f"dense-slot prefill and decode steps")
+        results["granite_dense"] = timed_phase(lambda: dense_phase(
+            torch, granite, "granite dense", long_ctx=False))
     gemma = get_arch("gemma3-1b")
     if "gemma_slice" in phases:
         log("== gemma slice: 6-layer gemma3-1b, window groups, card vs CPU "
@@ -3510,7 +3868,8 @@ def main() -> int:
                  for p in ("serve", "dense", "gemma_serve", "gemma_dense",
                            "spec", "gemma_spec", "tiered", "fleet",
                            "ds_serve", "ds_dense", "qwen3_serve",
-                           "qwen3_dense")]
+                           "qwen3_dense", "ds3_serve", "granite_serve",
+                           "granite_dense")]
         kernels = []
         for name, (src, replaces) in SOURCES.items():
             kernels.append({"name": name, "route": "cuda", "source": src,

@@ -31,7 +31,8 @@ import torch
 from repro_torch.core.linear import NestedLinearParams, keystr
 from repro_torch.core.nestedfp import NestedTensor
 from repro_torch.device import resolve_device
-from repro_torch.models.convert import _EXCLUDE
+from repro_torch.models.convert import (_BANK_KEYS, _EXCLUDE,
+                                        wrap_nested_linears)
 
 _SHARD_BYTES = 1 << 30     # 1 GiB per shard, as the JAX package's
 
@@ -135,17 +136,6 @@ def _set(tree, path: tuple, value) -> None:
     node[path[-1]] = value
 
 
-def _nested_linears(tree):
-    """Dicts whose 'w' was nested become NestedLinearParams."""
-    if isinstance(tree, dict):
-        if isinstance(tree.get("w"), NestedTensor):
-            return NestedLinearParams(tree["w"], tree.get("b"))
-        return {k: _nested_linears(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_nested_linears(v) for v in tree]
-    return tree
-
-
 def _skeleton(tree):
     """The template's dicts and lists with every leaf still unread."""
     if isinstance(tree, dict):
@@ -164,7 +154,8 @@ def restore(path: str, template, *, device=None, serving: bool = False):
     shape mismatch ValueError); arrays are cast to the template's dtype.
     Leaves land on `device` (None = the card). With `serving`, every
     linear weight outside the embedding and LM head is nested as it is
-    read: the result is `convert.to_serving` of the restored tree."""
+    read (expert banks as bare nested tensors, a layer's bank at a time):
+    the result is `convert.to_serving` of the restored tree."""
     device = resolve_device(device)
     with open(os.path.join(path, "index.json")) as f:
         index = json.load(f)
@@ -187,7 +178,8 @@ def restore(path: str, template, *, device=None, serving: bool = False):
         with zipfile.ZipFile(os.path.join(path, f"shard_{shard}.npz")) as zf:
             for key in by_shard[shard]:
                 p, leaf, n, lp = wanted[key]
-                nest = (serving and p[-1] == "w" and leaf.dim() >= 2
+                nest = (serving and p[-1] in ("w",) + _BANK_KEYS
+                        and leaf.dim() >= 2
                         and not any(e in q for q in p if isinstance(q, str)
                                     for e in _EXCLUDE))
                 for i, (shape, arr) in enumerate(_read_slices(zf, key, n)):
@@ -203,4 +195,4 @@ def restore(path: str, template, *, device=None, serving: bool = False):
                     dest = p if n is None else lp + (i,) + p[len(lp):]
                     _set(out, dest, t)
                     del t, arr
-    return (_nested_linears(out) if serving else out), index.get("step")
+    return (wrap_nested_linears(out) if serving else out), index.get("step")

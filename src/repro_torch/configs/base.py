@@ -1,9 +1,10 @@
-"""Architecture configs for the PyTorch port (dense decoders only).
+"""Architecture configs for the PyTorch port (dense and MoE decoders).
 
-A copy of the fields of `repro.configs.base.ArchConfig` that the dense
-GQA decoder reads, so the port imports nothing of the JAX package.
-`reduced()` derives the same 2-layer smoke-test variant as the JAX
-package does, so tests can build matching configs on both sides.
+A copy of the fields of `repro.configs.base.ArchConfig` (and of its
+`MoEConfig` and `MLAConfig`) that the ported decoders read, so the port
+imports nothing of the JAX package. `reduced()` derives the same 2-layer
+smoke-test variant as the JAX package does, so tests can build matching
+configs on both sides.
 """
 
 from __future__ import annotations
@@ -11,7 +12,36 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense"]
+Family = Literal["dense", "moe"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
+    # the expert BANKS (not the router) are padded to this many rows, as
+    # in the JAX package (granite's 40 experts pad to 48); padded rows
+    # are never routed to
+    pad_experts_to: int | None = None
+
+    @property
+    def n_experts_padded(self) -> int:
+        return self.pad_experts_to or self.n_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention [arXiv:2412.19437]."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_rope_dim: int = 64
+    qk_nope_dim: int = 128
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,8 +60,11 @@ class ArchConfig:
     rope_theta: float = 10000.0
     sliding_window: int | None = None    # window size for local layers
     swa_pattern: int = 0                 # N => 1 global every N layers
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    mtp_heads: int = 0                   # deepseek-v3 multi-token prediction
     max_seq_len: int = 131072
 
     @property
@@ -42,12 +75,25 @@ class ArchConfig:
 
     @property
     def cache_kind(self) -> str:
-        """Serving cache-descriptor family; the port serves 'gqa' only."""
-        return "gqa"
+        """Serving cache-descriptor family: 'mla' (latent planes) for an
+        MLA stack, else 'gqa'."""
+        return "mla" if self.mla is not None else "gqa"
 
     def reduced(self) -> "ArchConfig":
         """2-layer, d_model 256 variant for CPU tests (same rule as the
-        JAX package's `ArchConfig.reduced`)."""
+        JAX package's `ArchConfig.reduced`): 4 experts, top-2, expert
+        width 128 (banks padded to 6 where the full config pads), MLA
+        ranks 64 / 96 / 16 / 32 / 32."""
+        small_moe = None
+        if self.moe is not None:
+            small_moe = dataclasses.replace(
+                self.moe, n_experts=4, top_k=2, d_ff_expert=128,
+                n_shared_experts=min(self.moe.n_shared_experts, 1),
+                pad_experts_to=6 if self.moe.pad_experts_to else None)
+        small_mla = None
+        if self.mla is not None:
+            small_mla = MLAConfig(kv_lora_rank=64, q_lora_rank=96,
+                                  qk_rope_dim=16, qk_nope_dim=32, v_head_dim=32)
         n_heads = min(self.n_heads, 4)
         n_kv = min(self.n_kv_heads, n_heads)
         return dataclasses.replace(
@@ -58,8 +104,9 @@ class ArchConfig:
             n_heads=n_heads,
             n_kv_heads=max(n_kv, 1),
             head_dim=64,
-            d_ff=min(self.d_ff, 512),
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=512,
+            moe=small_moe, mla=small_mla,
             swa_pattern=min(self.swa_pattern, 2) if self.swa_pattern else 0,
             sliding_window=(8 * max(min(self.swa_pattern, 2), 1) + 3)
             if self.sliding_window else None,

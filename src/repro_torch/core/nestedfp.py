@@ -48,9 +48,18 @@ def is_applicable_values(w: torch.Tensor) -> torch.Tensor:
     return (_f16_bits(w) & 0x7FFF) <= F16_NESTED_ABS_MAX_BITS
 
 
+_APPLICABLE_CHUNK = 1 << 30
+
+
 def is_applicable(w: torch.Tensor) -> torch.Tensor:
-    """Tensor-level applicability (paper 'exception layer' predicate)."""
-    return torch.all(is_applicable_values(w))
+    """Tensor-level applicability (paper 'exception layer' predicate), over
+    the whole tensor, checked in flat chunks of 2^30 weights so the int32
+    temporaries stay 4 GiB (a deepseek-v3 expert bank holds 3.76 G)."""
+    flat = w.reshape(-1)
+    ok = torch.ones((), dtype=torch.bool, device=w.device)
+    for i in range(0, flat.numel(), _APPLICABLE_CHUNK):
+        ok &= torch.all(is_applicable_values(flat[i:i + _APPLICABLE_CHUNK]))
+    return ok
 
 
 def encode(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -91,7 +100,7 @@ def fp8_view(upper: torch.Tensor) -> torch.Tensor:
 
 def fp8_dequant(upper: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """Materialize the FP8-mode weight values (w rounded to E4M3 grid)."""
-    return fp8_view(upper).to(dtype) * FP8_DEQUANT_SCALE
+    return fp8_view(upper).to(dtype).mul_(FP8_DEQUANT_SCALE)
 
 
 @dataclasses.dataclass

@@ -14,8 +14,14 @@ Usage (the card is the default device):
       --reduced --device cpu --kv-planar --prompt-len 40
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --reduced --device cpu --speculate
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-3b-a800m --kv-planar     # MoE, 48 padded experts
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+      --reduced --device cpu --system-prompt-len 16   # MLA latent blocks
 --arch takes every config of `repro_torch.configs` (qwen1.5-0.5b,
-llama3.1-8b, gemma3-1b, qwen3-8b, deepseek-coder-33b). Random weights are
+llama3.1-8b, gemma3-1b, qwen3-8b, deepseek-coder-33b, and the MoE family:
+granite-moe-3b-a800m, deepseek-v3-671b, whose MLA pool keeps f16 latent
+planes even with --kv-planar; its full 61 layers do not fit one card). Random weights are
 built layer by layer (`model.init_serving_params`); --ckpt restores the
 JAX package's checkpoint format instead (`{"params": ...}`, as its
 `launch/serve.py --ckpt` reads), nesting each layer's weights as they are

@@ -7,7 +7,9 @@
 As in the JAX package, serving steps run bf16 activations with bf16-
 rounded GEMM outputs (`fast_accum`) and the paper's per-tensor FP8
 activation scale. The prefill caches are f16; `model.planarize_cache`
-turns them into the byte-planar form that FP8 decode reads half of.
+turns GQA caches into the byte-planar form that FP8 decode reads half of
+(MLA latents stay f16). MoE layers (granite-moe-3b, deepseek-v3) route
+within each row and read their expert banks in bf16 here.
 Decode writes the caches in place.
 
 The decode step is the port's counterpart of the JAX package's

@@ -1,8 +1,10 @@
 """Convert params into NestedFP serving params, and carry JAX weights over.
 
-NestedFP applies to linear layers only (paper §2.2/Table 1 note):
-embeddings, the LM head, norms and biases stay in their original
-precision. `structural=True` builds the same tree on the meta device (no
+NestedFP applies to linear layers only (paper §2.2/Table 1 note), MoE
+expert banks included: embeddings, the LM head, the MoE router, norms and
+biases stay in their original precision. A 3-D expert bank (E, D, F)
+is nested as one bare `NestedTensor` (whole-tensor exception rule), not
+as a NestedLinearParams. `structural=True` builds the same tree on the meta device (no
 data, applicability assumed), PyTorch's form of the JAX package's
 ShapeDtypeStruct tree: `serving_memory_bytes` of it reckons a model's
 serving bytes without allocating them. `from_jax_serving` builds the
@@ -22,6 +24,8 @@ from repro_torch.device import resolve_device
 
 # path substrings excluded from nesting (as in the JAX package)
 _EXCLUDE = ("embed", "lm_head", "router", "frontend_proj")
+# 3-D expert-bank leaves nested as whole tensors
+_BANK_KEYS = ("w_gate", "w_up", "w_down")
 
 
 def _is_linear_dict(node) -> bool:
@@ -49,7 +53,10 @@ def to_serving(tree, *, structural: bool = False, path: str = ""):
             return NestedLinearParams(
                 weight=_nest_tensor(tree["w"], structural),
                 bias=tree.get("b"))
-        return {k: to_serving(v, structural=structural, path=f"{path}/{k}")
+        return {k: _nest_tensor(v, structural)
+                if (k in _BANK_KEYS and not excluded
+                    and isinstance(v, torch.Tensor))
+                else to_serving(v, structural=structural, path=f"{path}/{k}")
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_serving(v, structural=structural,
@@ -58,8 +65,21 @@ def to_serving(tree, *, structural: bool = False, path: str = ""):
     return tree
 
 
+def wrap_nested_linears(tree):
+    """Linear dicts whose "w" is nested ({"w": NestedTensor[, "b"]})
+    become NestedLinearParams, as `to_serving` makes them; bare nested
+    leaves (expert banks) stay as they are."""
+    if isinstance(tree, dict):
+        if isinstance(tree.get("w"), NestedTensor):
+            return NestedLinearParams(tree["w"], tree.get("b"))
+        return {k: wrap_nested_linears(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(wrap_nested_linears(v) for v in tree)
+    return tree
+
+
 def leaves(tree) -> list[torch.Tensor]:
-    if isinstance(tree, NestedLinearParams):
+    if isinstance(tree, (NestedLinearParams, NestedTensor)):
         return tree.tensors()
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in leaves(v)]
@@ -70,7 +90,7 @@ def leaves(tree) -> list[torch.Tensor]:
 
 def params_to(tree, device):
     """The same tree with every tensor moved to `device`."""
-    if isinstance(tree, NestedLinearParams):
+    if isinstance(tree, (NestedLinearParams, NestedTensor)):
         return tree.to(device)
     if isinstance(tree, dict):
         return {k: params_to(v, device) for k, v in tree.items()}
@@ -92,6 +112,9 @@ def serving_memory_bytes(tree) -> dict[str, int]:
             "total_bytes": nested + raw}
 
 
+_PLANES = {"upper", "lower", "raw"}
+
+
 def from_jax_serving(flat: dict[str, np.ndarray], n_layers: int,
                      device=None) -> dict:
     """Port serving params from the JAX serving tree, flattened by path.
@@ -99,9 +122,11 @@ def from_jax_serving(flat: dict[str, np.ndarray], n_layers: int,
     Keys are "/"-joined dict paths of the JAX tree (`M.init_params` +
     `to_serving`); a NestedLinearParams at path P contributes
     "P/weight/upper", "P/weight/lower", "P/weight/raw" (whichever exist)
-    and "P/bias". Leaves under "layers/" are stacked (L, ...) and are
-    split into one dict per layer. Bytes are kept exactly. device=None
-    means the card."""
+    and "P/bias", a bare NestedTensor (an expert bank) "P/upper",
+    "P/lower" or "P/raw". Leaves under "layers/" are stacked (L, ...) and
+    are split into one dict per layer; every other subtree (the
+    embedding, the head, deepseek-v3's `mtp`) is taken whole. Bytes are
+    kept exactly. device=None means the card."""
     device = resolve_device(device)
     nested: dict = {}
     for key, arr in flat.items():
@@ -111,13 +136,16 @@ def from_jax_serving(flat: dict[str, np.ndarray], n_layers: int,
             node = node.setdefault(part, {})
         node[last] = arr
 
+    def nested_tensor(node, layer):
+        return NestedTensor(*(build(node[n], layer) if n in node else None
+                              for n in ("upper", "lower", "raw")))
+
     def build(node, layer: int | None):
+        if isinstance(node, dict) and node and set(node) <= _PLANES:
+            return nested_tensor(node, layer)
         if isinstance(node, dict) and "weight" in node:
-            w = node["weight"]
-            t = {n: build(w[n], layer) if n in w else None
-                 for n in ("upper", "lower", "raw")}
             return NestedLinearParams(
-                NestedTensor(t["upper"], t["lower"], t["raw"]),
+                nested_tensor(node["weight"], layer),
                 build(node["bias"], layer) if "bias" in node else None)
         if isinstance(node, dict):
             return {k: build(v, layer) for k, v in node.items()}

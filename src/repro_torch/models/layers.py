@@ -37,6 +37,50 @@ from repro_torch.kernels import ops, ref
 NEG_INF = -1e30
 
 
+# ---------------------------------------------------------------------------
+# init helpers (random draws from a seeded generator)
+# ---------------------------------------------------------------------------
+
+def randn(gen, shape) -> torch.Tensor:
+    """f32 normal draws from `gen`; a meta device in its place gives the
+    shape alone (no data, no draw)."""
+    if isinstance(gen, torch.device):
+        return torch.empty(shape, dtype=torch.float32, device=gen)
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
+def device_of(gen) -> torch.device:
+    return gen if isinstance(gen, torch.device) else gen.device
+
+
+def keep(w: torch.Tensor):
+    """The identity: a weight kept as drawn (see `init_linear`'s `put`)."""
+    return w
+
+
+def init_linear(gen, d_in: int, d_out: int, *, bias: bool = False,
+                put=keep) -> dict:
+    """{"w": (d_in, d_out) normal * d_in^-0.5[, "b": 0]}. `put(w)`
+    receives the weight as soon as it is drawn and returns what the dict
+    keeps (the streamed serving build nests it there)."""
+    p = {"w": put(randn(gen, (d_in, d_out)).mul_(d_in ** -0.5))}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=torch.float32,
+                             device=device_of(gen))
+    return p
+
+
+def init_rms_norm(d: int, device) -> torch.Tensor:
+    return torch.zeros((d,), dtype=torch.float32, device=device)
+
+
+def init_swiglu(gen, d_model: int, d_ff: int, put=keep) -> dict:
+    return {"gate": init_linear(gen, d_model, d_ff, put=put),
+            "up": init_linear(gen, d_model, d_ff, put=put),
+            "down": init_linear(gen, d_ff, d_model, put=put)}
+
+
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     """Execution context threaded through all apply functions."""

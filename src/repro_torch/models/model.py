@@ -1,8 +1,14 @@
-"""Dense GQA decoder: init, caches, and its three serving entry points.
+"""Dense and MoE decoders: init, caches, and their three serving entry
+points.
 
 - `paged_step`: the serving engine's step over the block-paged pool.
 - `prefill` and `decode_step`: the dense-slot steps (`launch/steps.py`)
   over per-slot caches laid out (L, B, Cap, Hkv, D) as in the JAX package.
+
+A layer's attention is GQA (`layers.py`) or, when the config has `mla`,
+Multi-head Latent Attention (`mla.py`, whose caches hold f16 latents);
+its MLP is a dense SwiGLU or, when the config has `moe`, the routed
+expert banks of `moe.py` (granite-moe-3b, deepseek-v3).
 
 Sliding-window stacks (gemma3): every `swa_pattern`-th layer is global,
 the rest attend within `sliding_window` tokens (`window_schedule`). The
@@ -22,6 +28,7 @@ JAX package's values; the tests carry the JAX weights across instead,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -30,8 +37,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.nestedfp import split_bytes
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.convert import to_serving
-from repro_torch.models.layers import Runtime
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
+from repro_torch.models.convert import (_nest_tensor, to_serving,
+                                        wrap_nested_linears)
+from repro_torch.models.layers import Runtime, init_linear, init_rms_norm
 from repro_torch.serving import kvcache as KV
 
 
@@ -39,51 +49,45 @@ from repro_torch.serving import kvcache as KV
 # params
 # ---------------------------------------------------------------------------
 
-def _randn(gen, shape) -> torch.Tensor:
-    """f32 normal draws from `gen`; a meta device in its place gives the
-    shape alone (no data, no draw)."""
-    if isinstance(gen, torch.device):
-        return torch.empty(shape, dtype=torch.float32, device=gen)
-    return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=torch.float32)
-
-
-def _device_of(gen) -> torch.device:
-    return gen if isinstance(gen, torch.device) else gen.device
-
-
-def init_linear(gen, d_in: int, d_out: int, *, bias: bool = False) -> dict:
-    p = {"w": _randn(gen, (d_in, d_out)) * d_in ** -0.5}
-    if bias:
-        p["b"] = torch.zeros((d_out,), dtype=torch.float32,
-                             device=_device_of(gen))
-    return p
-
-
-def init_rms_norm(d: int, device) -> torch.Tensor:
-    return torch.zeros((d,), dtype=torch.float32, device=device)
-
-
-def init_attention(gen, cfg: ArchConfig) -> dict:
+def init_attention(gen, cfg: ArchConfig, put=L.keep) -> dict:
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    p = {"wq": init_linear(gen, d, h * hd, bias=cfg.qkv_bias),
-         "wk": init_linear(gen, d, hkv * hd, bias=cfg.qkv_bias),
-         "wv": init_linear(gen, d, hkv * hd, bias=cfg.qkv_bias),
-         "wo": init_linear(gen, h * hd, d)}
+    p = {"wq": init_linear(gen, d, h * hd, bias=cfg.qkv_bias, put=put),
+         "wk": init_linear(gen, d, hkv * hd, bias=cfg.qkv_bias, put=put),
+         "wv": init_linear(gen, d, hkv * hd, bias=cfg.qkv_bias, put=put),
+         "wo": init_linear(gen, h * hd, d, put=put)}
     if cfg.qk_norm:
-        p["q_norm"] = init_rms_norm(hd, _device_of(gen))
-        p["k_norm"] = init_rms_norm(hd, _device_of(gen))
+        p["q_norm"] = init_rms_norm(hd, L.device_of(gen))
+        p["k_norm"] = init_rms_norm(hd, L.device_of(gen))
     return p
 
 
-def init_decoder_block(gen, cfg: ArchConfig) -> dict:
-    dev = _device_of(gen)
-    return {"ln1": init_rms_norm(cfg.d_model, dev),
-            "ln2": init_rms_norm(cfg.d_model, dev),
-            "attn": init_attention(gen, cfg),
-            "mlp": {"gate": init_linear(gen, cfg.d_model, cfg.d_ff),
-                    "up": init_linear(gen, cfg.d_model, cfg.d_ff),
-                    "down": init_linear(gen, cfg.d_ff, cfg.d_model)}}
+def init_decoder_block(gen, cfg: ArchConfig, put=L.keep) -> dict:
+    """One layer: MLA or GQA attention, then an MoE or a dense SwiGLU
+    MLP, as the config says. `put` takes every weight that serving nests
+    as soon as it is drawn (`init_linear`)."""
+    dev = L.device_of(gen)
+    p = {"ln1": init_rms_norm(cfg.d_model, dev),
+         "ln2": init_rms_norm(cfg.d_model, dev),
+         "attn": MLA.init_mla(gen, cfg, put) if cfg.mla is not None
+         else init_attention(gen, cfg, put)}
+    if cfg.moe is not None:
+        p["moe"] = MOE.init_moe(gen, cfg, put)
+    else:
+        p["mlp"] = {"gate": init_linear(gen, cfg.d_model, cfg.d_ff, put=put),
+                    "up": init_linear(gen, cfg.d_model, cfg.d_ff, put=put),
+                    "down": init_linear(gen, cfg.d_ff, cfg.d_model, put=put)}
+    return p
+
+
+def _init_mtp(gen, cfg: ArchConfig, put=L.keep) -> dict:
+    """deepseek-v3's multi-token-prediction head (one block with a dense
+    MLP of 2 d_model), drawn after the layers. Carried, never run while
+    serving."""
+    d = cfg.d_model
+    return {"proj": init_linear(gen, 2 * d, d, put=put),
+            "norm": init_rms_norm(d, L.device_of(gen)),
+            "block": init_decoder_block(gen, dataclasses.replace(
+                cfg, moe=None, d_ff=2 * d), put)}
 
 
 def _generator(seed: int, device):
@@ -97,8 +101,8 @@ def _generator(seed: int, device):
 def _init_top(gen, cfg: ArchConfig) -> dict:
     """Embedding, final norm and (untied) LM head, drawn first."""
     params: dict[str, Any] = {
-        "embed": {"tok": _randn(gen, (cfg.vocab_size, cfg.d_model)) * 0.02},
-        "final_norm": init_rms_norm(cfg.d_model, _device_of(gen)),
+        "embed": {"tok": L.randn(gen, (cfg.vocab_size, cfg.d_model)) * 0.02},
+        "final_norm": init_rms_norm(cfg.d_model, L.device_of(gen)),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size)
@@ -106,43 +110,78 @@ def _init_top(gen, cfg: ArchConfig) -> dict:
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
-    """Training-form params of a dense decoder, from a seeded generator.
-    device="meta" gives the tree's shapes and dtypes without data."""
-    _check_dense(cfg)
+    """Training-form params, from a seeded generator: the top, the layers,
+    then deepseek-v3's `mtp`. device="meta" gives the tree's shapes and
+    dtypes without data."""
+    _check_family(cfg)
     gen = _generator(seed, device)
     params = _init_top(gen, cfg)
     params["layers"] = [init_decoder_block(gen, cfg)
                         for _ in range(cfg.n_layers)]
+    if cfg.mtp_heads:
+        params["mtp"] = _init_mtp(gen, cfg)
     return params
+
+
+def _nest(w: torch.Tensor):
+    """A drawn weight nested as `to_serving` nests it (meta: planes of
+    its shape only)."""
+    return _nest_tensor(w, structural=w.is_meta)
+
+
+def _weight_paths(init) -> list[str]:
+    """The tree paths ("attn/wo/w", "moe/w_down") of the weights that
+    `init(gen, put=)` hands to `put`, in the order it draws them, read
+    off a build on the meta device (which draws nothing)."""
+    drawn: list[torch.Tensor] = []
+    tree = init(torch.device("meta"), put=lambda w: drawn.append(w) or w)
+    at: dict[int, str] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}" if path else k)
+        elif isinstance(node, torch.Tensor):
+            at[id(node)] = path
+    walk(tree, "")
+    return [at[id(w)] for w in drawn]
 
 
 def init_serving_params(cfg: ArchConfig, seed: int = 0, device=None,
                         plant=None) -> dict:
-    """Serving params streamed layer by layer: bitwise
-    `to_serving(init_params(cfg, seed, device))`, drawn from the same
-    generator in the same order, but each layer is nested
-    (`convert.to_serving`, K8 on the card) before the next is drawn, so
-    the device holds one layer's f32 weights at a time. A model whose
-    f32 tree outgrows the card (deepseek-coder-33b: 133 GB f32, 67.6 GB
-    served) loads this way. `plant(i, layer)`, if given, may edit layer
-    i's f32 tree in place before it is nested (tests plant an exception
-    tensor with it)."""
-    _check_dense(cfg)
+    """Serving params streamed: bitwise `to_serving(init_params(cfg, seed,
+    device))`, drawn from the same generator in the same order, but each
+    weight is nested (`convert.to_serving`, K8 on the card) as soon as it
+    is drawn, so the device holds one f32 weight at a time beside the
+    served tree (a deepseek-v3 layer is 46 GB in f32, one of its expert
+    banks 15 GB). `plant(i, path, w)` sees each weight of layer i that
+    serving nests, by its path in the layer ("attn/wo/w", "moe/w_down"),
+    and may edit it in place before it is nested (tests plant an
+    exception tensor with it)."""
+    _check_family(cfg)
     gen = _generator(seed, device)
     params = to_serving(_init_top(gen, cfg))
+    block = functools.partial(init_decoder_block, cfg=cfg)
+    paths = _weight_paths(block)
     params["layers"] = []
     for i in range(cfg.n_layers):
-        layer = init_decoder_block(gen, cfg)
-        if plant is not None:
-            plant(i, layer)
-        params["layers"].append(to_serving(layer, path="layers"))
-        del layer
+        at = iter(paths)
+
+        def put(w):
+            if plant is not None:
+                plant(i, next(at), w)
+            return _nest(w)
+        params["layers"].append(wrap_nested_linears(block(gen, put=put)))
+    if cfg.mtp_heads:
+        params["mtp"] = wrap_nested_linears(_init_mtp(gen, cfg, _nest))
     return params
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the port serves dense decoders; "
+def _check_family(cfg: ArchConfig) -> None:
+    """The port serves dense and MoE (incl. MLA) decoders; ssm, hybrid,
+    vlm and encdec are not ported yet."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"the port serves dense and MoE decoders; "
                                   f"{cfg.arch_id} is {cfg.family}")
 
 
@@ -169,10 +208,21 @@ def _layer_windows(cfg: ArchConfig) -> list[int | None]:
 # ---------------------------------------------------------------------------
 
 def cache_descriptor(cfg: ArchConfig, planar: bool = False) -> KV.CacheDescriptor:
-    """GQA descriptor: K/V planes per layer, f16 or byte-planar (NestedKV),
-    and for a sliding-window stack its two window groups: global = the
-    layers with i % swa_pattern == swa_pattern - 1, local = the rest."""
-    _check_dense(cfg)
+    """The paged planes of a decoder. GQA: K/V planes per layer, f16 or
+    byte-planar (NestedKV), and for a sliding-window stack its two window
+    groups: global = the layers with i % swa_pattern == swa_pattern - 1,
+    local = the rest. MLA: the latent `c_kv` (r,) and `k_rope` (d_rope,)
+    planes, f16, never planar (as in the JAX package, planar raises)."""
+    _check_family(cfg)
+    if cfg.cache_kind == "mla":
+        if planar:
+            raise ValueError("byte-planar NestedKV applies to GQA K/V "
+                             "planes only, not MLA latents")
+        m = cfg.mla
+        return KV.CacheDescriptor("mla", planes=(
+            KV.PlaneSpec("c_kv", cfg.n_layers, (m.kv_lora_rank,), "float16"),
+            KV.PlaneSpec("k_rope", cfg.n_layers, (m.qk_rope_dim,),
+                         "float16")))
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     groups: tuple[KV.LayerGroup, ...] = ()
     if cfg.sliding_window and cfg.swa_pattern:
@@ -195,9 +245,10 @@ _TORCH_DTYPES = {"uint8": torch.uint8, "float16": torch.float16}
 
 def init_paged_cache(cfg: ArchConfig, n_total_blocks: int, block_size: int,
                      planar: bool = False, device=None) -> dict:
-    """{"attn": {plane: (L, NB, BS, Hkv, D)}} — no batch dim: sequences own
-    block ids (serving/kvcache.py BlockManager; block 0 is the trash
-    block). planar=True stores the GQA byte planes (NestedKV)."""
+    """{"attn": {plane: (L, NB, BS, *token_shape)}} — no batch dim:
+    sequences own block ids (serving/kvcache.py BlockManager; block 0 is
+    the trash block). GQA planes are (Hkv, D) a token (planar=True: the
+    byte planes of NestedKV), MLA planes (r,) and (d_rope,)."""
     desc = cache_descriptor(cfg, planar=planar)
     device = resolve_device(device)
     return {"attn": {
@@ -213,13 +264,21 @@ def init_paged_cache(cfg: ArchConfig, n_total_blocks: int, block_size: int,
 
 def init_cache(cfg: ArchConfig, batch: int, capacity: int,
                planar: bool = False, device=None) -> dict:
-    """{"attn": {plane: (L, B, Cap, Hkv, D)}} zeros: {"k","v"} f16, or with
-    planar=True the byte planes of NestedKV (fp8 decode reads the hi
-    planes only). GQA decoders only."""
-    _check_dense(cfg)
+    """{"attn": {plane: (L, B, Cap, ...)}} zeros. GQA: {"k","v"} f16 of
+    (Hkv, D) a token, or with planar=True the byte planes of NestedKV
+    (fp8 decode reads the hi planes only). MLA: {"c_kv", "k_rope"} f16
+    latents ((r,) and (d_rope,) a token; planar does not apply)."""
+    _check_family(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    lead = (cfg.n_layers, batch, capacity)
+    if cfg.cache_kind == "mla":
+        m = cfg.mla
+        return {"attn": {
+            "c_kv": torch.zeros(lead + (m.kv_lora_rank,),
+                                dtype=torch.float16, device=device),
+            "k_rope": torch.zeros(lead + (m.qk_rope_dim,),
+                                  dtype=torch.float16, device=device)}}
+    shape = lead + (cfg.n_kv_heads, cfg.resolved_head_dim)
     names, dtype = ((("k_hi", "k_lo", "v_hi", "v_lo"), torch.uint8) if planar
                     else (("k", "v"), torch.float16))
     return {"attn": {n: torch.zeros(shape, dtype=dtype, device=device)
@@ -250,57 +309,75 @@ def planarize_cache(caches: dict) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
-def apply_decoder_block(rt: Runtime, p: dict, cfg: ArchConfig, x, attend):
-    """x + attend(norm(x)), then the SwiGLU MLP; `attend` runs this layer's
-    attention phase on the normed input."""
+def apply_decoder_block(rt: Runtime, p: dict, cfg: ArchConfig, x, attend,
+                        aux: list | None = None):
+    """x + attend(norm(x)), then the MLP: the layer's MoE block if it has
+    one, else its SwiGLU. `attend` runs this layer's attention phase on
+    the normed input. aux: a list to which an MoE layer appends its aux
+    dict (`moe.moe_block`); None skips computing it."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + attend(h)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(rt, p["mlp"], h)
+    if "moe" not in p:
+        return x + L.swiglu(rt, p["mlp"], h)
+    if aux is None:
+        return x + MOE.moe_block(rt, p["moe"], cfg, h)
+    y, a = MOE.moe_block(rt, p["moe"], cfg, h, with_aux=True)
+    aux.append(a)
+    return x + y
+
+
+def _attention(cfg, phase: str):
+    """This config's attention function for a phase: MLA's, or GQA's."""
+    if cfg.mla is not None:
+        return functools.partial(MLA.mla_attention, phase=phase)
+    return {"paged": L.attention_paged, "prefill": L.attention_prefill,
+            "decode": L.attention_decode}[phase]
 
 
 def run_decoder_stack(rt, layers, cfg, x, *, phase, positions, caches,
-                      kv_len=None, paged=None, paged_groups=None):
+                      kv_len=None, paged=None, paged_groups=None, aux=None):
     """The decoder stack as a loop over layers, for the "paged", "prefill"
     and "decode" phases; layer i reads and writes slice i of every cache
     plane in place, within its window (`window_schedule`). Prefill copies
-    each layer's k/v into its f16 cache (the first min(S, Cap) positions;
-    the rest stay zero).
+    each layer's k/v (MLA: c_kv/k_rope) into its f16 cache (the first
+    min(S, Cap) positions; the rest stay zero).
 
     paged: (phys_write (G,B,C), phys_read (G,B,Cap), q_offset (B,),
     tables (G,B,MB)), one index set per window group; paged_groups:
     (L,) layer -> group map. Layer i attends through group
-    paged_groups[i]'s indices and table."""
+    paged_groups[i]'s indices and table. aux: as `apply_decoder_block`'s
+    (the MoE layers' aux dicts in layer order)."""
     windows = _layer_windows(cfg)
+    attn = _attention(cfg, phase)
+    mla = cfg.mla is not None
     for i, p in enumerate(layers):
         cache = {name: plane[i] for name, plane in caches.items()}
-        window = windows[i]
+        wkw = {} if mla else {"window": windows[i]}
         if phase == "paged":
             g = 0 if paged_groups is None else int(paged_groups[i])
             pg = (paged[0][g], paged[1][g], paged[2], paged[3][g])
 
             def attend(h):
-                return L.attention_paged(rt, p["attn"], cfg, h,
-                                         positions=positions, cache=cache,
-                                         kv_len=kv_len, paged=pg,
-                                         window=window)
+                out = attn(rt, p["attn"], cfg, h, positions=positions,
+                           cache=cache, kv_len=kv_len, paged=pg, **wkw)
+                return out[0] if mla else out
         elif phase == "prefill":
             def attend(h):
-                a, kv = L.attention_prefill(rt, p["attn"], cfg, h,
-                                            positions=positions,
-                                            window=window)
-                for name in ("k", "v"):
-                    n = min(kv[name].shape[1], cache[name].shape[1])
-                    cache[name][:, :n] = kv[name][:, :n]
+                a, kv = attn(rt, p["attn"], cfg, h, positions=positions,
+                             **wkw)
+                for name, plane in cache.items():
+                    n = min(kv[name].shape[1], plane.shape[1])
+                    plane[:, :n] = kv[name][:, :n]
                 return a
         elif phase == "decode":
             def attend(h):
-                return L.attention_decode(rt, p["attn"], cfg, h,
-                                          positions=positions, cache=cache,
-                                          kv_len=kv_len, window=window)
+                out = attn(rt, p["attn"], cfg, h, positions=positions,
+                           cache=cache, kv_len=kv_len, **wkw)
+                return out[0] if mla else out
         else:
             raise ValueError(f"unknown phase {phase!r}")
-        x = apply_decoder_block(rt, p, cfg, x, attend)
+        x = apply_decoder_block(rt, p, cfg, x, attend, aux)
     return x
 
 
@@ -321,7 +398,7 @@ def lm_logits(rt, params, cfg, h):
 def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
                q_offset, kv_len, block_size: int, logit_position=None,
                rows=None, return_logits: bool = False,
-               sample_all: bool = False):
+               sample_all: bool = False, aux: list | None = None):
     """One step over the paged cache — batched decode (C=1 across all
     rows) and chunked prefill (ragged right-padded chunk rows) alike.
 
@@ -346,6 +423,10 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
                   the `logit_position` selection: speculative
                   verification, where column j's argmax is the greedy
                   continuation after the chunk up to j.
+    aux:          a list that receives each MoE layer's aux dict (losses,
+                  drop fraction, routing); None (the serving engine's
+                  choice) skips them, as the JAX package's step drops
+                  them.
 
     The pool planes in `caches` are updated in place. Returns next_ids
     (B,) int32 (greedy argmax, on the device) or, with return_logits,
@@ -381,7 +462,8 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
                           positions=positions, caches=caches["attn"],
                           kv_len=kv_len,
                           paged=(phys_write, phys_read, q_offset, tables),
-                          paged_groups=desc.layer_group_map(cfg.n_layers))
+                          paged_groups=desc.layer_group_map(cfg.n_layers),
+                          aux=aux)
     if sample_all:
         logits = lm_logits(rt, params, cfg, h)             # (B, C, V)
         if return_logits:
@@ -399,13 +481,14 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
 
 
 def prefill(rt, params, cfg, batch, *, capacity: int | None = None,
-            logit_position: int | None = None):
+            logit_position: int | None = None, aux: list | None = None):
     """Run the whole prompt; returns (logits (B, V) f32, caches, length).
 
-    batch: {"tokens": (B, S)}. The caches are fresh f16 {"attn": {"k","v"}}
-    of (L, B, capacity, Hkv, D) (capacity defaults to S) on the tokens'
-    device, holding the prompt's keys and values, zero past S. Logits are
-    taken at `logit_position` (default: the last position)."""
+    batch: {"tokens": (B, S)}. The caches are fresh f16 `init_cache`
+    planes ({"k","v"} of (L, B, capacity, Hkv, D), or MLA's latents) with
+    capacity defaulting to S, on the tokens' device, holding the prompt's
+    keys and values, zero past S. Logits are taken at `logit_position`
+    (default: the last position). aux: as `paged_step`'s."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     capacity = capacity or s
@@ -413,7 +496,8 @@ def prefill(rt, params, cfg, batch, *, capacity: int | None = None,
     positions = torch.arange(s, device=tokens.device)[None, :]
     h = embed_tokens(rt, params, cfg, tokens)
     h = run_decoder_stack(rt, params["layers"], cfg, h, phase="prefill",
-                          positions=positions, caches=caches["attn"])
+                          positions=positions, caches=caches["attn"],
+                          aux=aux)
     pos = s - 1 if logit_position is None else int(logit_position)
     logits = lm_logits(rt, params, cfg, h[:, pos:pos + 1])[:, 0]
     return logits, caches, s
@@ -432,7 +516,8 @@ def cache_capacity(caches) -> int:
     return next(iter(caches["attn"].values())).shape[2]
 
 
-def decode_step(rt, params, cfg, tokens, caches, cache_len):
+def decode_step(rt, params, cfg, tokens, caches, cache_len,
+                aux: list | None = None):
     """One decoding step. tokens: (B, 1); cache_len: int or (B,) — tokens
     already in each row's cache, below its capacity (checked for an int).
     The new keys and values are written IN PLACE into `caches` (f16 or
@@ -441,15 +526,16 @@ def decode_step(rt, params, cfg, tokens, caches, cache_len):
     The host part (the check, and the upload of an int cache_len) is done
     here; `decode_logits` is the device part, which
     `launch/steps.py::make_decode_step` captures with cache_len staged in
-    a device buffer of its own."""
+    a device buffer of its own. aux: as `paged_step`'s."""
     b = tokens.shape[0]
     check_cache_len(cache_capacity(caches), cache_len)
     lens = torch.as_tensor(cache_len, device=tokens.device).to(torch.int32)
     lens = lens.expand(b) if lens.dim() == 0 else lens
-    return decode_logits(rt, params, cfg, tokens, caches, lens), caches
+    return decode_logits(rt, params, cfg, tokens, caches, lens, aux), caches
 
 
-def decode_logits(rt, params, cfg, tokens, caches, lens) -> torch.Tensor:
+def decode_logits(rt, params, cfg, tokens, caches, lens,
+                  aux: list | None = None) -> torch.Tensor:
     """decode_step's device part: tokens (B, 1), lens (B,) int32 on the
     tokens' device (cache lengths, not read on the host) -> logits (B, V)
     f32, the caches written in place. No host read and no host value
@@ -457,5 +543,5 @@ def decode_logits(rt, params, cfg, tokens, caches, lens) -> torch.Tensor:
     h = embed_tokens(rt, params, cfg, tokens)
     h = run_decoder_stack(rt, params["layers"], cfg, h, phase="decode",
                           positions=lens[:, None], caches=caches["attn"],
-                          kv_len=lens + 1)
+                          kv_len=lens + 1, aux=aux)
     return lm_logits(rt, params, cfg, h[:, -1:])[:, 0]

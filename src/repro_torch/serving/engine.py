@@ -1,6 +1,9 @@
 """Continuous-batching serving engine with per-iteration dual precision.
 
-The port of the JAX package's `serving/engine.py` for dense GQA models.
+The port of the JAX package's `serving/engine.py` for dense and MoE
+decoders: GQA K/V planes (f16 or byte-planar), or MLA's f16 latent
+planes (`c_kv`, `k_rope`) through the same block pool, prefix cache and
+host tier.
 Each engine step (a) schedules prompt-prefill CHUNKS up to a token
 budget, interleaved with decode, and (b) advances every active slot by one
 token (batched decode) over a BLOCK-PAGED KV cache. Admission is driven
@@ -184,7 +187,9 @@ class Engine:
         # opt-in runtime sanitizer: audit the BlockManager after every step
         self.debug_invariants = debug_invariants \
             or os.environ.get("NFP_DEBUG") == "1"
-        self.kv_planar = kv_planar
+        # byte-planar NestedKV applies to GQA K/V planes only: an MLA
+        # engine asked for it keeps f16 latent planes, as the JAX engine
+        self.kv_planar = kv_planar and cfg.cache_kind == "gqa"
         # speculation: True picks the default SpeculationConfig
         if speculate:
             self._spec = speculate if isinstance(speculate, SpeculationConfig) \
@@ -240,7 +245,7 @@ class Engine:
         mbs = -(-capacity // block_size)
         # one block table per window group, each its own id space over the
         # same pool (a layer touches only its group's rows of a block)
-        desc = M.cache_descriptor(cfg, planar=kv_planar)
+        desc = M.cache_descriptor(cfg, planar=self.kv_planar)
         gw = desc.group_windows
         if not window_reclaim:
             gw = (None,) * len(gw)
@@ -266,7 +271,8 @@ class Engine:
             gi: torch.tensor(ls, dtype=torch.long, device=self.device)
             for gi, ls in enumerate(glayers)}
         self.caches = M.init_paged_cache(
-            cfg, self.blocks.n_total_blocks, block_size, planar=kv_planar,
+            cfg, self.blocks.n_total_blocks, block_size,
+            planar=self.kv_planar,
             device=self.device)
         # tiered KV: a host entry holds, for each plane, the group's layer
         # rows of one block, (group layers, block_size, *token_shape), as
@@ -274,7 +280,7 @@ class Engine:
         # and the lo planes lazily on the first FP16 touch.
         names = tuple(p.name for p in desc.planes)
         self._lo_planes = tuple(n for n in names if n.endswith("_lo")) \
-            if kv_planar and self._host_tier else ()
+            if self.kv_planar and self._host_tier else ()
         self._hi_planes = tuple(n for n in names if n not in self._lo_planes)
         self._entry_shapes = {
             gi: {p.name: (len(ls), block_size) + p.token_shape

@@ -10,6 +10,7 @@ import torch
 
 from repro.configs import ARCHS as JARCHS
 from repro.core.linear import NestedLinearParams
+from repro.core.nestedfp import NestedTensor
 from repro.models import model as JM
 from repro.models.convert import to_serving as j_to_serving
 from repro.serving.kvcache import BlockManager as JBlockManager
@@ -19,9 +20,15 @@ from repro_torch.models.convert import from_jax_serving
 
 def flatten_serving(tree, path: str = "") -> dict[str, np.ndarray]:
     """JAX serving tree -> {"a/b/c": array} in the layout that
-    `repro_torch.models.convert.from_jax_serving` reads."""
+    `repro_torch.models.convert.from_jax_serving` reads (an expert bank,
+    a bare NestedTensor at P, as "P/upper", "P/lower" or "P/raw")."""
     out: dict[str, np.ndarray] = {}
-    if isinstance(tree, NestedLinearParams):
+    if isinstance(tree, NestedTensor):
+        for name in ("upper", "lower", "raw"):
+            a = getattr(tree, name)
+            if a is not None:
+                out[f"{path}/{name}"] = np.asarray(a)
+    elif isinstance(tree, NestedLinearParams):
         for name in ("upper", "lower", "raw"):
             a = getattr(tree.weight, name)
             if a is not None:
@@ -43,14 +50,19 @@ def configs(arch: str, **overrides):
     return j, t
 
 
-def serving_pair(jcfg, n_layers: int, plant_exception: bool, seed: int = 0):
+def serving_pair(jcfg, n_layers: int, plant_exception: bool, seed: int = 0,
+                 plant=None):
     """JAX serving params from `M.init_params` + `to_serving`, and the
     port's copy of them. plant_exception sets one element of layer 1's
-    `wo` to 2.0 first, so that tensor stays f16 (an exception tensor)."""
+    `wo` to 2.0 first, so that tensor stays f16 (an exception tensor);
+    plant(params), if given, edits the JAX training tree before it is
+    nested and returns it."""
     params = JM.init_params(jax.random.PRNGKey(seed), jcfg)
     if plant_exception:
         wo = params["layers"]["attn"]["wo"]["w"]
         params["layers"]["attn"]["wo"]["w"] = wo.at[1, 0, 0].set(2.0)
+    if plant is not None:
+        params = plant(params)
     sp = j_to_serving(params)
     return sp, from_jax_serving(flatten_serving(sp), n_layers,
                                 device="cpu")
@@ -90,3 +102,69 @@ def settled_jax_tables(monkeypatch):
     """The JAX engine with `_settled_set_table` (F-ref-3) for one test."""
     monkeypatch.setattr(JBlockManager, "_set_table",
                         _settled_set_table(JBlockManager._set_table))
+
+
+# ---------------------------------------------------------------------------
+# routing flips (MoE): a limit of comparison across frameworks and devices
+# ---------------------------------------------------------------------------
+
+def topk_sets(logits: np.ndarray, k: int) -> np.ndarray:
+    """(..., E) router logits -> (..., k) chosen experts, sorted, with
+    ties to the lower index (jax.lax.top_k's order; softmax keeps it)."""
+    order = np.argsort(-np.asarray(logits, np.float64), axis=-1,
+                       kind="stable")
+    return np.sort(order[..., :k], axis=-1)
+
+
+def routing_flips(got: list, want: list, k: int) -> dict:
+    """Per-layer router logits of two runs over the same positions (lists
+    of (..., E) arrays, `want` the reference) -> {"agree": (...) bool,
+    True where every layer chose the same experts; "flips": positions
+    that differ; "max_diff": the largest router-logit difference at
+    agreeing positions; "gaps": the reference's gap between its k-th and
+    (k+1)-th logit at each flipped position and layer; "near_tie": every
+    such gap below 4 * max_diff}."""
+    agree = None
+    for g, w in zip(got, want):
+        same = np.all(topk_sets(g, k) == topk_sets(w, k), axis=-1)
+        agree = same if agree is None else agree & same
+    diff = max((float(np.abs(np.asarray(g, np.float64)[agree]
+                             - np.asarray(w, np.float64)[agree]).max())
+                if agree.any() else 0.0) for g, w in zip(got, want))
+    gaps = []
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float64)
+        flipped = ~np.all(topk_sets(g, k) == topk_sets(w, k), axis=-1)
+        srt = -np.sort(-w[flipped], axis=-1)
+        gaps += list(srt[:, k - 1] - srt[:, k])
+    return {"agree": agree, "flips": int((~agree).sum()), "max_diff": diff,
+            "gaps": gaps, "near_tie": all(gp < 4 * diff for gp in gaps)}
+
+
+def jax_router_logits(jrt, jsp, jcfg, tokens) -> list:
+    """The JAX model's per-layer router logits (B, S, E) f32 over a
+    prompt, layer by layer (the scanned stack exposes none)."""
+    import jax.numpy as jnp
+    from repro.models import layers as JL
+    from repro.models import mla as JMLA
+    from repro.models import moe as JMOE
+    tokens = jnp.asarray(tokens)
+    x = JM.embed_tokens(jrt, jsp, jcfg, tokens)
+    pos = jnp.arange(tokens.shape[1])[None, :]
+    out = []
+    for i in range(jcfg.n_layers):
+        p = jax.tree.map(lambda a: a[i], jsp["layers"])
+        h = JL.rms_norm(x, p["ln1"], jcfg.norm_eps)
+        if jcfg.mla is not None:
+            a, _ = JMLA.mla_attention(jrt, p["attn"], jcfg, h,
+                                      phase="prefill", positions=pos)
+        else:
+            a, _ = JL.attention(jrt, p["attn"], jcfg, h, phase="prefill",
+                                positions=pos)
+        x = x + a
+        h = JL.rms_norm(x, p["ln2"], jcfg.norm_eps)
+        out.append(np.asarray(JL.apply_linear(jrt, p["moe"]["router"], h),
+                              np.float32))
+        m, _ = JMOE.moe_block(jrt, p["moe"], jcfg, h)
+        x = x + m
+    return out

@@ -7,6 +7,8 @@ nothing of JAX, so they also run on a machine that has only PyTorch:
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -1396,3 +1398,151 @@ def test_host_entries_own_their_storage(dev, tiered_run):
 def test_restore_keeps_the_graphs_addresses(dev, tiered_run):
     eng, seen = tiered_run
     assert eng.graphs.n_captured > 0 and seen["addresses_equal"]
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: granite-moe-3b's attention shapes (24 q / 8 kv heads,
+# D = 64, G = 3) and deepseek-v3's MLA GEMM shapes, K8 over an expert
+# bank, and the MoE block on the card
+# ---------------------------------------------------------------------------
+
+GRANITE_KN = [(1536, 1536), (1536, 512), (1536, 512), (1536, 1536)]
+# wq_a, wq_b, wkv_a (N = 576, not a multiple of 128), wk_b / wv_b, wo
+# (K = 16384)
+DS3_MLA_KN = [(7168, 1536), (1536, 24576), (7168, 576), (512, 16384),
+              (16384, 7168)]
+
+
+@pytest.mark.parametrize("kn", GRANITE_KN[:2] + DS3_MLA_KN)
+@pytest.mark.parametrize("m", [8, 256])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3"])
+def test_gemms_at_moe_family_shapes(dev, kernel, m, kn):
+    gen = torch.Generator(device=dev).manual_seed(21)
+    k, n = kn
+    x = torch.randn((m, k), generator=gen, device=dev)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).half()
+    name = {"k1": "nestedfp16_matmul", "k2": "nestedfp8_matmul",
+            "k3": "f16_matmul"}[kernel]
+    n0 = ops.all_launch_counters()[name]
+    if kernel == "k2":
+        got, xq, s = _k2(x, w)
+        want = ref.nestedfp8_matmul_ref(xq, nf.encode(w)[0], s)
+    else:
+        got = {"k1": _k1, "k3": _k3}[kernel](x.half(), w)
+        want = ref.matmul_f16_ref(x.half(), w)
+    assert ops.all_launch_counters()[name] == n0 + 1
+    torch.testing.assert_close(got, want, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("window", [None, 300])
+def test_paged_decode_attention_granite_heads(dev, fp8, window):
+    q, planes, tab, ln = _paged_case(dev, 7, [0, 1, 511, 512, 513, 640, 1088],
+                                     16, 68, h=24, hkv=8, d=64)
+    got = ops.paged_decode_attention(q, planes, tab, ln, fp8=fp8,
+                                     window=window)
+    want = ref.paged_planar_decode_attention_ref(
+        q, planes["k_hi"], planes["k_lo"], planes["v_hi"], planes["v_lo"],
+        tab, ln, fp8=fp8, window=window)
+    live = ln > 0
+    torch.testing.assert_close(got[live], want[live], **ATTN_TOL)
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+def test_planar_decode_attention_granite_heads(dev, fp8):
+    b, h, hkv, d, cap = 8, 24, 8, 64, 1088
+    planes = _dense_planes(dev, b, cap, hkv, d, seed=8)
+    q = torch.randn((b, h, d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(8))
+    ln = torch.tensor([1, 63, 512, 513, 1024, 1025, 1087, 1088],
+                      dtype=torch.int32, device=dev)
+    got = ops.planar_decode_attention(q, planes, ln, fp8=fp8)
+    want = ref.planar_decode_attention_ref(
+        q, planes["k_hi"], planes["k_lo"], planes["v_hi"], planes["v_lo"],
+        ln, fp8=fp8)
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("dtype,b,s", [(torch.bfloat16, 8, 1024),
+                                       (torch.float16, 2, 70),
+                                       (torch.float32, 2, 65)])
+def test_flash_prefill_attention_granite_heads(dev, dtype, b, s):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((b, s, 24, 64), device=dev, generator=gen).to(dtype)
+    k = torch.randn((b, s, 8, 64), device=dev, generator=gen).to(dtype)
+    v = torch.randn((b, s, 8, 64), device=dev, generator=gen).to(dtype)
+    torch.testing.assert_close(ops.flash_prefill_attention(q, k, v),
+                               ref.flash_prefill_attention_ref(q, k, v),
+                               **ATTN_TOL)
+
+
+def test_nestedfp_encode_of_an_expert_bank(dev):
+    """K8 over a 3-D bank (48 x 1536 x 512, granite's) is bitwise its
+    plain version, through NestedTensor.from_f16 (whole-tensor rule)."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    w = torch.randn((48, 1536, 512), generator=gen, device=dev) * 1536 ** -0.5
+    n0 = ops.all_launch_counters()["nestedfp_encode"]
+    t = nf.NestedTensor.from_f16(w)
+    assert ops.all_launch_counters()["nestedfp_encode"] == n0 + 1
+    wu, wl = nf.encode(w.half().cpu())
+    assert torch.equal(t.upper.cpu(), wu) and torch.equal(t.lower.cpu(), wl)
+    assert torch.equal(t.read_f16(), w.half())
+    w[3, 2, 1] = 2.0
+    assert nf.NestedTensor.from_f16(w).is_exception
+
+
+@pytest.fixture(scope="module")
+def granite_moe():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m"), n_layers=1)
+    sp = M.init_serving_params(cfg, seed=0, device="cuda")
+    return cfg, sp["layers"][0]["moe"]
+
+
+@pytest.mark.parametrize("mode", ["fp16", "fp8"])
+def test_moe_block_replay_is_its_eager_call(dev, granite_moe, mode):
+    """granite's MoE block at full width, a 256-token chunk of 2 rows:
+    a CUDA graph's replay equals the eager call bitwise (no float
+    atomics), and the output holds the plain CPU call's."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving.graphs import capture
+    cfg, p = granite_moe
+    rt = Runtime(mode=mode, dtype=torch.float32)
+    x = torch.randn((2, 256, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    eager = MOE.moe_block(rt, p, cfg, x)
+    out = {}
+    graph, _ = capture(lambda: out.update(y=MOE.moe_block(rt, p, cfg, x)),
+                       torch.cuda.graph_pool_handle(), dev)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], eager)
+    cpu = MOE.moe_block(rt, params_to(p, "cpu"), cfg, x.cpu())
+    torch.testing.assert_close(eager.cpu(), cpu, rtol=1e-3, atol=2e-3)
+
+
+def test_moe_rows_do_not_depend_on_the_batch(dev, granite_moe):
+    """Rows are routing groups. At one batch shape a row's output is
+    bitwise independent of what the other rows hold (the engine's steps
+    keep their shapes per key); across batch sizes cuBLAS picks its f32
+    kernel by M (= rows x capacity), so a row routed alone chooses the
+    same experts and keeps the same slots, and its output agrees to
+    1e-5, not bitwise."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import Runtime
+    cfg, p = granite_moe
+    rt = Runtime(mode="fp16", dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for c in (1, 16):
+        x = torch.randn((8, c, cfg.d_model), device=dev, generator=gen)
+        y, aux = MOE.moe_block(rt, p, cfg, x, with_aux=True)
+        other = x.clone()
+        other[[0, 2, 5]] = torch.randn((3, c, cfg.d_model), device=dev,
+                                       generator=gen)
+        assert torch.equal(MOE.moe_block(rt, p, cfg, other)[1], y[1])
+        alone, aux1 = MOE.moe_block(rt, p, cfg, x[1:2], with_aux=True)
+        assert torch.equal(aux1["expert_idx"], aux["expert_idx"][1:2])
+        assert torch.equal(aux1["keep"], aux["keep"][1:2])
+        torch.testing.assert_close(alone, y[1:2], rtol=1e-5, atol=1e-5)

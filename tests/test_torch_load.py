@@ -83,7 +83,11 @@ def test_config_equals_jax_field_by_field(arch, reduced):
 
 def test_registry_serves_every_dense_config():
     assert set(TARCHS) == {"qwen1.5-0.5b", "llama3.1-8b", "gemma3-1b",
-                           "qwen3-8b", "deepseek-coder-33b"}
+                           "qwen3-8b", "deepseek-coder-33b",
+                           "granite-moe-3b-a800m", "deepseek-v3-671b"}
+    assert {a for a, c in TARCHS.items() if c.family == "dense"} == {
+        "qwen1.5-0.5b", "llama3.1-8b", "gemma3-1b", "qwen3-8b",
+        "deepseek-coder-33b"}
     ds = TARCHS["deepseek-coder-33b"]
     assert ds.n_heads // ds.n_kv_heads == 7 and not ds.tie_embeddings
     assert TARCHS["qwen3-8b"].qk_norm
@@ -93,9 +97,9 @@ def test_registry_serves_every_dense_config():
 # the layer-streamed build
 # ---------------------------------------------------------------------------
 
-def _plant(i, layer):
-    if i == 1:
-        layer["attn"]["wo"]["w"][0, 0] = 2.0
+def _plant(i, path, w):
+    if (i, path) == (1, "attn/wo/w"):
+        w[0, 0] = 2.0
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS + ("qwen1.5-0.5b", "gemma3-1b"))
@@ -105,7 +109,7 @@ def test_streamed_build_is_bitwise_to_serving_of_init_params(arch, plant):
     cfg = dataclasses.replace(TARCHS[arch].reduced(), n_layers=3)
     params = TM.init_params(cfg, seed=4, device="cpu")
     if plant:
-        _plant(1, params["layers"][1])
+        _plant(1, "attn/wo/w", params["layers"][1]["attn"]["wo"]["w"])
     want = to_serving(params)
     got = TM.init_serving_params(cfg, seed=4, device="cpu",
                                  plant=_plant if plant else None)
@@ -113,31 +117,27 @@ def test_streamed_build_is_bitwise_to_serving_of_init_params(arch, plant):
     assert got["layers"][1]["attn"]["wo"].weight.is_exception == plant
 
 
-def test_streamed_build_holds_one_layer_of_f32_weights(monkeypatch):
-    """While a layer is drawn, the f32 weights of no earlier layer are
-    alive: counted through weak references to every weight that
-    `init_linear` makes (the untied LM head stays f32 in the served tree,
-    as the embedding does)."""
+def test_streamed_build_holds_one_layer_of_f32_weights():
+    """While a weight is drawn, no f32 weight drawn before it is alive:
+    each is nested as it is drawn (counted through weak references to
+    every weight that `plant` sees, which is each linear weight of every
+    layer; the untied LM head stays f32 in the served tree, as the
+    embedding does, and is not among them)."""
     cfg = dataclasses.replace(TARCHS["deepseek-coder-33b"].reduced(),
                               n_layers=4)
     made: list = []
-    orig = TM.init_linear
-
-    def recording(gen, d_in, d_out, **kw):
-        p = orig(gen, d_in, d_out, **kw)
-        made.append(weakref.ref(p["w"]))
-        return p
-    monkeypatch.setattr(TM, "init_linear", recording)
     alive: list[int] = []
 
-    def count(i, layer):
+    def count(i, path, w):
         alive.append(sum(r() is not None for r in made))
+        made.append(weakref.ref(w))
     TM.init_serving_params(cfg, seed=0, device="cpu", plant=count)
-    assert alive == [1 + 7] * cfg.n_layers       # the head + one layer
-    made.clear()
-    whole = TM.init_params(cfg, seed=0, device="cpu")
-    assert sum(r() is not None for r in made) == 1 + 7 * cfg.n_layers
-    del whole
+    assert alive == [0] * (7 * cfg.n_layers)     # 7 linears a layer
+    kept = TM.init_params(cfg, seed=0, device="cpu")["layers"]
+    made[:] = [weakref.ref(p["w"]) for layer in kept
+               for blk in (layer["attn"], layer["mlp"]) for p in blk.values()
+               if isinstance(p, dict)]
+    assert sum(r() is not None for r in made) == 7 * cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
