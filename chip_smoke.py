@@ -52,8 +52,9 @@ Phases, in order; any failed check exits non-zero before the last line:
               steps, as phase 5: K6 must launch once a prefill for each
               of the 4 global layers; then the decode step at capacity
               32768 (7.0 GB of planar caches)
-  9. spec     llama3.1-8b at full width and depth through `Engine` with
-              n-gram speculation: 8 slots, capacity 512, planar KV, 8
+  9. spec     llama3.1-8b at full width, 16 of its 32 layers (DEPTH),
+              through `Engine` with n-gram speculation: 8 slots,
+              capacity 512, planar KV, 8
               prompts of a 16-token pattern repeated 8 times, 128 new
               tokens, FP16 and FP8, speculation off and on, each engine
               after a warm pass that captures its keys; every spec key is
@@ -99,8 +100,9 @@ nothing else, the three of qwen3-8b last:
               at G = 7 in every layer); the 32k decode is reckoned, not
               run (its caches would not fit beside the weights)
   qwen3_slice, qwen3_serve, qwen3_dense  the same for qwen3-8b (36
-              layers, qk_norm): FP8 readings at 1 and 4 layers, and the
-              32k decode run as llama3.1-8b's
+              layers, qk_norm; the dense-slot steps at 18: DEPTH): FP8
+              readings at 1 and 4 layers, and the 32k decode run as
+              llama3.1-8b's
 The MoE family runs in five more phases: the two of deepseek-v3 right
 after deepseek-coder-33b's, the three of granite-moe-3b after llama's:
   ds3_mla     one deepseek-v3 MLA attention module at full width (128
@@ -121,10 +123,32 @@ after deepseek-coder-33b's, the three of granite-moe-3b after llama's:
               (`RoutingCheck`: logits compared where the row's own token
               chose the same experts, flips only at router near-ties); 1
               and 4 layers as readings
-  granite_serve  all 32 layers through `Engine` as phase 4 at 8 x (1024 +
-              64), capacity 1088, planar KV, FP16 / FP8 / dual
-  granite_dense  all 32 layers through the dense-slot steps as phase 5
+  granite_serve  4 of its 32 layers (DEPTH) through `Engine` as phase 4 at
+              8 x (1024 + 64), capacity 1088, planar KV, FP16 / FP8 / dual
+  granite_dense  4 of its 32 layers through the dense-slot steps as phase 5
               (K6 at G = 3 in every layer; the 32k decode reckoned)
+The recurrent families run last, in five more phases (each an exception
+out_proj; no attention kernel runs: mamba2 has none, and zamba2's shared
+attention reads f16 pools by the gathered path, as the JAX engine):
+  mamba2_slice  mamba2-2.7b at full width, 2 layers, card against CPU, f32:
+              a 48-token prompt in exact chunks (32 + 16) and a 20-token
+              one through `paged_step`, each routed to its slot's state,
+              then 4 batched decode steps, FP16 and FP8 within SLICE_TOL;
+              `ssd_chunked` and `ssd_decode_step` alone at full width
+  mamba2_serve  all 64 layers through `Engine` as granite_serve (8 x
+              (1024 + 64), capacity 1088, FP16 / FP8 / dual): state bytes,
+              a decode step's nested-linear and state-update device ms
+  mamba2_dense  all 64 layers through the dense-slot steps (8 x 1024
+              prefill, the decode graph replayed at cache_len 1056 and
+              32768: the state is O(1) in the length)
+  zamba2_slice  zamba2-2.7b at full width, 6 layers (one group: six Mamba2
+              layers and one shared-attention application), as mamba2's:
+              FP16 gated at 6 layers; FP8 gated on a 2-layer group
+              (attn_every 2), the 6-layer FP8 run a reading (F-port-8)
+  zamba2_serve  all 54 layers through `Engine` as mamba2_serve, the shared
+              attention's K/V in f16 paged pools
+The kernels phase also holds K1, K2, K3 and K7 at mamba2-2.7b's five GEMM
+shapes and at zamba2-2.7b's in_bc and shared block.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 GPU is present or the port is missing.
@@ -347,9 +371,10 @@ DS_KN = [(7168, 7168), (7168, 1024), (7168, 1024), (7168, 7168),
          (7168, 19200), (7168, 19200), (19200, 7168)]
 
 
-def family_gemm_phase(torch, rows: dict, model: str, kn) -> None:
-    """K1, K2, K3 and K7 at one model's seven GEMM shapes, M = 8 (a decode
-    step of 8 rows) and 256: each against its plain version on fresh
+def family_gemm_phase(torch, rows: dict, model: str, kn,
+                      ms=(8, 256)) -> None:
+    """K1, K2, K3 and K7 at one model's GEMM shapes, M in `ms` (8: a
+    decode step of 8 rows; 256): each against its plain version on fresh
     inputs, its device ms by CUDA-graph replay beside its library call's
     (torch.matmul f16 for K1 and K3, torch._scaled_mm row-wise for K2 and
     tensor-wise for K7), and its bound. Rows go to `rows` tagged with the
@@ -374,7 +399,7 @@ def family_gemm_phase(torch, rows: dict, model: str, kn) -> None:
         ws = [(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
                ).half() for _ in range(n_sets)]
         planes = [nf.encode(w) for w in ws]
-        for m in (8, 256):
+        for m in ms:
             x = torch.randn((m, k), generator=gen, device=dev)
             x16, xb = x.half(), x.bfloat16()
             xq, xs = quant.quantize_act_per_token(x)
@@ -424,7 +449,7 @@ def family_gemm_phase(torch, rows: dict, model: str, kn) -> None:
                     f"bound={b_ms:.4f} ({b_kind})")
             del x, x16, xb, xq, tq
         del ws, planes
-    for m in (8, 256):
+    for m in ms:
         for name in names:
             sel = [(r, kn.count((r["k"], r["n"]))) for nm, r in mine
                    if nm == name and r["m"] == m]
@@ -1110,19 +1135,30 @@ def summarize(rows: list[dict], weight) -> dict:
 # phases 3 and 4: the slice
 # ---------------------------------------------------------------------------
 
+def plant_path(cfg) -> str:
+    """The weight a phase plants as an exception tensor: attention's wo,
+    or a recurrent stack's Mamba2 out_proj."""
+    return ("mamba/out_proj/w" if cfg.family in ("ssm", "hybrid")
+            else "attn/wo/w")
+
+
 def make_serving_params(torch, cfg, seed, device, plant_layer):
     """Random params from a seeded generator on `device`, streamed weight
     by weight (`model.init_serving_params`: the device holds one f32
-    weight at a time), with one exception tensor planted:
-    wo[0, 0] = 2.0 in layer `plant_layer`."""
+    weight at a time), with one exception tensor planted: [0, 0] = 2.0 of
+    layer `plant_layer`'s wo (a recurrent stack's out_proj)."""
     from repro_torch.models import model as M
 
+    where = plant_path(cfg)
+
     def plant(i, path, w):
-        if (i, path) == (plant_layer, "attn/wo/w"):
+        if (i, path) == (plant_layer, where):
             w[0, 0] = 2.0
     sp = M.init_serving_params(cfg, seed=seed, device=device, plant=plant)
-    check(sp["layers"][plant_layer]["attn"]["wo"].weight.is_exception,
-          "planted exception tensor was nested")
+    node = sp["layers"][plant_layer]
+    for key in where.split("/")[:-1]:
+        node = node[key]
+    check(node.weight.is_exception, "planted exception tensor was nested")
     return sp
 
 
@@ -1709,8 +1745,15 @@ def profile_decode(torch, Engine, Request, cfg, sp, prompts, mode,
         or ("gemm_kernel" in k and "(nfp::Op)1" in k))
     res["quant_device_ms_per_step"] = sum(
         v for k, v in by_name.items() if "quant_per_token_kernel" in k)
+    # every nested linear: K1 / K3 (wg_kernel), K2 (mma_kernel), the
+    # fallback body (gemm_kernel) and the quantizer in front of K2
+    res["linear_device_ms_per_step"] = sum(
+        v for k, v in by_name.items() if any(
+            n in k for n in ("wg_kernel", "mma_kernel", "gemm_kernel",
+                             "quant_per_token_kernel")))
     log(f"  profile {mode}: K2 {res['k2_device_ms_per_step']:.3f} ms, "
-        f"per-token quantizer {res['quant_device_ms_per_step']:.3f} ms of "
+        f"per-token quantizer {res['quant_device_ms_per_step']:.3f} ms, "
+        f"all nested linears {res['linear_device_ms_per_step']:.3f} ms of "
         f"device time a decode step")
     return res
 
@@ -2708,9 +2751,9 @@ def pattern_prompts(torch, vocab, n, period, reps, seed):
 
 
 def spec_phase(torch, cfg, sp) -> dict:
-    """llama3.1-8b at full width and depth: 8 slots, capacity 512, planar
-    KV; 8 prompts of a 16-token pattern repeated 8 times, 128 new tokens;
-    FP16 and FP8, speculation off and on (`spec_runs`)."""
+    """llama3.1-8b at full width (16 layers: DEPTH): 8 slots, capacity
+    512, planar KV; 8 prompts of a 16-token pattern repeated 8 times, 128
+    new tokens; FP16 and FP8, speculation off and on (`spec_runs`)."""
     from repro_torch.kernels import ops
 
     ops.reset_launch_counters()          # this path's run starts here
@@ -3405,13 +3448,20 @@ def granite_slice_phase(torch, cfg) -> dict:
     return out
 
 
+# one MLA module's outputs (max |out| 0.75-4.26), card against CPU: FP16
+# as SLICE_TOL; FP8 set from the readings (<= 1.6e-2 on an H100), at
+# about 3x the largest (the 0.25 of a whole model's logits let an error
+# 15x the readings pass)
+DS3_MLA_TOL = {"fp16": 1e-2, "fp8": 0.05}
+
+
 def ds3_mla_phase(torch, cfg) -> dict:
     """One deepseek-v3 MLA attention module at full width (128 heads,
     latent rank 512), card against the CPU plain versions, f32
     activations: the paged phase (row 0 prefills 64 tokens as a chunk,
     row 1 shares its first two blocks (COW) and prefills 32 more, then
     both decode a token), and the dense-slot prefill and decode phases.
-    Outputs of order 1; max |error| <= SLICE_TOL[mode]."""
+    Outputs of order 1; max |error| <= DS3_MLA_TOL[mode]."""
     from repro_torch.core.nestedfp import NestedTensor
     from repro_torch.models import mla as MLA
     from repro_torch.models.convert import params_to, wrap_nested_linears
@@ -3431,7 +3481,7 @@ def ds3_mla_phase(torch, cfg) -> dict:
     out = {}
     for mode in ("fp16", "fp8"):
         rt = Runtime(mode=mode, dtype=torch.float32)
-        tol = SLICE_TOL[mode]
+        tol = DS3_MLA_TOL[mode]
         pools = {d: {"c_kv": torch.zeros((nb, bs, m.kv_lora_rank),
                                          dtype=torch.float16, device=d),
                      "k_rope": torch.zeros((nb, bs, m.qk_rope_dim),
@@ -3512,6 +3562,371 @@ def ds3_serve_phase(torch, cfg, host_tier: bool) -> dict:
         policies=("fp16", "fp8"),
         need={"fp16": ("nestedfp16_matmul", "f16_matmul"),
               "fp8": ("nestedfp8_matmul", "quant_per_token", "f16_matmul")})
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: mamba2-2.7b (ssm), zamba2-2.7b (hybrid)
+# ---------------------------------------------------------------------------
+
+# (K, N) of a mamba2-2.7b layer's five GEMMs: in_z, in_x, in_bc, in_dt,
+# out_proj; zamba2-2.7b's layers differ only in in_bc (N = 128), which is
+# given with its shared block's seven (q, k, v, o, gate, up, down)
+MAMBA2_KN = [(2560, 5120), (2560, 5120), (2560, 256), (2560, 80),
+             (5120, 2560)]
+ZAMBA2_KN = [(2560, 128), (2560, 2560), (2560, 2560), (2560, 2560),
+             (2560, 2560), (2560, 10240), (2560, 10240), (10240, 2560)]
+RECURRENT_NEED = {"fp16": ("nestedfp16_matmul", "f16_matmul"),
+                  "fp8": ("nestedfp8_matmul", "quant_per_token",
+                          "f16_matmul")}
+
+
+def recurrent_slice(torch, cfg, params, mode, label, n_steps=4,
+                    gated: bool = True) -> dict:
+    """`paged_step` on a recurrent stack (`params`: {"cpu": ..., "cuda":
+    ...}), card against CPU, f32 activations: slot 0's 48-token prompt in
+    two exact chunks (32 + 16) and slot 1's 20-token prompt in one, each
+    routed to its state row (a hybrid's shared attention writes its f16
+    pool through the slot's block-table row), then n_steps batched
+    decode steps over both slots, teacher-forced by the CPU's greedy
+    tokens. Logits held to SLICE_TOL[mode] when `gated`, printed as a
+    reading otherwise; the largest state difference at the end is a
+    reading. The mode's nested GEMMs must launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Runtime
+
+    bs = 16
+    tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                             dtype=torch.int32) for n in (48, 20)]
+    rt = Runtime(mode=mode, dtype=torch.float32, act_quant="per_token")
+    caches = {d: M.init_paged_cache(cfg, 9, bs, n_slots=2, device=d)
+              for d in ("cpu", "cuda")}
+    cmp = LogitCheck(torch, mode, SLICE_TOL[mode], gated)
+    t0 = time.time()
+    before = ops.all_launch_counters()
+
+    def step(toks, qo, kvl, lp=None, slot=None):
+        out = {}
+        for d in ("cpu", "cuda"):
+            sl = None if slot is None else torch.tensor([slot]).to(d)
+            out[d] = M.paged_step(
+                rt, params[d], cfg, toks.to(d), caches[d], tables.to(d),
+                q_offset=torch.tensor(qo).to(d),
+                kv_len=torch.tensor(kvl, dtype=torch.int32).to(d),
+                block_size=bs, return_logits=True,
+                logit_position=None if lp is None else torch.tensor(lp).to(d),
+                rows=sl, slot=sl)
+        return out
+
+    nxt = []
+    for slot, chunks in ((0, (32, 16)), (1, (20,))):
+        start = 0
+        for take in chunks:
+            out = step(prompts[slot][None, start:start + take], [start],
+                       [start + take], [take - 1], slot)
+            cmp.add(out["cuda"], out["cpu"], f"slot {slot} chunk "
+                    f"{start}+{take}")
+            start += take
+        nxt.append(int(out["cpu"].argmax()))
+    lens = [48, 20]
+    for i in range(n_steps):
+        out = step(torch.tensor(nxt, dtype=torch.int32)[:, None], lens,
+                   [n + 1 for n in lens])
+        cmp.add(out["cuda"], out["cpu"], f"decode {i}")
+        nxt = out["cpu"].argmax(-1).tolist()
+        lens = [n + 1 for n in lens]
+    after = ops.all_launch_counters()
+    for name in RECURRENT_NEED[mode]:
+        check(after[name] > before[name], f"{label} {mode}: no {name}")
+    res = cmp.done(f"{label} {cfg.n_layers} layers")
+    res["state_max_abs_diff"] = {
+        n: float((p.cpu().float() - caches["cpu"]["ssm"][n].float())
+                 .abs().max()) for n, p in caches["cuda"]["ssm"].items()}
+    res["seconds"] = time.time() - t0
+    log(f"  {label} {mode}: state planes after the run, max |card - CPU| "
+        f"{ {n: f'{v:.2e}' for n, v in res['state_max_abs_diff'].items()} }"
+        f" (a reading)")
+    return res
+
+
+def ssd_readings(torch, cfg) -> dict:
+    """`ssd_chunked` and `ssd_decode_step` alone at the config's widths
+    (mamba2-2.7b: 80 heads of 64, d_state 128, one group, chunk 256),
+    card against the CPU in f32: a 300-token scan of one row from a
+    random initial state (padded to two chunks), and one decode step of
+    8 rows. Max |error| of y and of the state (readings: the scan sums in
+    another order on the card), max |y|, and the card's device ms of each
+    by graph replay; `layer_update_ms` is one layer's decode-step state
+    update as the engine runs it (the step, the kv_len mask of every
+    state plane, the write-back)."""
+    from repro_torch.models import mamba2 as M2
+
+    s = cfg.ssm
+    _, h, _ = M2.ssm_dims(cfg)
+    p, n = s.head_dim, s.d_state
+    gen = torch.Generator().manual_seed(17)
+
+    def inputs(b, l):
+        return (torch.randn((b, l, h, p), generator=gen),
+                torch.rand((b, l, h), generator=gen) * 0.1 + 0.001,
+                -(torch.rand((h,), generator=gen) * 15 + 1),
+                torch.randn((b, l, 1, n), generator=gen),
+                torch.randn((b, l, 1, n), generator=gen),
+                torch.ones((h,)))
+    out = {}
+    x, dt, A, B, C, D = inputs(1, 300)
+    s0 = torch.randn((1, h, p, n), generator=gen) * 0.1
+    want = M2.ssd_chunked(x, dt, A, B, C, D, chunk=s.chunk_size,
+                          initial_state=s0)
+    cuda = [t.cuda() for t in (x, dt, A, B, C, D, s0)]
+    got = M2.ssd_chunked(*cuda[:6], chunk=s.chunk_size,
+                         initial_state=cuda[6])
+    out["chunked"] = {
+        "y_err": float((got[0].cpu() - want[0]).abs().max()),
+        "state_err": float((got[1].cpu() - want[1]).abs().max()),
+        "y_max": float(want[0].abs().max()),
+        "device_ms": graph_ms(torch, lambda i: M2.ssd_chunked(
+            *cuda[:6], chunk=s.chunk_size, initial_state=cuda[6]), 1, 5)}
+    x, dt, A, B, C, D = inputs(8, 1)
+    s0 = torch.randn((8, h, p, n), generator=gen) * 0.1
+    args = (x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], D)
+    want = M2.ssd_decode_step(s0, *args)
+    cuda = [t.cuda() for t in (s0, *args)]
+    got = M2.ssd_decode_step(*cuda)
+    plane = cuda[0].clone()
+    act = torch.tensor([1] * 7 + [0], device="cuda") > 0
+
+    def layer_update(i):
+        y, new = M2.ssd_decode_step(plane, *cuda[1:])
+        plane.copy_(torch.where(act[:, None, None, None], new, plane))
+        return y
+    out["decode_step"] = {
+        "y_err": float((got[0].cpu() - want[0]).abs().max()),
+        "state_err": float((got[1].cpu() - want[1]).abs().max()),
+        "y_max": float(want[0].abs().max()),
+        "device_ms": graph_ms(torch, lambda i: M2.ssd_decode_step(*cuda), 1),
+        "layer_update_ms": graph_ms(torch, layer_update, 1)}
+    for k, v in out.items():
+        log(f"  ssd {k} (card vs CPU, f32): max |y err| {v['y_err']:.2e} of "
+            f"max |y| {v['y_max']:.2f}, max |state err| "
+            f"{v['state_err']:.2e}; device {v['device_ms']:.4f} ms"
+            + (f", one layer's state update in the decode step "
+               f"{v['layer_update_ms']:.4f} ms" if "layer_update_ms" in v
+               else ""))
+        check(v["y_err"] <= 1e-2 * max(1.0, v["y_max"]),
+              f"ssd {k}: card and CPU part by {v['y_err']}")
+    return out
+
+
+def recurrent_slice_phase(torch, cfg, label: str, n_layers: int) -> dict:
+    """A recurrent stack at full width, `n_layers` layers (layer 1's
+    out_proj an exception tensor), streamed onto the card and copied to
+    the CPU: `recurrent_slice` in FP16 and FP8, gated at SLICE_TOL; an
+    ssm stack also reads the SSD alone (`ssd_readings`). A hybrid stack's
+    FP8 run is gated on one group of 2 layers (attn_every 2: two Mamba2
+    layers, then the shared attention), and its n_layers FP8 run is a
+    reading, as the other FP8 slices are gated at 2 layers with deeper
+    readings beside: card-vs-CPU FP8 logits cross 0.25 from about 4
+    layers on, where e4m3 re-rounding of inputs that differ in their
+    last bits moves them (ROADMAP F-port-7, F-port-8; zamba2's 6 layers
+    read 0.267 in FP8, 3.8e-3 in FP16)."""
+    from repro_torch.models.convert import params_to
+
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    t0 = time.time()
+    sp_gpu = make_serving_params(torch, cut, 0, "cuda", plant_layer=1)
+    params = {"cpu": params_to(sp_gpu, "cpu"), "cuda": sp_gpu}
+    log(f"  {n_layers}-layer full-width params on the card and copied to "
+        f"the CPU in {time.time() - t0:.1f} s")
+    out = {"fp16": recurrent_slice(torch, cut, params, "fp16", label)}
+    if cfg.family == "hybrid":
+        group = dataclasses.replace(cfg, n_layers=2, attn_every=2)
+        out["fp8"] = recurrent_slice(
+            torch, group, {d: {**params[d], "layers": params[d]["layers"][:2]}
+                           for d in params}, "fp8", label)
+        out[f"fp8_{n_layers}l"] = recurrent_slice(torch, cut, params, "fp8",
+                                                  label, gated=False)
+    else:
+        out["fp8"] = recurrent_slice(torch, cut, params, "fp8", label)
+        out["ssd"] = ssd_readings(torch, cfg)
+    del params, sp_gpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_serve_phase(torch, cfg, label: str) -> dict:
+    """All layers of a recurrent stack through `Engine` as the granite
+    serve phase: 8 slots, capacity 1088, 8 x (1024 + 64), FP16 / FP8 /
+    dual, an exception out_proj in layer 0 (K3), exact-length prompt
+    chunks (one "chunk" key a length), slot-resident state (no prefix
+    cache, no host tier). Adds the state's bytes, and one decode step's
+    split into nested linears (the profile's K1 / K2 / K3 / quantizer
+    device ms) and state updates (one layer's update as the engine runs
+    it, timed alone at the step's shapes, times the layers)."""
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import model as M
+
+    res = serve_phase(torch, cfg, cfg.n_layers, False, label=label,
+                      capacity=1088, prompt_len=1024, max_new=64,
+                      need=RECURRENT_NEED)
+    desc = M.cache_descriptor(cfg)
+    _, h, _ = M2.ssm_dims(cfg)
+    s = cfg.ssm
+    plane = torch.zeros((8, h, s.head_dim, s.d_state), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((8, h, s.head_dim), device="cuda", generator=gen)
+    dt = torch.rand((8, h), device="cuda", generator=gen) * 0.1
+    A = -torch.rand((h,), device="cuda", generator=gen) - 1
+    bc = torch.randn((8, 1, s.d_state), device="cuda", generator=gen)
+    act = torch.ones(8, dtype=torch.bool, device="cuda")
+
+    def layer_update(i):
+        y, new = M2.ssd_decode_step(plane, x, dt, A, bc, bc, A)
+        plane.copy_(torch.where(act[:, None, None, None], new, plane))
+        return y
+    update_ms = graph_ms(torch, layer_update, 1) * cfg.n_layers
+    res["state"] = {"bytes_per_slot": desc.bytes_per_slot,
+                    "bytes_8_slots": 8 * desc.bytes_per_slot,
+                    "update_ms_per_step": update_ms}
+    for mode in ("fp16", "fp8"):
+        prof = res[f"profile_{mode}"]
+        lin = prof["linear_device_ms_per_step"]
+        busy = prof["device_ms_per_step"]
+        res["state"][mode] = {"linear_ms": lin, "busy_ms": busy,
+                              "linear_share": lin / busy,
+                              "state_update_share": update_ms / busy}
+        log(f"  {label} {mode}: state {desc.bytes_per_slot / 1e6:.1f} MB a "
+            f"slot ({8 * desc.bytes_per_slot / 1e9:.3f} GB for 8); a decode "
+            f"step's device busy {busy:.2f} ms: nested linears {lin:.2f} ms "
+            f"({lin / busy:.3f}), state updates {update_ms:.2f} ms "
+            f"({update_ms / busy:.3f}; {cfg.n_layers} layers x one layer's "
+            f"update timed alone)")
+    del plane
+    torch.cuda.empty_cache()
+    return res
+
+
+def recurrent_dense_phase(torch, cfg, label: str, n_dec: int = 16) -> dict:
+    """All layers of an ssm stack through the dense-slot steps
+    (`launch/steps.py`, bf16): weights nested on the card (K8), layer 0's
+    out_proj an exception tensor (K3); 8 x 1024 prompt tokens prefilled
+    (eager; K1 or K7), then the decode step as a CUDA graph: its first
+    call captures it, its first replay is held bitwise against an eager
+    call on cloned state (`check_replay`), then n_dec replays timed at
+    cache_len 1056 and n_dec at 32768 (the same graph: the state is O(1)
+    in the cache length), fp16 then fp8. Launch counts are read over the
+    run; then a profile of 4 replays and one of a warm prefill a mode."""
+    from repro_torch.core.linear import NestedLinearParams
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.convert import serving_memory_bytes
+
+    b, s = 8, 1024
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counters()          # the dense path's run starts here
+    t0 = time.time()
+    sp = make_serving_params(torch, cfg, 0, "cuda", plant_layer=0)
+    torch.cuda.synchronize()
+    mem = serving_memory_bytes(sp)
+    nested = sum(not p.weight.is_exception for layer in sp["layers"]
+                 for p in _linears(layer, NestedLinearParams))
+    log(f"  {label}: {cfg.n_layers}-layer params nested on the card in "
+        f"{time.time() - t0:.1f} s: {mem['nested_bytes'] / 1e9:.2f} GB "
+        f"nested, {mem['other_bytes'] / 1e9:.2f} GB other; {nested} "
+        f"applicable tensors")
+    check(ops.all_launch_counters()["nestedfp_encode"] == nested,
+          "to_serving did not encode each applicable tensor through K8")
+    prompts = torch.randint(1, cfg.vocab_size, (b, s),
+                            generator=torch.Generator().manual_seed(11),
+                            dtype=torch.int32).cuda()
+    res = {"layers": cfg.n_layers, "batch": b, "prompt_len": s}
+    need = {"fp16": ("nestedfp16_matmul", "f16_matmul"),
+            "fp8": ("nestedfp8_matmul_fused_quant", "f16_matmul")}
+    kept = {}
+    for mode in ("fp16", "fp8"):
+        before = ops.all_launch_counters()
+        prefill = steps.make_prefill_step(cfg, mode)
+        decode = steps.make_decode_step(cfg, mode)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, caches = prefill(sp, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_ms = (time.monotonic() - t0) * 1e3
+        check(tuple(logits.shape) == (b, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{label} {mode}: prefill logits not finite or mis-shaped")
+        nxt = logits.argmax(-1).to(torch.int32)[:, None]
+        t0 = time.monotonic()
+        decode(sp, caches, nxt, s)            # eager, then captured
+        torch.cuda.synchronize()
+        capture_ms = (time.monotonic() - t0) * 1e3
+        same = decode.check_replay(sp, caches, nxt, s)
+        check(all(same.values()), f"{label} {mode}: the decode graph's first "
+              f"replay differs from its eager call: {same}")
+        r = {"prefill_ms": prefill_ms, "capture_ms": capture_ms,
+             "replay_check": same,
+             "prefill_tokens_per_s": b * s / (prefill_ms / 1e3)}
+        for cache_len in (1056, 32768):
+            step_ms = []
+            for i in range(n_dec):
+                t0 = time.monotonic()
+                logits, caches = decode(sp, caches, nxt, cache_len + i)
+                nxt = logits.argmax(-1).to(torch.int32)[:, None]
+                torch.cuda.synchronize()
+                step_ms.append((time.monotonic() - t0) * 1e3)
+            check(bool(torch.isfinite(logits).all())
+                  and bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all()),
+                  f"{label} {mode}: decode logits or tokens out of range")
+            r[f"decode_ms_median_at_{cache_len}"] = sorted(step_ms)[n_dec // 2]
+        check(decode.n_captured == len(decode.keys()) == 1,
+              f"{label} {mode}: {decode.n_captured} graphs for "
+              f"{len(decode.keys())} keys; one key serves every length")
+        (key,) = decode.keys()
+        r["graph_device_ms"] = replay_ms(torch, decode.graph(key))
+        r["graph_pool_bytes"] = decode.pool_bytes()
+        launches = {k: v - before[k] for k, v in
+                    ops.all_launch_counters().items()}
+        for name in need[mode]:
+            check(launches[name] > 0, f"{label} {mode}: {name} never launched")
+        r["launches"] = launches
+        a, z = r["decode_ms_median_at_1056"], r["decode_ms_median_at_32768"]
+        log(f"  {label} {mode}: prefill {b}x{s} in {prefill_ms:.1f} ms "
+            f"({r['prefill_tokens_per_s']:.0f} tok/s), decode first call "
+            f"(eager + capture) {capture_ms:.1f} ms, first replay bitwise its "
+            f"eager call; replayed step median at cache_len 1056 {a:.2f} ms, "
+            f"at 32768 {z:.2f} ms (ratio {z / a:.3f}), graph device "
+            f"{r['graph_device_ms']:.3f} ms, pool "
+            f"{r['graph_pool_bytes'] / 2**20:.1f} MiB; launches {launches}")
+        res[mode] = r
+        kept[mode] = (decode, caches, nxt)
+    res["launches_total"] = ops.all_launch_counters()   # read: the run ends
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {label} peak device memory {res['peak_mem_gb']:.1f} GB")
+    for mode in ("fp16", "fp8"):
+        decode, caches, nxt = kept.pop(mode)
+        med = res[mode]["decode_ms_median_at_1056"]
+        wall, by_name = device_ms_by_kernel(
+            torch, lambda: decode(sp, caches, nxt, s), 4)
+        res[f"profile_decode_{mode}"] = profile_summary(
+            f"profile {label} decode {mode}: 4 replays", wall, med, by_name)
+        del decode, caches
+        # a warm prefill, then one under the profiler
+        prefill = steps.make_prefill_step(cfg, mode)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        prefill(sp, {"tokens": prompts})
+        torch.cuda.synchronize()
+        warm_ms = res[mode]["prefill_ms_warm"] = (time.monotonic() - t0) * 1e3
+        wall, by_name = device_ms_by_kernel(
+            torch, lambda: prefill(sp, {"tokens": prompts}), 1)
+        res[f"profile_prefill_{mode}"] = profile_summary(
+            f"profile {label} prefill {mode} (against a warm prefill of "
+            f"{warm_ms:.1f} ms)", wall, warm_ms, by_name)
+    del sp
+    torch.cuda.empty_cache()
+    return res
 
 
 def _linears(tree, cls):
@@ -3638,6 +4053,16 @@ def k7_sass_ops(_build) -> dict:
     return {fn: dict(c) for fn, c in ops.items()}
 
 
+# depths cut to keep the whole script within its time budget, from the
+# phases that spent the most seconds a layer at full depth (on an H100:
+# granite_serve 2.83 s a layer of 32, spec 1.16 of 32, granite_dense 1.03
+# of 32, qwen3_dense 0.72 of 36; the fleet, 2.15 s a layer, keeps its
+# depth: its planned faults are placed by the token stream); every other
+# phase runs its model's full depth
+DEPTH = {"granite_serve": 4, "granite_dense": 4, "spec": 16,
+         "qwen3_dense": 18}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
@@ -3646,7 +4071,9 @@ def main() -> int:
                             "granite_slice,granite_serve,granite_dense,"
                             "gemma_slice,gemma_serve,gemma_dense,"
                             "spec,tiered,fleet,gemma_spec,qwen3_slice,"
-                            "qwen3_serve,qwen3_dense")
+                            "qwen3_serve,qwen3_dense,mamba2_slice,"
+                            "mamba2_serve,mamba2_dense,zamba2_slice,"
+                            "zamba2_serve")
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--serve-layers", type=int, default=32)
@@ -3706,6 +4133,7 @@ def main() -> int:
 
     rows = {}
     if "kernels" in phases:
+        t_kernels = time.time()
         log("== kernels vs plain versions (llama3.1-8b shapes)")
         rows = gemm_phase(torch, args.iters)
         rows["paged_planar_decode_attention"] = attention_phase(torch, args.iters)
@@ -3727,12 +4155,14 @@ def main() -> int:
             torch, args.iters)
         log("== K7 at gemma3-1b's seven GEMM shapes")
         rows["nestedfp8_matmul_fused_quant"] += fused_quant_gemma(torch)
-        for model, kn in (("qwen3-8b", QWEN3_KN),
-                          ("deepseek-coder-33b", DS_KN),
-                          ("granite-moe-3b", GRANITE_KN),
-                          ("deepseek-v3", DS3_KN)):
+        for model, kn, ms in (("qwen3-8b", QWEN3_KN, (8, 256)),
+                              ("deepseek-coder-33b", DS_KN, (8, 256)),
+                              ("granite-moe-3b", GRANITE_KN, (8, 256)),
+                              ("deepseek-v3", DS3_KN, (8, 256)),
+                              ("mamba2-2.7b", MAMBA2_KN, (8,)),
+                              ("zamba2-2.7b", ZAMBA2_KN, (8,))):
             log(f"== K1, K2, K3 and K7 at {model}'s {len(kn)} GEMM shapes")
-            family_gemm_phase(torch, rows, model, kn)
+            family_gemm_phase(torch, rows, model, kn, ms)
         log("== K4 and K5 at granite-moe-3b's heads (24 / 8, G = 3, D = 64)")
         rows["paged_planar_decode_attention"] += attention_phase(
             torch, args.iters, **GRANITE_K4)
@@ -3741,6 +4171,8 @@ def main() -> int:
         rows["nestedfp_encode"] = encode_phase(torch, args.iters)
         rows["quant_per_token"] = quant_phase(torch, args.iters)
         results["kernel_rows"] = rows
+        results["kernels_s"] = time.time() - t_kernels
+        log(f"  phase took {results['kernels_s']:.1f} s")
     ds = get_arch("deepseek-coder-33b")
     if "ds_slice" in phases:
         log("== ds slice: deepseek-coder-33b at full width, 2 layers (FP8 "
@@ -3772,15 +4204,15 @@ def main() -> int:
     cfg = get_arch("llama3.1-8b")
     if "slice" in phases:
         log("== slice: 2-layer llama3.1-8b, card vs CPU plain versions")
-        results["slice"] = slice_phase(torch, cfg)
+        results["slice"] = timed_phase(lambda: slice_phase(torch, cfg))
     if "serve" in phases:
         log(f"== serve: llama3.1-8b, {args.serve_layers} layers")
-        results["serve"] = serve_phase(torch, cfg, args.serve_layers,
-                                       args.host_tier == "on")
+        results["serve"] = timed_phase(lambda: serve_phase(
+            torch, cfg, args.serve_layers, args.host_tier == "on"))
     if "dense" in phases:
         log(f"== dense: llama3.1-8b, {cfg.n_layers} layers, dense-slot "
             f"prefill and decode steps")
-        results["dense"] = dense_phase(torch, cfg)
+        results["dense"] = timed_phase(lambda: dense_phase(torch, cfg))
     granite = get_arch("granite-moe-3b-a800m")
     if "granite_slice" in phases:
         log("== granite slice: granite-moe-3b at full width, 2 layers (1 and "
@@ -3788,32 +4220,35 @@ def main() -> int:
         results["granite_slice"] = timed_phase(
             lambda: granite_slice_phase(torch, granite))
     if "granite_serve" in phases:
-        log(f"== granite serve: granite-moe-3b, {granite.n_layers} layers, "
-            f"8 x (1024 + 64)")
+        n = DEPTH["granite_serve"]
+        log(f"== granite serve: granite-moe-3b, {n} layers, 8 x (1024 + 64)")
         results["granite_serve"] = timed_phase(lambda: serve_phase(
-            torch, granite, granite.n_layers, args.host_tier == "on",
+            torch, granite, n, args.host_tier == "on",
             label="granite serve", capacity=1088, prompt_len=1024,
             max_new=64))
     if "granite_dense" in phases:
-        log(f"== granite dense: granite-moe-3b, {granite.n_layers} layers, "
-            f"dense-slot prefill and decode steps")
+        n = DEPTH["granite_dense"]
+        log(f"== granite dense: granite-moe-3b, {n} layers, dense-slot "
+            f"prefill and decode steps")
         results["granite_dense"] = timed_phase(lambda: dense_phase(
-            torch, granite, "granite dense", long_ctx=False))
+            torch, dataclasses.replace(granite, n_layers=n), "granite dense",
+            long_ctx=False))
     gemma = get_arch("gemma3-1b")
     if "gemma_slice" in phases:
         log("== gemma slice: 6-layer gemma3-1b, window groups, card vs CPU "
             "plain versions")
-        results["gemma_slice"] = gemma_slice_phase(torch, gemma)
+        results["gemma_slice"] = timed_phase(
+            lambda: gemma_slice_phase(torch, gemma))
     if "gemma_serve" in phases:
         log(f"== gemma serve: gemma3-1b, {gemma.n_layers} layers, window "
             f"groups")
-        results["gemma_serve"] = gemma_serve_phase(torch, gemma,
-                                                   args.host_tier == "on")
+        results["gemma_serve"] = timed_phase(lambda: gemma_serve_phase(
+            torch, gemma, args.host_tier == "on"))
     if "gemma_dense" in phases:
         log(f"== gemma dense: gemma3-1b, {gemma.n_layers} layers, dense-slot "
             f"prefill and decode steps")
-        results["gemma_dense"] = dense_phase(torch, gemma, "gemma dense",
-                                             plant_layer=5)
+        results["gemma_dense"] = timed_phase(lambda: dense_phase(
+            torch, gemma, "gemma dense", plant_layer=5))
     if {"spec", "tiered", "fleet"} & phases:
         t0 = time.time()
         sp = make_serving_params(torch, cfg, 0, "cuda", plant_layer=0)
@@ -3822,9 +4257,12 @@ def main() -> int:
         for name, fn in (("spec", spec_phase), ("tiered", tiered_phase),
                          ("fleet", fleet_phase)):
             if name in phases:
-                log(f"== {name}: llama3.1-8b, {cfg.n_layers} layers")
+                n = DEPTH.get(name, cfg.n_layers)
+                log(f"== {name}: llama3.1-8b, {n} layers")
                 t0 = time.time()
-                results[name] = fn(torch, cfg, sp)
+                results[name] = fn(torch, cfg, sp) if name not in DEPTH \
+                    else fn(torch, dataclasses.replace(cfg, n_layers=n),
+                            {**sp, "layers": sp["layers"][:n]})
                 results[name]["seconds"] = time.time() - t0
                 log(f"  {name} phase: {results[name]['seconds']:.1f} s")
         del sp
@@ -3848,11 +4286,43 @@ def main() -> int:
             torch, qwen3, qwen3.n_layers, args.host_tier == "on",
             label="qwen3 serve"))
     if "qwen3_dense" in phases:
-        log(f"== qwen3 dense: qwen3-8b, {qwen3.n_layers} layers, dense-slot "
-            f"prefill and decode steps")
+        n = DEPTH["qwen3_dense"]
+        log(f"== qwen3 dense: qwen3-8b, {n} layers, dense-slot prefill and "
+            f"decode steps")
         results["qwen3_dense"] = timed_phase(lambda: dense_phase(
-            torch, qwen3, "qwen3 dense"))
+            torch, dataclasses.replace(qwen3, n_layers=n), "qwen3 dense"))
+    mamba2 = get_arch("mamba2-2.7b")
+    if "mamba2_slice" in phases:
+        log("== mamba2 slice: mamba2-2.7b at full width, 2 layers, card vs "
+            "CPU plain versions; the SSD alone")
+        results["mamba2_slice"] = timed_phase(lambda: recurrent_slice_phase(
+            torch, mamba2, "mamba2 slice", 2))
+    if "mamba2_serve" in phases:
+        log(f"== mamba2 serve: mamba2-2.7b, {mamba2.n_layers} layers, 8 x "
+            f"(1024 + 64), slot-resident state")
+        results["mamba2_serve"] = timed_phase(lambda: recurrent_serve_phase(
+            torch, mamba2, "mamba2 serve"))
+    if "mamba2_dense" in phases:
+        log(f"== mamba2 dense: mamba2-2.7b, {mamba2.n_layers} layers, "
+            f"dense-slot prefill and decode steps")
+        results["mamba2_dense"] = timed_phase(lambda: recurrent_dense_phase(
+            torch, mamba2, "mamba2 dense"))
+    zamba2 = get_arch("zamba2-2.7b")
+    if "zamba2_slice" in phases:
+        log("== zamba2 slice: zamba2-2.7b at full width, 6 layers (one "
+            "shared-attention application), card vs CPU plain versions")
+        results["zamba2_slice"] = timed_phase(lambda: recurrent_slice_phase(
+            torch, zamba2, "zamba2 slice", 6))
+    if "zamba2_serve" in phases:
+        log(f"== zamba2 serve: zamba2-2.7b, {zamba2.n_layers} layers, 8 x "
+            f"(1024 + 64), f16 shared-attention pools")
+        results["zamba2_serve"] = timed_phase(lambda: recurrent_serve_phase(
+            torch, zamba2, "zamba2 serve"))
     results["total_s"] = time.time() - t_start
+    seconds = {"build": results["build_s"], "kernels": results.get("kernels_s"),
+               **{k: round(v["seconds"], 1) for k, v in results.items()
+                  if isinstance(v, dict) and "seconds" in v}}
+    log(f"== seconds a phase: {json.dumps(seconds)}")
     log(f"== done in {results['total_s']:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -3862,14 +4332,16 @@ def main() -> int:
         # launches over the main paths' runs: the paged serve, the
         # dense-slot steps, the sliding-window serve, gemma3-1b's
         # dense-slot steps, speculation (llama3.1-8b, gemma3-1b), the
-        # tiered KV cache, the fleet, and deepseek-coder-33b's and qwen3-8b's serve
-        # and dense-slot steps, each counted from 0 at its start
+        # tiered KV cache, the fleet, deepseek-coder-33b's and qwen3-8b's
+        # serve and dense-slot steps, the MoE family's, and mamba2-2.7b's
+        # and zamba2-2.7b's, each counted from 0 at its start
         paths = [results.get(p, {}).get("launches_total", {})
                  for p in ("serve", "dense", "gemma_serve", "gemma_dense",
                            "spec", "gemma_spec", "tiered", "fleet",
                            "ds_serve", "ds_dense", "qwen3_serve",
                            "qwen3_dense", "ds3_serve", "granite_serve",
-                           "granite_dense")]
+                           "granite_dense", "mamba2_serve", "mamba2_dense",
+                           "zamba2_serve")]
         kernels = []
         for name, (src, replaces) in SOURCES.items():
             kernels.append({"name": name, "route": "cuda", "source": src,

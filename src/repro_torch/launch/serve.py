@@ -18,10 +18,18 @@ Usage (the card is the default device):
       --arch granite-moe-3b-a800m --kv-planar     # MoE, 48 padded experts
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
       --reduced --device cpu --system-prompt-len 16   # MLA latent blocks
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+      --reduced --device cpu              # slot-resident SSM state only
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --reduced --device cpu              # + paged shared-attention blocks
 --arch takes every config of `repro_torch.configs` (qwen1.5-0.5b,
-llama3.1-8b, gemma3-1b, qwen3-8b, deepseek-coder-33b, and the MoE family:
+llama3.1-8b, gemma3-1b, qwen3-8b, deepseek-coder-33b, the MoE family:
 granite-moe-3b-a800m, deepseek-v3-671b, whose MLA pool keeps f16 latent
-planes even with --kv-planar; its full 61 layers do not fit one card). Random weights are
+planes even with --kv-planar; its full 61 layers do not fit one card;
+and the recurrent families: mamba2-2.7b (ssm) and zamba2-2.7b (hybrid),
+whose state has no prefix cache, whose pools ignore --kv-planar, and
+which refuse --speculate: a recurrence cannot roll back rejected
+drafts). Random weights are
 built layer by layer (`model.init_serving_params`); --ckpt restores the
 JAX package's checkpoint format instead (`{"params": ...}`, as its
 `launch/serve.py --ckpt` reads), nesting each layer's weights as they are
@@ -82,6 +90,9 @@ def main(argv=None) -> int:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.speculate and cfg.cache_kind in ("ssm", "hybrid"):
+        ap.error(f"--speculate: {args.arch} keeps slot-resident recurrent "
+                 f"state, which cannot roll back rejected drafts")
     if args.ckpt:
         restored, _ = io.restore(
             args.ckpt, {"params": M.init_params(cfg, device="meta")},

@@ -9,7 +9,12 @@ rounded GEMM outputs (`fast_accum`) and the paper's per-tensor FP8
 activation scale. The prefill caches are f16; `model.planarize_cache`
 turns GQA caches into the byte-planar form that FP8 decode reads half of
 (MLA latents stay f16). MoE layers (granite-moe-3b, deepseek-v3) route
-within each row and read their expert banks in bf16 here.
+within each row and read their expert banks in bf16 here. An ssm stack
+(mamba2) keeps its recurrent state in the caches instead ({"ssm":
+conv_x, conv_bc, ssm}), O(1) in the sequence's length, so its decode
+step costs the same at any cache length. A hybrid stack (zamba2) is
+refused: its shared attention has head dim 80, for which K5 and K6 have
+no instance (the paged engine serves it through the gathered attention).
 Decode writes the caches in place.
 
 The decode step is the port's counterpart of the JAX package's
@@ -42,6 +47,7 @@ def serve_rt(mode: str) -> Runtime:
 
 def make_prefill_step(cfg: ArchConfig, mode: str = "fp16",
                       capacity: int | None = None):
+    M.check_dense_slot_family(cfg)
     rt = serve_rt(mode)
 
     def step(params, batch):
@@ -53,7 +59,13 @@ def make_prefill_step(cfg: ArchConfig, mode: str = "fp16",
 
 
 def make_decode_step(cfg: ArchConfig, mode: str = "fp16") -> "DecodeStep":
+    M.check_dense_slot_family(cfg)
     return DecodeStep(cfg, mode)
+
+
+def _planes(caches) -> dict[str, torch.Tensor]:
+    """Every cache plane by its name (names differ across subtrees)."""
+    return {n: p for planes in caches.values() for n, p in planes.items()}
 
 
 @dataclasses.dataclass
@@ -96,10 +108,11 @@ class DecodeStep:
 
     @staticmethod
     def key(params, caches, tokens) -> tuple:
-        """(batch, capacity, planar, the caches' planes as (name, address,
-        shape, strides), id(params))."""
-        planes = caches["attn"]
-        return (tokens.shape[0], M.cache_capacity(caches), "k_hi" in planes,
+        """(batch, capacity (None for a recurrent state), planar, the
+        caches' planes as (name, address, shape, strides), id(params))."""
+        planes = _planes(caches)
+        return (tokens.shape[0], M.cache_capacity(caches),
+                "k_hi" in planes,
                 tuple((n, p.data_ptr(), tuple(p.shape), p.stride())
                       for n, p in planes.items()), id(params))
 
@@ -138,7 +151,7 @@ class DecodeStep:
 
     def _new(self, key: tuple, params, caches) -> _Key:
         b = key[0]
-        dev = next(iter(caches["attn"].values())).device
+        dev = next(iter(_planes(caches).values())).device
         buf = torch.zeros(2 * b, dtype=torch.int32, device=dev)
         host = torch.zeros(2 * b, dtype=torch.int32,
                            pin_memory=dev.type == "cuda")
@@ -182,7 +195,8 @@ class DecodeStep:
         The caches are left as the step wrote them, and the launch
         counters count the step and not the eager call. Returns
         {"logits": equal, plane name: equal, ...}."""
-        clones = {"attn": {n: p.clone() for n, p in caches["attn"].items()}}
+        clones = {sub: {n: p.clone() for n, p in planes.items()}
+                  for sub, planes in caches.items()}
         before = ops.all_launch_counters()
         want, _ = M.decode_step(self.rt, params, self.cfg, tokens, clones,
                                 cache_len)
@@ -190,6 +204,7 @@ class DecodeStep:
         ops.add_launches({k: before[k] - after[k] for k in after})
         got, _ = self(params, caches, tokens, cache_len)
         same = {"logits": bool(torch.equal(got, want))}
-        for n, p in caches["attn"].items():
-            same[n] = bool(torch.equal(p, clones["attn"][n]))
+        want_planes = _planes(clones)
+        for n, p in _planes(caches).items():
+            same[n] = bool(torch.equal(p, want_planes[n]))
         return same

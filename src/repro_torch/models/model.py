@@ -1,5 +1,5 @@
-"""Dense and MoE decoders: init, caches, and their three serving entry
-points.
+"""Dense, MoE, SSM and hybrid decoders: init, caches, and their three
+serving entry points.
 
 - `paged_step`: the serving engine's step over the block-paged pool.
 - `prefill` and `decode_step`: the dense-slot steps (`launch/steps.py`)
@@ -9,6 +9,17 @@ A layer's attention is GQA (`layers.py`) or, when the config has `mla`,
 Multi-head Latent Attention (`mla.py`, whose caches hold f16 latents);
 its MLP is a dense SwiGLU or, when the config has `moe`, the routed
 expert banks of `moe.py` (granite-moe-3b, deepseek-v3).
+
+Recurrent stacks (`ssm`, `hybrid` families): every layer is a Mamba2
+block (`mamba2.py`) whose state lives in slot-resident planes ("ssm":
+conv_x, conv_bc, ssm, shaped (L, n_slots, ...)), one entry a sequence
+slot, read and written in place. A hybrid stack (zamba2) applies one
+SHARED decoder block (attention + SwiGLU, `params["shared_attn"]`) after
+every `attn_every`-th layer; its paged K/V planes ("shared", one layer
+a application, f16 as in the JAX engine) sit in the block pool. A
+recurrent chunk cannot be padded (the state would absorb the pads), so
+the engine runs prompt chunks at their exact length, one sequence a
+chunk, routed to its state row by `slot`.
 
 Sliding-window stacks (gemma3): every `swa_pattern`-th layer is global,
 the rest attend within `sliding_window` tokens (`window_schedule`). The
@@ -37,6 +48,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.nestedfp import split_bytes
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models.convert import (_nest_tensor, to_serving,
@@ -79,6 +91,20 @@ def init_decoder_block(gen, cfg: ArchConfig, put=L.keep) -> dict:
     return p
 
 
+def init_ssm_block(gen, cfg: ArchConfig, put=L.keep) -> dict:
+    """One recurrent layer: a pre-norm and a Mamba2 block."""
+    return {"ln1": init_rms_norm(cfg.d_model, L.device_of(gen)),
+            "mamba": M2.init_mamba2(gen, cfg, put)}
+
+
+def _layer_init(cfg: ArchConfig):
+    """The init function of one layer of the stack: a Mamba2 layer for a
+    recurrent family, else a decoder block."""
+    if cfg.family in ("ssm", "hybrid"):
+        return functools.partial(init_ssm_block, cfg=cfg)
+    return functools.partial(init_decoder_block, cfg=cfg)
+
+
 def _init_mtp(gen, cfg: ArchConfig, put=L.keep) -> dict:
     """deepseek-v3's multi-token-prediction head (one block with a dense
     MLP of 2 d_model), drawn after the layers. Carried, never run while
@@ -111,13 +137,15 @@ def _init_top(gen, cfg: ArchConfig) -> dict:
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     """Training-form params, from a seeded generator: the top, the layers,
-    then deepseek-v3's `mtp`. device="meta" gives the tree's shapes and
-    dtypes without data."""
+    then a hybrid's `shared_attn` block or deepseek-v3's `mtp`.
+    device="meta" gives the tree's shapes and dtypes without data."""
     _check_family(cfg)
     gen = _generator(seed, device)
     params = _init_top(gen, cfg)
-    params["layers"] = [init_decoder_block(gen, cfg)
-                        for _ in range(cfg.n_layers)]
+    block = _layer_init(cfg)
+    params["layers"] = [block(gen) for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        params["shared_attn"] = init_decoder_block(gen, cfg)
     if cfg.mtp_heads:
         params["mtp"] = _init_mtp(gen, cfg)
     return params
@@ -155,34 +183,42 @@ def init_serving_params(cfg: ArchConfig, seed: int = 0, device=None,
     is drawn, so the device holds one f32 weight at a time beside the
     served tree (a deepseek-v3 layer is 46 GB in f32, one of its expert
     banks 15 GB). `plant(i, path, w)` sees each weight of layer i that
-    serving nests, by its path in the layer ("attn/wo/w", "moe/w_down"),
-    and may edit it in place before it is nested (tests plant an
-    exception tensor with it)."""
+    serving nests, by its path in the layer ("attn/wo/w", "moe/w_down",
+    "mamba/out_proj/w"), and may edit it in place before it is nested
+    (tests plant an exception tensor with it); the weights of a hybrid's
+    shared block come with i = "shared_attn"."""
     _check_family(cfg)
     gen = _generator(seed, device)
     params = to_serving(_init_top(gen, cfg))
-    block = functools.partial(init_decoder_block, cfg=cfg)
-    paths = _weight_paths(block)
-    params["layers"] = []
-    for i in range(cfg.n_layers):
+
+    def streamed(init, i, paths):
         at = iter(paths)
 
         def put(w):
             if plant is not None:
                 plant(i, next(at), w)
             return _nest(w)
-        params["layers"].append(wrap_nested_linears(block(gen, put=put)))
+        return wrap_nested_linears(init(gen, put=put))
+    block = _layer_init(cfg)
+    paths = _weight_paths(block)
+    params["layers"] = [streamed(block, i, paths)
+                        for i in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        shared = functools.partial(init_decoder_block, cfg=cfg)
+        params["shared_attn"] = streamed(shared, "shared_attn",
+                                         _weight_paths(shared))
     if cfg.mtp_heads:
         params["mtp"] = wrap_nested_linears(_init_mtp(gen, cfg, _nest))
     return params
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    """The port serves dense and MoE (incl. MLA) decoders; ssm, hybrid,
+    """The port serves dense, MoE (incl. MLA), ssm and hybrid decoders;
     vlm and encdec are not ported yet."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"the port serves dense and MoE decoders; "
-                                  f"{cfg.arch_id} is {cfg.family}")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise NotImplementedError(f"the port serves dense, MoE, ssm and "
+                                  f"hybrid decoders; {cfg.arch_id} is "
+                                  f"{cfg.family}")
 
 
 def window_schedule(cfg: ArchConfig) -> tuple[int, ...] | None:
@@ -208,11 +244,15 @@ def _layer_windows(cfg: ArchConfig) -> list[int | None]:
 # ---------------------------------------------------------------------------
 
 def cache_descriptor(cfg: ArchConfig, planar: bool = False) -> KV.CacheDescriptor:
-    """The paged planes of a decoder. GQA: K/V planes per layer, f16 or
+    """The cache layout of a decoder. GQA: K/V planes per layer, f16 or
     byte-planar (NestedKV), and for a sliding-window stack its two window
     groups: global = the layers with i % swa_pattern == swa_pattern - 1,
     local = the rest. MLA: the latent `c_kv` (r,) and `k_rope` (d_rope,)
-    planes, f16, never planar (as in the JAX package, planar raises)."""
+    planes, f16, never planar (as in the JAX package, planar raises).
+    ssm: slot-resident state only (conv_x, conv_bc f16, ssm f32), no
+    paged plane and no prefix cache. hybrid: that state plus the shared
+    attention's f16 K/V planes, one layer a application (attn_every must
+    divide n_layers)."""
     _check_family(cfg)
     if cfg.cache_kind == "mla":
         if planar:
@@ -224,6 +264,8 @@ def cache_descriptor(cfg: ArchConfig, planar: bool = False) -> KV.CacheDescripto
             KV.PlaneSpec("k_rope", cfg.n_layers, (m.qk_rope_dim,),
                          "float16")))
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    if cfg.cache_kind in ("ssm", "hybrid"):
+        return _recurrent_descriptor(cfg, planar)
     groups: tuple[KV.LayerGroup, ...] = ()
     if cfg.sliding_window and cfg.swa_pattern:
         p = cfg.swa_pattern
@@ -240,22 +282,81 @@ def cache_descriptor(cfg: ArchConfig, planar: bool = False) -> KV.CacheDescripto
         KV.PlaneSpec("v", cfg.n_layers, (hkv, hd), "float16")), groups=groups)
 
 
-_TORCH_DTYPES = {"uint8": torch.uint8, "float16": torch.float16}
+def _recurrent_descriptor(cfg: ArchConfig, planar: bool) -> KV.CacheDescriptor:
+    """cache_descriptor's ssm and hybrid branches."""
+    if planar:
+        raise ValueError("byte-planar NestedKV applies to GQA K/V planes "
+                         "only, not SSM/hybrid state")
+    d_inner, n_heads, _ = M2.ssm_dims(cfg)
+    s = cfg.ssm
+    gn2 = 2 * s.n_groups * s.d_state
+    slot_planes = (
+        KV.SlotPlaneSpec("conv_x", (cfg.n_layers, s.conv_width - 1, d_inner),
+                         "float16"),
+        KV.SlotPlaneSpec("conv_bc", (cfg.n_layers, s.conv_width - 1, gn2),
+                         "float16"),
+        KV.SlotPlaneSpec("ssm", (cfg.n_layers, n_heads, s.head_dim,
+                                 s.d_state), "float32"))
+    if cfg.cache_kind == "ssm":
+        return KV.CacheDescriptor("ssm", slot_planes=slot_planes,
+                                  prefix_cacheable=False)
+    if not cfg.attn_every or cfg.n_layers % cfg.attn_every:
+        # one shared-attention application a group of attn_every layers
+        raise ValueError(
+            f"hybrid paged serving requires attn_every | n_layers, got "
+            f"{cfg.n_layers} % {cfg.attn_every}")
+    n_apps = cfg.n_layers // cfg.attn_every
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return KV.CacheDescriptor(
+        "hybrid",
+        planes=(KV.PlaneSpec("k", n_apps, (hkv, hd), "float16"),
+                KV.PlaneSpec("v", n_apps, (hkv, hd), "float16")),
+        slot_planes=slot_planes, prefix_cacheable=False)
+
+
+_TORCH_DTYPES = {"uint8": torch.uint8, "float16": torch.float16,
+                 "float32": torch.float32}
+
+
+def _state_planes(desc: KV.CacheDescriptor, n: int, device) -> dict:
+    """Zero slot-resident state planes of `n` slots, (L, n, ...) each."""
+    return {p.name: torch.zeros((p.shape[0], n) + tuple(p.shape[1:]),
+                                dtype=_TORCH_DTYPES[p.dtype], device=device)
+            for p in desc.slot_planes}
+
+
+def paged_key(desc: KV.CacheDescriptor) -> str:
+    """The caches' subtree that holds a descriptor's paged planes: "shared"
+    (a hybrid's shared attention) or "attn"."""
+    return "shared" if desc.kind == "hybrid" else "attn"
 
 
 def init_paged_cache(cfg: ArchConfig, n_total_blocks: int, block_size: int,
-                     planar: bool = False, device=None) -> dict:
-    """{"attn": {plane: (L, NB, BS, *token_shape)}} — no batch dim:
-    sequences own block ids (serving/kvcache.py BlockManager; block 0 is
-    the trash block). GQA planes are (Hkv, D) a token (planar=True: the
-    byte planes of NestedKV), MLA planes (r,) and (d_rope,)."""
+                     planar: bool = False, device=None,
+                     n_slots: int | None = None) -> dict:
+    """The serving caches a descriptor lays out. Paged planes are
+    {plane: (L, NB, BS, *token_shape)}, with no batch dim: sequences own
+    block ids (serving/kvcache.py BlockManager; block 0 is the trash
+    block); under "attn", or "shared" for a hybrid's shared attention.
+    GQA planes are (Hkv, D) a token (planar=True: the byte planes of
+    NestedKV), MLA planes (r,) and (d_rope,). Slot-resident state (ssm
+    and hybrid) is {"ssm": {plane: (L, n_slots, ...)}}, zero, and needs
+    `n_slots`."""
     desc = cache_descriptor(cfg, planar=planar)
     device = resolve_device(device)
-    return {"attn": {
-        p.name: torch.zeros((p.n_layers, n_total_blocks, block_size)
-                            + p.token_shape, dtype=_TORCH_DTYPES[p.dtype],
-                            device=device)
-        for p in desc.planes}}
+    out = {}
+    if desc.planes:
+        out[paged_key(desc)] = {
+            p.name: torch.zeros((p.n_layers, n_total_blocks, block_size)
+                                + p.token_shape, dtype=_TORCH_DTYPES[p.dtype],
+                                device=device)
+            for p in desc.planes}
+    if desc.slot_planes:
+        if n_slots is None:
+            raise ValueError(f"{desc.kind} descriptor has slot-resident "
+                             "state; init_paged_cache needs n_slots")
+        out["ssm"] = _state_planes(desc, n_slots, device)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -267,9 +368,22 @@ def init_cache(cfg: ArchConfig, batch: int, capacity: int,
     """{"attn": {plane: (L, B, Cap, ...)}} zeros. GQA: {"k","v"} f16 of
     (Hkv, D) a token, or with planar=True the byte planes of NestedKV
     (fp8 decode reads the hi planes only). MLA: {"c_kv", "k_rope"} f16
-    latents ((r,) and (d_rope,) a token; planar does not apply)."""
+    latents ((r,) and (d_rope,) a token; planar does not apply). ssm:
+    {"ssm": {conv_x, conv_bc f16, ssm f32}} of (L, B, ...), whatever the
+    capacity; hybrid: that and the shared attention's f16 {"k","v"} of
+    (L // attn_every, B, Cap, Hkv, D) under "shared"."""
     _check_family(cfg)
     device = resolve_device(device)
+    if cfg.cache_kind in ("ssm", "hybrid"):
+        desc = cache_descriptor(cfg)
+        out = {"ssm": _state_planes(desc, batch, device)}
+        if desc.planes:
+            out["shared"] = {
+                p.name: torch.zeros((p.n_layers, batch, capacity)
+                                    + p.token_shape, dtype=torch.float16,
+                                    device=device)
+                for p in desc.planes}
+        return out
     lead = (cfg.n_layers, batch, capacity)
     if cfg.cache_kind == "mla":
         m = cfg.mla
@@ -289,9 +403,10 @@ def planarize_cache(caches: dict) -> dict:
     """Prefilled f16 caches ({"attn": {"k","v"}}) in byte-planar form
     (NestedKV): a new dict whose "attn" holds k_hi, k_lo, v_hi, v_lo u8.
     Split one layer at a time, so the integer temporaries stay one layer's
-    size; other entries and planar caches pass through."""
+    size; other entries (the state of a recurrent stack) and planar caches
+    pass through."""
     out = dict(caches)
-    sub = caches["attn"]
+    sub = caches.get("attn", {})
     if set(sub) == {"k", "v"}:
         planes = {}
         for kind in ("k", "v"):
@@ -381,6 +496,70 @@ def run_decoder_stack(rt, layers, cfg, x, *, phase, positions, caches,
     return x
 
 
+def apply_ssm_block(rt, p: dict, cfg: ArchConfig, x, *, phase: str,
+                    cache=None, kv_len=None):
+    """x + mamba2(norm(x)); returns (x, the layer's new state)."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, new_cache = M2.mamba2_block(rt, p["mamba"], cfg, h, phase=phase,
+                                   cache=cache, kv_len=kv_len)
+    return x + y, new_cache
+
+
+def check_dense_slot_family(cfg: ArchConfig) -> None:
+    """The dense-slot steps (`prefill`, `decode_step`, launch/steps.py)
+    refuse a hybrid stack."""
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"the dense-slot steps of a hybrid stack are not ported: "
+            f"{cfg.arch_id}'s shared attention has head dim "
+            f"{cfg.resolved_head_dim} (zamba2-2.7b: D = 80), and the port's "
+            f"K5 and K6 have instances for D in (64, 128, 256) only; the "
+            f"paged engine serves it")
+
+
+def run_ssm_stack(rt, layers, cfg, x, *, phase, positions, caches,
+                  kv_len=None, slot=None, shared_params=None, paged=None):
+    """The Mamba2 stack as a loop over layers, for the "paged", "prefill"
+    and "decode" phases. Layer i reads its state from slice i of
+    caches["ssm"]'s planes (L, B or n_slots, ...) and writes the new state
+    back IN PLACE (the reference returned new arrays): a "prefill" writes
+    the fresh state, a "paged" step keeps rows with kv_len == 0 as they
+    were (`mamba2_block`). `slot` (a (1,) tensor) routes a one-row paged
+    chunk to that state row, read and written without a host read.
+
+    A hybrid stack (`shared_params`, paged phase only) applies the shared
+    decoder block after every attn_every-th layer: application j attends
+    over layer j of caches["shared"] through `paged` (phys_write (B,C),
+    phys_read (B,Cap), q_offset (B,), tables (B,MB)), as `layers.
+    attention_paged` takes them."""
+    every = cfg.attn_every if shared_params is not None else 0
+    state = caches["ssm"]
+    for i, p in enumerate(layers):
+        planes = {n: pl[i] for n, pl in state.items()}
+        if phase == "prefill":
+            cache = None
+        elif slot is not None:
+            cache = {n: pl.index_select(0, slot) for n, pl in planes.items()}
+        else:
+            cache = planes
+        x, new = apply_ssm_block(rt, p, cfg, x, phase=phase, cache=cache,
+                                 kv_len=kv_len)
+        for n, pl in planes.items():
+            if slot is not None:
+                pl.index_copy_(0, slot, new[n].to(pl.dtype))
+            else:
+                pl.copy_(new[n])
+        if every and i % every == every - 1:
+            app = {n: pl[i // every] for n, pl in caches["shared"].items()}
+
+            def attend(h, app=app):
+                return L.attention_paged(rt, shared_params["attn"], cfg, h,
+                                         positions=positions, cache=app,
+                                         kv_len=kv_len, paged=paged)
+            x = apply_decoder_block(rt, shared_params, cfg, x, attend)
+    return x
+
+
 def embed_tokens(rt, params, cfg, tokens):
     return params["embed"]["tok"].to(rt.dtype)[tokens.long()]
 
@@ -397,12 +576,17 @@ def lm_logits(rt, params, cfg, h):
 
 def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
                q_offset, kv_len, block_size: int, logit_position=None,
-               rows=None, return_logits: bool = False,
+               rows=None, slot=None, return_logits: bool = False,
                sample_all: bool = False, aux: list | None = None):
     """One step over the paged cache — batched decode (C=1 across all
-    rows) and chunked prefill (ragged right-padded chunk rows) alike.
+    rows) and chunked prefill (ragged right-padded chunk rows) alike —
+    for every family: GQA K/V planes, MLA latent planes, and recurrent
+    stacks whose slot-resident state ("ssm") pairs, for a hybrid, with
+    the shared attention's paged planes ("shared").
 
-    tokens:       (B, C) int32, right-padded chunks.
+    tokens:       (B, C) int32, right-padded chunks (attention families;
+                  a recurrent chunk is exact-length: the state would
+                  absorb pads).
     block_tables: (G, B, MB) int32 physical block ids in logical order,
                   one table per window group (holes and slide-freed
                   blocks = trash block 0), or (B, MB), then the same
@@ -418,6 +602,10 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
                   b reads its row rows[b] of every group, gathered here,
                   inside the step (as the JAX engine gathers inside its
                   jit).
+    slot:         (1,) int tensor, for a single-row chunk of a recurrent
+                  stack: the state row the chunk reads and writes (B must
+                  be 1). None: the state's slot axis matches B (the
+                  batched decode).
     sample_all:   the greedy argmax at EVERY chunk column, (B, C) int32
                   (or (B, C, V) logits with return_logits), in place of
                   the `logit_position` selection: speculative
@@ -428,7 +616,8 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
                   choice) skips them, as the JAX package's step drops
                   them.
 
-    The pool planes in `caches` are updated in place. Returns next_ids
+    The pool planes and the slot-resident state in `caches` are updated
+    in place. Returns next_ids
     (B,) int32 (greedy argmax, on the device) or, with return_logits,
     the (B, V) f32 logits."""
     b, c = tokens.shape
@@ -445,6 +634,8 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
         tables = tables.expand(ngrp, -1, -1)
     q_offset = q_offset.to(torch.int64)
     kv_len = kv_len.to(torch.int32)
+    if slot is not None:
+        slot = slot.to(torch.int64)
     mb = tables.shape[2]
     positions = q_offset[:, None] + torch.arange(c, device=dev)[None, :]
     real = positions < kv_len[:, None]
@@ -458,12 +649,19 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
     phys_read = (tables.long()[..., None] * block_size
                  + offs).reshape(ngrp, b, mb * block_size)
     h = embed_tokens(rt, params, cfg, tokens)
-    h = run_decoder_stack(rt, params["layers"], cfg, h, phase="paged",
-                          positions=positions, caches=caches["attn"],
-                          kv_len=kv_len,
-                          paged=(phys_write, phys_read, q_offset, tables),
-                          paged_groups=desc.layer_group_map(cfg.n_layers),
-                          aux=aux)
+    if desc.slot_planes:
+        h = run_ssm_stack(rt, params["layers"], cfg, h, phase="paged",
+                          positions=positions, caches=caches, kv_len=kv_len,
+                          slot=slot, shared_params=params.get("shared_attn"),
+                          paged=(phys_write[0], phys_read[0], q_offset,
+                                 tables[0]))
+    else:
+        h = run_decoder_stack(rt, params["layers"], cfg, h, phase="paged",
+                              positions=positions, caches=caches["attn"],
+                              kv_len=kv_len,
+                              paged=(phys_write, phys_read, q_offset, tables),
+                              paged_groups=desc.layer_group_map(cfg.n_layers),
+                              aux=aux)
     if sample_all:
         logits = lm_logits(rt, params, cfg, h)             # (B, C, V)
         if return_logits:
@@ -487,32 +685,44 @@ def prefill(rt, params, cfg, batch, *, capacity: int | None = None,
     batch: {"tokens": (B, S)}. The caches are fresh f16 `init_cache`
     planes ({"k","v"} of (L, B, capacity, Hkv, D), or MLA's latents) with
     capacity defaulting to S, on the tokens' device, holding the prompt's
-    keys and values, zero past S. Logits are taken at `logit_position`
-    (default: the last position). aux: as `paged_step`'s."""
+    keys and values, zero past S; for an ssm stack the state after the
+    prompt. Logits are taken at `logit_position` (default: the last
+    position). aux: as `paged_step`'s. A hybrid stack raises
+    NotImplementedError."""
+    check_dense_slot_family(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     capacity = capacity or s
     caches = init_cache(cfg, b, capacity, device=tokens.device)
     positions = torch.arange(s, device=tokens.device)[None, :]
     h = embed_tokens(rt, params, cfg, tokens)
-    h = run_decoder_stack(rt, params["layers"], cfg, h, phase="prefill",
-                          positions=positions, caches=caches["attn"],
-                          aux=aux)
+    if cfg.family == "ssm":
+        h = run_ssm_stack(rt, params["layers"], cfg, h, phase="prefill",
+                          positions=positions, caches=caches)
+    else:
+        h = run_decoder_stack(rt, params["layers"], cfg, h, phase="prefill",
+                              positions=positions, caches=caches["attn"],
+                              aux=aux)
     pos = s - 1 if logit_position is None else int(logit_position)
     logits = lm_logits(rt, params, cfg, h[:, pos:pos + 1])[:, 0]
     return logits, caches, s
 
 
-def check_cache_len(cap: int, cache_len) -> None:
+def check_cache_len(cap: int | None, cache_len) -> None:
     """decode_step's host check: an int cache_len must leave the new token
-    a free position in caches of capacity `cap` (a tensor is not read)."""
-    if isinstance(cache_len, int) and not 0 <= cache_len < cap:
+    a free position in caches of capacity `cap` (None: a recurrent state,
+    which has no capacity; a tensor is not read)."""
+    if isinstance(cache_len, int) and not (
+            0 <= cache_len and (cap is None or cache_len < cap)):
         raise ValueError(f"cache_len {cache_len}: the new token needs a free "
                          f"position in a cache of capacity {cap}")
 
 
-def cache_capacity(caches) -> int:
-    """Positions a row of the dense per-slot caches holds."""
+def cache_capacity(caches) -> int | None:
+    """Positions a row of the dense per-slot caches holds (None for the
+    state of an ssm stack, which is O(1) in the sequence's length)."""
+    if "attn" not in caches:
+        return None
     return next(iter(caches["attn"].values())).shape[2]
 
 
@@ -526,7 +736,10 @@ def decode_step(rt, params, cfg, tokens, caches, cache_len,
     The host part (the check, and the upload of an int cache_len) is done
     here; `decode_logits` is the device part, which
     `launch/steps.py::make_decode_step` captures with cache_len staged in
-    a device buffer of its own. aux: as `paged_step`'s."""
+    a device buffer of its own. aux: as `paged_step`'s. An ssm stack
+    advances its state in place; a hybrid stack raises
+    NotImplementedError."""
+    check_dense_slot_family(cfg)
     b = tokens.shape[0]
     check_cache_len(cache_capacity(caches), cache_len)
     lens = torch.as_tensor(cache_len, device=tokens.device).to(torch.int32)
@@ -541,7 +754,11 @@ def decode_logits(rt, params, cfg, tokens, caches, lens,
     f32, the caches written in place. No host read and no host value
     depends on lens, so a CUDA graph of it serves any lengths."""
     h = embed_tokens(rt, params, cfg, tokens)
-    h = run_decoder_stack(rt, params["layers"], cfg, h, phase="decode",
-                          positions=lens[:, None], caches=caches["attn"],
-                          kv_len=lens + 1, aux=aux)
+    if cfg.family == "ssm":
+        h = run_ssm_stack(rt, params["layers"], cfg, h, phase="decode",
+                          positions=lens[:, None], caches=caches)
+    else:
+        h = run_decoder_stack(rt, params["layers"], cfg, h, phase="decode",
+                              positions=lens[:, None], caches=caches["attn"],
+                              kv_len=lens + 1, aux=aux)
     return lm_logits(rt, params, cfg, h[:, -1:])[:, 0]

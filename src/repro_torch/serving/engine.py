@@ -1,9 +1,10 @@
 """Continuous-batching serving engine with per-iteration dual precision.
 
-The port of the JAX package's `serving/engine.py` for dense and MoE
-decoders: GQA K/V planes (f16 or byte-planar), or MLA's f16 latent
-planes (`c_kv`, `k_rope`) through the same block pool, prefix cache and
-host tier.
+The port of the JAX package's `serving/engine.py` for dense, MoE, SSM
+and hybrid decoders: GQA K/V planes (f16 or byte-planar), or MLA's f16
+latent planes (`c_kv`, `k_rope`) through the same block pool, prefix
+cache and host tier; and, for a recurrent stack, its slot-resident state
+(below).
 Each engine step (a) schedules prompt-prefill CHUNKS up to a token
 budget, interleaved with decode, and (b) advances every active slot by one
 token (batched decode) over a BLOCK-PAGED KV cache. Admission is driven
@@ -67,6 +68,19 @@ eagerly and the lo planes on the first FP16 step. Every write into the
 pool (restores, COW copies) is in place: the captured steps read the
 planes at fixed addresses.
 
+Recurrent stacks (the ssm and hybrid descriptors, mamba2 and zamba2):
+each sequence's state lives in its slot's row of the slot-resident
+planes, claimed in `SlotManager` in lockstep with the block manager's
+slot and zeroed at every (re-)admission (a preempted request restarts
+its recurrence from scratch). Pads would be absorbed into the state, so
+a prompt chunk runs at its exact length, one chunk a dispatch routed to
+its slot (the "chunk" step keys, one per (mode, length), the JAX
+engine's exact-length compiles); the batched decode keeps every idle
+row's state as it was. A cached KV prefix cannot stand in for the state,
+so the prefix cache and the host tier are off, and speculation is
+refused: a recurrence cannot roll back rejected drafts. A pure SSM has
+no paged plane: its block tables only account tokens.
+
 Fleet hooks (`serving/router.py`): `fault_hook(engine)` is called at the
 very top of `step()`, before anything mutates, so a raise there leaves
 the engine drainable; `inject_stall_ms` is added to the step's measured
@@ -99,7 +113,8 @@ from repro_torch.models import model as M
 from repro_torch.models.convert import params_to
 from repro_torch.models.layers import Runtime
 from repro_torch.serving.graphs import StepGraphs
-from repro_torch.serving.kvcache import TRASH_BLOCK, BlockManager, HostPool
+from repro_torch.serving.kvcache import (TRASH_BLOCK, BlockManager,
+                                         HostPool, SlotManager)
 from repro_torch.serving.speculate import NgramProposer
 
 
@@ -190,7 +205,22 @@ class Engine:
         # byte-planar NestedKV applies to GQA K/V planes only: an MLA
         # engine asked for it keeps f16 latent planes, as the JAX engine
         self.kv_planar = kv_planar and cfg.cache_kind == "gqa"
-        # speculation: True picks the default SpeculationConfig
+        desc = M.cache_descriptor(cfg, planar=self.kv_planar)
+        self.desc = desc
+        # recurrent state cannot be re-attached from cached KV blocks
+        prefix_cache = prefix_cache and desc.prefix_cacheable
+        # pads are invisible to attention (causal mask, trash block) but
+        # would be absorbed into a recurrent state: such stacks prefill
+        # in exact-length chunks, one a dispatch
+        self._pad_chunks = not desc.slot_planes
+        # speculation: True picks the default SpeculationConfig. Rejected
+        # drafts are rolled back by block bookkeeping, which slot-resident
+        # state cannot provide: advancing a recurrence is irreversible
+        if speculate and desc.slot_planes:
+            raise ValueError(
+                "speculative decoding requires rolling back rejected "
+                "positions; slot-resident recurrent state (ssm/hybrid "
+                "descriptors) cannot be truncated")
         if speculate:
             self._spec = speculate if isinstance(speculate, SpeculationConfig) \
                 else SpeculationConfig()
@@ -245,14 +275,15 @@ class Engine:
         mbs = -(-capacity // block_size)
         # one block table per window group, each its own id space over the
         # same pool (a layer touches only its group's rows of a block)
-        desc = M.cache_descriptor(cfg, planar=self.kv_planar)
         gw = desc.group_windows
         if not window_reclaim:
             gw = (None,) * len(gw)
         if n_blocks is None:
             n_blocks = n_slots * mbs         # dense-equivalent pool by default
-        self.desc = desc
-        self._host_tier = bool(host_offload and prefix_cache)
+        # the host tier holds evicted prefix blocks: prefix-cacheable
+        # paged descriptors only
+        self._host_tier = bool(host_offload and prefix_cache and desc.paged
+                               and not desc.slot_planes)
         self._restore_policy = restore_policy or RestorePolicy()
         self.persist_dir = persist_dir
         # spill captures enqueued on the device, stored by
@@ -270,10 +301,13 @@ class Engine:
         self._group_layers = {
             gi: torch.tensor(ls, dtype=torch.long, device=self.device)
             for gi, ls in enumerate(glayers)}
+        # the slot-resident state side (ssm, hybrid): occupancy tracked in
+        # lockstep with the block manager's slots
+        self.slot_state = SlotManager(n_slots) if desc.slot_planes else None
         self.caches = M.init_paged_cache(
             cfg, self.blocks.n_total_blocks, block_size,
-            planar=self.kv_planar,
-            device=self.device)
+            planar=self.kv_planar, device=self.device, n_slots=n_slots)
+        self._pool_key = M.paged_key(desc)
         # tiered KV: a host entry holds, for each plane, the group's layer
         # rows of one block, (group layers, block_size, *token_shape), as
         # in the JAX package. Planar pools upload the hi planes at restore
@@ -347,8 +381,7 @@ class Engine:
                 out.append(self.active.pop(idx))
             else:
                 out.append(self.prefilling.pop(idx).req)
-            bm.release(idx)
-            self.lens[idx] = 0
+            self._release(idx)
         out.extend(self.queue)
         self.queue.clear()
         if bm.host is not None:
@@ -447,7 +480,7 @@ class Engine:
         viewed as (blocks, *entry shape) in the plane's dtype)."""
         off = 0
         for n in names:
-            plane = self.caches["attn"][n]
+            plane = self.caches[self._pool_key][n]
             shape = self._entry_shapes[g][n]
             nb = int(np.prod(shape)) * plane.element_size()
             region = rows[:, off: off + nb].view(plane.dtype).view(
@@ -796,7 +829,7 @@ class Engine:
         # that completed this step and decode below with a device token
         pending: list[tuple[Request, int, Any, int, int]] = []
         fresh: list[tuple[int, Any, int]] = []
-        chunk_ids = self._run_chunks_fused(mode, plan, pending, fresh)
+        chunk_ids = self._run_chunks(mode, plan, pending, fresh)
         decode_ids, drafts = self._decode_paged(mode, chunk_ids, fresh)
         self._finalize_step(mode, pending, decode_ids, chunk_ids, drafts)
         self._sample_peak()
@@ -847,6 +880,12 @@ class Engine:
             if idx is None:
                 break
             self.queue.popleft()
+            if self.slot_state is not None:
+                # the state side claims the same slot, zeroed: a recompute
+                # after preemption restarts the recurrence from scratch
+                self.slot_state.claim(idx, req.request_id, len(seq_tokens),
+                                      req.max_new - len(req.output))
+                self._zero_slot(idx)
             # the longest cached full-block prefix is shared; prefill
             # starts at the matched offset but always recomputes >= 1
             # token so the first-token logit is produced
@@ -891,7 +930,7 @@ class Engine:
                 [(g, src) for g, src, _dst in triples]))
         for g, src, dst in triples:
             layers = self._group_layers[g]
-            for plane in self.caches["attn"].values():
+            for plane in self.caches[self._pool_key].values():
                 plane[layers, dst] = plane[layers, src]
             self.stats["aux_dispatches"] += 1
 
@@ -917,6 +956,54 @@ class Engine:
             self.stats["peak_block_util"], self.blocks.utilization())
         self.stats["window_reclaimed_blocks"] = \
             self.blocks.window_freed_blocks
+
+    def _zero_slot(self, idx: int) -> None:
+        """Zero one slot's recurrent state, in place, at (re-)admission."""
+        for plane in self.caches["ssm"].values():
+            plane[:, idx].zero_()
+        self.stats["aux_dispatches"] += 1
+
+    def _run_chunks(self, mode: str, plan, pending, fresh):
+        """Run this step's planned prompt chunks: attention families fuse
+        every chunk into one ragged dispatch (`_run_chunks_fused`),
+        recurrent stacks dispatch one exact-length chunk after another
+        (`_run_chunk`). Returns the device ids of the step's chunks, one
+        row per chunk (None when nothing ran); completing rows are
+        recorded in `pending` / `fresh` with their row."""
+        if self._pad_chunks:
+            return self._run_chunks_fused(mode, plan, pending, fresh)
+        ids = []
+        for idx, start, take in plan:
+            # a preemption in an earlier chunk's COW may have taken a
+            # later plan entry
+            if idx in self.prefilling:
+                self._run_chunk(mode, idx, start, take, ids, pending, fresh)
+        return torch.cat(ids) if ids else None
+
+    def _run_chunk(self, mode: str, idx: int, start: int, take: int, ids,
+                   pending, fresh) -> None:
+        """One recurrent chunk, exact-length, as its own dispatch of the
+        ("chunk", mode, take) key, routed to slot idx (its block-table
+        row and its state row). Its sampled id is copied out of the key's
+        static buffer (a later chunk of the same length overwrites it)
+        and appended to `ids`, whose index is the chunk's row."""
+        st = self.prefilling[idx]
+        if not self._cow_or_preempt(idx, start, start + take):
+            return
+        key = ("chunk", mode, take)
+        x = self.graphs.inputs(key)
+        x["tokens"][0] = st.seq_tokens[start: start + take]
+        x["rows"][0] = idx
+        x["q_offset"][0] = start
+        x["kv_len"][0] = start + take
+        x["logit_position"][0] = take - 1
+        self._upload(key)
+        self.blocks.device_tables()          # flush table edits first
+        ids.append(self.graphs.run(key).clone())
+        self.stats["prefill_dispatches"] += 1
+        self._commit_chunk(idx, start, take)
+        self._sample_peak()                  # pre-retire, as below
+        self._finish_chunk(mode, idx, None, len(ids) - 1, pending, fresh)
 
     def _run_chunks_fused(self, mode: str, plan, pending, fresh):
         """ONE ragged `paged_step` covers the whole chunk budget: rows
@@ -1007,15 +1094,20 @@ class Engine:
             req = self.active.pop(victim)
         else:
             req = self.prefilling.pop(victim).req
-        self.blocks.release(victim)
-        self.lens[victim] = 0
+        self._release(victim)
         self.queue.appendleft(req)
 
     def _retire(self, idx: int, now: float) -> None:
         req = self.active.pop(idx)
         req.finished_s = now
         self.finished.append(req)
+        self._release(idx)
+
+    def _release(self, idx: int) -> None:
+        """Give back a row's blocks and its slot-resident state slot."""
         self.blocks.release(idx)
+        if self.slot_state is not None:
+            self.slot_state.release(idx)
         self.lens[idx] = 0
 
     def _maybe_retire(self, idx: int, now: float) -> None:
@@ -1114,7 +1206,7 @@ class Engine:
             x["kv_len"][idx] = self.lens[idx] + 1 + len(d)
         toks = self._upload(key)["tokens"]
         fresh = [(s, a, r) for s, a, r in fresh if s in self.active]
-        if fresh:
+        if fresh and self._pad_chunks:
             # every completing prefill's first token lives in ONE device
             # array: overlay them with a single device write, no sync
             slots = np.asarray([s for s, _, _ in fresh], np.int32)
@@ -1122,6 +1214,13 @@ class Engine:
             toks[self._h2d(slots).long(), 0] = \
                 chunk_ids[self._h2d(rows).long()]
             self.stats["aux_dispatches"] += 1
+        else:
+            # recurrent chunks: one overlay a completing chunk, as the JAX
+            # engine writes each chunk's ids array in on its own
+            for s, _a, r in fresh:
+                toks[self._h2d(np.asarray([s], np.int32)).long(), 0] = \
+                    chunk_ids[self._h2d(np.asarray([r], np.int32)).long()]
+                self.stats["aux_dispatches"] += 1
         # the decode writes the pool: capture queued spills (ensure() may
         # have evicted LRU blocks above) before the write lands. Decode
         # and draft writes land only in partly filled or COW-exclusive

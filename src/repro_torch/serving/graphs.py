@@ -13,15 +13,23 @@ keys, each made at its first use:
   greedy argmax at every column and the accept selection fused after it
   (the JAX engine's `_spec_cache`); its output packs `[ids | n_accepted]`
   as one (n_slots, cb + 1) int32 buffer, so the engine's end-of-step
-  sync stays one transfer.
+  sync stays one transfer;
+- `("chunk", mode, length)`: one exact-length prompt chunk of a recurrent
+  stack (ssm, hybrid), `(1, length)` tokens routed to one slot (its
+  block-table row and its state row), the JAX engine's `_chunk_cache`,
+  which compiles once per exact length; the graph is reused whenever a
+  chunk of that length comes again (a full chunk budget, a prompt
+  length that repeats).
 
 Each key owns static buffers: one int32 device buffer that packs the
 step's inputs (tokens, rows, q_offset, kv_len, logit_position, dlen), a
 host buffer of the same layout (pinned on a card) from which one copy a
 step fills it, and the sampled ids. The step reads the engine's persistent
-pool planes and device block table in place; none of these, the
-params or the static buffers is ever reallocated, so a graph's baked-in
-addresses stay valid.
+pool planes, slot-resident state planes and device block table in place,
+and writes the new state into the state planes in place (`copy_`,
+`index_copy_`: the JAX engine's step returned new arrays); none of
+these, the params or the static buffers is ever reallocated, so a
+graph's baked-in addresses stay valid.
 
 On a CUDA device the first use of a key runs the step eagerly on a side
 stream (that call is the step's own run: it builds the kernels, sets
@@ -121,7 +129,10 @@ def _layout(key: tuple, n_slots: int
         return [("tokens", (n_slots, cb)), ("q_offset", (n_slots,)),
                 ("kv_len", (n_slots,)), ("dlen", (n_slots,))], \
             (n_slots, cb + 1)
-    _, _, rb, cb = key
+    if key[0] == "chunk":
+        rb, cb = 1, key[2]
+    else:
+        _, _, rb, cb = key
     return [("tokens", (rb, cb)), ("rows", (rb,)), ("q_offset", (rb,)),
             ("kv_len", (rb,)), ("logit_position", (rb,))], (rb,)
 
@@ -130,7 +141,8 @@ class StepGraphs:
     """The engine's step keys: static buffers, capture, replay, one pool.
 
     rts: mode -> Runtime; params, cfg, block_size: as `paged_step` takes
-    them; caches: the engine's pool planes; tables: its persistent
+    them; caches: the engine's pool planes and slot-resident state;
+    tables: its persistent
     (G, n_slots, MB) device block tables, one per window group
     (`BlockManager.device_tables()`)."""
 
@@ -154,8 +166,8 @@ class StepGraphs:
     def keys(self, kind: str | None = None) -> set:
         """Every key made so far; with a kind, that kind's keys without
         it: modes for "decode", (mode, rows_bucket, chunk_bucket) for
-        "prefill", (mode, chunk_bucket) for "spec" (the JAX engine's
-        cache keys)."""
+        "prefill", (mode, chunk_bucket) for "spec", (mode, length) for
+        "chunk" (the JAX engine's cache keys)."""
         if kind is None:
             return set(self._steps)
         return {k[1] if kind == "decode" else k[1:]
@@ -221,7 +233,8 @@ class StepGraphs:
             tables, q_offset=inputs["q_offset"], kv_len=inputs["kv_len"],
             block_size=self.block_size,
             logit_position=inputs.get("logit_position"),
-            rows=inputs.get("rows"))
+            rows=inputs.get("rows"),
+            slot=inputs["rows"] if st.key[0] == "chunk" else None)
 
     def _verify(self, mode: str, caches: dict, tables: torch.Tensor,
                 inputs: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -289,23 +302,32 @@ class StepGraphs:
         prefill key is checked inside its step (`check_first_runs`). A
         row whose slot was released since reads and writes only the
         trash block. Re-running the step writes the values it wrote
-        before. Only rows with
-        kv_len > 0 are compared, and the planes past the trash block:
-        pad and idle rows all write there, colliding writes land in no
-        fixed order, and only those rows' discarded ids read it."""
+        before into the pool; a recurrent state advances again from
+        where the run left it, on both sides alike. Only rows with
+        kv_len > 0 are compared, and the pool planes past the trash
+        block: pad and idle rows all write there, colliding writes land
+        in no fixed order, and only those rows' discarded ids read it.
+        The state planes ("ssm") are compared whole: an idle row keeps
+        its state. The pool, the state and the key's ids are restored
+        afterwards."""
         st = self._steps[key]
         before = ops.all_launch_counters()
-        saved = {n: p.clone() for n, p in self.caches["attn"].items()}
-        clones = {"attn": {n: p.clone() for n, p in saved.items()}}
+        saved = {sub: {n: p.clone() for n, p in planes.items()}
+                 for sub, planes in self.caches.items()}
+        saved_ids = st.ids.clone()
+        clones = {sub: {n: p.clone() for n, p in planes.items()}
+                  for sub, planes in saved.items()}
         want = self._step(st, clones, self.tables.clone(),
                           {n: v.clone() for n, v in st.views.items()})
         got = self.run(key)
         live = st.views["kv_len"] > 0
         same = {"ids": bool(torch.equal(got[live], want[live]))}
-        for n, p in self.caches["attn"].items():
-            same[n] = bool(torch.equal(p[:, TRASH_BLOCK + 1:],
-                                       clones["attn"][n][:, TRASH_BLOCK + 1:]))
-            p.copy_(saved[n])
+        for sub, planes in self.caches.items():
+            cut = slice(None) if sub == "ssm" else slice(TRASH_BLOCK + 1, None)
+            for n, p in planes.items():
+                same[n] = bool(torch.equal(p[:, cut], clones[sub][n][:, cut]))
+                p.copy_(saved[sub][n])
+        st.ids.copy_(saved_ids)
         after = ops.all_launch_counters()
         ops.add_launches({k: before[k] - after[k] for k in after})
         return same

@@ -1,4 +1,5 @@
-"""Paged KV-cache bookkeeping for the engine (dense GQA descriptors).
+"""Paged KV-cache bookkeeping for the engine, and the slot-resident state
+of recurrent stacks.
 
 Physical KV lives in a pool of fixed-size token blocks; each sequence
 owns an ordered block table and grows one block at a time. Admission is
@@ -35,6 +36,12 @@ holding an unrestored block wait). Host entries are keyed by (group,
 chain hash), each holding one block's bytes per plane in the JAX
 package's layout, so stores and checksums agree across the two.
 
+Recurrent stacks (ssm, hybrid descriptors) also keep slot-resident
+state: one fixed-shape entry a sequence slot, with no token axis
+(`SlotPlaneSpec`), whose occupancy `SlotManager` tracks in lockstep with
+the block manager's slots. A pure SSM has no paged plane at all: its
+block tables then only account tokens.
+
 This is the host side of the JAX package's `serving/kvcache.py`. The
 block tables keep a DEVICE mirror of shape (G, n_slots, MB): table
 mutations are recorded in a dirty set and flushed by one small in-place
@@ -68,6 +75,26 @@ class PlaneSpec:
     token_shape: tuple[int, ...]
     dtype: str                          # numpy dtype name
 
+    @property
+    def bytes_per_token(self) -> int:
+        return int(self.n_layers * np.prod(self.token_shape, dtype=np.int64)
+                   * np.dtype(self.dtype).itemsize)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotPlaneSpec:
+    """Slot-resident (non-paged) state: one fixed-shape entry a sequence
+    slot, no token axis. A pool leaf is shaped (shape[0], n_slots,
+    *shape[1:]): the slot rides axis 1, after the layers."""
+    name: str
+    shape: tuple[int, ...]              # per-slot shape incl. the layer dim
+    dtype: str
+
+    @property
+    def bytes_per_slot(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64)
+                   * np.dtype(self.dtype).itemsize)
+
 
 @dataclasses.dataclass(frozen=True)
 class LayerGroup:
@@ -83,10 +110,15 @@ class LayerGroup:
 
 @dataclasses.dataclass(frozen=True)
 class CacheDescriptor:
-    """Cache layout of one model: its paged planes, and its window groups
-    (empty = one implicit global group)."""
-    kind: str                           # "gqa"
+    """Cache layout of one model: its paged planes (BlockManager), its
+    slot-resident planes (SlotManager), and its window groups (empty =
+    one implicit global group). `prefix_cacheable` is False for
+    recurrent stacks: cached KV blocks cannot stand in for slot-resident
+    state, so sharing them would skip recomputing it."""
+    kind: str                           # "gqa" | "mla" | "hybrid" | "ssm"
     planes: tuple[PlaneSpec, ...] = ()
+    slot_planes: tuple[SlotPlaneSpec, ...] = ()
+    prefix_cacheable: bool = True
     groups: tuple[LayerGroup, ...] = ()
 
     @property
@@ -110,6 +142,57 @@ class CacheDescriptor:
                     out[li] = gi
             assert len(seen) == n_layers, "layer groups must cover the stack"
         return out
+
+    @property
+    def paged(self) -> bool:
+        return bool(self.planes)
+
+    @property
+    def bytes_per_token(self) -> int:
+        """Paged-plane bytes a cached token (0 for a pure SSM)."""
+        return sum(p.bytes_per_token for p in self.planes)
+
+    @property
+    def bytes_per_slot(self) -> int:
+        """Slot-resident state bytes a sequence (0 for gqa and mla)."""
+        return sum(p.bytes_per_slot for p in self.slot_planes)
+
+
+@dataclasses.dataclass
+class Slot:
+    request_id: str | None = None
+    length: int = 0
+    max_new: int = 0
+
+    @property
+    def free(self) -> bool:
+        return self.request_id is None
+
+
+class SlotManager:
+    """Occupancy of the slot-resident state side of a recurrent
+    descriptor. The engine claims the slot index the BlockManager
+    assigned (`claim`), so the two stay in lockstep (the engine's
+    admission checks capacity and free blocks)."""
+
+    def __init__(self, n_slots: int):
+        self.n_slots = n_slots
+        self.slots = [Slot() for _ in range(n_slots)]
+
+    def claim(self, idx: int, request_id: str, prompt_len: int,
+              max_new: int) -> None:
+        """Claim a SPECIFIC slot (the one the BlockManager assigned)."""
+        assert self.slots[idx].free, f"slot {idx} already claimed"
+        self.slots[idx] = Slot(request_id, prompt_len, max_new)
+
+    def release(self, idx: int) -> None:
+        self.slots[idx] = Slot()
+
+    def active(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots) if not s.free]
+
+    def n_free(self) -> int:
+        return sum(1 for s in self.slots if s.free)
 
 
 def _chain_hash(parent: int, tokens: tuple[int, ...]) -> int:

@@ -1546,3 +1546,122 @@ def test_moe_rows_do_not_depend_on_the_batch(dev, granite_moe):
         assert torch.equal(aux1["expert_idx"], aux["expert_idx"][1:2])
         assert torch.equal(aux1["keep"], aux["keep"][1:2])
         torch.testing.assert_close(alone, y[1:2], rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (mamba2-2.7b, zamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+MAMBA2_KN = [(2560, 5120), (2560, 256), (2560, 80), (5120, 2560),
+             (2560, 128)]
+
+
+@pytest.mark.parametrize("kn", MAMBA2_KN)
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3"])
+def test_gemms_at_mamba2_shapes(dev, kernel, kn):
+    """in_z / in_x, in_bc (N = 256; zamba2's 128), in_dt (N = 80) and
+    out_proj at M = 8."""
+    test_gemms_at_moe_family_shapes(dev, kernel, 8, kn)
+
+
+@pytest.fixture(scope="module")
+def recurrent():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    out = {}
+    for arch, n in (("mamba2-2.7b", 2), ("zamba2-2.7b", 6)):
+        cfg = dataclasses.replace(get_arch(arch), n_layers=n)
+        out[arch] = (cfg, M.init_serving_params(cfg, seed=0, device="cuda"))
+    return out
+
+
+@pytest.mark.parametrize("b,l", [(1, 300), (2, 37)])
+def test_ssd_on_the_card_matches_the_cpu(dev, b, l):
+    """`ssd_chunked` from a carried-in state and `ssd_decode_step` at
+    mamba2-2.7b's widths (80 heads of 64, d_state 128, chunk 256), card
+    against CPU in f32."""
+    from repro_torch.models import mamba2 as M2
+    gen = torch.Generator().manual_seed(l)
+    h, p, n = 80, 64, 128
+    x = torch.randn((b, l, h, p), generator=gen)
+    dt = torch.rand((b, l, h), generator=gen) * 0.1 + 0.001
+    A = -(torch.rand((h,), generator=gen) * 15 + 1)
+    B = torch.randn((b, l, 1, n), generator=gen)
+    C = torch.randn((b, l, 1, n), generator=gen)
+    D = torch.ones((h,))
+    s0 = torch.randn((b, h, p, n), generator=gen) * 0.1
+    want = M2.ssd_chunked(x, dt, A, B, C, D, chunk=256, initial_state=s0)
+    got = M2.ssd_chunked(*(t.to(dev) for t in (x, dt, A, B, C, D)),
+                         chunk=256, initial_state=s0.to(dev))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-3)
+    args = (s0, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], D)
+    want = M2.ssd_decode_step(*args)
+    got = M2.ssd_decode_step(*(t.to(dev) for t in args))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-3)
+
+
+def _recurrent_engine(cfg, sp, mode="fp16"):
+    return Engine(cfg, sp, n_slots=3, capacity=96, forced_mode=mode,
+                  chunk_tokens=32, device="cuda")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+@pytest.mark.parametrize("mode", ["fp16", "fp8"])
+def test_recurrent_replays_are_their_eager_calls(dev, recurrent, arch, mode):
+    """Every step key of a recurrent engine (the exact-length chunk keys,
+    the decode) captured at its first use: its first replay gives the ids
+    and every pool and state plane of an eager call on clones, bitwise
+    (`StepGraphs.check_first_runs`)."""
+    cfg, sp = recurrent[arch]
+    eng = _recurrent_engine(cfg, sp, mode)
+    eng.graphs.check_first_runs = True
+    rng = np.random.default_rng(1)
+    for i, n in enumerate((40, 32, 9)):
+        eng.submit(Request(f"r{i}", rng.integers(1, 1000, n).tolist(), 5))
+    fin = eng.run()
+    assert len(fin) == 3 and all(len(r.output) == 5 for r in fin)
+    assert eng.graphs.keys("chunk") == {(mode, 32), (mode, 8), (mode, 24),
+                                        (mode, 9)}
+    assert eng.graphs.n_captured == len(eng.graphs.keys()) == 5
+    for key, same in eng.graphs.checks.items():
+        assert all(same.values()), (key, same)
+    assert {"conv_x", "conv_bc", "ssm"} <= set(
+        eng.graphs.checks[("decode", mode)])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_idle_slot_state_survives_a_replay(dev, recurrent, arch):
+    """A slot with no request keeps its state planes bitwise across decode
+    replays and chunk replays of the other slots (kv_len 0 rows keep
+    their state; a chunk writes only its own slot's row)."""
+    cfg, sp = recurrent[arch]
+    eng = _recurrent_engine(cfg, sp)
+    for p in eng.caches["ssm"].values():
+        p[:, 2].normal_()
+    kept = {n: p[:, 2].clone() for n, p in eng.caches["ssm"].items()}
+    eng.submit(Request("a", list(range(5, 45)), 6))
+    eng.submit(Request("b", list(range(7, 20)), 6))
+    eng.run()
+    assert eng.graphs.n_captured >= 2
+    for n, p in eng.caches["ssm"].items():
+        assert torch.equal(p[:, 2], kept[n]), n
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_readmission_zeroes_exactly_one_slot(dev, recurrent, arch):
+    """(Re-)admission zeroes the admitted slot's state on the card and
+    leaves every other slot's state as it was."""
+    cfg, sp = recurrent[arch]
+    eng = _recurrent_engine(cfg, sp)
+    for p in eng.caches["ssm"].values():
+        p.normal_()
+    before = {n: p.clone() for n, p in eng.caches["ssm"].items()}
+    eng.submit(Request("a", list(range(5, 45)), 4))
+    eng._plan_chunks()                      # admits into slot 0
+    torch.cuda.synchronize()
+    for n, p in eng.caches["ssm"].items():
+        assert not p[:, 0].any(), n
+        assert torch.equal(p[:, 1:], before[n][:, 1:]), n
+

@@ -84,7 +84,8 @@ def test_config_equals_jax_field_by_field(arch, reduced):
 def test_registry_serves_every_dense_config():
     assert set(TARCHS) == {"qwen1.5-0.5b", "llama3.1-8b", "gemma3-1b",
                            "qwen3-8b", "deepseek-coder-33b",
-                           "granite-moe-3b-a800m", "deepseek-v3-671b"}
+                           "granite-moe-3b-a800m", "deepseek-v3-671b",
+                           "mamba2-2.7b", "zamba2-2.7b"}
     assert {a for a, c in TARCHS.items() if c.family == "dense"} == {
         "qwen1.5-0.5b", "llama3.1-8b", "gemma3-1b", "qwen3-8b",
         "deepseek-coder-33b"}

@@ -105,8 +105,8 @@ def test_config_equals_jax_field_by_field(arch, reduced):
 
 
 def test_only_unported_families_are_refused():
-    cfg = dataclasses.replace(TARCHS["llama3.1-8b"].reduced(), family="ssm")
-    with pytest.raises(NotImplementedError, match="ssm"):
+    cfg = dataclasses.replace(TARCHS["llama3.1-8b"].reduced(), family="vlm")
+    with pytest.raises(NotImplementedError, match="vlm"):
         TM.init_params(cfg, device="meta")
     ds = TARCHS["deepseek-v3-671b"].reduced()
     with pytest.raises(ValueError, match="MLA latents"):
