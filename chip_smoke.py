@@ -147,8 +147,36 @@ attention reads f16 pools by the gathered path, as the JAX engine):
               (attn_every 2), the 6-layer FP8 run a reading (F-port-8)
   zamba2_serve  all 54 layers through `Engine` as mamba2_serve, the shared
               attention's K/V in f16 paged pools
+  zamba2_dense  all 54 layers through the dense-slot steps as phase 5:
+              the shared attention's caches prefilled (K6 at D = 80) and
+              planarized, the decode graph (K5 at D = 80) at capacity
+              1056 and at 32768
 The kernels phase also holds K1, K2, K3 and K7 at mamba2-2.7b's five GEMM
 shapes and at zamba2-2.7b's in_bc and shared block.
+The stub-frontend families run last, in five more phases (an exception
+wo in each):
+  phi3_slice  phi-3-vision-4.2b at full width (32 heads of 96), 2 layers,
+              card against CPU as ds_slice (the dense-slot prefill with
+              576 stub patches ahead of 48 tokens, its FP8 run a reading:
+              F-port-9); paged FP8 at 4 layers gated at DEEP_FP8_TOL
+  phi3_serve  all 32 layers through `Engine`, text only as in the JAX
+              engine: 8 x (1024 + 64), capacity 1088, planar KV, FP16 /
+              FP8 / dual (K4 at D = 96)
+  phi3_dense  all 32 layers through the dense-slot steps: 8 x (576
+              patches + 1024 tokens) prefilled (K6 at D = 96), the decode
+              graph replayed (K5 at D = 96)
+  seamless_slice  seamless-m4t-v2 at full width, 2 encoder + 2 decoder
+              layers, dense-slot prefill over 64 stub frames a row and 4
+              decode steps through the cross caches, card against CPU in
+              f32: FP16 and FP8 on the CPU's encoder memory gated at
+              SLICE_TOL, the whole FP8 chain a reading (F-port-9)
+  seamless_dense  24 + 24 layers through the dense-slot steps: 8 x 1024
+              tokens over 128 frames a row (the encoder's ms apart), 64
+              replayed decode steps
+The kernels phase also holds K4 at D = 96 (phi3's heads) and K5 and K6 at
+D = 80 (zamba2's shared attention) and 96; each instance is an entry of
+its own in the kernels line ("flash_prefill_attention@D80", ...), its
+launches those of the phase whose model alone has that head dim.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 GPU is present or the port is missing.
@@ -984,13 +1012,20 @@ K6_CASES = (("bfloat16", 8, 1024, 32, 8, 128), ("bfloat16", 1, 8192, 32, 8, 128)
             ("float16", 8, 1024, 56, 8, 128),
             ("float32", 2, 65, 56, 8, 128),
             # granite-moe-3b's heads, 24 over 8 (G = 3), D = 64
-            ("bfloat16", 8, 1024, 24, 8, 64))
+            ("bfloat16", 8, 1024, 24, 8, 64),
+            # zamba2-2.7b's shared attention (32 heads of 80) and
+            # phi-3-vision's (32 of 96), MHA, at their dense prefills
+            # (phi3: 576 patches + 1024 tokens), then f32 at a ragged S
+            ("bfloat16", 8, 1024, 32, 32, 80), ("float16", 8, 1024, 32, 32, 80),
+            ("bfloat16", 8, 1600, 32, 32, 96), ("float16", 8, 1600, 32, 32, 96),
+            ("float32", 2, 65, 32, 32, 80), ("float32", 2, 65, 32, 32, 96))
 
 
 def prefill_attention_phase(torch, iters: int, baseline=None) -> list[dict]:
     """K6 at each of K6_CASES against its plain version, timed with its
     plain version and SDPA (causal, k and v expanded; yardstick only);
-    the D = 256 and G = 7 cases also by CUDA-graph replay (device ms).
+    the D = 80, 96 and 256 and G = 7 cases also by CUDA-graph replay
+    (device ms).
     With `baseline` (a K6 library built from another checkout's source,
     `k6_baseline`), every case whose G divides 64 must give that build's
     output bitwise."""
@@ -1041,7 +1076,7 @@ def prefill_attention_phase(torch, iters: int, baseline=None) -> list[dict]:
                "plain_ms": time_ms(torch, plain, n_sets, iters),
                "library_ms": time_ms(torch, lib, n_sets, iters),
                "bound_ms": b_ms, "bound_by": b_kind, "bitwise_baseline": same}
-        timed = d == 256 or 64 % (h // hkv)
+        timed = d in (80, 96, 256) or 64 % (h // hkv)
         if timed:
             row.update(device_times(torch, kern, lib, n_sets, b_ms))
         rows.append(row)
@@ -1179,15 +1214,15 @@ def slice_phase(torch, cfg) -> dict:
 
 
 def paged_slice(torch, cfg, params, mode, *, n_layers=None, gated=True,
-                label="slice", n_steps=5) -> dict:
+                label="slice", n_steps=5, tol=None) -> dict:
     """`paged_step` on the first n_layers layers of `params` ({"cpu": ...,
     "cuda": ...}), card against CPU, planar KV: a prefill of 2 prompts
     (32 and 20 tokens) and n_steps - 1 decode steps (K4), teacher-forced
-    by the CPU's greedy tokens; logits held to SLICE_TOL[mode] when
-    `gated`, printed as a reading otherwise. An MoE model is held under
-    the routing rule (`RoutingCheck`): a row's logits are compared at a
-    step only where its own token chose the same experts on both devices
-    in every layer."""
+    by the CPU's greedy tokens; logits held to `tol` (default
+    SLICE_TOL[mode]) when `gated`, printed as a reading otherwise. An MoE
+    model is held under the routing rule (`RoutingCheck`): a row's logits
+    are compared at a step only where its own token chose the same
+    experts on both devices in every layer."""
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.models.layers import Runtime
@@ -1219,7 +1254,7 @@ def paged_slice(torch, cfg, params, mode, *, n_layers=None, gated=True,
 
     lens = torch.tensor(plens, dtype=torch.int32)
     args = (prompt, torch.zeros(2, dtype=torch.int32), lens, lens - 1)
-    cmp = LogitCheck(torch, mode, SLICE_TOL[mode], gated)
+    cmp = LogitCheck(torch, mode, tol or SLICE_TOL[mode], gated)
     route = RoutingCheck(torch, cut.moe.top_k) if aux is not None else None
     t0 = time.time()
     for s in range(n_steps):
@@ -1319,9 +1354,11 @@ def family_slice_phase(torch, cfg, label: str, readings=()) -> dict:
     """A cut of qwen3-8b or deepseek-coder-33b at full width, card against
     the CPU plain versions, layer 1's wo an exception tensor: the paged
     step at 2 layers in FP16 and FP8 (gated at SLICE_TOL), FP8 at each
-    layer count of `readings` (a prefill and 2 decode steps, printed, not
-    gated: ROADMAP F-port-7), and the dense-slot prefill (K6 at the
-    model's G) and decode steps at 2 layers in f32 (gated). The weights
+    layer count of `readings` (a prefill and 2 decode steps: deeper than
+    2 layers gated at DEEP_FP8_TOL, a reading otherwise), and the
+    dense-slot prefill (K6 at the model's G; a vlm's stub patches ahead
+    of the text) and decode steps at 2 layers in f32 (gated; a vlm's
+    FP8 run a reading, F-port-9). The weights
     are streamed onto the card (K8 nests them there) and copied to the
     CPU, whose plain GEMMs take one weight at a time (and sum in f64,
     F-port-5). The CPU's plain versions take most of the phase's time."""
@@ -1340,12 +1377,19 @@ def family_slice_phase(torch, cfg, label: str, readings=()) -> dict:
            for mode in ("fp16", "fp8")}
     for n_l in readings:
         out[f"fp8_{n_l}l"] = paged_slice(torch, cfg, params, "fp8",
-                                         n_layers=n_l, gated=False,
-                                         label=label, n_steps=3)
+                                         n_layers=n_l, gated=n_l > 2,
+                                         label=label, n_steps=3,
+                                         tol=DEEP_FP8_TOL if n_l > 2
+                                         else None)
     t0 = time.time()
+    # a vlm's dense-slot FP8 run (576 patches ahead of the text, the
+    # per-tensor FP8 scale) is a reading: there the port's CPU path and
+    # the JAX package part by 0.347 at 2 layers (0.303 without the
+    # patches; `tests/_fport8_phi3_control.py`, ROADMAP §3 F-port-9)
     out["dense"] = dense_slice(
         torch, dataclasses.replace(cfg, n_layers=2), params,
-        runs=[("fp16", "f32", 2, True), ("fp8", "f32", 2, True)],
+        runs=[("fp16", "f32", 2, True),
+              ("fp8", "f32", 2, cfg.frontend != "vision")],
         label=f"{label} dense")
     out["dense"]["seconds"] = time.time() - t0
     del params, sp_gpu, sp_cpu
@@ -1396,12 +1440,15 @@ def dense_slice(torch, cfg, params, *, s=48, cap=56, runs=None,
                 label="dense slice") -> dict:
     """The dense-slot path on a cut of the model, card against CPU:
     prefill of 2 x s tokens (K6 on the global layers; K1 or K7),
-    planarize at `cap`, 4 decode steps (K5), with the per-tensor FP8
-    scale. Each run is (mode, act, n_layers, gated): f32 activations at
+    planarize at `cap` (plus a vlm's patches), 4 decode steps (K5), with
+    the per-tensor FP8 scale. Each run is (mode, act, n_layers, gate): f32 activations at
     SLICE_TOL or `steps.serve_rt` (bf16 activations, bf16-rounded GEMM
-    outputs) at BF16_TOL, on the first n_layers layers of `params`; a run
-    that is not gated is printed only. Default: fp16 and fp8, f32 and
-    bf16, all layers, gated."""
+    outputs) at BF16_TOL, on the first n_layers layers of `params`; gate
+    False: printed only; a number: gated at that tolerance. Default: fp16
+    and fp8, f32 and bf16, all layers, gated. A stub frontend's inputs
+    (`steps.stub_frontend`: a vlm's patches, ahead of the text, and an
+    encdec's frames, whose encoder runs inside the prefill and is in the
+    comparison) come from a seeded CPU generator."""
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models import model as M
@@ -1409,12 +1456,14 @@ def dense_slice(torch, cfg, params, *, s=48, cap=56, runs=None,
 
     runs = runs or [(m, a, cfg.n_layers, True) for a in ("f32", "bf16")
                     for m in ("fp16", "fp8")]
-    prompt = torch.randint(1, cfg.vocab_size, (2, s),
-                           generator=torch.Generator().manual_seed(5),
+    gen = torch.Generator().manual_seed(5)
+    prompt = torch.randint(1, cfg.vocab_size, (2, s), generator=gen,
                            dtype=torch.int32)
+    extra = steps.stub_frontend(cfg, 2, s, generator=gen, device="cpu")
+    cap += cfg.frontend_len if cfg.frontend == "vision" else 0
     gemm = {"fp16": "nestedfp16_matmul", "fp8": "nestedfp8_matmul_fused_quant"}
     out = {}
-    for mode, act, n_layers, gated in runs:
+    for mode, act, n_layers, gate in runs:
         cut = dataclasses.replace(cfg, n_layers=n_layers)
         prm = {d: {**params[d], "layers": params[d]["layers"][:n_layers]}
                for d in params}
@@ -1422,25 +1471,28 @@ def dense_slice(torch, cfg, params, *, s=48, cap=56, runs=None,
             rt, tol = Runtime(mode=mode, dtype=torch.float32), SLICE_TOL[mode]
         else:
             rt, tol = steps.serve_rt(mode), BF16_TOL[mode]
-        cmp = LogitCheck(torch, mode, tol, gated)
+        if not isinstance(gate, bool):
+            tol = gate
+        cmp = LogitCheck(torch, mode, tol, gate is not False)
         need = [gemm[mode]] + (["flash_prefill_attention"]
                                if None in M._layer_windows(cut) else [])
         before = ops.all_launch_counters()
-        res = {d: M.prefill(rt, prm[d], cut, {"tokens": prompt.to(d)},
-                            capacity=cap) for d in ("cpu", "cuda")}
+        res = {d: M.prefill(rt, prm[d], cut, {
+            "tokens": prompt.to(d), **{k: v.to(d) for k, v in extra.items()}},
+            capacity=cap) for d in ("cpu", "cuda")}
         after = ops.all_launch_counters()
         for name in need:
             check(after[name] > before[name], f"dense prefill: no {name}")
         cmp.add(res["cuda"][0], res["cpu"][0], "dense prefill")
-        want = res["cpu"][0]
+        want, n = res["cpu"][0], res["cpu"][2]
         caches = {d: M.planarize_cache(res[d][1]) for d in res}
         for i in range(4):
             nxt = want.argmax(-1).to(torch.int32)[:, None]  # teacher forcing
             before = ops.all_launch_counters()
             want, _ = M.decode_step(rt, prm["cpu"], cut, nxt,
-                                    caches["cpu"], s + i)
+                                    caches["cpu"], n + i)
             got, _ = M.decode_step(rt, prm["cuda"], cut, nxt.cuda(),
-                                   caches["cuda"], s + i)
+                                   caches["cuda"], n + i)
             after = ops.all_launch_counters()
             check(after["planar_decode_attention"]
                   > before["planar_decode_attention"],
@@ -1460,6 +1512,11 @@ def dense_slice(torch, cfg, params, *, s=48, cap=56, runs=None,
 # (1/16 of one value) moves a row by up to ~0.1. Greedy tokens must agree
 # wherever the CPU top-2 margin is above twice the error.
 SLICE_TOL = {"fp16": 1e-2, "fp8": 0.25}
+# FP8 runs of stacks deeper than 2 layers: there e4m3 re-rounding parts
+# two correct implementations by more than 0.25 (card against CPU 0.25-
+# 0.28 at 4-6 layers; the port's CPU path against the JAX package on the
+# same schedule, the control, 0.28-0.31): ROADMAP §3, F-port-8
+DEEP_FP8_TOL = 0.35
 # the same under bf16 activations with bf16-rounded GEMM outputs: a sum
 # that differs in its last f32 bit can round to the neighbouring bf16
 # value (2^-8 relative), so the tolerance is tests/test_torch_dense.py's
@@ -1799,16 +1856,31 @@ def profile_summary(label, wall_ms, step_ms, by_name) -> dict:
             "top_kernels_ms_per_step": top}
 
 
+def prefill_attention_layers(cfg) -> int:
+    """Self-attention layers a dense-slot prefill runs K6 on: the global
+    layers, or a hybrid's shared-attention applications (an encdec's
+    encoder runs the plain bidirectional attention, as in the JAX
+    package)."""
+    from repro_torch.models import model as M
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return M._layer_windows(cfg).count(None)
+
+
 def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
                 n_dec: int = 32, long_ctx: bool = True) -> dict:
     """The dense-slot serving steps at full width and depth: weights
     nested on the card (K8), 8 x 1024-token prefill (K6 on every global
-    layer, K1 / K7, K3), planarize at capacity 1056, then the decode step
-    as a CUDA graph: its first call captures it, its first replay is held
-    bitwise against an eager call on cloned caches (`check_replay`), then
-    n_dec greedy steps replay it, timed (none may capture) — fp16, then
-    fp8. Launch counts are read over this whole run. Then profiles (the
-    eager prefill, the decode replays) and the step at long context."""
+    layer or shared-attention application, K1 / K7, K3; a vlm's 576
+    stub patches ahead of the text, an encdec's encoder over 128 stub
+    frames a row, timed apart), planarize at the prefill's length + 32
+    (1056 for text alone; + n_dec when longer), then the decode step as
+    a CUDA graph: its
+    first call captures it, its first replay is held bitwise against an
+    eager call on cloned caches (`check_replay`), then n_dec greedy steps
+    replay it, timed (none may capture) — fp16, then fp8. Launch counts
+    are read over this whole run. Then profiles (the eager prefill, the
+    decode replays) and the step at long context."""
     from repro_torch.core.linear import NestedLinearParams
     from repro_torch.core.nestedfp import NestedTensor
     from repro_torch.kernels import ops
@@ -1816,18 +1888,19 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
     from repro_torch.models import model as M
     from repro_torch.models.convert import serving_memory_bytes
 
-    b, s, cap = 8, 1024, 1056
-    n_global = M._layer_windows(cfg).count(None)
+    b, s = 8, 1024
+    n = s + (cfg.frontend_len if cfg.frontend == "vision" else 0)
+    cap = n + max(32, n_dec)
+    n_global = prefill_attention_layers(cfg)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counters()          # the dense path's run starts here
     t0 = time.time()
     sp = make_serving_params(torch, cfg, 0, "cuda", plant_layer=plant_layer)
     torch.cuda.synchronize()
     mem = serving_memory_bytes(sp)
-    nested = sum(not p.weight.is_exception for layer in sp["layers"]
-                 for p in _linears(layer, NestedLinearParams)) \
-        + sum(not t.is_exception for layer in sp["layers"]     # MoE banks
-              for t in _linears(layer, NestedTensor))
+    nested = sum(not p.weight.is_exception
+                 for p in _linears(sp, NestedLinearParams)) \
+        + sum(not t.is_exception for t in _linears(sp, NestedTensor))  # banks
     log(f"  {label}: {cfg.n_layers}-layer params nested on the card in "
         f"{time.time() - t0:.1f} s: {mem['nested_bytes'] / 1e9:.2f} GB "
         f"nested, {mem['other_bytes'] / 1e9:.2f} GB other; {nested} "
@@ -1837,8 +1910,12 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
     prompts = torch.randint(1, cfg.vocab_size, (b, s),
                             generator=torch.Generator().manual_seed(11),
                             dtype=torch.int32).cuda()
+    batch = {"tokens": prompts, **steps.stub_frontend(
+        cfg, b, s, generator=torch.Generator(device="cuda").manual_seed(12),
+        device="cuda")}
     res = {"layers": cfg.n_layers, "batch": b, "prompt_len": s, "capacity": cap,
-           "decode_steps": n_dec, "global_layers": n_global}
+           "decode_steps": n_dec, "global_layers": n_global,
+           "prefill_len": n}
     need = {"fp16": ("flash_prefill_attention", "planar_decode_attention",
                      "nestedfp16_matmul", "f16_matmul"),
             "fp8": ("flash_prefill_attention", "planar_decode_attention",
@@ -1850,7 +1927,7 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
         decode = steps.make_decode_step(cfg, mode)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        logits, caches = prefill(sp, {"tokens": prompts})
+        logits, caches = prefill(sp, batch)
         torch.cuda.synchronize()
         prefill_ms = (time.monotonic() - t0) * 1e3
         check(tuple(logits.shape) == (b, cfg.vocab_size)
@@ -1866,17 +1943,17 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
         planarize_ms = (time.monotonic() - t0) * 1e3
         nxt = logits.argmax(-1).to(torch.int32)[:, None]
         t0 = time.monotonic()
-        decode(sp, caches, nxt, s)            # eager, then captured
+        decode(sp, caches, nxt, n)            # eager, then captured
         torch.cuda.synchronize()
         capture_ms = (time.monotonic() - t0) * 1e3
-        same = decode.check_replay(sp, caches, nxt, s)
+        same = decode.check_replay(sp, caches, nxt, n)
         check(all(same.values()), f"{label} {mode}: the decode graph's first "
               f"replay differs from its eager call: {same}")
         n_graphs = decode.n_captured
         step_ms, call_ms, out = [], [], []
         for i in range(n_dec):
             t0 = time.monotonic()
-            logits, caches = decode(sp, caches, nxt, s + i)
+            logits, caches = decode(sp, caches, nxt, n + i)
             call_ms.append((time.monotonic() - t0) * 1e3)
             nxt = logits.argmax(-1).to(torch.int32)[:, None]
             torch.cuda.synchronize()
@@ -1913,10 +1990,10 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
              "decode_ms_per_step_median": med,
              "decode_ms_per_step_mean": sum(step_ms) / n_dec,
              "decode_tokens_per_s": b * n_dec / (sum(step_ms) / 1e3),
-             "prefill_tokens_per_s": b * s / (prefill_ms / 1e3),
+             "prefill_tokens_per_s": b * n / (prefill_ms / 1e3),
              "graph_device_ms": replay_ms(torch, decode.graph(key)),
              "graph_pool_bytes": decode.pool_bytes(), "launches": launches}
-        log(f"  {label} {mode}: prefill {b}x{s} in {prefill_ms:.1f} ms "
+        log(f"  {label} {mode}: prefill {b}x{n} in {prefill_ms:.1f} ms "
             f"({r['prefill_tokens_per_s']:.0f} tok/s, K6 {k6} launches), "
             f"planarize {planarize_ms:.1f} ms, decode first call (eager + "
             f"capture) {capture_ms:.1f} ms, first replay bitwise its eager "
@@ -1941,11 +2018,24 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
         prefill = steps.make_prefill_step(cfg, mode, capacity=cap)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        prefill(sp, {"tokens": prompts})
+        prefill(sp, batch)
         torch.cuda.synchronize()
         warm_ms = res[mode]["prefill_ms_warm"] = (time.monotonic() - t0) * 1e3
+        if cfg.family == "encdec":
+            # the encoder alone (frontend projection, bidirectional stack,
+            # enc_norm), warm; the rest of the prefill is the decoder's
+            rt = steps.serve_rt(mode)
+            t0 = time.monotonic()
+            M.encode_memory(rt, sp, cfg, batch["frames"])
+            torch.cuda.synchronize()
+            enc_ms = res[mode]["encoder_ms_warm"] = (time.monotonic() - t0) * 1e3
+            res[mode]["decoder_prefill_ms_warm"] = warm_ms - enc_ms
+            log(f"  {label} {mode}: warm prefill {warm_ms:.1f} ms = encoder "
+                f"({cfg.n_enc_layers} layers over {b} x "
+                f"{batch['frames'].shape[1]} frames) {enc_ms:.1f} ms + "
+                f"decoder {warm_ms - enc_ms:.1f} ms")
         wall, by_name = device_ms_by_kernel(
-            torch, lambda: prefill(sp, {"tokens": prompts}), 1)
+            torch, lambda: prefill(sp, batch), 1)
         res[f"profile_prefill_{mode}"] = profile_summary(
             f"profile {label} prefill {mode} (against a warm prefill of "
             f"{warm_ms:.1f} ms)", wall, warm_ms, by_name)
@@ -1955,12 +2045,12 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
         rt, eager_ms = steps.serve_rt(mode), []
         for _ in range(5):
             t0 = time.monotonic()
-            M.decode_step(rt, sp, cfg, nxt, caches, s + n_dec - 1)[0].argmax(-1)
+            M.decode_step(rt, sp, cfg, nxt, caches, n + n_dec - 1)[0].argmax(-1)
             torch.cuda.synchronize()
             eager_ms.append((time.monotonic() - t0) * 1e3)
         res[mode]["eager_decode_ms_median"] = sorted(eager_ms)[2]
         wall, by_name = device_ms_by_kernel(
-            torch, lambda: decode(sp, caches, nxt, s + n_dec - 1), 4)
+            torch, lambda: decode(sp, caches, nxt, n + n_dec - 1), 4)
         prof = profile_summary(f"profile {label} decode {mode}: 4 replays",
                                wall, med, by_name)
         prof["wall_over_busy"] = med / prof["device_ms_per_step"]
@@ -2027,12 +2117,15 @@ def long_decode(torch, cfg, sp, label: str, n_steps: int = 5,
                 n_prof: int = 3) -> dict:
     """The dense decode step at long context, through `make_decode_step`:
     8 rows, all layers, planar caches of capacity 32768 from
-    `init_cache(planar=True)` filled one layer at a time with the planes
-    of random f16 (a 32k prefill would not fit the time limit), ragged
-    cache lengths up to 32766 (kv lengths up to 32767); fp16, then fp8.
+    `init_cache(planar=True)` (a hybrid's shared-attention caches, one a
+    group, made planar here beside its zero state) filled one layer at a
+    time with the planes of random f16 (a 32k prefill would not fit the
+    time limit), ragged cache lengths up to 32766 (kv lengths up to
+    32767); fp16, then fp8.
     A mode's first call captures the step; a second call on the same
-    inputs is its first replay, which rewrites the slots the eager call
-    wrote and must give its logits bitwise (no clone of the caches needs
+    inputs (a hybrid's state put back first) is its first replay, which
+    rewrites the slots the eager call wrote and must give its logits
+    bitwise (no clone of the caches needs
     to fit beside them); then n_steps replays (median step ms, host
     clock), then n_prof replays under the torch profiler (device busy ms
     and K5's ms a step), rewriting the same positions."""
@@ -2046,10 +2139,20 @@ def long_decode(torch, cfg, sp, label: str, n_steps: int = 5,
     lens0 = [top, 30001, 1, 20000, top, 5, 16384, 32000]
     torch.cuda.empty_cache()
     t_start = t0 = time.time()
-    caches = M.init_cache(cfg, b, cap, planar=True, device="cuda")
-    planes = caches["attn"]
+    n_attn = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" \
+        else cfg.n_layers
+    if cfg.family == "hybrid":
+        caches = {"ssm": M.init_cache(cfg, b, 1, device="cuda")["ssm"],
+                  "shared": {n: torch.zeros(
+                      (n_attn, b, cap, cfg.n_kv_heads, cfg.resolved_head_dim),
+                      dtype=torch.uint8, device="cuda")
+                      for n in ("k_hi", "k_lo", "v_hi", "v_lo")}}
+        planes = caches["shared"]
+    else:
+        caches = M.init_cache(cfg, b, cap, planar=True, device="cuda")
+        planes = caches["attn"]
     gen = torch.Generator(device="cuda").manual_seed(13)
-    for layer in range(cfg.n_layers):
+    for layer in range(n_attn):
         for kind in ("k", "v"):
             x = torch.randn(planes["k_hi"].shape[1:], generator=gen,
                             device="cuda", dtype=torch.float16)
@@ -2060,7 +2163,7 @@ def long_decode(torch, cfg, sp, label: str, n_steps: int = 5,
     torch.cuda.synchronize()
     cache_gb = sum(p.numel() for p in planes.values()) / 1e9
     log(f"  {label} long decode: {cache_gb:.1f} GB of planar caches (capacity "
-        f"{cap}, {cfg.n_layers} layers) filled in {time.time() - t0:.1f} s")
+        f"{cap}, {n_attn} attention layers) filled in {time.time() - t0:.1f} s")
     tokens = torch.randint(1, cfg.vocab_size, (b, 1), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(14),
                            dtype=torch.int32)
@@ -2070,8 +2173,14 @@ def long_decode(torch, cfg, sp, label: str, n_steps: int = 5,
         decode = steps.make_decode_step(cfg, mode)
         lens = torch.tensor(lens0, dtype=torch.int32, device="cuda")
         before = ops.all_launch_counters()["planar_decode_attention"]
+        # a recurrent state advances in place: the replay starts from the
+        # state the eager call read (attention caches are rewritten alike)
+        state = {n: p.clone() for n, p in caches.get("ssm", {}).items()}
         first = decode(sp, caches, tokens, lens)[0].clone()   # eager + capture
+        for n, p in state.items():
+            caches["ssm"][n].copy_(p)
         again = decode(sp, caches, tokens, lens)[0]           # first replay
+        del state
         check(bool(torch.equal(first, again)),
               f"{label} long decode {mode}: the first replay differs from "
               f"the eager call")
@@ -2090,7 +2199,7 @@ def long_decode(torch, cfg, sp, label: str, n_steps: int = 5,
         check(decode.n_captured == len(decode.keys()) == 1,
               f"{label} long decode {mode}: {decode.n_captured} graphs")
         launched = ops.all_launch_counters()["planar_decode_attention"] - before
-        check(launched == cfg.n_layers * (2 + n_steps),
+        check(launched == n_attn * (2 + n_steps),
               f"{label} long decode {mode}: K5 launched {launched} times")
         med = sorted(step_ms)[n_steps // 2]
         wall, by_name = device_ms_by_kernel(
@@ -2110,7 +2219,7 @@ def long_decode(torch, cfg, sp, label: str, n_steps: int = 5,
             f"call; replayed step median {med:.2f} ms (host), graph device "
             f"{res[mode]['graph_device_ms']:.3f} ms, device busy "
             f"{prof['device_ms_per_step']:.2f} ms a step, K5 {k5_ms:.3f} ms a "
-            f"step ({cfg.n_layers} calls), pool "
+            f"step ({n_attn} calls), pool "
             f"{res[mode]['graph_pool_bytes'] / 2**20:.1f} MiB")
         del decode
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -2242,13 +2351,14 @@ def gemma_slice_phase(torch, cfg) -> dict:
     # the dense-slot path on the same weights: prompts of 600 tokens, so
     # the window of 512 cuts keys; fp16 at 6 layers (the global layer 5
     # runs K6), fp8 at 2 layers as llama's slice; fp8 at 4 and 6 layers
-    # are readings, not gated (ROADMAP F-port-7)
+    # gated at DEEP_FP8_TOL (ROADMAP F-port-7, F-port-8)
     t0 = time.time()
     out["dense"] = dense_slice(
         torch, cfg6, {"cpu": sp_cpu, "cuda": sp_gpu}, s=600, cap=608,
         runs=[("fp16", "f32", 6, True), ("fp16", "bf16", 6, True),
               ("fp8", "f32", 2, True), ("fp8", "bf16", 2, True),
-              ("fp8", "f32", 4, False), ("fp8", "f32", 6, False)],
+              ("fp8", "f32", 4, DEEP_FP8_TOL),
+              ("fp8", "f32", 6, DEEP_FP8_TOL)],
         label="gemma dense slice")
     out["dense"]["seconds"] = time.time() - t0
     return out
@@ -3395,6 +3505,19 @@ GRANITE_K4 = dict(h=24, hkv=8, d=64, mb=68,
                   windows=(None,))
 GRANITE_K5 = dict(h=24, hkv=8, d=64, cases=(
     (1056, [1056, 1040, 17, 1, 700, 1056, 333, 1024], (None,)),))
+# the head dims of the last families: K4 at phi-3-vision's 32 heads of 96
+# (MHA, G = 1) over the phi3 serve phase's lens (capacity 1088); K5 at
+# zamba2-2.7b's shared attention (32 heads of 80) at the dense capacity
+# and at 32768, and at phi3's heads at its dense capacity (576 patches +
+# 1024 tokens + 32)
+PHI3_K4 = dict(h=32, hkv=32, d=96, mb=68,
+               lens_l=(1088, 1024, 513, 1, 600, 0, 512, 1087),
+               windows=(None,))
+ZAMBA2_K5 = dict(h=32, hkv=32, d=80, cases=(
+    (1056, [1056, 1040, 17, 1, 700, 1056, 333, 1024], (None,)),
+    (32768, [32768, 30001, 1, 20000, 32768, 5, 16384, 32000], (None,))))
+PHI3_K5 = dict(h=32, hkv=32, d=96, cases=(
+    (1632, [1632, 1600, 17, 1, 700, 1632, 333, 1601], (None,)),))
 # granite's four attention GEMMs (q, k, v, o); deepseek-v3's paged-path
 # GEMMs: MLA wq_a, wq_b, wkv_a (N = 576), wo (K = 16384), and the shared
 # expert's gate, up and down
@@ -3575,22 +3698,85 @@ MAMBA2_KN = [(2560, 5120), (2560, 5120), (2560, 256), (2560, 80),
              (5120, 2560)]
 ZAMBA2_KN = [(2560, 128), (2560, 2560), (2560, 2560), (2560, 2560),
              (2560, 2560), (2560, 10240), (2560, 10240), (10240, 2560)]
+def seamless_slice_phase(torch, cfg) -> dict:
+    """seamless-m4t-v2 at full width, 2 encoder and 2 decoder layers
+    (decoder layer 1's self-attention wo an exception tensor), streamed
+    onto the card and copied to the CPU: the dense-slot prefill (the
+    encoder over 64 stub frames a row, the decoder's K6 and cross-
+    attention) and 4 decode steps through the cross caches (K5 over the
+    planarized self-attention caches), card against CPU in f32
+    activations. FP16 over the whole chain (the encoder in the
+    comparison) and FP8 with the card's decoder on the CPU's encoder
+    memory (2 layers deep) are gated at SLICE_TOL; the whole FP8 chain
+    (2 + 2 layers, the memory's error feeding both decoder layers) is a
+    reading: there two correct implementations part by more than 0.25
+    (the port's CPU path against the JAX package reads 0.468, the
+    decoder on a shared memory 0.211: `tests/_fport8_seamless_control.py`,
+    ROADMAP §3 F-port-9). The encoder's memory is compared alone too."""
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.layers import Runtime
+
+    cut = dataclasses.replace(cfg, n_layers=2, n_enc_layers=2)
+    t0 = time.time()
+    sp_gpu = make_serving_params(torch, cut, 0, "cuda", plant_layer=1)
+    params = {"cpu": params_to(sp_gpu, "cpu"), "cuda": sp_gpu}
+    log(f"  2 + 2-layer full-width params on the card and copied to the "
+        f"CPU in {time.time() - t0:.1f} s")
+    frames = torch.randn((2, 64, cfg.frontend_dim),
+                         generator=torch.Generator().manual_seed(6))
+    out = {"memory": {}}
+    for mode in ("fp16", "fp8"):
+        rt = Runtime(mode=mode, dtype=torch.float32)
+        mem = {d: M.encode_memory(rt, params[d], cut, frames.to(d))
+               for d in params}
+        err = float((mem["cuda"].cpu() - mem["cpu"]).abs().max())
+        out["memory"][mode] = {"max_abs_err": err,
+                               "max_abs": float(mem["cpu"].abs().max())}
+        log(f"  seamless slice encoder memory {mode}: max |card - CPU| "
+            f"{err:.2e} of max |memory| {out['memory'][mode]['max_abs']:.2f}")
+    out.update(dense_slice(
+        torch, cut, params, label="seamless slice",
+        runs=[("fp16", "f32", 2, True), ("fp8", "f32", 2, False)]))
+    real = M.encode_memory
+    cpu_memory = []
+
+    def shared(rt, prm, c, fr):
+        """The CPU computes its memory (it prefills first); the card's
+        decoder reads that memory."""
+        if fr.is_cuda:
+            return cpu_memory.pop().to(fr.device)
+        cpu_memory.append(real(rt, prm, c, fr))
+        return cpu_memory[-1]
+    M.encode_memory = shared
+    try:
+        dec = dense_slice(torch, cut, params,
+                          runs=[("fp8", "f32", 2, True)],
+                          label="seamless slice, the CPU's memory,")
+    finally:
+        M.encode_memory = real
+    out["fp8_f32_shared_memory"] = dec["fp8_f32"]
+    del params, sp_gpu
+    torch.cuda.empty_cache()
+    return out
+
+
 RECURRENT_NEED = {"fp16": ("nestedfp16_matmul", "f16_matmul"),
                   "fp8": ("nestedfp8_matmul", "quant_per_token",
                           "f16_matmul")}
 
 
 def recurrent_slice(torch, cfg, params, mode, label, n_steps=4,
-                    gated: bool = True) -> dict:
+                    gated: bool = True, tol=None) -> dict:
     """`paged_step` on a recurrent stack (`params`: {"cpu": ..., "cuda":
     ...}), card against CPU, f32 activations: slot 0's 48-token prompt in
     two exact chunks (32 + 16) and slot 1's 20-token prompt in one, each
     routed to its state row (a hybrid's shared attention writes its f16
     pool through the slot's block-table row), then n_steps batched
     decode steps over both slots, teacher-forced by the CPU's greedy
-    tokens. Logits held to SLICE_TOL[mode] when `gated`, printed as a
-    reading otherwise; the largest state difference at the end is a
-    reading. The mode's nested GEMMs must launch."""
+    tokens. Logits held to `tol` (default SLICE_TOL[mode]) when `gated`,
+    printed as a reading otherwise; the largest state difference at the
+    end is a reading. The mode's nested GEMMs must launch."""
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.models.layers import Runtime
@@ -3603,7 +3789,7 @@ def recurrent_slice(torch, cfg, params, mode, label, n_steps=4,
     rt = Runtime(mode=mode, dtype=torch.float32, act_quant="per_token")
     caches = {d: M.init_paged_cache(cfg, 9, bs, n_slots=2, device=d)
               for d in ("cpu", "cuda")}
-    cmp = LogitCheck(torch, mode, SLICE_TOL[mode], gated)
+    cmp = LogitCheck(torch, mode, tol or SLICE_TOL[mode], gated)
     t0 = time.time()
     before = ops.all_launch_counters()
 
@@ -3725,11 +3911,11 @@ def recurrent_slice_phase(torch, cfg, label: str, n_layers: int) -> dict:
     out_proj an exception tensor), streamed onto the card and copied to
     the CPU: `recurrent_slice` in FP16 and FP8, gated at SLICE_TOL; an
     ssm stack also reads the SSD alone (`ssd_readings`). A hybrid stack's
-    FP8 run is gated on one group of 2 layers (attn_every 2: two Mamba2
-    layers, then the shared attention), and its n_layers FP8 run is a
-    reading, as the other FP8 slices are gated at 2 layers with deeper
-    readings beside: card-vs-CPU FP8 logits cross 0.25 from about 4
-    layers on, where e4m3 re-rounding of inputs that differ in their
+    FP8 run is gated at SLICE_TOL on one group of 2 layers (attn_every 2:
+    two Mamba2 layers, then the shared attention), and its n_layers FP8
+    run at DEEP_FP8_TOL, as the other FP8 slices are gated at 2 layers
+    with deeper runs beside: card-vs-CPU FP8 logits cross 0.25 from about
+    4 layers on, where e4m3 re-rounding of inputs that differ in their
     last bits moves them (ROADMAP F-port-7, F-port-8; zamba2's 6 layers
     read 0.267 in FP8, 3.8e-3 in FP16)."""
     from repro_torch.models.convert import params_to
@@ -3747,7 +3933,7 @@ def recurrent_slice_phase(torch, cfg, label: str, n_layers: int) -> dict:
             torch, group, {d: {**params[d], "layers": params[d]["layers"][:2]}
                            for d in params}, "fp8", label)
         out[f"fp8_{n_layers}l"] = recurrent_slice(torch, cut, params, "fp8",
-                                                  label, gated=False)
+                                                  label, tol=DEEP_FP8_TOL)
     else:
         out["fp8"] = recurrent_slice(torch, cut, params, "fp8", label)
         out["ssd"] = ssd_readings(torch, cfg)
@@ -3934,6 +4120,8 @@ def _linears(tree, cls):
         return [tree]
     if isinstance(tree, dict):
         return [p for v in tree.values() for p in _linears(v, cls)]
+    if isinstance(tree, list):
+        return [p for v in tree for p in _linears(v, cls)]
     return []
 
 
@@ -3962,6 +4150,13 @@ SOURCES = {
     "quant_per_token": ("src/repro_torch/csrc/quant_per_token.cu",
                         "src/repro/core/quant.py:35"),
 }
+# the head-dim instances of the last families, each an entry of its own:
+# (kernel, D) -> the phases whose main-path runs launch it at that D alone
+INSTANCES = {("paged_planar_decode_attention", 96): ("phi3_serve",),
+             ("planar_decode_attention", 80): ("zamba2_dense",),
+             ("planar_decode_attention", 96): ("phi3_dense",),
+             ("flash_prefill_attention", 80): ("zamba2_dense",),
+             ("flash_prefill_attention", 96): ("phi3_dense",)}
 
 # which measured calls make up each kernel's numbers in the kernels line
 LINE_WEIGHTS = {
@@ -3989,6 +4184,21 @@ LINE_WEIGHTS = {
     # f32 rows as the engine gives them): six of width 4096, one of 14336
     "quant_per_token": (lambda r: (r["m"] == 8 and r["dtype"] == "float32")
                         * {4096: 6, 14336: 1}[r["k"]]),
+    # the instances: one fp16-mode call of one layer (K4 at phi3's serve
+    # lens, K5 at the model's dense capacity) and one bf16 prefill of the
+    # model's dense phase (8 x 1024, phi3 8 x 1600)
+    ("paged_planar_decode_attention", 96): (
+        lambda r: int(r["d"] == 96 and not r["fp8"])),
+    ("planar_decode_attention", 80): (
+        lambda r: int(r["d"] == 80 and not r["fp8"] and r["cap"] == 1056)),
+    ("planar_decode_attention", 96): (
+        lambda r: int(r["d"] == 96 and not r["fp8"] and r["cap"] == 1632)),
+    ("flash_prefill_attention", 80): (
+        lambda r: int((r["dtype"], r["b"], r["s"], r["d"])
+                      == ("bfloat16", 8, 1024, 80))),
+    ("flash_prefill_attention", 96): (
+        lambda r: int((r["dtype"], r["b"], r["s"], r["d"])
+                      == ("bfloat16", 8, 1600, 96))),
 }
 
 
@@ -4056,11 +4266,23 @@ def k7_sass_ops(_build) -> dict:
 # depths cut to keep the whole script within its time budget, from the
 # phases that spent the most seconds a layer at full depth (on an H100:
 # granite_serve 2.83 s a layer of 32, spec 1.16 of 32, granite_dense 1.03
-# of 32, qwen3_dense 0.72 of 36; the fleet, 2.15 s a layer, keeps its
-# depth: its planned faults are placed by the token stream); every other
-# phase runs its model's full depth
-DEPTH = {"granite_serve": 4, "granite_dense": 4, "spec": 16,
-         "qwen3_dense": 18}
+# of 32, qwen3_dense 0.72 of 36; then, to make room for the last
+# families' six phases, spec 1.17 of 16, zamba2_serve 0.75 of 54,
+# mamba2_serve 0.64 of 64, tiered 0.62 of 32, mamba2_dense 0.48 of 64
+# and qwen3_serve 0.39 of 36; the fleet, 1.9 s a layer, keeps its depth:
+# its planned faults are placed by the token stream, and ds_serve keeps
+# its 62 layers: its point is the 67.6 GB load); every other phase runs
+# its model's full depth
+DEPTH = {"granite_serve": 4, "granite_dense": 4, "spec": 8,
+         "qwen3_dense": 18, "qwen3_serve": 18, "tiered": 16,
+         "mamba2_serve": 16, "mamba2_dense": 16, "zamba2_serve": 18}
+
+
+def cut_depth(cfg, phase: str):
+    """The config a phase runs: its model's, at `DEPTH[phase]` layers when
+    the phase is cut."""
+    return dataclasses.replace(cfg, n_layers=DEPTH[phase]) \
+        if phase in DEPTH else cfg
 
 
 def main() -> int:
@@ -4073,7 +4295,9 @@ def main() -> int:
                             "spec,tiered,fleet,gemma_spec,qwen3_slice,"
                             "qwen3_serve,qwen3_dense,mamba2_slice,"
                             "mamba2_serve,mamba2_dense,zamba2_slice,"
-                            "zamba2_serve")
+                            "zamba2_serve,zamba2_dense,phi3_slice,"
+                            "phi3_serve,phi3_dense,seamless_slice,"
+                            "seamless_dense")
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--serve-layers", type=int, default=32)
@@ -4168,6 +4392,14 @@ def main() -> int:
             torch, args.iters, **GRANITE_K4)
         rows["planar_decode_attention"] += dense_decode_phase(
             torch, args.iters, **GRANITE_K5)
+        log("== K4 at phi-3-vision's heads (32 / 32, D = 96); K5 at "
+            "zamba2-2.7b's shared attention (32 / 32, D = 80) and phi3's")
+        rows["paged_planar_decode_attention"] += attention_phase(
+            torch, args.iters, **PHI3_K4)
+        rows["planar_decode_attention"] += dense_decode_phase(
+            torch, args.iters, **ZAMBA2_K5)
+        rows["planar_decode_attention"] += dense_decode_phase(
+            torch, args.iters, **PHI3_K5)
         rows["nestedfp_encode"] = encode_phase(torch, args.iters)
         rows["quant_per_token"] = quant_phase(torch, args.iters)
         results["kernel_rows"] = rows
@@ -4281,10 +4513,10 @@ def main() -> int:
         results["qwen3_slice"] = timed_phase(
             lambda: family_slice_phase(torch, qwen3, "qwen3 slice", (1, 4)))
     if "qwen3_serve" in phases:
-        log(f"== qwen3 serve: qwen3-8b, {qwen3.n_layers} layers")
+        n = DEPTH["qwen3_serve"]
+        log(f"== qwen3 serve: qwen3-8b, {n} layers")
         results["qwen3_serve"] = timed_phase(lambda: serve_phase(
-            torch, qwen3, qwen3.n_layers, args.host_tier == "on",
-            label="qwen3 serve"))
+            torch, qwen3, n, args.host_tier == "on", label="qwen3 serve"))
     if "qwen3_dense" in phases:
         n = DEPTH["qwen3_dense"]
         log(f"== qwen3 dense: qwen3-8b, {n} layers, dense-slot prefill and "
@@ -4298,15 +4530,17 @@ def main() -> int:
         results["mamba2_slice"] = timed_phase(lambda: recurrent_slice_phase(
             torch, mamba2, "mamba2 slice", 2))
     if "mamba2_serve" in phases:
-        log(f"== mamba2 serve: mamba2-2.7b, {mamba2.n_layers} layers, 8 x "
+        c = cut_depth(mamba2, "mamba2_serve")
+        log(f"== mamba2 serve: mamba2-2.7b, {c.n_layers} layers, 8 x "
             f"(1024 + 64), slot-resident state")
         results["mamba2_serve"] = timed_phase(lambda: recurrent_serve_phase(
-            torch, mamba2, "mamba2 serve"))
+            torch, c, "mamba2 serve"))
     if "mamba2_dense" in phases:
-        log(f"== mamba2 dense: mamba2-2.7b, {mamba2.n_layers} layers, "
+        c = cut_depth(mamba2, "mamba2_dense")
+        log(f"== mamba2 dense: mamba2-2.7b, {c.n_layers} layers, "
             f"dense-slot prefill and decode steps")
         results["mamba2_dense"] = timed_phase(lambda: recurrent_dense_phase(
-            torch, mamba2, "mamba2 dense"))
+            torch, c, "mamba2 dense"))
     zamba2 = get_arch("zamba2-2.7b")
     if "zamba2_slice" in phases:
         log("== zamba2 slice: zamba2-2.7b at full width, 6 layers (one "
@@ -4314,10 +4548,46 @@ def main() -> int:
         results["zamba2_slice"] = timed_phase(lambda: recurrent_slice_phase(
             torch, zamba2, "zamba2 slice", 6))
     if "zamba2_serve" in phases:
-        log(f"== zamba2 serve: zamba2-2.7b, {zamba2.n_layers} layers, 8 x "
+        c = cut_depth(zamba2, "zamba2_serve")
+        log(f"== zamba2 serve: zamba2-2.7b, {c.n_layers} layers, 8 x "
             f"(1024 + 64), f16 shared-attention pools")
         results["zamba2_serve"] = timed_phase(lambda: recurrent_serve_phase(
-            torch, zamba2, "zamba2 serve"))
+            torch, c, "zamba2 serve"))
+    if "zamba2_dense" in phases:
+        log(f"== zamba2 dense: zamba2-2.7b, {zamba2.n_layers} layers, "
+            f"dense-slot prefill and decode steps (K6 and K5 at D = 80)")
+        results["zamba2_dense"] = timed_phase(lambda: dense_phase(
+            torch, zamba2, "zamba2 dense"))
+    phi3 = get_arch("phi-3-vision-4.2b")
+    if "phi3_slice" in phases:
+        log("== phi3 slice: phi-3-vision-4.2b at full width, 2 layers (FP8 "
+            "at 4 gated at DEEP_FP8_TOL), card vs CPU plain versions")
+        results["phi3_slice"] = timed_phase(
+            lambda: family_slice_phase(torch, phi3, "phi3 slice", (4,)))
+    if "phi3_serve" in phases:
+        log(f"== phi3 serve: phi-3-vision-4.2b, {phi3.n_layers} layers, "
+            f"text only, 8 x (1024 + 64)")
+        results["phi3_serve"] = timed_phase(lambda: serve_phase(
+            torch, phi3, phi3.n_layers, args.host_tier == "on",
+            label="phi3 serve", capacity=1088, prompt_len=1024, max_new=64))
+    if "phi3_dense" in phases:
+        log(f"== phi3 dense: phi-3-vision-4.2b, {phi3.n_layers} layers, "
+            f"dense-slot prefill of 8 x (576 patches + 1024 tokens) and "
+            f"decode steps (K6 and K5 at D = 96)")
+        results["phi3_dense"] = timed_phase(lambda: dense_phase(
+            torch, phi3, "phi3 dense", long_ctx=False))
+    seamless = get_arch("seamless-m4t-large-v2")
+    if "seamless_slice" in phases:
+        log("== seamless slice: seamless-m4t-v2 at full width, 2 encoder + 2 "
+            "decoder layers, card vs CPU plain versions")
+        results["seamless_slice"] = timed_phase(
+            lambda: seamless_slice_phase(torch, seamless))
+    if "seamless_dense" in phases:
+        log(f"== seamless dense: seamless-m4t-v2, {seamless.n_enc_layers} + "
+            f"{seamless.n_layers} layers, 8 x 1024 tokens over 128 frames a "
+            f"row, 64 replayed decode steps")
+        results["seamless_dense"] = timed_phase(lambda: dense_phase(
+            torch, seamless, "seamless dense", n_dec=64, long_ctx=False))
     results["total_s"] = time.time() - t_start
     seconds = {"build": results["build_s"], "kernels": results.get("kernels_s"),
                **{k: round(v["seconds"], 1) for k, v in results.items()
@@ -4333,21 +4603,33 @@ def main() -> int:
         # dense-slot steps, the sliding-window serve, gemma3-1b's
         # dense-slot steps, speculation (llama3.1-8b, gemma3-1b), the
         # tiered KV cache, the fleet, deepseek-coder-33b's and qwen3-8b's
-        # serve and dense-slot steps, the MoE family's, and mamba2-2.7b's
-        # and zamba2-2.7b's, each counted from 0 at its start
+        # serve and dense-slot steps, the MoE family's, mamba2-2.7b's and
+        # zamba2-2.7b's, phi-3-vision's and seamless-m4t-v2's, each
+        # counted from 0 at its start; an instance's launches are those of
+        # the phases whose model has that head dim alone
         paths = [results.get(p, {}).get("launches_total", {})
                  for p in ("serve", "dense", "gemma_serve", "gemma_dense",
                            "spec", "gemma_spec", "tiered", "fleet",
                            "ds_serve", "ds_dense", "qwen3_serve",
                            "qwen3_dense", "ds3_serve", "granite_serve",
                            "granite_dense", "mamba2_serve", "mamba2_dense",
-                           "zamba2_serve")]
+                           "zamba2_serve", "zamba2_dense", "phi3_serve",
+                           "phi3_dense", "seamless_dense")]
         kernels = []
         for name, (src, replaces) in SOURCES.items():
             kernels.append({"name": name, "route": "cuda", "source": src,
                             "replaces": replaces,
                             "launches": sum(p.get(name, 0) for p in paths),
                             **summarize(rows[name], LINE_WEIGHTS[name])})
+        for (name, d), owners in INSTANCES.items():
+            src, replaces = SOURCES[name]
+            kernels.append({
+                "name": f"{name}@D{d}", "route": "cuda", "source": src,
+                "replaces": replaces,
+                "launches": sum(results.get(o, {}).get("launches_total", {})
+                                .get(name, 0) for o in owners),
+                **summarize([r for r in rows[name] if r["d"] == d],
+                            LINE_WEIGHTS[name, d])})
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

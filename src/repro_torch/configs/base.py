@@ -1,5 +1,5 @@
-"""Architecture configs for the PyTorch port (dense, MoE, SSM and hybrid
-decoders).
+"""Architecture configs for the PyTorch port (dense, MoE, SSM, hybrid,
+vision-language and encoder-decoder models).
 
 A copy of the fields of `repro.configs.base.ArchConfig` (and of its
 `MoEConfig`, `MLAConfig` and `SSMConfig`) that the ported decoders read,
@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense", "moe", "ssm", "hybrid"]
+Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +79,11 @@ class ArchConfig:
     mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
     attn_every: int = 0                  # hybrid: shared attn block period
+    # enc-dec / multimodal (stub frontends: precomputed embeddings)
+    n_enc_layers: int = 0
+    frontend: Literal["none", "audio", "vision"] = "none"
+    frontend_dim: int = 0                # embedding dim delivered by the stub
+    frontend_len: int = 0                # frames/patches (0 = derived)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     mtp_heads: int = 0                   # deepseek-v3 multi-token prediction
@@ -102,9 +107,12 @@ class ArchConfig:
 
     @property
     def cache_kind(self) -> str:
-        """Serving cache-descriptor family (serving/kvcache.py): 'ssm' or
+        """Serving cache-descriptor family (serving/kvcache.py): 'encdec'
+        (no paged layout: the dense-slot steps alone serve it), 'ssm' or
         'hybrid' for a recurrent stack (slot-resident state), 'mla'
-        (latent planes) for an MLA stack, else 'gqa'."""
+        (latent planes) for an MLA stack, else 'gqa' (a vlm too)."""
+        if self.family == "encdec":
+            return "encdec"
         if self.family in ("ssm", "hybrid"):
             return self.family
         return "mla" if self.mla is not None else "gqa"
@@ -114,8 +122,9 @@ class ArchConfig:
         JAX package's `ArchConfig.reduced`): 4 experts, top-2, expert
         width 128 (banks padded to 6 where the full config pads), MLA
         ranks 64 / 96 / 16 / 32 / 32, SSM d_state 16, head dim 32, chunk
-        32, a shared-attention period of at most 2; an attention-free
-        config keeps no heads."""
+        32, a shared-attention period of at most 2, at most 2 encoder
+        layers, a frontend of at most 128 wide and 16 long; an
+        attention-free config keeps no heads."""
         small_moe = None
         if self.moe is not None:
             small_moe = dataclasses.replace(
@@ -136,6 +145,7 @@ class ArchConfig:
             self,
             arch_id=self.arch_id + "-reduced",
             n_layers=2,
+            n_enc_layers=min(self.n_enc_layers, 2),
             d_model=256,
             n_heads=n_heads,
             n_kv_heads=max(n_kv, 1) if n_heads else 0,
@@ -147,5 +157,7 @@ class ArchConfig:
             swa_pattern=min(self.swa_pattern, 2) if self.swa_pattern else 0,
             sliding_window=(8 * max(min(self.swa_pattern, 2), 1) + 3)
             if self.sliding_window else None,
+            frontend_dim=min(self.frontend_dim, 128) if self.frontend_dim else 0,
+            frontend_len=min(self.frontend_len, 16) if self.frontend_len else 0,
             max_seq_len=4096,
         )

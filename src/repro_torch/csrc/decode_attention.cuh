@@ -52,7 +52,14 @@
 //    q's fragments repeat; PV's n columns are the even and the odd d of
 //    each 16, so a thread ends with 4 adjacent outputs. exp runs as exp2
 //    on log2(e)-scaled scores, as in K6.
-//  - Head dims 64, 128 and 256 (gemma3-1b). At D = 256 a thread's PV
+//  - Head dims 64, 80 (zamba2-2.7b's shared attention), 96 (phi-3-vision),
+//    128 and 256 (gemma3-1b); each C entry lists the ones it instantiates.
+//    The planes keep D unpadded (rows of 80 or 96 bytes, 16-byte aligned);
+//    in shared memory a key row is padded to DP, D rounded up to 32 (the
+//    32 bytes of an ldmatrix x4 slice), and the pad bytes are zero-filled
+//    by cp.async from no source, as are q's pad lanes, so their products
+//    are 0 and the pad columns of PV are never written out. The softmax
+//    scale is the caller's D^-0.5 of the real D. At D = 256 a thread's PV
 //    accumulator alone is 128 f32 registers, so q's A fragments (64
 //    words a thread at D = 256) are not kept in registers: warp 0 writes
 //    them once to shared memory (8 KB after the warps' rings, the same
@@ -84,32 +91,42 @@ constexpr float kPUnscale = 1.f / 4096.f;
 
 template <int D, bool FP8>
 struct Layout {
-  static constexpr int kKB = D / 16;              // k16 blocks of QK^T
-  static constexpr bool kQSmem = D > 128;         // q fragments in smem
+  static_assert(D % 16 == 0 && D <= 256, "D is a multiple of 16, <= 256");
+  static constexpr int kDP = (D + 31) / 32 * 32;  // D padded in shared memory
+  static constexpr int kKB = kDP / 16;            // k16 blocks of QK^T
+  static constexpr bool kQSmem = kDP > 128;       // q fragments in smem
   static constexpr int kQBytes = kQSmem ? kKB * 32 * 16 : 0;
   static constexpr int kStages = 2;               // ring depth of a warp
-  static constexpr int kLd = D + 16;              // padded key row, bytes
+  static constexpr int kLd = kDP + 16;            // padded key row, bytes
   static constexpr int kPlanes = FP8 ? 2 : 4;     // k_hi, v_hi[, k_lo, v_lo]
   static constexpr int kPlaneBytes = kStepKeys * kLd;
   static constexpr int kStageBytes = kPlanes * kPlaneBytes;
   static constexpr int kRingBytes = kStages * kStageBytes;
-  // a warp's state for the merge: acc [kRows][D], m [kRows], l [kRows]
-  static constexpr int kMergeBytes = 4 * (kRows * D + 2 * kRows);
+  // a warp's state for the merge: acc [kRows][DP], m [kRows], l [kRows]
+  static constexpr int kMergeBytes = 4 * (kRows * kDP + 2 * kRows);
   static constexpr int kWarpBytes =
       kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
   static constexpr int kSmemBytes = kWarps * kWarpBytes + kQBytes;
 };
 
-// dynamic shared memory of the body for head dim D, or 0 when the body
-// has no instance for D
+// dynamic shared memory of the body for head dim D among the instances
+// Ds, or 0 when D is not one of them
+template <int... Ds>
 inline int smem_bytes(int D, bool fp8) {
-  if (D == 64) return fp8 ? Layout<64, true>::kSmemBytes
-                          : Layout<64, false>::kSmemBytes;
-  if (D == 128) return fp8 ? Layout<128, true>::kSmemBytes
-                           : Layout<128, false>::kSmemBytes;
-  if (D == 256) return fp8 ? Layout<256, true>::kSmemBytes
-                           : Layout<256, false>::kSmemBytes;
-  return 0;
+  int r = 0;
+  ((r = D == Ds ? (fp8 ? Layout<Ds, true>::kSmemBytes
+                       : Layout<Ds, false>::kSmemBytes) : r), ...);
+  return r;
+}
+
+// the launch function Launch<D, FP8>::run of head dim D among the
+// instances Ds, or nullptr
+template <template <int, bool> class Launch, int... Ds>
+inline auto pick(int D, bool fp8) -> decltype(&Launch<64, true>::run) {
+  decltype(&Launch<64, true>::run) fn = nullptr;
+  ((fn = D == Ds ? (fp8 ? &Launch<Ds, true>::run : &Launch<Ds, false>::run)
+                 : fn), ...);
+  return fn;
 }
 
 // keys a split holds: kSplitKeys, rounded down to whole table blocks of
@@ -249,8 +266,10 @@ __device__ __forceinline__ void attend_split(
     const uint8_t* __restrict__ v_lo, const Rows& rows, int Hkv, int h,
     int lo, int hi, float q_scale, const Dest& dst) {
   using L = Layout<D, FP8>;
-  constexpr int KB = D / 16;       // k16 blocks of QK^T, d16 blocks of PV
-  constexpr int CH = D / 16;       // 16-byte chunks of a key row
+  constexpr int DP = L::kDP;       // D padded to 32 in shared memory
+  constexpr int KB = DP / 16;      // k16 blocks of QK^T, d16 blocks of PV
+  constexpr int CH = DP / 16;      // 16-byte chunks of a padded key row
+  constexpr int CHD = D / 16;      // the chunks that hold plane bytes
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int grp = lane >> 2, tig = lane & 3;
@@ -268,7 +287,7 @@ __device__ __forceinline__ void attend_split(
 #pragma unroll
       for (int it = 0; it < kStepKeys * CH / 32; ++it) {
         const int c = lane + 32 * it, t = c / CH, ch = c % CH, kpos = k0 + t;
-        const bool ok = kpos < hi;
+        const bool ok = kpos < hi && ch < CHD;   // pad chunks: zeros
         const size_t off = ok ? (rows(kpos) * Hkv + h) * D + ch * 16 : 0;
         const uint32_t at = st + t * L::kLd + ch * 16;
         cp_async16(at, k_hi + off, ok);
@@ -289,7 +308,7 @@ __device__ __forceinline__ void attend_split(
   // k slots in ldmatrix's byte order, scaled by 2^e with max|q| < 2^14
   auto q_at = [&](int kb) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (grp < n_rows)
+    if (grp < n_rows && 16 * kb < D)      // pad lanes past D stay 0
       v = *reinterpret_cast<const float4*>(q + grp * D + 16 * kb + 4 * tig);
     v.x *= q_scale;
     v.y *= q_scale;
@@ -358,7 +377,7 @@ __device__ __forceinline__ void attend_split(
     // scores: n-tile n holds keys k0 + 8n + 2 tig + {0, 1}
     float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int kb = 0; kb < D / 32; ++kb) {
+    for (int kb = 0; kb < DP / 32; ++kb) {
       uint32_t kh[4], kl[4] = {0u, 0u, 0u, 0u};
       ldsm_x4(kh, st + kb * 32);
       if (!FP8) ldsm_x4(kl, st + 2 * L::kPlaneBytes + kb * 32);
@@ -419,7 +438,7 @@ __device__ __forceinline__ void attend_split(
     pa[0] = split2(p[0] * kPScale, p[1] * kPScale, &pa[1]);
     pa[2] = split2(p[2] * kPScale, p[3] * kPScale, &pa[3]);
 #pragma unroll
-    for (int vb = 0; vb < D / 32; ++vb) {
+    for (int vb = 0; vb < DP / 32; ++vb) {
       uint32_t vh[4], vl[4] = {0u, 0u, 0u, 0u};
       ldsm_x4_trans(vh, st + L::kPlaneBytes + vb * 32);
       if (!FP8) ldsm_x4_trans(vl, st + 3 * L::kPlaneBytes + vb * 32);
@@ -444,14 +463,14 @@ __device__ __forceinline__ void attend_split(
   if (mine > 0 && grp < n_rows) {
 #pragma unroll
     for (int db = 0; db < KB; ++db)
-      *reinterpret_cast<float4*>(wacc + grp * D + 16 * db + 4 * tig) =
+      *reinterpret_cast<float4*>(wacc + grp * DP + 16 * db + 4 * tig) =
           make_float4(acc[db][0][0] + acc[db][0][2],
                       acc[db][1][0] + acc[db][1][2],
                       acc[db][0][1] + acc[db][0][3],
                       acc[db][1][1] + acc[db][1][3]);
     if (tig == 0) {
-      wacc[kRows * D + grp] = m;
-      wacc[kRows * D + kRows + grp] = l;
+      wacc[kRows * DP + grp] = m;
+      wacc[kRows * DP + kRows + grp] = l;
     }
   }
   __syncthreads();
@@ -462,7 +481,7 @@ __device__ __forceinline__ void attend_split(
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       mw[w] = reinterpret_cast<const float*>(
-          smem + w * L::kWarpBytes)[kRows * D + g];
+          smem + w * L::kWarpBytes)[kRows * DP + g];
       if (w < n_act) M = fmaxf(M, mw[w]);
     }
     float o = 0.f, lsum = 0.f;
@@ -471,8 +490,8 @@ __device__ __forceinline__ void attend_split(
       if (w < n_act) {
         const float* ws = reinterpret_cast<const float*>(smem + w * L::kWarpBytes);
         const float c = exp2f(mw[w] - M);
-        o += c * ws[g * D + d];
-        lsum += c * ws[kRows * D + kRows + g];
+        o += c * ws[g * DP + d];
+        lsum += c * ws[kRows * DP + kRows + g];
       }
     }
     o *= kPUnscale;

@@ -5,7 +5,8 @@
 // bf16 -> (B,S,H,D) f32. Same math as the TPU kernel: scores in f32 scaled
 // by D^-0.5, keys at kpos <= qpos, online softmax with NEG_INF = -1e30,
 // out = acc / max(l, 1e-30). Any S: keys and queries past S load as zero
-// and are masked or not stored; nothing is padded. D is 64, 128 or 256
+// and are masked or not stored; nothing is padded. D is 64, 80
+// (zamba2-2.7b's shared attention), 96 (phi-3-vision), 128 or 256
 // (gemma3-1b's global layers) and G = H / Hkv is any whole number up to
 // 64. A block holds BQ = 64 / G (rounded down) positions of all G heads;
 // where G does not divide 64 (deepseek-coder-33b's G = 7: BQ = 9, 63
@@ -43,7 +44,12 @@
 //    load of tile j+1 overlaps the products on tile j. Rows are padded by
 //    16 bytes, so the 8 rows of each ldmatrix phase hit distinct banks.
 //    At D <= 128, Q goes once through the second stage's K slot into
-//    registers.
+//    registers. Nothing in this body needs D % 64: mma.sync takes k16 and
+//    n8 steps, and at D = 80 and 96 a shared row of D + 8 halves is 176 or
+//    208 bytes, a whole number of 16-byte cp.async chunks and ldmatrix
+//    rows, whose 8 rows of a phase fall on distinct banks (row pitches of
+//    44 and 52 words: 12r and 20r mod 32 step through disjoint 4-word
+//    groups). The tensors keep D unpadded in memory.
 //  - D = 256 would hold 128 f32 of O, the scores and 64 registers of q
 //    fragments a thread, beyond the 255 registers a thread may use. There
 //    Q keeps a shared-memory slot of its own (33 KB) and each k-step loads
@@ -66,10 +72,13 @@
 // block of 256 threads per (batch row, kv head, tile of BQ = 64/G query
 // positions) as above, q scaled by D^-0.5 in f32, both products as f32
 // FMAs (67 TFLOP/s peak). Each thread keeps a 4x4 block of scores and a
-// 4x(D/16) block of the output in registers, with the running max and sum
-// of its 4 rows; the 16 threads of a row reduce by warp shuffles. K is
-// stored transposed and P goes through shared memory. At D = 256 that is
-// 215 KB of shared memory (under the 227 KB opt-in), one block an SM.
+// 4x(DP/16) block of the output in registers, with the running max and
+// sum of its 4 rows; the 16 threads of a row reduce by warp shuffles. K is
+// stored transposed and P goes through shared memory. The output's
+// columns go in groups of 64, so V's shared rows are padded to DP, D
+// rounded up to 64 (D = 80 and 96: 128), with the pad columns zero and
+// never stored. At D = 256 that is 215 KB of shared memory (under the
+// 227 KB opt-in), one block an SM.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -92,9 +101,14 @@ __device__ __forceinline__ float comp(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
+// D rounded up to the 64 output columns of a thread group
+template <int D>
+__host__ __device__ constexpr int padded64() { return (D + 63) / 64 * 64; }
+
 template <int D>
 constexpr int smem_floats() {
-  return kRows * (D + 4) + D * (kKeys + 4) + kKeys * (D + 4) + kRows * (kKeys + 4);
+  return kRows * (D + 4) + D * (kKeys + 4) + kKeys * (padded64<D>() + 4) +
+         kRows * (kKeys + 4);
 }
 
 template <typename T, int D>
@@ -102,9 +116,10 @@ __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, float* __restrict__ out, int S,
                      int H, int Hkv, float q_scale) {
-  constexpr int LDQ = D + 4, LDK = kKeys + 4, LDV = D + 4, LDP = kKeys + 4;
-  constexpr int NDG = D / 64;           // output column groups of 64
-  static_assert(D % 64 == 0, "D is 64, 128 or 256");
+  constexpr int DP = padded64<D>();    // V's row, padded to groups of 64
+  constexpr int LDQ = D + 4, LDK = kKeys + 4, LDV = DP + 4, LDP = kKeys + 4;
+  constexpr int NDG = DP / 64;          // output column groups of 64
+  static_assert(D % 16 == 0 && D <= 256, "D is a multiple of 16, <= 256");
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // [kRows][LDQ] scaled q
   float* Kt = Qs + kRows * LDQ;                  // [D][LDK] keys, transposed
@@ -140,6 +155,10 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int qpos[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) qpos[i] = q0 + (tr + 16 * i) % BQ;
+  // V's pad columns [D, DP): zero once (tiles never write them)
+  if constexpr (DP > D)
+    for (int c = tid; c < kKeys * (DP - D); c += kThreads)
+      Vs[(c / (DP - D)) * LDV + D + c % (DP - D)] = 0.f;
 
   const int k_end = min(S, q0 + BQ);            // causal: the diagonal
   for (int k0 = 0; k0 < k_end; k0 += kKeys) {
@@ -258,9 +277,10 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* o = out + (((size_t)b * S + pos) * H + (size_t)hh * G + g) * D;
 #pragma unroll
     for (int gi = 0; gi < NDG; ++gi)
-      *reinterpret_cast<float4*>(&o[64 * gi + 4 * tc]) =
-          make_float4(acc[i][gi][0] / den, acc[i][gi][1] / den,
-                      acc[i][gi][2] / den, acc[i][gi][3] / den);
+      if (64 * gi + 4 * tc < D)          // pad columns are not stored
+        *reinterpret_cast<float4*>(&o[64 * gi + 4 * tc]) =
+            make_float4(acc[i][gi][0] / den, acc[i][gi][1] / den,
+                        acc[i][gi][2] / den, acc[i][gi][3] / den);
   }
 }
 
@@ -409,7 +429,7 @@ flash_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int KD = D / 16;           // k-steps of QK^T
   constexpr int NB = KT / 8;           // key n-blocks of the scores
   constexpr bool QS = tc_q_in_smem<D>();
-  static_assert(D % 64 == 0 && D <= 256, "D is 64, 128 or 256");
+  static_assert(D % 16 == 0 && D <= 256, "D is a multiple of 16, <= 256");
   static_assert(QS || kTcRows <= KT, "Q goes through one K slot");
   extern __shared__ float4 smem4[];
   // stage st: K tile at sm + 2 * st * TILE, V tile right after it
@@ -606,6 +626,8 @@ template <typename T>
 int launch_tc_d(const void* q, const void* k, const void* v, float* out, int B,
                 int S, int H, int Hkv, int D, float q_scale, cudaStream_t s) {
   if (D == 64) return launch_tc<T, 64>(q, k, v, out, B, S, H, Hkv, q_scale, s);
+  if (D == 80) return launch_tc<T, 80>(q, k, v, out, B, S, H, Hkv, q_scale, s);
+  if (D == 96) return launch_tc<T, 96>(q, k, v, out, B, S, H, Hkv, q_scale, s);
   if (D == 128)
     return launch_tc<T, 128>(q, k, v, out, B, S, H, Hkv, q_scale, s);
   if (D == 256)
@@ -616,6 +638,8 @@ int launch_tc_d(const void* q, const void* k, const void* v, float* out, int B,
 int launch_f32(const void* q, const void* k, const void* v, float* out, int B,
                int S, int H, int Hkv, int D, float q_scale, cudaStream_t s) {
   if (D == 64) return launch<float, 64>(q, k, v, out, B, S, H, Hkv, q_scale, s);
+  if (D == 80) return launch<float, 80>(q, k, v, out, B, S, H, Hkv, q_scale, s);
+  if (D == 96) return launch<float, 96>(q, k, v, out, B, S, H, Hkv, q_scale, s);
   if (D == 128)
     return launch<float, 128>(q, k, v, out, B, S, H, Hkv, q_scale, s);
   if (D == 256)   // 215 KB of shared memory, under the 227 KB opt-in
@@ -626,8 +650,8 @@ int launch_f32(const void* q, const void* k, const void* v, float* out, int B,
 }  // namespace
 
 // dtype: 0 f32 (the SIMT body), 1 f16, 2 bf16 (the tensor-core body); q,
-// k and v alike. Needs D in {64, 128, 256} and H / Hkv a whole number up
-// to 64; the wrapper checks both.
+// k and v alike. Needs D in {64, 80, 96, 128, 256} and H / Hkv a whole
+// number up to 64; the wrapper checks both.
 extern "C" int flash_prefill_attention(const void* q, const void* k,
                                        const void* v, void* out, int dtype,
                                        int B, int S, int H, int Hkv, int D,

@@ -5,8 +5,8 @@
 // planar_decode_attention: q (B,H,D) f32; planes k_hi, k_lo, v_hi, v_lo
 // (B,Cap,Hkv,D) u8; lens (B,) i32 >= 1; window (<= 0 is global) ->
 // (B,H,D) f32. FP16 mode joins hi|lo into the exact f16 K/V; FP8 mode
-// reads only the hi planes, as e5m2 (half the bytes). D is 64, 128 or
-// 256.
+// reads only the hi planes, as e5m2 (half the bytes). D is 64, 80
+// (zamba2-2.7b's shared attention), 96 (phi-3-vision), 128 or 256.
 //
 // What bounds it on an H100: the KV bytes of the kept keys,
 // sum(kept) * Hkv * D * 2 (K and V) * (2 B in FP16 mode, 1 B in FP8) over
@@ -42,31 +42,38 @@ planar_split_kernel(const float* __restrict__ q,
 }
 
 template <int D, bool FP8>
-int launch(const void* q, const void* k_hi, const void* k_lo,
-           const void* v_hi, const void* v_lo, const void* lens, void* out,
-           void* part, int B, int H, int Hkv, int Cap, int ns, int S,
-           int window, float q_scale, cudaStream_t stream) {
-  constexpr int smem = Layout<D, FP8>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      planar_split_kernel<D, FP8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  planar_split_kernel<D, FP8>
-      <<<nfp_decode::split_grid(B, H, Hkv, ns), nfp_decode::kThreads, smem,
-         stream>>>(
-          static_cast<const float*>(q), static_cast<const uint8_t*>(k_hi),
-          static_cast<const uint8_t*>(k_lo), static_cast<const uint8_t*>(v_hi),
-          static_cast<const uint8_t*>(v_lo), static_cast<const int*>(lens),
-          static_cast<float*>(out), static_cast<float*>(part), B, H, Hkv, Cap,
-          ns, S, window, q_scale);
-  return (int)cudaGetLastError();
+struct Launch {
+  static int run(const void* q, const void* k_hi, const void* k_lo,
+                 const void* v_hi, const void* v_lo, const void* lens,
+                 void* out, void* part, int B, int H, int Hkv, int Cap, int ns,
+                 int S, int window, float q_scale, cudaStream_t stream) {
+    constexpr int smem = Layout<D, FP8>::kSmemBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        planar_split_kernel<D, FP8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    planar_split_kernel<D, FP8>
+        <<<nfp_decode::split_grid(B, H, Hkv, ns), nfp_decode::kThreads, smem,
+           stream>>>(
+            static_cast<const float*>(q), static_cast<const uint8_t*>(k_hi),
+            static_cast<const uint8_t*>(k_lo), static_cast<const uint8_t*>(v_hi),
+            static_cast<const uint8_t*>(v_lo), static_cast<const int*>(lens),
+            static_cast<float*>(out), static_cast<float*>(part), B, H, Hkv, Cap,
+            ns, S, window, q_scale);
+    return (int)cudaGetLastError();
+  }
+};
+
+// the head dims with an instance
+int smem(int D, bool fp8) {
+  return nfp_decode::smem_bytes<64, 80, 96, 128, 256>(D, fp8);
 }
 
 }  // namespace
 
 // dynamic shared memory of the split kernel; 0 when D has no instance
 extern "C" int planar_decode_attention_smem(int D, int fp8) {
-  return nfp_decode::smem_bytes(D, fp8 != 0);
+  return smem(D, fp8 != 0);
 }
 
 // splits of a row of Cap keys; the scratch holds B*H*splits*(D+2) f32
@@ -82,15 +89,13 @@ extern "C" int planar_decode_attention(
     int Hkv, int D, int Cap, int window, int fp8, float q_scale,
     void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
-  if (nfp_decode::smem_bytes(D, fp8 != 0) == 0)
+  if (smem(D, fp8 != 0) == 0)
     return (int)cudaErrorInvalidValue;
   const int S = nfp_decode::split_keys(1), ns = (Cap + S - 1) / S;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ns > 0) {
-    decltype(&launch<64, true>) fn =
-        D == 64    ? (fp8 ? &launch<64, true> : &launch<64, false>)
-        : D == 128 ? (fp8 ? &launch<128, true> : &launch<128, false>)
-                   : (fp8 ? &launch<256, true> : &launch<256, false>);
+    const auto fn =
+        nfp_decode::pick<Launch, 64, 80, 96, 128, 256>(D, fp8 != 0);
     const int err = fn(q, k_hi, k_lo, v_hi, v_lo, lens, out, part, B, H, Hkv,
                        Cap, ns, S, window, q_scale, st);
     if (err != 0) return err;

@@ -5,7 +5,8 @@ Port of `repro/kernels/flash_prefill_attention.py::flash_prefill_attention`
 `csrc/flash_prefill_attention.cu`. The input type alone picks the body:
 f16 and bf16 run on the tensor cores (mma.sync, cp.async), f32 on f32
 FMAs; both count as launches of this kernel. Both bodies have instances
-for head dims 64, 128 and 256 (gemma3-1b's global layers) and take any
+for head dims 64, 80 (zamba2-2.7b's shared attention), 96 (phi-3-vision),
+128 and 256 (gemma3-1b's global layers) and take any
 GQA group G = H / Hkv up to 64 (deepseek-coder-33b's G = 7 too: a block's
 rows past G * (64 // G) are dead, masked on load and never stored); on
 the card any other shape raises (`check_shape`). Any S is taken: the
@@ -26,7 +27,7 @@ _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
          + [ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _ROWS = 64        # query rows a block of the kernel: G * (64 // G) live
-HEAD_DIMS = (64, 128, 256)   # the head dims the kernel has instances for
+HEAD_DIMS = (64, 80, 96, 128, 256)   # the head dims with an instance
 
 
 def check_shape(h: int, hkv: int, d: int) -> None:

@@ -10,8 +10,10 @@ to CUDA kernels that share one body (`csrc/decode_attention.cuh`):
 - K5 `planar_decode_attention` (`csrc/planar_decode_attention.cu`) over
   dense per-slot planes (B, Cap, Hkv, D), read in place.
 
-In both, a window of None or <= 0 means global, and D is 64, 128 or 256
-(gemma3-1b).
+In both, a window of None or <= 0 means global. D is 64, 96
+(phi-3-vision), 128 or 256 (gemma3-1b) for K4, and also 80 (zamba2-2.7b's
+shared attention) for K5 (`dynamic_smem_bytes` is 0 for any other); the
+caches keep D unpadded, and the softmax scale is the real D's.
 Each row's keys are cut into splits of a fixed number of keys (the C
 entry's `*_splits`), one block a split; when a row has more than one
 split, a second kernel merges them from an f32 scratch that the wrapper
@@ -73,8 +75,8 @@ def _check(q, planes: dict, *, fp8: bool, paged: bool) -> None:
         if p.data_ptr() % 16:
             raise ValueError(f"{name}: must be 16-byte aligned")
     if dynamic_smem_bytes(d, fp8=fp8, paged=paged) == 0:
-        raise ValueError(f"head dim D={d}: the decode kernels have D = 64, "
-                         f"128 and 256")
+        dims = "64, 96, 128 and 256" if paged else "64, 80, 96, 128 and 256"
+        raise ValueError(f"head dim D={d}: {_LIBS[paged]} has D = {dims}")
 
 
 def _scratch(b, h, d, ns, device):

@@ -22,6 +22,8 @@ Usage (the card is the default device):
       --reduced --device cpu              # slot-resident SSM state only
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --reduced --device cpu              # + paged shared-attention blocks
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch phi-3-vision-4.2b --reduced --device cpu --kv-planar  # text only
 --arch takes every config of `repro_torch.configs` (qwen1.5-0.5b,
 llama3.1-8b, gemma3-1b, qwen3-8b, deepseek-coder-33b, the MoE family:
 granite-moe-3b-a800m, deepseek-v3-671b, whose MLA pool keeps f16 latent
@@ -29,7 +31,10 @@ planes even with --kv-planar; its full 61 layers do not fit one card;
 and the recurrent families: mamba2-2.7b (ssm) and zamba2-2.7b (hybrid),
 whose state has no prefix cache, whose pools ignore --kv-planar, and
 which refuse --speculate: a recurrence cannot roll back rejected
-drafts). Random weights are
+drafts; and phi-3-vision-4.2b, served as a text-only GQA decoder as the
+JAX engine serves it. seamless-m4t-large-v2 (encdec) is refused by the
+engine, as in the JAX package: the dense-slot steps of `launch/steps.py`
+serve it). Random weights are
 built layer by layer (`model.init_serving_params`); --ckpt restores the
 JAX package's checkpoint format instead (`{"params": ...}`, as its
 `launch/serve.py --ckpt` reads), nesting each layer's weights as they are

@@ -6,15 +6,19 @@
 
 As in the JAX package, serving steps run bf16 activations with bf16-
 rounded GEMM outputs (`fast_accum`) and the paper's per-tensor FP8
-activation scale. The prefill caches are f16; `model.planarize_cache`
-turns GQA caches into the byte-planar form that FP8 decode reads half of
-(MLA latents stay f16). MoE layers (granite-moe-3b, deepseek-v3) route
-within each row and read their expert banks in bf16 here. An ssm stack
-(mamba2) keeps its recurrent state in the caches instead ({"ssm":
-conv_x, conv_bc, ssm}), O(1) in the sequence's length, so its decode
-step costs the same at any cache length. A hybrid stack (zamba2) is
-refused: its shared attention has head dim 80, for which K5 and K6 have
-no instance (the paged engine serves it through the gathered attention).
+activation scale, for every family. The prefill caches are f16;
+`model.planarize_cache` turns GQA caches (a hybrid's shared attention's
+too) into the byte-planar form that FP8 decode reads half of (MLA
+latents and an encdec's cross caches stay as they are). MoE layers
+(granite-moe-3b, deepseek-v3) route within each row and read their
+expert banks in bf16 here. An ssm stack (mamba2) keeps its recurrent
+state in the caches instead ({"ssm": conv_x, conv_bc, ssm}), O(1) in the
+sequence's length; a hybrid (zamba2) adds its shared attention's caches
+("shared": 32 heads of 80, K6 in the prefill and K5 over planar caches
+in the decode). A vlm (phi-3-vision) prefills its stub patch embeddings
+ahead of the text and an encdec (seamless) its encoder over stub frames
+(`stub_frontend` makes both as the JAX package's `batch_specs` shapes
+them); an encdec's decode reads the cross caches its prefill returned.
 Decode writes the caches in place.
 
 The decode step is the port's counterpart of the JAX package's
@@ -30,11 +34,13 @@ is busy ~99 % of its wall time, so a graph would buy nothing.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
 from repro_torch.models.layers import Runtime
@@ -45,9 +51,28 @@ def serve_rt(mode: str) -> Runtime:
     return Runtime(mode=mode, dtype=torch.bfloat16, fast_accum=True)
 
 
+def stub_frontend(cfg: ArchConfig, batch: int, seq: int, *, generator=None,
+                  device=None) -> dict[str, torch.Tensor]:
+    """A stub frontend's inputs for a prefill of `batch` rows of `seq`
+    tokens, normal draws in bf16 shaped as the JAX package's
+    `batch_specs`: a vlm's "patch_embeds" (B, frontend_len,
+    frontend_dim), an encdec's "frames" (B, encdec_enc_len(seq),
+    frontend_dim); {} for a text-only config. device=None means the
+    card."""
+    dev = resolve_device(device)
+    shape = {"vision": ("patch_embeds", cfg.frontend_len),
+             "audio": ("frames", M.encdec_enc_len(seq))}.get(cfg.frontend)
+    if shape is None:
+        return {}
+    name, n = shape
+    return {name: torch.randn((batch, n, cfg.frontend_dim), device=dev,
+                              generator=generator).to(torch.bfloat16)}
+
+
 def make_prefill_step(cfg: ArchConfig, mode: str = "fp16",
                       capacity: int | None = None):
-    M.check_dense_slot_family(cfg)
+    """step(params, batch) -> (logits, caches); batch holds "tokens" and
+    the stub frontend's inputs (`stub_frontend`)."""
     rt = serve_rt(mode)
 
     def step(params, batch):
@@ -59,13 +84,17 @@ def make_prefill_step(cfg: ArchConfig, mode: str = "fp16",
 
 
 def make_decode_step(cfg: ArchConfig, mode: str = "fp16") -> "DecodeStep":
-    M.check_dense_slot_family(cfg)
     return DecodeStep(cfg, mode)
 
 
 def _planes(caches) -> dict[str, torch.Tensor]:
-    """Every cache plane by its name (names differ across subtrees)."""
-    return {n: p for planes in caches.values() for n, p in planes.items()}
+    """Every cache plane by its name; a name two subtrees share (an
+    encdec's "k" and "v" under "attn" and "cross") is qualified by its
+    subtree ("cross/k")."""
+    seen = collections.Counter(n for planes in caches.values()
+                               for n in planes)
+    return {(n if seen[n] == 1 else f"{sub}/{n}"): p
+            for sub, planes in caches.items() for n, p in planes.items()}
 
 
 @dataclasses.dataclass

@@ -124,9 +124,11 @@ def from_jax_serving(flat: dict[str, np.ndarray], n_layers: int,
     "P/weight/upper", "P/weight/lower", "P/weight/raw" (whichever exist)
     and "P/bias", a bare NestedTensor (an expert bank) "P/upper",
     "P/lower" or "P/raw". Leaves under "layers/" are stacked (L, ...) and
-    are split into one dict per layer; every other subtree (the
-    embedding, the head, deepseek-v3's `mtp`) is taken whole. Bytes are
-    kept exactly. device=None means the card."""
+    are split into one dict per layer, as are an encdec's "enc_layers/"
+    (as many as their leading axis holds); every other subtree (the
+    embedding, the head, `frontend_proj`, `enc_norm`, a hybrid's
+    `shared_attn`, deepseek-v3's `mtp`) is taken whole. Bytes are kept
+    exactly. device=None means the card."""
     device = resolve_device(device)
     nested: dict = {}
     for key, arr in flat.items():
@@ -153,6 +155,11 @@ def from_jax_serving(flat: dict[str, np.ndarray], n_layers: int,
         return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
     stacked = nested.pop("layers")
+    enc = nested.pop("enc_layers", None)
     out = build(nested, None)
+    if enc is not None:
+        n_enc = len(next(v for k, v in flat.items()
+                         if k.startswith("enc_layers/")))
+        out["enc_layers"] = [build(enc, i) for i in range(n_enc)]
     out["layers"] = [build(stacked, i) for i in range(n_layers)]
     return out

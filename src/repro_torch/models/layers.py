@@ -18,6 +18,12 @@ package's `attention(phase=...)`):
   caches K5 (`ops.planar_decode_attention`), over f16 caches the plain
   `attn_core_decode`, as in the JAX package.
 
+An encoder-decoder (seamless) adds two more, both plain torch ops over
+materialized scores (`attn_core_train`), as the JAX package computes them
+outside any Pallas kernel: `attention_encode`, the encoder's
+bidirectional self-attention, and `cross_attention`, the decoder's
+attention over the encoder's memory or over its cached projections.
+
 Caches and pools are updated IN PLACE (the JAX package returned new ones
 from donated buffers). The `attn_core_*` functions are the plain torch
 references of the JAX package's attention cores.
@@ -159,6 +165,29 @@ def attn_core_paged(q, k, v, *, q_offset, kv_len, window=None):
     return o.reshape(b, c, h, v.shape[-1])
 
 
+def attn_core_train(q, k, v, *, q_offset=0, window=None, kv_len=None,
+                    cross: bool = False, causal: bool = True):
+    """Materialized-scores attention. q: (B,Sq,H,Dq), k/v: (B,Sk,Hkv,·).
+    Causal within `window` unless `cross` or not `causal`; keys at or
+    past `kv_len` (an int or a tensor broadcast against the scores) are
+    masked."""
+    b, sq, h, dq = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qg = (q.reshape(b, sq, hkv, h // hkv, dq) * (dq ** -0.5)).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    kpos = torch.arange(sk, device=q.device)
+    if not cross and causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        mask = _apply_window(kpos[None, :] <= qpos, qpos, kpos[None, :],
+                             window)
+        s = torch.where(mask, s, NEG_INF)
+    if kv_len is not None:    # restrict to the valid cache prefix
+        s = torch.where(kpos < kv_len, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(b, sq, h, v.shape[-1])
+
+
 def attn_core_prefill(q, k, v, *, q_offset=0, window=None, block_k=1024):
     """Streaming softmax over key blocks of `block_k` (forward only), as
     the JAX package's reference prefill. q: (B,S,H,Dq); k/v: (B,Sk,Hkv,·)."""
@@ -277,6 +306,33 @@ def attention_prefill(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
         o = attn_core_prefill(q, k, v, window=window)
     o = o.reshape(b, s, -1).to(rt.dtype)
     return apply_linear(rt, p["wo"], o), {"k": k, "v": v}
+
+
+def attention_encode(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
+                     positions):
+    """An encoder layer's bidirectional self-attention over the whole
+    input (the JAX package's "train" phase with causal=False)."""
+    b, s = x.shape[0], x.shape[1]
+    q, k, v = _qkv(rt, p, cfg, x, positions)
+    o = attn_core_train(q, k, v, causal=False).reshape(b, s, -1).to(rt.dtype)
+    return apply_linear(rt, p["wo"], o)
+
+
+def cross_attention(rt: Runtime, p: dict, cfg, x: torch.Tensor,
+                    memory: torch.Tensor | None, *, cache: dict | None = None):
+    """A decoder layer's attention over the encoder's memory (B, Senc, D).
+    When `cache` {"k","v"} (B, Senc, Hkv, D) is given, the memory's
+    projections are taken from it and `memory` is not read. Returns (out,
+    {"k","v"}) in rt.dtype, the cache the call used or made."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = apply_linear(rt, p["wq"], x).reshape(b, s, h, hd)
+    if cache is None:
+        cache = {"k": apply_linear(rt, p["wk"], memory).reshape(b, -1, hkv, hd),
+                 "v": apply_linear(rt, p["wv"], memory).reshape(b, -1, hkv, hd)}
+    o = attn_core_train(q, cache["k"], cache["v"], cross=True)
+    o = o.reshape(b, s, -1).to(rt.dtype)
+    return apply_linear(rt, p["wo"], o), cache
 
 
 def attention_decode(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,

@@ -1,9 +1,11 @@
-"""Dense, MoE, SSM and hybrid decoders: init, caches, and their three
-serving entry points.
+"""Every family of the JAX package: init, caches, and the three serving
+entry points.
 
-- `paged_step`: the serving engine's step over the block-paged pool.
+- `paged_step`: the serving engine's step over the block-paged pool
+  (every family but encdec, as in the JAX package).
 - `prefill` and `decode_step`: the dense-slot steps (`launch/steps.py`)
-  over per-slot caches laid out (L, B, Cap, Hkv, D) as in the JAX package.
+  over per-slot caches laid out (L, B, Cap, Hkv, D) as in the JAX package
+  (every family).
 
 A layer's attention is GQA (`layers.py`) or, when the config has `mla`,
 Multi-head Latent Attention (`mla.py`, whose caches hold f16 latents);
@@ -15,11 +17,12 @@ block (`mamba2.py`) whose state lives in slot-resident planes ("ssm":
 conv_x, conv_bc, ssm, shaped (L, n_slots, ...)), one entry a sequence
 slot, read and written in place. A hybrid stack (zamba2) applies one
 SHARED decoder block (attention + SwiGLU, `params["shared_attn"]`) after
-every `attn_every`-th layer; its paged K/V planes ("shared", one layer
-a application, f16 as in the JAX engine) sit in the block pool. A
-recurrent chunk cannot be padded (the state would absorb the pads), so
-the engine runs prompt chunks at their exact length, one sequence a
-chunk, routed to its state row by `slot`.
+every `attn_every`-th layer; its K/V ("shared", one layer an
+application, f16 as in the JAX package) sit in the block pool or, for
+the dense-slot steps, in per-slot caches (planar after
+`planarize_cache`). A recurrent chunk cannot be padded (the state would
+absorb the pads), so the engine runs prompt chunks at their exact
+length, one sequence a chunk, routed to its state row by `slot`.
 
 Sliding-window stacks (gemma3): every `swa_pattern`-th layer is global,
 the rest attend within `sliding_window` tokens (`window_schedule`). The
@@ -27,8 +30,20 @@ paged cache then has two window groups, each with its own block table
 (`cache_descriptor`, serving/kvcache.py), and each layer reads and
 writes the pool through its own group's table.
 
+Stub frontends (the JAX package's): a vlm (phi-3-vision) maps
+precomputed patch embeddings through `frontend_proj` and prepends them
+to the text in `prefill`; the paged engine serves it as a text-only GQA
+decoder, as the JAX engine does. An encdec (seamless) maps frame
+embeddings through `frontend_proj`, runs a bidirectional encoder stack
+(`encode_memory`), and its decoder blocks add cross-attention over that
+memory; `prefill` returns the cross caches ("cross": each layer's memory
+projections, in the activation dtype, unpadded) that `decode_step`
+reuses. The engine refuses encdec where the JAX package does
+(`cache_descriptor`, `paged_step`).
+
 The JAX package scans stacked (L, ...) layer params; the port keeps one
-dict per layer in `params["layers"]` and runs the stack as a Python loop.
+dict per layer in `params["layers"]` (and `params["enc_layers"]`) and
+runs the stack as a Python loop.
 Random init uses a seeded `torch.Generator` on the requested device, so
 full-size weights can be made on the card directly (they differ from the
 JAX package's values; the tests carry the JAX weights across instead,
@@ -73,10 +88,13 @@ def init_attention(gen, cfg: ArchConfig, put=L.keep) -> dict:
     return p
 
 
-def init_decoder_block(gen, cfg: ArchConfig, put=L.keep) -> dict:
+def init_decoder_block(gen, cfg: ArchConfig, put=L.keep, *,
+                       cross: bool = False) -> dict:
     """One layer: MLA or GQA attention, then an MoE or a dense SwiGLU
-    MLP, as the config says. `put` takes every weight that serving nests
-    as soon as it is drawn (`init_linear`)."""
+    MLP, as the config says; with `cross` (an encdec decoder layer) also
+    `ln_cross` and a cross-attention block of the attention's shapes,
+    drawn last. `put` takes every weight that serving nests as soon as it
+    is drawn (`init_linear`)."""
     dev = L.device_of(gen)
     p = {"ln1": init_rms_norm(cfg.d_model, dev),
          "ln2": init_rms_norm(cfg.d_model, dev),
@@ -88,6 +106,9 @@ def init_decoder_block(gen, cfg: ArchConfig, put=L.keep) -> dict:
         p["mlp"] = {"gate": init_linear(gen, cfg.d_model, cfg.d_ff, put=put),
                     "up": init_linear(gen, cfg.d_model, cfg.d_ff, put=put),
                     "down": init_linear(gen, cfg.d_ff, cfg.d_model, put=put)}
+    if cross:
+        p["ln_cross"] = init_rms_norm(cfg.d_model, dev)
+        p["cross"] = init_attention(gen, cfg, put)
     return p
 
 
@@ -99,10 +120,12 @@ def init_ssm_block(gen, cfg: ArchConfig, put=L.keep) -> dict:
 
 def _layer_init(cfg: ArchConfig):
     """The init function of one layer of the stack: a Mamba2 layer for a
-    recurrent family, else a decoder block."""
+    recurrent family, else a decoder block (with cross-attention for an
+    encdec's decoder)."""
     if cfg.family in ("ssm", "hybrid"):
         return functools.partial(init_ssm_block, cfg=cfg)
-    return functools.partial(init_decoder_block, cfg=cfg)
+    return functools.partial(init_decoder_block, cfg=cfg,
+                             cross=cfg.family == "encdec")
 
 
 def _init_mtp(gen, cfg: ArchConfig, put=L.keep) -> dict:
@@ -135,17 +158,32 @@ def _init_top(gen, cfg: ArchConfig) -> dict:
     return params
 
 
+def _init_tail(gen, cfg: ArchConfig, params: dict) -> None:
+    """An encdec's `enc_norm` and a stub frontend's `frontend_proj`
+    (d_frontend, d_model; never nested, as `lm_head`), drawn after the
+    layers."""
+    if cfg.family == "encdec":
+        params["enc_norm"] = init_rms_norm(cfg.d_model, L.device_of(gen))
+    if cfg.frontend != "none":
+        params["frontend_proj"] = init_linear(gen, cfg.frontend_dim,
+                                              cfg.d_model)
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
-    """Training-form params, from a seeded generator: the top, the layers,
-    then a hybrid's `shared_attn` block or deepseek-v3's `mtp`.
+    """Training-form params, from a seeded generator: the top, an
+    encdec's encoder layers, the layers, then a hybrid's `shared_attn`
+    block, the tail (`_init_tail`) and deepseek-v3's `mtp`.
     device="meta" gives the tree's shapes and dtypes without data."""
-    _check_family(cfg)
     gen = _generator(seed, device)
     params = _init_top(gen, cfg)
+    if cfg.family == "encdec":
+        params["enc_layers"] = [init_decoder_block(gen, cfg)
+                                for _ in range(cfg.n_enc_layers)]
     block = _layer_init(cfg)
     params["layers"] = [block(gen) for _ in range(cfg.n_layers)]
     if cfg.family == "hybrid":
         params["shared_attn"] = init_decoder_block(gen, cfg)
+    _init_tail(gen, cfg, params)
     if cfg.mtp_heads:
         params["mtp"] = _init_mtp(gen, cfg)
     return params
@@ -186,8 +224,8 @@ def init_serving_params(cfg: ArchConfig, seed: int = 0, device=None,
     serving nests, by its path in the layer ("attn/wo/w", "moe/w_down",
     "mamba/out_proj/w"), and may edit it in place before it is nested
     (tests plant an exception tensor with it); the weights of a hybrid's
-    shared block come with i = "shared_attn"."""
-    _check_family(cfg)
+    shared block come with i = "shared_attn", those of an encdec's
+    encoder layer j with i = ("enc_layers", j)."""
     gen = _generator(seed, device)
     params = to_serving(_init_top(gen, cfg))
 
@@ -199,26 +237,22 @@ def init_serving_params(cfg: ArchConfig, seed: int = 0, device=None,
                 plant(i, next(at), w)
             return _nest(w)
         return wrap_nested_linears(init(gen, put=put))
+    plain_block = functools.partial(init_decoder_block, cfg=cfg)
+    if cfg.family == "encdec":
+        paths = _weight_paths(plain_block)
+        params["enc_layers"] = [streamed(plain_block, ("enc_layers", j), paths)
+                                for j in range(cfg.n_enc_layers)]
     block = _layer_init(cfg)
     paths = _weight_paths(block)
     params["layers"] = [streamed(block, i, paths)
                         for i in range(cfg.n_layers)]
     if cfg.family == "hybrid":
-        shared = functools.partial(init_decoder_block, cfg=cfg)
-        params["shared_attn"] = streamed(shared, "shared_attn",
-                                         _weight_paths(shared))
+        params["shared_attn"] = streamed(plain_block, "shared_attn",
+                                         _weight_paths(plain_block))
+    _init_tail(gen, cfg, params)
     if cfg.mtp_heads:
         params["mtp"] = wrap_nested_linears(_init_mtp(gen, cfg, _nest))
     return params
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    """The port serves dense, MoE (incl. MLA), ssm and hybrid decoders;
-    vlm and encdec are not ported yet."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"the port serves dense, MoE, ssm and "
-                                  f"hybrid decoders; {cfg.arch_id} is "
-                                  f"{cfg.family}")
 
 
 def window_schedule(cfg: ArchConfig) -> tuple[int, ...] | None:
@@ -252,8 +286,12 @@ def cache_descriptor(cfg: ArchConfig, planar: bool = False) -> KV.CacheDescripto
     ssm: slot-resident state only (conv_x, conv_bc f16, ssm f32), no
     paged plane and no prefix cache. hybrid: that state plus the shared
     attention's f16 K/V planes, one layer a application (attn_every must
-    divide n_layers)."""
-    _check_family(cfg)
+    divide n_layers). encdec: NotImplementedError, as in the JAX package
+    (the dense-slot steps serve it)."""
+    if cfg.cache_kind == "encdec":
+        raise NotImplementedError(
+            "engine serves decoder-only archs; enc-dec serving is "
+            "covered by the dense-slot steps")
     if cfg.cache_kind == "mla":
         if planar:
             raise ValueError("byte-planar NestedKV applies to GQA K/V "
@@ -363,17 +401,32 @@ def init_paged_cache(cfg: ArchConfig, n_total_blocks: int, block_size: int,
 # dense per-slot cache
 # ---------------------------------------------------------------------------
 
+def encdec_enc_len(dec_len: int) -> int:
+    """Encoder (audio-frame) length policy for seamless: seq // 8, at
+    least 64 (the JAX package's)."""
+    return max(64, dec_len // 8)
+
+
 def init_cache(cfg: ArchConfig, batch: int, capacity: int,
                planar: bool = False, device=None) -> dict:
-    """{"attn": {plane: (L, B, Cap, ...)}} zeros. GQA: {"k","v"} f16 of
-    (Hkv, D) a token, or with planar=True the byte planes of NestedKV
-    (fp8 decode reads the hi planes only). MLA: {"c_kv", "k_rope"} f16
-    latents ((r,) and (d_rope,) a token; planar does not apply). ssm:
-    {"ssm": {conv_x, conv_bc f16, ssm f32}} of (L, B, ...), whatever the
-    capacity; hybrid: that and the shared attention's f16 {"k","v"} of
-    (L // attn_every, B, Cap, Hkv, D) under "shared"."""
-    _check_family(cfg)
+    """{"attn": {plane: (L, B, Cap, ...)}} zeros. GQA (a vlm too):
+    {"k","v"} f16 of (Hkv, D) a token, or with planar=True the byte planes
+    of NestedKV (fp8 decode reads the hi planes only). MLA: {"c_kv",
+    "k_rope"} f16 latents ((r,) and (d_rope,) a token; planar does not
+    apply). ssm: {"ssm": {conv_x, conv_bc f16, ssm f32}} of (L, B, ...),
+    whatever the capacity; hybrid: that and the shared attention's f16
+    {"k","v"} of (L // attn_every, B, Cap, Hkv, D) under "shared".
+    encdec: f16 {"k","v"} under "attn" (planar does not apply, as in the
+    JAX package) and the f16 cross caches {"k","v"} of (L, B,
+    encdec_enc_len(Cap), Hkv, D) under "cross"."""
     device = resolve_device(device)
+    if cfg.cache_kind == "encdec":
+        shape = (cfg.n_layers, batch, encdec_enc_len(capacity),
+                 cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {**init_cache(dataclasses.replace(cfg, family="dense"), batch,
+                             capacity, device=device),
+                "cross": {n: torch.zeros(shape, dtype=torch.float16,
+                                         device=device) for n in ("k", "v")}}
     if cfg.cache_kind in ("ssm", "hybrid"):
         desc = cache_descriptor(cfg)
         out = {"ssm": _state_planes(desc, batch, device)}
@@ -400,14 +453,17 @@ def init_cache(cfg: ArchConfig, batch: int, capacity: int,
 
 
 def planarize_cache(caches: dict) -> dict:
-    """Prefilled f16 caches ({"attn": {"k","v"}}) in byte-planar form
-    (NestedKV): a new dict whose "attn" holds k_hi, k_lo, v_hi, v_lo u8.
-    Split one layer at a time, so the integer temporaries stay one layer's
-    size; other entries (the state of a recurrent stack) and planar caches
-    pass through."""
+    """Prefilled f16 self-attention caches ({"k","v"} under "attn", or a
+    hybrid's "shared") in byte-planar form (NestedKV): a new dict whose
+    subtree holds k_hi, k_lo, v_hi, v_lo u8. Split one layer at a time, so
+    the integer temporaries stay one layer's size; other entries (the
+    state of a recurrent stack, an encdec's cross caches) and planar
+    caches pass through."""
     out = dict(caches)
-    sub = caches.get("attn", {})
-    if set(sub) == {"k", "v"}:
+    for key in ("attn", "shared"):
+        sub = caches.get(key, {})
+        if set(sub) != {"k", "v"}:
+            continue
         planes = {}
         for kind in ("k", "v"):
             src = sub[kind]
@@ -416,7 +472,7 @@ def planarize_cache(caches: dict) -> dict:
             for i in range(src.shape[0]):
                 hi[i], lo[i] = split_bytes(src[i])
             planes[f"{kind}_hi"], planes[f"{kind}_lo"] = hi, lo
-        out["attn"] = planes
+        out[key] = planes
     return out
 
 
@@ -425,13 +481,17 @@ def planarize_cache(caches: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def apply_decoder_block(rt: Runtime, p: dict, cfg: ArchConfig, x, attend,
-                        aux: list | None = None):
-    """x + attend(norm(x)), then the MLP: the layer's MoE block if it has
-    one, else its SwiGLU. `attend` runs this layer's attention phase on
-    the normed input. aux: a list to which an MoE layer appends its aux
-    dict (`moe.moe_block`); None skips computing it."""
+                        aux: list | None = None, cross=None):
+    """x + attend(norm(x)), then for a layer with cross-attention (an
+    encdec decoder layer) x + cross(norm(x)), then the MLP: the layer's
+    MoE block if it has one, else its SwiGLU. `attend` runs this layer's
+    attention phase on the normed input, `cross` its cross-attention.
+    aux: a list to which an MoE layer appends its aux dict
+    (`moe.moe_block`); None skips computing it."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + attend(h)
+    if "cross" in p:
+        x = x + cross(L.rms_norm(x, p["ln_cross"], cfg.norm_eps))
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" not in p:
         return x + L.swiglu(rt, p["mlp"], h)
@@ -447,28 +507,44 @@ def _attention(cfg, phase: str):
     if cfg.mla is not None:
         return functools.partial(MLA.mla_attention, phase=phase)
     return {"paged": L.attention_paged, "prefill": L.attention_prefill,
-            "decode": L.attention_decode}[phase]
+            "decode": L.attention_decode,
+            "encode": L.attention_encode}[phase]
 
 
-def run_decoder_stack(rt, layers, cfg, x, *, phase, positions, caches,
-                      kv_len=None, paged=None, paged_groups=None, aux=None):
-    """The decoder stack as a loop over layers, for the "paged", "prefill"
-    and "decode" phases; layer i reads and writes slice i of every cache
-    plane in place, within its window (`window_schedule`). Prefill copies
-    each layer's k/v (MLA: c_kv/k_rope) into its f16 cache (the first
-    min(S, Cap) positions; the rest stay zero).
+def _prefill_into(cache: dict, kv: dict) -> None:
+    """Copy a prompt's per-layer k/v (B, S, ...) into the first min(S,
+    Cap) positions of this layer's cache planes (B, Cap, ...)."""
+    for name, plane in cache.items():
+        n = min(kv[name].shape[1], plane.shape[1])
+        plane[:, :n] = kv[name][:, :n]
+
+
+def run_decoder_stack(rt, layers, cfg, x, *, phase, positions, caches=None,
+                      kv_len=None, paged=None, paged_groups=None, aux=None,
+                      memory=None, cross_caches=None):
+    """The decoder stack as a loop over layers, for the "paged", "prefill",
+    "decode" and "encode" phases; layer i reads and writes slice i of
+    every cache plane in place, within its window (`window_schedule`).
+    Prefill copies each layer's k/v (MLA: c_kv/k_rope) into its f16 cache
+    (the first min(S, Cap) positions; the rest stay zero). "encode" is an
+    encoder stack's bidirectional pass, with no cache.
 
     paged: (phys_write (G,B,C), phys_read (G,B,Cap), q_offset (B,),
     tables (G,B,MB)), one index set per window group; paged_groups:
     (L,) layer -> group map. Layer i attends through group
     paged_groups[i]'s indices and table. aux: as `apply_decoder_block`'s
-    (the MoE layers' aux dicts in layer order)."""
+    (the MoE layers' aux dicts in layer order).
+
+    Layers with cross-attention (an encdec's decoder) attend over
+    `memory` (B, Senc, D), writing each layer's projections into slice i
+    of `cross_caches` {"k","v"} (L, B, Senc, Hkv, D) (prefill), or over
+    slice i of `cross_caches` when there is no memory (decode)."""
     windows = _layer_windows(cfg)
     attn = _attention(cfg, phase)
     mla = cfg.mla is not None
     for i, p in enumerate(layers):
-        cache = {name: plane[i] for name, plane in caches.items()}
-        wkw = {} if mla else {"window": windows[i]}
+        cache = {name: plane[i] for name, plane in (caches or {}).items()}
+        wkw = {} if mla or phase == "encode" else {"window": windows[i]}
         if phase == "paged":
             g = 0 if paged_groups is None else int(paged_groups[i])
             pg = (paged[0][g], paged[1][g], paged[2], paged[3][g])
@@ -481,18 +557,29 @@ def run_decoder_stack(rt, layers, cfg, x, *, phase, positions, caches,
             def attend(h):
                 a, kv = attn(rt, p["attn"], cfg, h, positions=positions,
                              **wkw)
-                for name, plane in cache.items():
-                    n = min(kv[name].shape[1], plane.shape[1])
-                    plane[:, :n] = kv[name][:, :n]
+                _prefill_into(cache, kv)
                 return a
         elif phase == "decode":
             def attend(h):
                 out = attn(rt, p["attn"], cfg, h, positions=positions,
                            cache=cache, kv_len=kv_len, **wkw)
                 return out[0] if mla else out
+        elif phase == "encode":
+            def attend(h):
+                return attn(rt, p["attn"], cfg, h, positions=positions)
         else:
             raise ValueError(f"unknown phase {phase!r}")
-        x = apply_decoder_block(rt, p, cfg, x, attend, aux)
+
+        def cross(h, i=i, p=p):
+            xc = {n: pl[i] for n, pl in cross_caches.items()}
+            c, kv = L.cross_attention(rt, p["cross"], cfg, h, memory,
+                                      cache=None if memory is not None
+                                      else xc)
+            if memory is not None:
+                for n, pl in xc.items():
+                    pl.copy_(kv[n])
+            return c
+        x = apply_decoder_block(rt, p, cfg, x, attend, aux, cross)
     return x
 
 
@@ -505,18 +592,6 @@ def apply_ssm_block(rt, p: dict, cfg: ArchConfig, x, *, phase: str,
     return x + y, new_cache
 
 
-def check_dense_slot_family(cfg: ArchConfig) -> None:
-    """The dense-slot steps (`prefill`, `decode_step`, launch/steps.py)
-    refuse a hybrid stack."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"the dense-slot steps of a hybrid stack are not ported: "
-            f"{cfg.arch_id}'s shared attention has head dim "
-            f"{cfg.resolved_head_dim} (zamba2-2.7b: D = 80), and the port's "
-            f"K5 and K6 have instances for D in (64, 128, 256) only; the "
-            f"paged engine serves it")
-
-
 def run_ssm_stack(rt, layers, cfg, x, *, phase, positions, caches,
                   kv_len=None, slot=None, shared_params=None, paged=None):
     """The Mamba2 stack as a loop over layers, for the "paged", "prefill"
@@ -527,11 +602,14 @@ def run_ssm_stack(rt, layers, cfg, x, *, phase, positions, caches,
     were (`mamba2_block`). `slot` (a (1,) tensor) routes a one-row paged
     chunk to that state row, read and written without a host read.
 
-    A hybrid stack (`shared_params`, paged phase only) applies the shared
-    decoder block after every attn_every-th layer: application j attends
-    over layer j of caches["shared"] through `paged` (phys_write (B,C),
-    phys_read (B,Cap), q_offset (B,), tables (B,MB)), as `layers.
-    attention_paged` takes them."""
+    A hybrid stack (`shared_params`) applies the shared decoder block
+    after every attn_every-th layer; application j reads and writes layer
+    j of caches["shared"]: in the paged phase a pool it attends over
+    through `paged` (phys_write (B,C), phys_read (B,Cap), q_offset (B,),
+    tables (B,MB)), as `layers.attention_paged` takes them; in the
+    prefill phase per-slot f16 caches (B, Cap, Hkv, D) it fills, as
+    `run_decoder_stack` fills "attn"; in the decode phase those caches,
+    f16 or planar, through `layers.attention_decode` (K5 when planar)."""
     every = cfg.attn_every if shared_params is not None else 0
     state = caches["ssm"]
     for i, p in enumerate(layers):
@@ -551,11 +629,20 @@ def run_ssm_stack(rt, layers, cfg, x, *, phase, positions, caches,
                 pl.copy_(new[n])
         if every and i % every == every - 1:
             app = {n: pl[i // every] for n, pl in caches["shared"].items()}
+            sp = shared_params["attn"]
 
             def attend(h, app=app):
-                return L.attention_paged(rt, shared_params["attn"], cfg, h,
-                                         positions=positions, cache=app,
-                                         kv_len=kv_len, paged=paged)
+                if phase == "paged":
+                    return L.attention_paged(rt, sp, cfg, h,
+                                             positions=positions, cache=app,
+                                             kv_len=kv_len, paged=paged)
+                if phase == "prefill":
+                    a, kv = L.attention_prefill(rt, sp, cfg, h,
+                                                positions=positions)
+                    _prefill_into(app, kv)
+                    return a
+                return L.attention_decode(rt, sp, cfg, h, positions=positions,
+                                          cache=app, kv_len=kv_len)
             x = apply_decoder_block(rt, shared_params, cfg, x, attend)
     return x
 
@@ -580,9 +667,10 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
                sample_all: bool = False, aux: list | None = None):
     """One step over the paged cache — batched decode (C=1 across all
     rows) and chunked prefill (ragged right-padded chunk rows) alike —
-    for every family: GQA K/V planes, MLA latent planes, and recurrent
-    stacks whose slot-resident state ("ssm") pairs, for a hybrid, with
-    the shared attention's paged planes ("shared").
+    for every family but encdec (ValueError, as in the JAX package): GQA
+    K/V planes (a vlm's text tokens too), MLA latent planes, and
+    recurrent stacks whose slot-resident state ("ssm") pairs, for a
+    hybrid, with the shared attention's paged planes ("shared").
 
     tokens:       (B, C) int32, right-padded chunks (attention families;
                   a recurrent chunk is exact-length: the state would
@@ -620,6 +708,8 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
     in place. Returns next_ids
     (B,) int32 (greedy argmax, on the device) or, with return_logits,
     the (B, V) f32 logits."""
+    if cfg.family == "encdec":
+        raise ValueError("paged_step serves decoder-only archs")
     b, c = tokens.shape
     dev = tokens.device
     desc = cache_descriptor(cfg)
@@ -678,34 +768,74 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def _frontend_tokens(rt, params, cfg, batch):
+    """Stub-frontend embeddings (vlm patches (B, P, F) / audio frames (B,
+    Senc, F)) mapped to d_model by `frontend_proj`, in rt.dtype."""
+    emb = batch["patch_embeds"] if cfg.frontend == "vision" else batch["frames"]
+    return L.apply_linear(rt, params["frontend_proj"], emb.to(rt.dtype))
+
+
+def encode_memory(rt, params, cfg, frames):
+    """encdec: the bidirectional encoder over stub frame embeddings
+    (B, Senc, frontend_dim) -> memory (B, Senc, D) in rt.dtype."""
+    h = _frontend_tokens(rt, params, cfg, {"frames": frames})
+    pos = torch.arange(h.shape[1], device=h.device)[None, :]
+    h = run_decoder_stack(rt, params["enc_layers"], cfg, h, phase="encode",
+                          positions=pos)
+    return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
 def prefill(rt, params, cfg, batch, *, capacity: int | None = None,
             logit_position: int | None = None, aux: list | None = None):
     """Run the whole prompt; returns (logits (B, V) f32, caches, length).
 
-    batch: {"tokens": (B, S)}. The caches are fresh f16 `init_cache`
-    planes ({"k","v"} of (L, B, capacity, Hkv, D), or MLA's latents) with
-    capacity defaulting to S, on the tokens' device, holding the prompt's
-    keys and values, zero past S; for an ssm stack the state after the
-    prompt. Logits are taken at `logit_position` (default: the last
-    position). aux: as `paged_step`'s. A hybrid stack raises
-    NotImplementedError."""
-    check_dense_slot_family(cfg)
+    batch: {"tokens": (B, S)}, with a vlm's "patch_embeds" (B, P,
+    frontend_dim), prepended to the text (length P + S), or an encdec's
+    "frames" (B, Senc, frontend_dim), which the encoder reads. The caches
+    are fresh f16 `init_cache` planes ({"k","v"} of (L, B, capacity, Hkv,
+    D), or MLA's latents) with capacity defaulting to the length, on the
+    tokens' device, holding the prompt's keys and values, zero past it;
+    for a recurrent stack the state after the prompt, and for a hybrid
+    its shared attention's f16 caches under "shared"; for an encdec also
+    "cross", each decoder layer's memory projections {"k","v"} (L, B,
+    Senc, Hkv, D) in rt.dtype, unpadded, as the JAX package leaves them.
+    Logits are taken at `logit_position` of the text (default: the last
+    position). aux: as `paged_step`'s."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    capacity = capacity or s
-    caches = init_cache(cfg, b, capacity, device=tokens.device)
-    positions = torch.arange(s, device=tokens.device)[None, :]
+    dev = tokens.device
     h = embed_tokens(rt, params, cfg, tokens)
-    if cfg.family == "ssm":
+    memory, n_prefix = None, 0
+    if cfg.family == "encdec":
+        memory = encode_memory(rt, params, cfg, batch["frames"])
+    elif cfg.frontend == "vision":
+        front = _frontend_tokens(rt, params, cfg, batch)
+        n_prefix = front.shape[1]
+        h = torch.cat([front, h], dim=1)
+    total = h.shape[1]
+    capacity = capacity or total
+    positions = torch.arange(total, device=dev)[None, :]
+    if cfg.cache_kind in ("ssm", "hybrid"):
+        caches = init_cache(cfg, b, capacity, device=dev)
         h = run_ssm_stack(rt, params["layers"], cfg, h, phase="prefill",
-                          positions=positions, caches=caches)
+                          positions=positions, caches=caches,
+                          shared_params=params.get("shared_attn"))
     else:
+        caches = init_cache(dataclasses.replace(cfg, family="dense"), b,
+                            capacity, device=dev)
+        if memory is not None:
+            shape = (cfg.n_layers, b, memory.shape[1], cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            caches["cross"] = {n: torch.empty(shape, dtype=rt.dtype,
+                                              device=dev) for n in ("k", "v")}
         h = run_decoder_stack(rt, params["layers"], cfg, h, phase="prefill",
                               positions=positions, caches=caches["attn"],
-                              aux=aux)
-    pos = s - 1 if logit_position is None else int(logit_position)
+                              aux=aux, memory=memory,
+                              cross_caches=caches.get("cross"))
+    pos = total - 1 if logit_position is None \
+        else n_prefix + int(logit_position)
     logits = lm_logits(rt, params, cfg, h[:, pos:pos + 1])[:, 0]
-    return logits, caches, s
+    return logits, caches, total
 
 
 def check_cache_len(cap: int | None, cache_len) -> None:
@@ -719,27 +849,29 @@ def check_cache_len(cap: int | None, cache_len) -> None:
 
 
 def cache_capacity(caches) -> int | None:
-    """Positions a row of the dense per-slot caches holds (None for the
-    state of an ssm stack, which is O(1) in the sequence's length)."""
-    if "attn" not in caches:
-        return None
-    return next(iter(caches["attn"].values())).shape[2]
+    """Positions a row of the dense per-slot self-attention caches holds:
+    "attn"'s (not an encdec's cross length), or a hybrid's "shared"; None
+    for the state of an ssm stack, which is O(1) in the sequence's
+    length."""
+    for key in ("attn", "shared"):
+        if key in caches:
+            return next(iter(caches[key].values())).shape[2]
+    return None
 
 
 def decode_step(rt, params, cfg, tokens, caches, cache_len,
                 aux: list | None = None):
     """One decoding step. tokens: (B, 1); cache_len: int or (B,) — tokens
-    already in each row's cache, below its capacity (checked for an int).
-    The new keys and values are written IN PLACE into `caches` (f16 or
-    planar) at position cache_len. Returns (logits (B, V) f32, caches).
+    already in each row's cache (a vlm's patches included), below its
+    capacity (checked for an int). The new keys and values are written IN
+    PLACE into `caches` (f16 or planar) at position cache_len. Returns
+    (logits (B, V) f32, caches).
 
     The host part (the check, and the upload of an int cache_len) is done
     here; `decode_logits` is the device part, which
     `launch/steps.py::make_decode_step` captures with cache_len staged in
-    a device buffer of its own. aux: as `paged_step`'s. An ssm stack
-    advances its state in place; a hybrid stack raises
-    NotImplementedError."""
-    check_dense_slot_family(cfg)
+    a device buffer of its own. aux: as `paged_step`'s. A recurrent stack
+    advances its state in place; an encdec reads its cross caches."""
     b = tokens.shape[0]
     check_cache_len(cache_capacity(caches), cache_len)
     lens = torch.as_tensor(cache_len, device=tokens.device).to(torch.int32)
@@ -754,11 +886,14 @@ def decode_logits(rt, params, cfg, tokens, caches, lens,
     f32, the caches written in place. No host read and no host value
     depends on lens, so a CUDA graph of it serves any lengths."""
     h = embed_tokens(rt, params, cfg, tokens)
-    if cfg.family == "ssm":
+    if cfg.cache_kind in ("ssm", "hybrid"):
         h = run_ssm_stack(rt, params["layers"], cfg, h, phase="decode",
-                          positions=lens[:, None], caches=caches)
+                          positions=lens[:, None], caches=caches,
+                          kv_len=lens + 1,
+                          shared_params=params.get("shared_attn"))
     else:
         h = run_decoder_stack(rt, params["layers"], cfg, h, phase="decode",
                               positions=lens[:, None], caches=caches["attn"],
-                              kv_len=lens + 1, aux=aux)
+                              kv_len=lens + 1, aux=aux,
+                              cross_caches=caches.get("cross"))
     return lm_logits(rt, params, cfg, h[:, -1:])[:, 0]

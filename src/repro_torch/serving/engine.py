@@ -1,10 +1,12 @@
 """Continuous-batching serving engine with per-iteration dual precision.
 
-The port of the JAX package's `serving/engine.py` for dense, MoE, SSM
-and hybrid decoders: GQA K/V planes (f16 or byte-planar), or MLA's f16
-latent planes (`c_kv`, `k_rope`) through the same block pool, prefix
-cache and host tier; and, for a recurrent stack, its slot-resident state
-(below).
+The port of the JAX package's `serving/engine.py` for every decoder-only
+family: GQA K/V planes (f16 or byte-planar; a vlm is served as a
+text-only GQA decoder, as the JAX engine serves it), or MLA's f16 latent
+planes (`c_kv`, `k_rope`) through the same block pool, prefix cache and
+host tier; and, for a recurrent stack, its slot-resident state (below).
+An encdec is refused (NotImplementedError from `model.cache_descriptor`,
+as in the JAX engine): the dense-slot steps serve it.
 Each engine step (a) schedules prompt-prefill CHUNKS up to a token
 budget, interleaved with decode, and (b) advances every active slot by one
 token (batched decode) over a BLOCK-PAGED KV cache. Admission is driven

@@ -474,14 +474,21 @@ def test_decode_split_grid_and_head_dims(dev):
             ((16, 32), (16, 33), (24, 22), (1024, 3))] == [1, 2, 2, 3]
     for paged in (False, True):
         for fp8 in (False, True):
-            assert pda.dynamic_smem_bytes(64, fp8=fp8, paged=paged) > 0
-            assert pda.dynamic_smem_bytes(128, fp8=fp8, paged=paged) > 0
-            assert pda.dynamic_smem_bytes(96, fp8=fp8, paged=paged) == 0
-    planes = _dense_planes(dev, 1, 32, 1, 96, seed=9)
-    with pytest.raises(ValueError, match="D=96"):
-        ops.planar_decode_attention(torch.zeros((1, 1, 96), device=dev),
+            for d in (64, 96, 128):
+                assert pda.dynamic_smem_bytes(d, fp8=fp8, paged=paged) > 0
+            assert (pda.dynamic_smem_bytes(80, fp8=fp8, paged=paged) > 0) \
+                == (not paged)             # K5 only: zamba2's shared caches
+            assert pda.dynamic_smem_bytes(72, fp8=fp8, paged=paged) == 0
+    planes = _dense_planes(dev, 1, 32, 1, 72, seed=9)
+    with pytest.raises(ValueError, match="D=72"):
+        ops.planar_decode_attention(torch.zeros((1, 1, 72), device=dev),
                                     planes, torch.ones(1, dtype=torch.int32,
                                                        device=dev), fp8=False)
+    q, pool, tab, ln = _paged_case(dev, 9, [5], 16, 1, h=1, hkv=1, d=80)
+    n0 = ops.all_launch_counters()["paged_planar_decode_attention"]
+    with pytest.raises(ValueError, match="D=80"):
+        ops.paged_decode_attention(q, pool, tab, ln, fp8=False)
+    assert ops.all_launch_counters()["paged_planar_decode_attention"] == n0
 
 
 # -- K4 and K5 at gemma3-1b's heads: 4 q heads, 1 kv head, D = 256 ----------
@@ -583,6 +590,94 @@ def test_decode_rows_do_not_depend_on_the_batch_at_head_dim_256(dev, kernel,
     assert torch.equal(moved[0], batch[3]) and torch.equal(moved[3], batch[0])
 
 
+# -- K4 at D = 96 (phi-3-vision), K5 and K6 at D = 80 (zamba2-2.7b's
+# shared attention) and 96: MHA (G = 1) and G = 4 -----------------------
+
+NEW_DIM_PAGED = [(16, 4, [50, 0, 37]), (16, 40, [0, 1, 511, 512, 513, 640]),
+                 (16, 68, [1, 1024, 1088, 17])]
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("h,hkv", [(32, 32), (8, 2)])
+@pytest.mark.parametrize("bs,mb,lens", NEW_DIM_PAGED)
+def test_paged_decode_attention_head_dim_96(dev, fp8, window, h, hkv, bs, mb,
+                                            lens):
+    """K4's D = 96 instance: 96-byte plane rows, padded to 96 + 16 in the
+    ring; one split a row and several (lens on the 512 edges)."""
+    q, planes, tab, ln = _paged_case(dev, 31, lens, bs, mb, h=h, hkv=hkv,
+                                     d=96)
+    n0 = ops.all_launch_counters()["paged_planar_decode_attention"]
+    got = ops.paged_decode_attention(q, planes, tab, ln, fp8=fp8,
+                                     window=window)
+    assert ops.all_launch_counters()["paged_planar_decode_attention"] == n0 + 1
+    want = ref.paged_planar_decode_attention_ref(
+        q, planes["k_hi"], planes["k_lo"], planes["v_hi"], planes["v_lo"],
+        tab, ln, fp8=fp8, window=window)
+    live = ln > 0
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    torch.testing.assert_close(got[live], want[live], **ATTN_TOL)
+
+
+NEW_DIM_DENSE = [(200, [1, 64, 65, 200]), (1056, [1056, 1040, 17, 1]),
+                 (3000, [2999, 1, 1500, 3000])]
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("window", [None, 273])
+@pytest.mark.parametrize("h,hkv", [(32, 32), (8, 2)])
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("cap,lens", NEW_DIM_DENSE)
+def test_planar_decode_attention_head_dims_80_and_96(dev, fp8, window, h, hkv,
+                                                     d, cap, lens):
+    """K5's D = 80 instance (80-byte rows padded to 96 in shared memory,
+    the 16 pad bytes zero) and D = 96, ragged lens."""
+    b = len(lens)
+    planes = _dense_planes(dev, b, cap, hkv, d, seed=32)
+    q = torch.randn((b, h, d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(32))
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n0 = ops.all_launch_counters()["planar_decode_attention"]
+    got = ops.planar_decode_attention(q, planes, ln, fp8=fp8, window=window)
+    assert ops.all_launch_counters()["planar_decode_attention"] == n0 + 1
+    want = ref.planar_decode_attention_ref(
+        q, planes["k_hi"], planes["k_lo"], planes["v_hi"], planes["v_lo"],
+        ln, fp8=fp8, window=window)
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+def test_planar_decode_attention_head_dim_80_at_32768(dev, fp8):
+    """zamba2-2.7b's dense-slot decode at 32k: 32 heads of 80, 64 splits."""
+    b, h, d, cap = 2, 32, 80, 32768
+    planes = _dense_planes(dev, b, cap, h, d, seed=33)
+    q = torch.randn((b, h, d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(33))
+    ln = torch.tensor([32768, 20001], dtype=torch.int32, device=dev)
+    got = ops.planar_decode_attention(q, planes, ln, fp8=fp8)
+    want = ref.planar_decode_attention_ref(
+        q, planes["k_hi"], planes["k_lo"], planes["v_hi"], planes["v_lo"],
+        ln, fp8=fp8)
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("d", [80, 96])
+def test_decode_rows_do_not_depend_on_the_batch_at_head_dims_80_and_96(
+        dev, d, fp8):
+    planes = _dense_planes(dev, 8, 700, 4, d, seed=34)
+    q = torch.randn((8, 4, d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(34))
+    ln = torch.tensor([700, 1, 512, 513, 77, 600, 3, 699], dtype=torch.int32,
+                      device=dev)
+    batch = ops.planar_decode_attention(q, planes, ln, fp8=fp8)
+    for r in range(8):
+        one = {n: p[r:r + 1].contiguous() for n, p in planes.items()}
+        assert torch.equal(batch[r:r + 1], ops.planar_decode_attention(
+            q[r:r + 1].contiguous(), one, ln[r:r + 1], fp8=fp8)), r
+
+
 def test_decode_head_dim_256_instances(dev):
     """Both C entries have D = 256 instances (the FP16 ring of 4 warps x
     2 stages x 4 planes x 16 keys x 272 B, plus 8 KB of q fragments)."""
@@ -608,7 +703,15 @@ PREFILL_CASES = (
     + [(torch.bfloat16, 8, 1024, 32, 8, 128)]
     + [(dt, 2, s, 2 * g, 2, 256) for dt in (torch.float16, torch.bfloat16)
        for s in (1, 63, 64, 65) for g in (1, 2, 4)]
-    + [(torch.bfloat16, 8, 1024, 4, 1, 256), (torch.float32, 2, 65, 4, 1, 256)])
+    + [(torch.bfloat16, 8, 1024, 4, 1, 256), (torch.float32, 2, 65, 4, 1, 256)]
+    # D = 80 (zamba2-2.7b's shared attention) and 96 (phi-3-vision): rows
+    # of 176 / 208 bytes in shared memory, on the tile edges, G = 1 and 4,
+    # then each model's dense prefill, and f32 (V padded to 128 columns)
+    + [(dt, 2, s, 2 * g, 2, d) for dt in (torch.float16, torch.bfloat16)
+       for s in (1, 63, 64, 65) for g in (1, 4) for d in (80, 96)]
+    + [(torch.float32, 2, s, 8, 2, d) for s in (9, 65) for d in (80, 96)]
+    + [(torch.bfloat16, 8, 1024, 32, 32, 80),
+       (torch.bfloat16, 8, 1600, 32, 32, 96)])
 
 
 @pytest.mark.parametrize("dtype,b,s,h,hkv,d", PREFILL_CASES)
@@ -651,7 +754,7 @@ def test_flash_prefill_attention_groups_not_dividing_64(dev, dtype, b, s, h,
                                **ATTN_TOL)
 
 
-@pytest.mark.parametrize("d", [96, 512])
+@pytest.mark.parametrize("d", [72, 112, 512])
 def test_flash_prefill_raises_for_other_head_dims(dev, d):
     """A head dim without an instance raises before any launch; the plain
     version never runs in its place."""
@@ -859,19 +962,38 @@ def test_dense_steps_on_the_card(dev):
 # -- the dense-slot decode step as a CUDA graph (launch/steps.py) ----------
 
 def _dense_case(dev, arch, mode, **over):
+    """A reduced model's dense-slot prefill of 3 x 40 tokens (with its stub
+    frontend's inputs) on the card -> (cfg, params, planar caches, next
+    tokens, cache length: 40 plus a vlm's patches)."""
     import dataclasses
     cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
     sp = to_serving(M.init_params(cfg, seed=0, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(9)
     toks = torch.randint(1, cfg.vocab_size, (3, 40), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(9),
-                         dtype=torch.int32)
-    logits, caches = steps.make_prefill_step(cfg, mode, capacity=48)(
-        sp, {"tokens": toks})
+                         generator=gen, dtype=torch.int32)
+    batch = {"tokens": toks, **steps.stub_frontend(cfg, 3, 40, generator=gen,
+                                                   device=dev)}
+    n = 40 + (cfg.frontend_len if cfg.frontend == "vision" else 0)
+    logits, caches = steps.make_prefill_step(cfg, mode, capacity=n + 8)(
+        sp, batch)
     return cfg, sp, M.planarize_cache(caches), \
-        logits.argmax(-1).to(torch.int32)[:, None]
+        logits.argmax(-1).to(torch.int32)[:, None], n
 
 
-DENSE_GRAPH_CASES = [("llama3.1-8b", {}), ("gemma3-1b", {"head_dim": 256})]
+def _attn_layers(cfg) -> int:
+    """Self-attention layers a decode step runs (K5 launches)."""
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" \
+        else cfg.n_layers
+
+
+# the dense families at head dims 128 and 256, then the families this
+# path took last: phi-3-vision (D = 96, patches ahead of the text),
+# zamba2 (its shared attention at D = 80) and seamless (D = 64, the
+# cross caches in the graph's key)
+DENSE_GRAPH_CASES = [("llama3.1-8b", {}), ("gemma3-1b", {"head_dim": 256}),
+                     ("phi-3-vision-4.2b", {"head_dim": 96}),
+                     ("zamba2-2.7b", {"head_dim": 80, "n_layers": 4}),
+                     ("seamless-m4t-large-v2", {})]
 
 
 @pytest.mark.parametrize("arch,over", DENSE_GRAPH_CASES)
@@ -880,15 +1002,15 @@ def test_decode_graph_first_replay_is_its_eager_call(dev, arch, over, mode):
     """The first call captures; the next (the first replay) gives the
     logits and every cache plane of an eager `decode_step` on clones of
     the same caches, bitwise; its launches are counted as one step's."""
-    cfg, sp, caches, nxt = _dense_case(dev, arch, mode, **over)
+    cfg, sp, caches, nxt, n = _dense_case(dev, arch, mode, **over)
     step = steps.make_decode_step(cfg, mode)
-    step(sp, caches, nxt, 40)
+    step(sp, caches, nxt, n)
     assert step.n_captured == 1
     n0 = ops.all_launch_counters()["planar_decode_attention"]
-    same = step.check_replay(sp, caches, nxt, 40)
+    same = step.check_replay(sp, caches, nxt, n)
     assert all(same.values()), same
     assert ops.all_launch_counters()["planar_decode_attention"] == \
-        n0 + cfg.n_layers
+        n0 + _attn_layers(cfg)
     assert step.n_captured == len(step.keys()) == 1
     assert step.pool_bytes() > 0
 
@@ -899,25 +1021,27 @@ def test_decode_graph_replays_follow_cache_len(dev, arch, over, length):
     """Replays with cache_len advancing (an int staged from the host, or
     a (B,) device tensor copied on the device) give each next eager
     step's logits bitwise, and write the caches as the eager steps do."""
-    cfg, sp, caches, nxt = _dense_case(dev, arch, "fp16", **over)
-    eager = {"attn": {n: p.clone() for n, p in caches["attn"].items()}}
+    cfg, sp, caches, nxt, n = _dense_case(dev, arch, "fp16", **over)
+    eager = {sub: {k: p.clone() for k, p in planes.items()}
+             for sub, planes in caches.items()}
     step, rt = steps.make_decode_step(cfg, "fp16"), steps.serve_rt("fp16")
     for i in range(5):
-        cl = 40 + i if length == "int" else torch.full(
-            (3,), 40 + i, dtype=torch.int32, device=dev)
+        cl = n + i if length == "int" else torch.full(
+            (3,), n + i, dtype=torch.int32, device=dev)
         got, _ = step(sp, caches, nxt, cl)
         want, _ = M.decode_step(rt, sp, cfg, nxt, eager, cl)
         assert torch.equal(got, want), i
         nxt = want.argmax(-1).to(torch.int32)[:, None]
     assert step.n_captured == 1
-    for n, p in caches["attn"].items():
-        assert torch.equal(p, eager["attn"][n]), n
+    for sub, planes in caches.items():
+        for k, p in planes.items():
+            assert torch.equal(p, eager[sub][k]), (sub, k)
 
 
 def test_decode_graph_failed_capture_raises(dev, monkeypatch):
     """An error while the step is captured reaches the caller; nothing
     runs the eager step in its place."""
-    cfg, sp, caches, nxt = _dense_case(dev, "llama3.1-8b", "fp16")
+    cfg, sp, caches, nxt, _ = _dense_case(dev, "llama3.1-8b", "fp16")
     step = steps.make_decode_step(cfg, "fp16")
     real = M.decode_logits
 

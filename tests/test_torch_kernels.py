@@ -476,15 +476,22 @@ def _join(kind: str, fp8: bool, hi: int, lo: int) -> tuple[int, int]:
     return _byte_perm(lo, hi, s0), _byte_perm(lo, hi, s1)
 
 
+def _dp(d: int) -> int:
+    """The decode body's head dim in shared memory: D rounded up to the 32
+    bytes of an ldmatrix x4 slice (D = 80 -> 96; pad bytes zero)."""
+    return (d + 31) // 32 * 32
+
+
 class TestDecodeFragments:
     """One warp's step of the card's K4/K5 body: 16 keys of plane bytes
     in a padded ring slot (planes k_hi, v_hi, k_lo, v_lo), QK^T with q as
     two f16 terms in rows g and g + 8, PV with p * 2^12 likewise, and the
-    float4 each thread ends with."""
+    float4 each thread ends with. At D = 80 a key row holds 80 plane
+    bytes and 16 zero bytes (`_dp`), and q's pad lanes are zero."""
 
     @staticmethod
     def _slot(d, fp8, k, v):
-        ld = d + 16
+        ld = _dp(d) + 16
         planes = []
         for x in (k, v):
             bits = x.view(np.uint16)
@@ -503,7 +510,7 @@ class TestDecodeFragments:
         return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 16
 
     @pytest.mark.parametrize("fp8", [False, True])
-    @pytest.mark.parametrize("d", [64, 128, 256])
+    @pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
     def test_step_products_follow_the_fragment_maps(self, d, fp8):
         rng = np.random.default_rng(40)
         g_rows = 4
@@ -515,7 +522,9 @@ class TestDecodeFragments:
         q = (rng.normal(size=(g_rows, d)) * 300).astype(np.float32)
         smem, ld = self._slot(d, fp8, k, v)
         plane = _STEP * ld
-        kb_n = d // 16
+        dp = _dp(d)
+        kb_n = dp // 16
+        q = np.pad(q, ((0, 0), (0, dp - d)))      # the pad lanes load as 0
         qa = [[[0] * 4 for _ in range(32)] for _ in range(kb_n)]
         for lane in range(32):
             g, t = lane // 4, lane % 4
@@ -526,7 +535,7 @@ class TestDecodeFragments:
                 qa[kb][lane][2], qa[kb][lane][3] = _split2(x[2], x[3])
         offs = [self._a_off(lane, ld) for lane in range(32)]
         sc = [[[0.0] * 4 for _ in range(32)] for _ in range(2)]
-        for kb in range(d // 32):
+        for kb in range(dp // 32):
             kh = _ldsm_x4(smem, [o + kb * 32 for o in offs], False)
             kl = (_ldsm_x4(smem, [2 * plane + o + kb * 32 for o in offs],
                            False) if not fp8 else [[0] * 4] * 32)
@@ -536,7 +545,7 @@ class TestDecodeFragments:
                      [x[1] for x in b])
         q_hi = q.astype(np.float16).astype(np.float32)  # the two f16 terms
         q_two = q_hi.astype(np.float64) + (q - q_hi).astype(np.float16)
-        want_s = q_two @ k.astype(np.float64).T
+        want_s = q_two[:, :d] @ k.astype(np.float64).T
         p = rng.uniform(0, 1, size=(8, _STEP))
         pa = [[0] * 4 for _ in range(32)]
         for lane in range(32):
@@ -553,7 +562,7 @@ class TestDecodeFragments:
             pa[lane][2], pa[lane][3] = _split2(pw[8 + 2 * t], pw[9 + 2 * t])
         acc = [[[[0.0] * 4 for _ in range(32)] for _ in range(2)]
                for _ in range(kb_n)]
-        for vb in range(d // 32):
+        for vb in range(dp // 32):
             vh = _ldsm_x4(smem, [plane + o + vb * 32 for o in offs], True)
             vl = (_ldsm_x4(smem, [3 * plane + o + vb * 32 for o in offs],
                            True) if not fp8 else [[0] * 4] * 32)
@@ -568,7 +577,7 @@ class TestDecodeFragments:
         p32 = (p * 4096).astype(np.float32)      # the two f16 terms of p
         p_hi = p32.astype(np.float16).astype(np.float32)
         p_two = p_hi.astype(np.float64) + (p32 - p_hi).astype(np.float16)
-        want_o = p_two @ v.astype(np.float64)
+        want_o = np.pad(p_two @ v.astype(np.float64), ((0, 0), (0, dp - d)))
         for lane in range(32):
             g, t = lane // 4, lane % 4
             for db in range(kb_n):
@@ -579,16 +588,21 @@ class TestDecodeFragments:
                     got, want_o[g, 16 * db + 4 * t:16 * db + 4 * t + 4],
                     rtol=1e-9, atol=1e-9)
 
-    @pytest.mark.parametrize("d", [64, 128, 256])
+    @pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
     def test_loads_and_reads_cover_the_slot_without_bank_conflicts(self, d):
         """cp.async: lane + 32 it covers every (key, 16-byte chunk) of a
-        plane once; ldmatrix: the 8 rows of each matrix of every x4 read
+        padded row once, the chunks past D from no source (zero-filled),
+        the others at 16-byte aligned plane offsets (rows of 80 and 96
+        bytes too); ldmatrix: the 8 rows of each matrix of every x4 read
         hit 32 distinct banks."""
-        ld, ch = d + 16, d // 16
+        ld, ch = _dp(d) + 16, _dp(d) // 16
         seen = sorted(((lane + 32 * it) // ch, (lane + 32 * it) % ch)
                       for it in range(_STEP * ch // 32) for lane in range(32))
         assert seen == [(t, c) for t in range(_STEP) for c in range(ch)]
-        for kb in range(d // 32):
+        assert all((key * d + 16 * c) % 16 == 0 for key, c in seen
+                   if c < d // 16)
+        assert sum(c >= d // 16 for _, c in seen) == _STEP * (ch - d // 16)
+        for kb in range(_dp(d) // 32):
             offs = [self._a_off(lane, ld) + kb * 32 for lane in range(32)]
             for i in range(4):
                 banks = {(a // 4 + w) % 32 for a in offs[8 * i:8 * i + 8]
@@ -917,14 +931,14 @@ class TestFlashPrefillAttention:
         got = self._tc_body(q, k, v, dtype, tile=32)
         np.testing.assert_allclose(got.numpy(), want.numpy(), **ATTN_TOL)
 
-    @pytest.mark.parametrize("d", [64, 128, 256, 96, 512])
+    @pytest.mark.parametrize("d", [64, 80, 96, 128, 256, 72, 112, 512])
     def test_shape_rule(self, d):
-        """The card's instances: D in (64, 128, 256), and G = H / Hkv a
-        whole number up to the 64 query rows of a block (one that does not
-        divide 64, as deepseek-coder-33b's 56 / 8, leaves dead rows);
-        anything else raises before a launch (never the plain version in
-        its place)."""
-        if d in (64, 128, 256):
+        """The card's instances: D in (64, 80, 96, 128, 256), and G = H /
+        Hkv a whole number up to the 64 query rows of a block (one that
+        does not divide 64, as deepseek-coder-33b's 56 / 8, leaves dead
+        rows); anything else raises before a launch (never the plain
+        version in its place)."""
+        if d in (64, 80, 96, 128, 256):
             for h, hkv in ((4, 1), (32, 8), (8, 8), (64, 1), (56, 8),
                            (3, 1), (7, 1)):
                 k6_check_shape(h, hkv, d)

@@ -85,7 +85,9 @@ def test_registry_serves_every_dense_config():
     assert set(TARCHS) == {"qwen1.5-0.5b", "llama3.1-8b", "gemma3-1b",
                            "qwen3-8b", "deepseek-coder-33b",
                            "granite-moe-3b-a800m", "deepseek-v3-671b",
-                           "mamba2-2.7b", "zamba2-2.7b"}
+                           "mamba2-2.7b", "zamba2-2.7b", "phi-3-vision-4.2b",
+                           "seamless-m4t-large-v2"}
+    assert set(TARCHS) == set(JARCHS)          # every config of the JAX package
     assert {a for a, c in TARCHS.items() if c.family == "dense"} == {
         "qwen1.5-0.5b", "llama3.1-8b", "gemma3-1b", "qwen3-8b",
         "deepseek-coder-33b"}

@@ -11,9 +11,10 @@ reckoning of the full configs equals the JAX package's; the serve CLI
 takes both archs and refuses --speculate for them. The dense-slot steps
 (`launch/steps.py`, serve_rt: bf16) serve mamba2 and give the JAX
 steps' logits within BF16_TOL, their decode step costs the same state
-at any cache length, and they refuse zamba2 (its shared attention's head
-dim 80 has no K5 / K6 instance); prefill + decode equals a longer
-prefill, the counterpart of test_arch_smoke.py's consistency test."""
+at any cache length, and they serve zamba2 too (its shared attention's
+head dim 80 has K5 / K6 instances; tests/test_torch_hybrid_dense.py
+holds it to the JAX package); prefill + decode equals a longer prefill,
+the counterpart of test_arch_smoke.py's consistency test."""
 
 import dataclasses
 
@@ -69,11 +70,9 @@ def test_registry_serves_the_recurrent_families():
     assert TARCHS["zamba2-2.7b"].family == "hybrid"
     assert TARCHS["zamba2-2.7b"].resolved_head_dim == 80
     assert TARCHS["mamba2-2.7b"].resolved_head_dim == 0
-    for fam in ("vlm", "encdec"):              # still refused
-        cfg = dataclasses.replace(TARCHS["llama3.1-8b"].reduced(),
-                                  family=fam)
-        with pytest.raises(NotImplementedError, match=fam):
-            TM.init_params(cfg, device="meta")
+    for arch in ("phi-3-vision-4.2b", "seamless-m4t-large-v2"):
+        cfg = TARCHS[arch].reduced()           # built, no family refused
+        assert TM.init_params(cfg, device="meta")["frontend_proj"]
 
 
 def _plant(i, path, w):
@@ -276,15 +275,23 @@ def test_staged_decode_is_o1_in_the_cache_length():
 
 
 def test_dense_slot_refuses_zamba2():
-    cfg = TARCHS["zamba2-2.7b"]
-    for make in (TS.make_prefill_step, TS.make_decode_step):
-        with pytest.raises(NotImplementedError, match="D = 80"):
-            make(cfg, "fp16")
-    small = cfg.reduced()
+    """The dense-slot steps serve zamba2 now (K5 and K6 have D = 80
+    instances): at its head dim of 80 the reduced stack prefills its
+    shared caches at capacity and decodes over them; what the steps
+    still refuse is a head dim without an instance, on the card (the
+    shape rule, before any launch)."""
+    from repro_torch.kernels.flash_prefill_attention import check_shape
+    small = dataclasses.replace(TARCHS["zamba2-2.7b"].reduced(), head_dim=80)
     sp = TM.init_serving_params(small, device="cpu")
-    with pytest.raises(NotImplementedError, match="K5 and K6"):
-        TM.prefill(TS.serve_rt("fp16"), sp, small,
-                   {"tokens": torch.ones((1, 4), dtype=torch.int32)})
+    logits, caches = TS.make_prefill_step(small, "fp16", capacity=12)(
+        sp, {"tokens": torch.ones((1, 4), dtype=torch.int32)})
+    assert tuple(caches["shared"]["k"].shape) == (1, 1, 12, 4, 80)
+    got, _ = TS.make_decode_step(small, "fp16")(
+        sp, TM.planarize_cache(caches), logits.argmax(-1)[:, None], 4)
+    assert torch.isfinite(got).all()
+    check_shape(32, 32, 80)
+    with pytest.raises(ValueError, match="need D in"):
+        check_shape(32, 32, 72)
 
 
 def test_decode_consistency_vs_long_prefill():
