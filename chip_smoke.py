@@ -48,10 +48,10 @@ Phases, in order; any failed check exits non-zero before the last line:
               reclaim off, each after a warm pass; local-layer blocks must
               be reclaimed, fp16 tokens must be equal with reclaim on and
               off, every replay bitwise its eager call
-  8. gemma_dense  gemma3-1b at full width and depth through the dense-slot
-              steps, as phase 5: K6 must launch once a prefill for each
-              of the 4 global layers; then the decode step at capacity
-              32768 (7.0 GB of planar caches)
+  8. gemma_dense  gemma3-1b at full width, 13 of its 26 layers (DEPTH),
+              through the dense-slot steps, as phase 5: K6 must launch
+              once a prefill for each global layer; then the decode step
+              at capacity 32768
   9. spec     llama3.1-8b at full width, 16 of its 32 layers (DEPTH),
               through `Engine` with n-gram speculation: 8 slots,
               capacity 512, planar KV, 8
@@ -96,11 +96,11 @@ nothing else, the three of qwen3-8b last:
               reckoning, what two copies (FP16 + FP8) would take beside
               the card's total; each key's graph pool growth; dual
               mode's FP16 fraction and the controller's reasons
-  ds_dense    all 62 layers through the dense-slot steps as phase 5 (K6
-              at G = 7 in every layer); the 32k decode is reckoned, not
-              run (its caches would not fit beside the weights)
+  ds_dense    31 of the 62 layers (DEPTH) through the dense-slot steps
+              as phase 5 (K6 at G = 7 in every layer); the 32k decode is
+              reckoned, not run
   qwen3_slice, qwen3_serve, qwen3_dense  the same for qwen3-8b (36
-              layers, qk_norm; the dense-slot steps at 18: DEPTH): FP8
+              layers, qk_norm; the dense-slot steps at 9: DEPTH): FP8
               readings at 1 and 4 layers, and the 32k decode run as
               llama3.1-8b's
 The MoE family runs in five more phases: the two of deepseek-v3 right
@@ -147,7 +147,7 @@ attention reads f16 pools by the gathered path, as the JAX engine):
               (attn_every 2), the 6-layer FP8 run a reading (F-port-8)
   zamba2_serve  all 54 layers through `Engine` as mamba2_serve, the shared
               attention's K/V in f16 paged pools
-  zamba2_dense  all 54 layers through the dense-slot steps as phase 5:
+  zamba2_dense  18 of the 54 layers (DEPTH) through the dense-slot steps:
               the shared attention's caches prefilled (K6 at D = 80) and
               planarized, the decode graph (K5 at D = 80) at capacity
               1056 and at 32768
@@ -157,19 +157,21 @@ The stub-frontend families run last, in five more phases (an exception
 wo in each):
   phi3_slice  phi-3-vision-4.2b at full width (32 heads of 96), 2 layers,
               card against CPU as ds_slice (the dense-slot prefill with
-              576 stub patches ahead of 48 tokens, its FP8 run a reading:
-              F-port-9); paged FP8 at 4 layers gated at DEEP_FP8_TOL
-  phi3_serve  all 32 layers through `Engine`, text only as in the JAX
-              engine: 8 x (1024 + 64), capacity 1088, planar KV, FP16 /
-              FP8 / dual (K4 at D = 96)
-  phi3_dense  all 32 layers through the dense-slot steps: 8 x (576
-              patches + 1024 tokens) prefilled (K6 at D = 96), the decode
-              graph replayed (K5 at D = 96)
+              576 stub patches ahead of 48 tokens, its FP8 run gated at
+              PHI3_DENSE_FP8_TOL: F-port-9); paged FP8 at 4 layers gated
+              at DEEP_FP8_TOL
+  phi3_serve  16 of the 32 layers (DEPTH) through `Engine`, text only as
+              in the JAX engine: 8 x (1024 + 64), capacity 1088, planar
+              KV, FP16 / FP8 / dual (K4 at D = 96)
+  phi3_dense  16 of the 32 layers (DEPTH) through the dense-slot steps:
+              8 x (576 patches + 1024 tokens) prefilled (K6 at D = 96),
+              the decode graph replayed (K5 at D = 96)
   seamless_slice  seamless-m4t-v2 at full width, 2 encoder + 2 decoder
               layers, dense-slot prefill over 64 stub frames a row and 4
               decode steps through the cross caches, card against CPU in
               f32: FP16 and FP8 on the CPU's encoder memory gated at
-              SLICE_TOL, the whole FP8 chain a reading (F-port-9)
+              SLICE_TOL, the whole FP8 chain at SEAMLESS_CHAIN_FP8_TOL
+              (F-port-9)
   seamless_dense  24 + 24 layers through the dense-slot steps: 8 x 1024
               tokens over 128 frames a row (the encoder's ms apart), 64
               replayed decode steps
@@ -177,6 +179,29 @@ The kernels phase also holds K4 at D = 96 (phi3's heads) and K5 and K6 at
 D = 80 (zamba2's shared attention) and 96; each instance is an entry of
 its own in the kernels line ("flash_prefill_attention@D80", ...), its
 launches those of the phase whose model alone has that head dim.
+Serving meshes run last, every shard on the one card (their times are
+those of shards sharing a card, not of tensor parallelism across cards):
+  tp_serve  llama3.1-8b at full width, 8 layers (DEPTH, layer 0's wo an
+            exception tensor) through `Engine(mesh=...)` on 2 and 4
+            shards and unsharded, 8 x (128 + 32) after a warm pass, FP16,
+            FP8 and dual: first-decode logits against the unsharded model
+            (FP16 at 8 layers, FP8 at 2 and 4 layers gated, FP8 at 8 a
+            reading beside its CPU control: F-port-10), tokens under the
+            margin rule, stats equal, every first replay bitwise, K1-K4
+            and the quantizer halves launched at every per-shard shape
+  tp_gemma  gemma3-1b at full width and depth on 4 shards (one q head
+            each, the kv head and its pool whole on every shard, K4 at
+            G = 1), 8 x (640 + 32), window reclaim on, FP16 and FP8,
+            held as tp_serve holds its meshes
+  tp_fleet  Router.build(meshes=make_replica_meshes(2, 2, ...)), llama3.1-
+            8b at 4 layers: a planned kill (nothing lost, the survivor
+            serves on) and a rebuild after a failed drain (the old
+            engine's shard slices and pools freed, the other replica
+            untouched)
+The kernels phase times K1, K2, K3, K4 and the quantizer's halves
+(`row_absmax`, `quant_per_token_scaled`) at the per-shard shapes; the
+kernels line has an entry "<kernel>@tp4" for each of K1-K4 at
+llama3.1-8b's shard of 4, and one for each half.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 GPU is present or the port is missing.
@@ -1358,7 +1383,7 @@ def family_slice_phase(torch, cfg, label: str, readings=()) -> dict:
     2 layers gated at DEEP_FP8_TOL, a reading otherwise), and the
     dense-slot prefill (K6 at the model's G; a vlm's stub patches ahead
     of the text) and decode steps at 2 layers in f32 (gated; a vlm's
-    FP8 run a reading, F-port-9). The weights
+    FP8 run at PHI3_DENSE_FP8_TOL, F-port-9). The weights
     are streamed onto the card (K8 nests them there) and copied to the
     CPU, whose plain GEMMs take one weight at a time (and sum in f64,
     F-port-5). The CPU's plain versions take most of the phase's time."""
@@ -1383,13 +1408,15 @@ def family_slice_phase(torch, cfg, label: str, readings=()) -> dict:
                                          else None)
     t0 = time.time()
     # a vlm's dense-slot FP8 run (576 patches ahead of the text, the
-    # per-tensor FP8 scale) is a reading: there the port's CPU path and
-    # the JAX package part by 0.347 at 2 layers (0.303 without the
-    # patches; `tests/_fport8_phi3_control.py`, ROADMAP §3 F-port-9)
+    # per-tensor FP8 scale) is gated at PHI3_DENSE_FP8_TOL: there the
+    # port's CPU path and the JAX package part by 0.347 at 2 layers (0.303
+    # without the patches; `tests/_fport8_phi3_control.py`, ROADMAP §3
+    # F-port-9)
     out["dense"] = dense_slice(
         torch, dataclasses.replace(cfg, n_layers=2), params,
         runs=[("fp16", "f32", 2, True),
-              ("fp8", "f32", 2, cfg.frontend != "vision")],
+              ("fp8", "f32", 2, PHI3_DENSE_FP8_TOL
+               if cfg.frontend == "vision" else True)],
         label=f"{label} dense")
     out["dense"]["seconds"] = time.time() - t0
     del params, sp_gpu, sp_cpu
@@ -1517,6 +1544,18 @@ SLICE_TOL = {"fp16": 1e-2, "fp8": 0.25}
 # 0.28 at 4-6 layers; the port's CPU path against the JAX package on the
 # same schedule, the control, 0.28-0.31): ROADMAP §3, F-port-8
 DEEP_FP8_TOL = 0.35
+# F-port-9 (ROADMAP §3), two FP8 dense-slot runs with the per-tensor
+# scale, gated above their card readings and their controls (the port's
+# CPU path against the JAX package on the same weights and schedule, full
+# width): e4m3 re-rounding, which two correct implementations show alike
+# (F-port-1), carried through phi-3-vision's 576 stub patches and through
+# seamless-m4t-v2's encoder memory into every decoder layer.
+# phi3_slice's dense-slot FP8 at 2 layers with 576 patches: card 0.377,
+# control 0.347 (tests/_fport8_phi3_control.py)
+PHI3_DENSE_FP8_TOL = 0.45
+# seamless_slice's whole 2 + 2 layer FP8 chain: card 0.51, control 0.468
+# (tests/_fport8_seamless_control.py)
+SEAMLESS_CHAIN_FP8_TOL = 0.60
 # the same under bf16 activations with bf16-rounded GEMM outputs: a sum
 # that differs in its last f32 bit can round to the neighbouring bf16
 # value (2^-8 relative), so the tolerance is tests/test_torch_dense.py's
@@ -1777,14 +1816,16 @@ def replay_ms(torch, graph, reps: int = 20) -> float:
 
 def profile_decode(torch, Engine, Request, cfg, sp, prompts, mode,
                    step_ms: float, n_steps: int = 4, n_slots: int = 8,
-                   capacity: int = 256, max_new: int = 32) -> dict:
+                   capacity: int = 256, max_new: int = 32,
+                   mesh=None) -> dict:
     """Device time by kernel over `n_steps` decode-only steps (the torch
     profiler lists the kernels inside each graph replay), after the
     run's prefill is done; run after the main path's launch counts were
     read, and outside the timed runs. The idle share is taken against
-    `step_ms`, the unprofiled decode-only step time."""
+    `step_ms`, the unprofiled decode-only step time. `mesh`: the
+    engine's serving mesh."""
     eng = Engine(cfg, sp, n_slots=n_slots, capacity=capacity, kv_planar=True,
-                 forced_mode=mode, device="cuda")
+                 forced_mode=mode, device="cuda", mesh=mesh)
     for i, p in enumerate(prompts):
         eng.submit(Request(f"p{i}", list(p), max_new=max_new))
     while eng.queue or eng.prefilling or eng.iteration < 8:
@@ -2586,12 +2627,13 @@ def top2_margin(torch, cfg, sp, mode, seq) -> float:
 
 
 def margin_rule(torch, cfg, sp, mode, prompts, control, got, label,
-                gated=True) -> dict:
+                gated=True, rule: float = MARGIN_RULE) -> dict:
     """Hold each stream of `got` to its `control` stream (request id ->
     tokens; prompts: request id -> prompt): equal, or parting only at a
     token where the control's top-2 margin, recomputed on the card, is
-    below MARGIN_RULE. Prints every parting with its margin; a parting at
-    a wider margin fails a gated check (FP8 is a reading, F-port-1)."""
+    below `rule` (default MARGIN_RULE). Prints every parting with its
+    margin; a parting at a wider margin fails a gated check (FP8 is a
+    reading, F-port-1)."""
     partings = []
     for rid, ref in sorted(control.items()):
         out = got[rid]
@@ -2606,9 +2648,9 @@ def margin_rule(torch, cfg, sp, mode, prompts, control, got, label,
         log(f"  {label}: {rid} parts from its control at token {j} "
             f"(control {ref[j]}, got {out[j]}), control top-2 margin "
             f"{m:.3e}")
-        check(m < MARGIN_RULE or not gated,
+        check(m < rule or not gated,
               f"{label} {rid}: parts at token {j} with a top-2 margin of "
-              f"{m:.3e} (rule {MARGIN_RULE})")
+              f"{m:.3e} (rule {rule:.3e})")
     equal = len(control) - len(partings)
     log(f"  {label}: {equal}/{len(control)} streams equal to the control"
         f"{'' if gated else ' (a reading, not gated)'}")
@@ -3708,11 +3750,12 @@ def seamless_slice_phase(torch, cfg) -> dict:
     activations. FP16 over the whole chain (the encoder in the
     comparison) and FP8 with the card's decoder on the CPU's encoder
     memory (2 layers deep) are gated at SLICE_TOL; the whole FP8 chain
-    (2 + 2 layers, the memory's error feeding both decoder layers) is a
-    reading: there two correct implementations part by more than 0.25
-    (the port's CPU path against the JAX package reads 0.468, the
-    decoder on a shared memory 0.211: `tests/_fport8_seamless_control.py`,
-    ROADMAP §3 F-port-9). The encoder's memory is compared alone too."""
+    (2 + 2 layers, the memory's error feeding both decoder layers) at
+    SEAMLESS_CHAIN_FP8_TOL: there two correct implementations part by
+    more than 0.25 (the port's CPU path against the JAX package reads
+    0.468, the decoder on a shared memory 0.211:
+    `tests/_fport8_seamless_control.py`, ROADMAP §3 F-port-9). The
+    encoder's memory is compared alone too."""
     from repro_torch.models import model as M
     from repro_torch.models.convert import params_to
     from repro_torch.models.layers import Runtime
@@ -3737,7 +3780,8 @@ def seamless_slice_phase(torch, cfg) -> dict:
             f"{err:.2e} of max |memory| {out['memory'][mode]['max_abs']:.2f}")
     out.update(dense_slice(
         torch, cut, params, label="seamless slice",
-        runs=[("fp16", "f32", 2, True), ("fp8", "f32", 2, False)]))
+        runs=[("fp16", "f32", 2, True),
+              ("fp8", "f32", 2, SEAMLESS_CHAIN_FP8_TOL)]))
     real = M.encode_memory
     cpu_memory = []
 
@@ -4115,6 +4159,771 @@ def recurrent_dense_phase(torch, cfg, label: str, n_dec: int = 16) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: a mesh's shards placed together on one card
+# ---------------------------------------------------------------------------
+
+# the GEMMs (K, N) one shard runs in one layer at 4 and 2 shards (q, k, v,
+# o, gate, up, down): llama3.1-8b's 32 / 8 heads and d_ff 14336 cut by
+# heads and columns, wo and down by rows; gemma3-1b's at 4 shards (one q
+# head each, the one kv head whole, d_ff 6912 / 4 = 1728)
+LLAMA_TP_KN = {
+    4: [(4096, 1024), (4096, 256), (4096, 256), (1024, 4096), (4096, 3584),
+        (4096, 3584), (3584, 4096)],
+    2: [(4096, 2048), (4096, 512), (4096, 512), (2048, 4096), (4096, 7168),
+        (4096, 7168), (7168, 4096)]}
+GEMMA_TP4_KN = [(1152, 256), (1152, 256), (1152, 256), (256, 1152),
+                (1152, 1728), (1152, 1728), (1728, 1152)]
+TP_GEMMS = (("llama3.1-8b tp4", LLAMA_TP_KN[4]),
+            ("llama3.1-8b tp2", LLAMA_TP_KN[2]),
+            ("gemma3-1b tp4", GEMMA_TP4_KN))
+# K4 on one shard's q heads and pool planes: llama at 4 shards (8 / 2
+# heads) and 2 shards (16 / 4); gemma3-1b at 4 (one q head over its copy
+# of the one kv head, D = 256, a local layer's window of 512)
+TP_K4 = (dict(h=8, hkv=2, d=128, windows=(None,)),
+         dict(h=16, hkv=4, d=128, windows=(None,)),
+         dict(h=1, hkv=1, d=256, mb=68,
+              lens_l=(1088, 1024, 513, 1, 600, 0, 512, 1087),
+              windows=(512,)))
+# the row-parallel layers' activation widths a shard quantizes (wo, down)
+TP_QUANT_K = {"llama3.1-8b tp4": (1024, 3584), "llama3.1-8b tp2": (2048, 7168),
+              "gemma3-1b tp4": (256, 1728)}
+TP_PHASES = ("tp_serve", "tp_gemma", "tp_fleet")
+TP_LABEL = ("shards placed together on one card: times of a colocated mesh, "
+            "not of tensor parallelism across cards")
+
+
+def tp_gemm_phase(torch, rows: dict, label: str, kn, iters: int) -> None:
+    """K1, K2 (per-token scales) and K3 at one shard's GEMM shapes, M = 8:
+    each against its plain version, timed (host and CUDA-graph replay)
+    beside its library call (torch.matmul f16; row-wise torch._scaled_mm)
+    and its bound. Rows go to `rows` tagged with `label`."""
+    from repro_torch.core import nestedfp as nf
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.f16_matmul import f16_matmul
+    from repro_torch.kernels.nestedfp16_matmul import nestedfp16_matmul
+    from repro_torch.kernels.nestedfp8_matmul import nestedfp8_matmul
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    m = 8
+    for k, n in dict.fromkeys(kn):
+        n_sets = max(2, math.ceil(2 * L2_BYTES / (k * n)) + 1)
+        ws = [(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+               ).half() for _ in range(n_sets)]
+        planes = [nf.encode(w) for w in ws]
+        x = torch.randn((m, k), generator=gen, device=dev)
+        x16 = x.half()
+        xq, xs = quant.quantize_act_per_token(x)
+        out_b = m * n * 4
+        cases = {
+            "nestedfp16_matmul": (
+                lambda i: nestedfp16_matmul(x16, *planes[i]),
+                lambda i: ref.nestedfp16_matmul_ref(x16, *planes[i]),
+                lambda i: torch.matmul(x16, ws[i]),
+                m * k * 2 + 2 * k * n + out_b, "f16"),
+            "nestedfp8_matmul": (
+                lambda i: nestedfp8_matmul(xq, planes[i][0], xs),
+                lambda i: ref.nestedfp8_matmul_ref(xq, planes[i][0], xs),
+                scaled_mm_yardstick(torch, xq, xs, [p[0] for p in planes]),
+                m * k + k * n + m * 4 + out_b, "fp8"),
+            "f16_matmul": (
+                lambda i: f16_matmul(x16, ws[i]),
+                lambda i: ref.matmul_f16_ref(x16, ws[i]),
+                lambda i: torch.matmul(x16, ws[i]),
+                m * k * 2 + 2 * k * n + out_b, "f16")}
+        for name, (kern, plain, lib, nbytes, kind) in cases.items():
+            err = max_err(torch, kern(0), plain(0), GEMM_RTOL, GEMM_ATOL)
+            b_ms, b_kind = bound(nbytes, 2.0 * m * k * n, kind)
+            row = {"model": label, "m": m, "k": k, "n": n,
+                   "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_kind,
+                   "ms": time_ms(torch, kern, n_sets, iters),
+                   "plain_ms": time_ms(torch, plain, n_sets, iters),
+                   "library_ms": None if lib is None
+                   else time_ms(torch, lib, n_sets, iters),
+                   "device_ms": graph_ms(torch, kern, n_sets),
+                   "library_device_ms": None if lib is None
+                   else graph_ms(torch, lib, n_sets)}
+            rows[name].append(row)
+            lib_d = row["library_device_ms"]
+            log(f"  {name:18s} {label} M={m} K={k:5d} N={n:5d} err={err:.2e}"
+                f" ms={row['ms']:.4f} plain={row['plain_ms']:.4f} device="
+                f"{row['device_ms']:.4f} lib_device="
+                f"{None if lib_d is None else round(lib_d, 4)} "
+                f"bound={b_ms:.5f} ({b_kind})")
+        del ws, planes
+
+
+def tp_quant_phase(torch, iters: int) -> dict:
+    """The per-token quantizer's two halves for a row-parallel layer
+    (`row_absmax`, `quant_per_token_scaled`) at M = 8, f32, the slice
+    widths of TP_QUANT_K: each bitwise its plain version, and the slices
+    of a whole row (4096 cut in 4, 14336 cut in 4 and 2, 6912 cut in 4)
+    quantized under the max of their absmaxes give the one-launch
+    quantizer's codes of the whole row, bitwise. Timed host and device."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant_per_token import (quant_per_token,
+                                                     quant_per_token_scaled,
+                                                     row_absmax)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    for k, parts in ((4096, 4), (14336, 4), (14336, 2), (6912, 4)):
+        x = torch.randn((8, k), generator=gen, device=dev)
+        x[1] = 0.0
+        x[2, -1] = 1e3
+        q, s = quant_per_token(x)
+        c = k // parts
+        sl = [x[:, i * c:(i + 1) * c].contiguous() for i in range(parts)]
+        amax = torch.stack([row_absmax(p) for p in sl]).amax(0)
+        scale = quant.scale_from_amax(amax)
+        codes = torch.cat([quant_per_token_scaled(p, scale).view(torch.uint8)
+                           for p in sl], dim=1)
+        check(torch.equal(scale, s) and torch.equal(codes, q.view(torch.uint8)),
+              f"row-parallel quantization of K = {k} in {parts}: codes or "
+              f"scales differ from the one-launch quantizer's")
+    log("  row-parallel FP8: slices of rows of 4096, 14336 and 6912 in 2 and "
+        "4 quantized under the max of their absmaxes give the one-launch "
+        "codes and scales, bitwise")
+    out = {"row_absmax": [], "quant_per_token_scaled": []}
+    for label, ks in TP_QUANT_K.items():
+        for k in ks:
+            n_sets = max(2, math.ceil(2 * L2_BYTES / (8 * k * 4)) + 1)
+            xs = [torch.randn((8, k), generator=gen, device=dev)
+                  for _ in range(n_sets)]
+            sc = [quant.scale_from_amax(ref.row_absmax_ref(x)) for x in xs]
+            cases = {
+                "row_absmax": (lambda i: row_absmax(xs[i]),
+                               lambda i: ref.row_absmax_ref(xs[i]),
+                               8 * k * 4 + 8 * 4),
+                "quant_per_token_scaled": (
+                    lambda i: quant_per_token_scaled(xs[i], sc[i]),
+                    lambda i: ref.quantize_scaled_ref(xs[i], sc[i]),
+                    8 * k * 4 + 8 * 4 + 8 * k)}
+            for name, (kern, plain, nbytes) in cases.items():
+                for i in range(n_sets):
+                    check(torch.equal(kern(i).view(torch.uint8),
+                                      plain(i).view(torch.uint8)),
+                          f"{name} K={k}: not bitwise its plain version")
+                b_ms, b_kind = bound(nbytes, 0.0, "f32")
+                row = {"model": label, "m": 8, "k": k, "dtype": "float32",
+                       "max_abs_err": 0.0,
+                       "ms": time_ms(torch, kern, n_sets, iters),
+                       "plain_ms": time_ms(torch, plain, n_sets, iters),
+                       "library_ms": None, "bound_ms": b_ms,
+                       "bound_by": b_kind,
+                       "device_ms": graph_ms(torch, kern, n_sets)}
+                out[name].append(row)
+                log(f"  {name:22s} {label} M=8 K={k:5d} bitwise; ms="
+                    f"{row['ms']:.4f} plain={row['plain_ms']:.4f} device="
+                    f"{row['device_ms']:.4f} bound={b_ms:.5f} ({b_kind}); "
+                    f"no single PyTorch call")
+    return out
+
+
+class ShapeLog:
+    """While active, record the shapes at which the main path's kernel
+    wrappers are called (a capture calls them; its replays run the same
+    shapes): (K, N) of K1, K2 and K3, (H, Hkv, D) of K4, K of the
+    quantizer halves. The wrappers still count their launches."""
+
+    ARGS = {"nestedfp16_matmul": lambda x, u, *a: (x.shape[1], u.shape[1]),
+            "nestedfp8_matmul": lambda x, u, *a: (x.shape[1], u.shape[1]),
+            "f16_matmul": lambda x, w, *a: (x.shape[1], w.shape[1]),
+            "paged_planar_decode_attention":
+                lambda q, k, *a, **kw: (q.shape[1], k.shape[2], q.shape[2]),
+            "row_absmax": lambda x, *a: (x.shape[1],),
+            "quant_per_token_scaled": lambda x, *a: (x.shape[1],)}
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.seen, self.saved = ops, set(), {}
+
+    def __enter__(self):
+        for name, shape in self.ARGS.items():
+            fn = self.saved[name] = getattr(self.ops, name)
+
+            def logged(*a, _fn=fn, _name=name, _shape=shape, **kw):
+                self.seen.add((_name, _shape(*a, **kw)))
+                return _fn(*a, **kw)
+            setattr(self.ops, name, logged)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
+
+    def missing(self, want: dict) -> list:
+        return [(n, s) for n, shapes in want.items() for s in shapes
+                if (n, s) not in self.seen]
+
+
+def tp_want_shapes(cfg, m: int) -> dict:
+    """The per-shard shapes a run on m shards must launch, from the layout
+    the weights' specs give (`sharding.serving_layout`): every GEMM of a
+    layer in FP16 (K1) and FP8 (K2), the planted exception wo (K3), K4's
+    (q heads, kv heads, D), the row-parallel layers' widths for the
+    quantizer halves. For llama3.1-8b these are LLAMA_TP_KN[m]'s."""
+    import types
+
+    from repro_torch.launch import sharding as SH
+
+    lay = SH.serving_layout(cfg, types.SimpleNamespace(shape={"model": m}))
+    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+
+    def cut(k, n, kind):
+        return {"col": (k, n // m), "row": (k // m, n), "whole": (k, n)}[kind]
+    kn = [cut(d, q, lay.q), cut(d, kv, lay.kv), cut(q, d, lay.wo),
+          cut(d, ff, lay.mlp), cut(ff, d, "row" if lay.mlp == "col"
+                                   else "whole")]
+    heads = (cfg.n_heads // m if lay.q == "col" else cfg.n_heads,
+             cfg.n_kv_heads // m if lay.pool else cfg.n_kv_heads, hd)
+    quant_k = [k for (k, _n), row in ((kn[2], lay.wo == "row"),
+                                      (kn[4], lay.mlp == "col")) if row]
+    return {"nestedfp16_matmul": sorted(set(kn)),
+            "nestedfp8_matmul": sorted(set(kn)),
+            "f16_matmul": [kn[2]],
+            "paged_planar_decode_attention": [heads],
+            "row_absmax": [(k,) for k in quant_k],
+            "quant_per_token_scaled": [(k,) for k in quant_k]}
+
+
+def first_decode_logits(torch, cfg, step, params, caches, prompts, mode,
+                        ids=None):
+    """The logits of the first decode step after `prompts` (B rows of one
+    length) through `step` (`model.paged_step` or a mesh's), prefilled in
+    one chunk into `caches` over identity block tables; the decode token
+    is the prefill's argmax, or `ids`. Returns (prefill ids, logits). The
+    launch counters are left as they were (a comparison, not the path)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import Runtime
+
+    before = ops.all_launch_counters()
+    dev = torch.device("cuda")
+    b, s = len(prompts), len(prompts[0])
+    bs, mb = 16, -(-(s + 1) // 16)
+    tables = (1 + torch.arange(b * mb, dtype=torch.int32, device=dev)
+              ).reshape(b, mb)
+    rt = Runtime(mode=mode, dtype=torch.float32, act_quant="per_token")
+    zero = torch.zeros(b, dtype=torch.int32, device=dev)
+    toks = torch.tensor(prompts, dtype=torch.int32, device=dev)
+    got = step(rt, params, cfg, toks, caches, tables, q_offset=zero,
+               kv_len=zero + s, block_size=bs)
+    ids = got if ids is None else ids
+    logits = step(rt, params, cfg, ids[:, None], caches, tables,
+                  q_offset=zero + s, kv_len=zero + s + 1, block_size=bs,
+                  return_logits=True)
+    torch.cuda.synchronize()
+    after = ops.all_launch_counters()
+    ops.add_launches({k: before[k] - after[k] for k in after})
+    return ids, logits
+
+
+def logits_limit(mode: str, n_layers: int) -> float:
+    """F-port-8's rule: FP16 at SLICE_TOL; FP8 at SLICE_TOL's 0.25 at 2
+    layers and DEEP_FP8_TOL deeper."""
+    if mode == "fp16":
+        return SLICE_TOL["fp16"]
+    return SLICE_TOL["fp8"] if n_layers <= 2 else DEEP_FP8_TOL
+
+
+# FP8 first-decode logits of a mesh are gated at the cuts F-port-8's rule
+# was set on (2 layers at 0.25, 4 at DEEP_FP8_TOL), on the phase's first
+# layers; at a tp phase's full depth (8 layers and more) they are a
+# reading (ROADMAP §3 F-port-10): there two correct implementations part
+# by more than 0.35 (tp_serve's control, the unsharded model on an H100
+# against the CPU plain versions at 8 layers, read 0.464; the mesh 0.385 /
+# 0.372 at 2 / 4 shards; PERF.md §6). FP16 is gated at full depth.
+TP_FP8_CUTS = (2, 4)
+
+
+def _cut(tree: dict, n: int) -> dict:
+    return {**tree, "layers": tree["layers"][:n]}
+
+
+def tp_compare_logits(torch, cfg, sp, mesh, shard_params, prompts, mode,
+                      n_layers: int, ref_cache: dict, label: str,
+                      gated: bool = True) -> dict:
+    """The first decode step's logits of the mesh against the unsharded
+    model on the same card and weights, on their first `n_layers` layers:
+    within `logits_limit` when `gated`, a reading otherwise."""
+    import functools
+
+    from repro_torch.models import model as M
+    from repro_torch.serving import shard as SHARD
+
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    nb = 1 + len(prompts) * -(-(len(prompts[0]) + 1) // 16)
+    if (mode, n_layers) not in ref_cache:
+        caches = M.init_paged_cache(cut, nb, 16, planar=True, device="cuda")
+        ref_cache[mode, n_layers] = first_decode_logits(
+            torch, cut, M.paged_step, _cut(sp, n_layers), caches, prompts,
+            mode)
+        del caches
+    ids, want = ref_cache[mode, n_layers]
+    caches = M.init_paged_cache(cut, nb, 16, planar=True, mesh=mesh)
+    _, got = first_decode_logits(
+        torch, cut, functools.partial(SHARD.sharded_paged_step, mesh),
+        [_cut(p, n_layers) for p in shard_params], caches, prompts, mode,
+        ids=ids)
+    del caches
+    check(bool(torch.isfinite(got).all()), f"{label} {mode}: non-finite")
+    err = float((got - want).abs().max())
+    tol = logits_limit(mode, n_layers)
+    log(f"  {label} {mode} {n_layers} layers: first decode step's logits, "
+        f"{mesh.size} shards against the unsharded model, max |err| "
+        f"{err:.3e} (limit {tol}{'' if gated else ', a reading: F-port-10'})")
+    check(err <= tol or not gated,
+          f"{label} {mode} {n_layers} layers: logits beyond {tol}")
+    return {"max_logit_err": err, "tol": tol, "gated": gated}
+
+
+def tp_logit_checks(torch, cfg, sp, mesh, shard_params, prompts,
+                    ref_cache: dict, label: str) -> dict:
+    """FP16 at the phase's depth, FP8 at TP_FP8_CUTS (gated) and at the
+    phase's depth (a reading)."""
+    out = {}
+    for mode in ("fp16", "fp8"):
+        cuts = (cfg.n_layers,) if mode == "fp16" \
+            else tuple(n for n in TP_FP8_CUTS if n < cfg.n_layers) \
+            + (cfg.n_layers,)
+        for n in cuts:
+            out[f"{mode}_{n}l"] = tp_compare_logits(
+                torch, cfg, sp, mesh, shard_params, prompts, mode, n,
+                ref_cache, label, gated=mode == "fp16" or n in TP_FP8_CUTS)
+    return out
+
+
+def tp_cpu_control(torch, cfg, sp, prompts) -> float:
+    """F-port-10's control: the unsharded model's first decode logits on
+    the card against the CPU plain versions (f64 sums) on the same
+    weights and prompts, FP8 at the phase's depth: how far two correct
+    implementations part there."""
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_to
+
+    nb = 1 + len(prompts) * -(-(len(prompts[0]) + 1) // 16)
+    caches = M.init_paged_cache(cfg, nb, 16, planar=True, device="cuda")
+    ids, want = first_decode_logits(torch, cfg, M.paged_step, sp, caches,
+                                    prompts, "fp8")
+    del caches
+    from repro_torch.models.layers import Runtime
+    rt = Runtime(mode="fp8", dtype=torch.float32, act_quant="per_token")
+    spc = params_to(sp, "cpu")
+    b, s = len(prompts), len(prompts[0])
+    mb = -(-(s + 1) // 16)
+    tables = (1 + torch.arange(b * mb, dtype=torch.int32)).reshape(b, mb)
+    zero = torch.zeros(b, dtype=torch.int32)
+    cc = M.init_paged_cache(cfg, nb, 16, planar=True, device="cpu")
+    M.paged_step(rt, spc, cfg, torch.tensor(prompts, dtype=torch.int32), cc,
+                 tables, q_offset=zero, kv_len=zero + s, block_size=16)
+    got = M.paged_step(rt, spc, cfg, ids.cpu()[:, None], cc, tables,
+                       q_offset=zero + s, kv_len=zero + s + 1, block_size=16,
+                       return_logits=True)
+    err = float((got - want.cpu()).abs().max())
+    log(f"  F-port-10 control: the unsharded model, card against the CPU "
+        f"plain versions, FP8 at {cfg.n_layers} layers, {b} rows: max |err| "
+        f"{err:.3e}")
+    return err
+
+
+def tp_engine_run(torch, cfg, sp, mesh, policy, warm, timed, max_new, label,
+                  capacity, engine_kw=None) -> dict:
+    """One engine (unsharded, or on `mesh`) in one policy: a warm pass over
+    `warm` (dual: half forced to each mode) that captures every step key
+    and holds each key's first replay bitwise against an eager call, then
+    the timed prompts: outputs, stats, TTFT, TPOT, the decode graph's
+    device ms. The engine is freed after, with its graphs."""
+    from repro_torch.core.policy import DualPrecisionController, SLOConfig
+    from repro_torch.serving.engine import Engine, Request
+
+    ctrl = None
+    if policy == "dual":
+        ctrl = DualPrecisionController(SLOConfig(), fp16_ms_per_token=0.5,
+                                       fp8_ms_per_token=0.25)
+    eng = Engine(cfg, sp, n_slots=len(timed), capacity=capacity,
+                 kv_planar=True, controller=ctrl,
+                 forced_mode=None if ctrl else policy, device="cuda",
+                 mesh=mesh, **(engine_kw or {}))
+    n_checked = 0
+    halves = [warm[:len(warm) // 2], warm[len(warm) // 2:]] if ctrl \
+        else [warm]
+    for w, (mode, reqs) in enumerate(zip(["fp16", "fp8"] if ctrl
+                                         else [policy], halves)):
+        eng.forced_mode = mode
+        for i, p in enumerate(reqs):
+            eng.submit(Request(f"w{w}.{i}", list(p), max_new=max_new))
+        n_checked += serve_checked(eng, policy, label)
+    eng.forced_mode = None if ctrl else policy
+    check(n_checked == len(eng.graphs.keys())
+          and (not eng.graphs.capturing
+               or n_checked == eng.graphs.n_captured),
+          f"{label} {policy}: {n_checked} keys checked of "
+          f"{len(eng.graphs.keys())}")
+    n_warm = len(eng.finished)
+    for i, p in enumerate(timed):
+        eng.submit(Request(f"r{i}", list(p), max_new=max_new))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    decode_ms, modes = [], []
+    while eng.queue or eng.active or eng.prefilling:
+        n_pre = eng.stats["prefill_dispatches"]
+        eng.step()
+        if eng.stats["prefill_dispatches"] == n_pre:
+            decode_ms.append(eng._last_step_ms)
+            modes.append(eng.last_mode)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    fin = eng.finished[n_warm:]
+    check(len(fin) == len(timed) and all(
+        len(r.output) == max_new and all(0 <= t < cfg.vocab_size
+                                         for t in r.output) for r in fin),
+          f"{label} {policy}: {len(fin)}/{len(timed)} finished, or outputs "
+          f"of the wrong length or out of vocab")
+    graph_dev = {m: replay_ms(torch, eng.graphs.graph(("decode", m)))
+                 for m in sorted(set(modes))} if eng.graphs.capturing else {}
+    res = {"outputs": {r.request_id: list(r.output) for r in fin},
+           "stats": dict(eng.stats), "wall_s": wall,
+           "ttft_ms_mean": 1e3 * sum(r.first_token_s - t0 for r in fin)
+           / len(fin),
+           "tpot_ms_mean": 1e3 * sum((r.finished_s - r.first_token_s)
+                                     / (len(r.output) - 1) for r in fin)
+           / len(fin),
+           "decode_step_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
+           "decode_graph_device_ms": graph_dev,
+           "graphs": eng.graphs.n_captured, "replays_bitwise": n_checked,
+           "window_reclaimed_blocks": eng.stats["window_reclaimed_blocks"]}
+    pool = eng.graphs._pool
+    unwrap(eng)
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check(pool is None or not [
+        s for s in torch.cuda.memory_snapshot()
+        if tuple(s.get("segment_pool_id", ())) == tuple(pool)],
+          f"{label} {policy}: the graphs' pool outlived its engine")
+    shards = "unsharded" if mesh is None else f"{mesh.size} shards"
+    log(f"  {label} {policy} {shards}: TPOT mean {res['tpot_ms_mean']:.2f} "
+        f"ms, TTFT mean {res['ttft_ms_mean']:.1f} ms, decode-only step "
+        f"median {res['decode_step_ms_median']:.2f} ms, decode graph device "
+        f"ms { {m: round(v, 3) for m, v in graph_dev.items()} }, "
+        f"{res['graphs']} graphs (each first replay bitwise its eager "
+        f"call){'' if mesh is None else '; ' + TP_LABEL}")
+    return res
+
+
+def tp_hold_to_unsharded(torch, cfg, sp, runs, errs, prompts, label) -> dict:
+    """Each mesh run against the unsharded run of its policy (fp16, fp8):
+    `stats` equal (logical steps), and every stream equal to the
+    unsharded one or parting only where the unsharded top-2 margin is
+    below twice the mesh's first-decode logit error (`margin_rule`)."""
+    out = {}
+    for (m, policy), run in runs.items():
+        if m == 1 or policy == "dual":
+            continue
+        ref = runs[(1, policy)]
+        check(run["stats"] == ref["stats"],
+              f"{label} {policy} {m} shards: stats differ from the "
+              f"unsharded engine's: "
+              f"{ {k: (v, run['stats'][k]) for k, v in ref['stats'].items() if run['stats'][k] != v} }")
+        rule = 2 * errs[(m, policy)]["max_logit_err"]
+        out[f"{policy}_{m}"] = margin_rule(
+            torch, cfg, sp, policy, prompts, ref["outputs"], run["outputs"],
+            f"{label} {policy} {m} shards vs unsharded", rule=rule)
+    log(f"  {label}: stats of every mesh run equal the unsharded engine's")
+    return out
+
+
+def tp_serve_phase(torch, cfg) -> dict:
+    """llama3.1-8b at full width (DEPTH["tp_serve"] layers, layer 0's wo an
+    exception tensor) through `Engine(mesh=...)` at 2 and 4 shards on one
+    card (`make_serving_mesh(m, devices=[cuda:0] * m)`), planar KV, 8
+    slots, capacity 256, 8 x (128 + 32) after a warm pass of 8 others, in
+    FP16, FP8 and dual, beside the unsharded engine on the same weights:
+    first-decode logits within `logits_limit` (FP16 at full depth, FP8 at
+    TP_FP8_CUTS; FP8 at full depth a reading beside its CPU control,
+    F-port-10), tokens under the margin rule, stats equal, every first
+    replay bitwise, K1-K4 and the quantizer halves launched at the
+    per-shard shapes. With two or more cards, one
+    mesh across them too (eager steps; a line, not gated)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import shard as SHARD
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sp = make_serving_params(torch, cfg, 0, "cuda", plant_layer=0)
+    log(f"  tp serve: {cfg.n_layers}-layer params on the card in "
+        f"{time.time() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (128,), generator=gen)
+               .tolist() for _ in range(16)]
+    timed, warm = prompts[:8], prompts[8:]
+    res: dict = {"layers": cfg.n_layers, "label": TP_LABEL}
+    runs, errs, ref_logits, logits = {}, {}, {}, {}
+    ops.reset_launch_counters()          # the main path's run starts here
+    for m in (1, 2, 4):
+        mesh = None if m == 1 else make_serving_mesh(
+            m, devices=[torch.device("cuda", 0)] * m)
+        if mesh is not None:
+            shp = SHARD.shard_serving_params(sp, cfg, mesh)
+            logits[m] = tp_logit_checks(torch, cfg, sp, mesh, shp, timed,
+                                        ref_logits, "tp serve")
+            for mode in ("fp16", "fp8"):
+                errs[(m, mode)] = logits[m][f"{mode}_{cfg.n_layers}l"]
+            del shp
+        with ShapeLog() as shapes:
+            for policy in ("fp16", "fp8", "dual"):
+                runs[(m, policy)] = tp_engine_run(
+                    torch, cfg, sp, mesh, policy, warm, timed, 32,
+                    "tp serve", capacity=256)
+        if mesh is not None:
+            want = tp_want_shapes(cfg, m)
+            miss = shapes.missing(want)
+            check(not miss, f"tp serve {m} shards: kernels never launched "
+                  f"at {miss}")
+            log(f"  tp serve {m} shards: K1, K2, K3, K4 and the quantizer "
+                f"halves launched at every per-shard shape {want}")
+    res["logits"] = logits
+    res["fport10_control"] = tp_cpu_control(torch, cfg, sp, timed[:4])
+    res["agreement"] = tp_hold_to_unsharded(
+        torch, cfg, sp, runs, errs,
+        {f"r{i}": p for i, p in enumerate(timed)}, "tp serve")
+    res["runs"] = {f"{policy}_{m}": {k: v for k, v in r.items()
+                                     if k not in ("outputs", "stats")}
+                   for (m, policy), r in runs.items()}
+    res["launches_total"] = ops.all_launch_counters()
+    # where a colocated mesh's decode step goes: the unsharded engine's
+    # and the 4-shard mesh's, by kernel (after the counts were read)
+    from repro_torch.serving.engine import Engine, Request
+    for m in (1, 4):
+        mesh = None if m == 1 else make_serving_mesh(
+            m, devices=[torch.device("cuda", 0)] * m)
+        label = "unsharded" if mesh is None else f"{m} shards"
+        log(f"  tp serve {label} fp16: the decode step by kernel")
+        res[f"profile_fp16_{m}"] = profile_decode(
+            torch, Engine, Request, cfg, sp, timed, "fp16",
+            runs[(m, "fp16")]["decode_step_ms_median"], mesh=mesh)
+    if torch.cuda.device_count() >= 2:
+        mesh = make_serving_mesh(2)
+        r = tp_engine_run(torch, cfg, sp, mesh, "fp16", warm, timed, 32,
+                          "tp serve across cards", capacity=256)
+        res["across_cards"] = {k: v for k, v in r.items()
+                               if k not in ("outputs", "stats")}
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  tp serve: peak device memory {res['peak_mem_gb']:.1f} GB (the "
+        f"weights, one mesh's shard slices and the pools)")
+    del sp
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_gemma_phase(torch, cfg) -> dict:
+    """gemma3-1b at full width and depth (26 layers, 4 q heads and 1 kv
+    head of 256, windows of 512 on five layers of six; layer 5's wo an
+    exception tensor) on 4 shards of one card: each shard one q head, the
+    kv head and the pool whole on every shard (its own copy, K4 per shard
+    at G = 1), window reclaim on. 8 x (640 + 32), capacity 704, FP16 and
+    FP8, beside the unsharded engine: the comparisons of tp_serve, and
+    local-layer blocks reclaimed."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import shard as SHARD
+
+    torch.cuda.reset_peak_memory_stats()
+    sp = make_serving_params(torch, cfg, 0, "cuda", plant_layer=5)
+    gen = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(1, cfg.vocab_size, (640,), generator=gen)
+               .tolist() for _ in range(16)]
+    timed, warm = prompts[:8], prompts[8:]
+    res: dict = {"layers": cfg.n_layers, "label": TP_LABEL}
+    runs, errs, ref_logits = {}, {}, {}
+    ops.reset_launch_counters()          # the main path's run starts here
+    mesh4 = make_serving_mesh(4, devices=[torch.device("cuda", 0)] * 4)
+    shp = SHARD.shard_serving_params(sp, cfg, mesh4)
+    logits = tp_logit_checks(torch, cfg, sp, mesh4, shp, timed, ref_logits,
+                             "tp gemma")
+    for mode in ("fp16", "fp8"):
+        errs[(4, mode)] = logits[f"{mode}_{cfg.n_layers}l"]
+    del shp
+    for m, mesh in ((1, None), (4, mesh4)):
+        with ShapeLog() as shapes:
+            for policy in ("fp16", "fp8"):
+                runs[(m, policy)] = tp_engine_run(
+                    torch, cfg, sp, mesh, policy, warm, timed, 32,
+                    "tp gemma", capacity=704)
+                check(runs[(m, policy)]["window_reclaimed_blocks"] > 0,
+                      f"tp gemma {policy}: no local-layer block reclaimed")
+    want = tp_want_shapes(cfg, 4)
+    miss = shapes.missing(want)
+    check(not miss, f"tp gemma: kernels never launched at {miss}")
+    log(f"  tp gemma 4 shards: launched at every per-shard shape {want}")
+    res["logits"] = logits
+    res["agreement"] = tp_hold_to_unsharded(
+        torch, cfg, sp, runs, errs,
+        {f"r{i}": p for i, p in enumerate(timed)}, "tp gemma")
+    res["runs"] = {f"{policy}_{m}": {k: v for k, v in r.items()
+                                     if k not in ("outputs", "stats")}
+                   for (m, policy), r in runs.items()}
+    res["launches_total"] = ops.all_launch_counters()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  tp gemma: peak device memory {res['peak_mem_gb']:.1f} GB")
+    del sp
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_fleet_phase(torch, cfg) -> dict:
+    """`Router.build(meshes=make_replica_meshes(2, 2, devices=[cuda:0] *
+    4))`: two replicas of 2 shards each on one card (four disjoint shard
+    slots), llama3.1-8b at full width and DEPTH["tp_fleet"] layers, forced
+    FP16, planar KV. Planned: replica 0 killed mid-decode; every request
+    completes on the survivor, none lost. Rebuild: replica 0 raises
+    mid-decode and its drain fails; the router rebuilds it from its
+    factory: the old engine (its shards' weight slices, pools and graphs)
+    is gone before the new one is built, and replica 1's weights and pool
+    are untouched."""
+    import gc
+    import weakref
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_replica_meshes
+    from repro_torch.models.convert import leaves
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    from repro_torch.serving.router import Router
+
+    def allocated() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    sp = make_serving_params(torch, cfg, 0, "cuda", plant_layer=0)
+    meshes = make_replica_meshes(2, 2, devices=[torch.device("cuda", 0)] * 4)
+    check(not set(meshes[0].slots) & set(meshes[1].slots),
+          "tp fleet: replica meshes share a shard slot")
+    gen = torch.Generator().manual_seed(43)
+    prompts = {f"q{i}": torch.randint(1, cfg.vocab_size, (128,),
+                                      generator=gen).tolist()
+               for i in range(6)}
+    max_new = 32
+    ekw = dict(n_slots=4, capacity=192, kv_planar=True, forced_mode="fp16",
+               device="cuda")
+    res: dict = {"layers": cfg.n_layers, "label": TP_LABEL}
+    ops.reset_launch_counters()          # the main path's run starts here
+
+    def serve(plan, label, on_step=None) -> Router:
+        r = Router.build(cfg, sp, 2, meshes=meshes, plan=plan,
+                         affinity_blocks=1, engine_kwargs=ekw)
+        if on_step:
+            on_step(r, None)
+        t0 = time.perf_counter()
+        for rid, p in prompts.items():
+            r.submit(Request(rid, list(p), max_new))
+        while r.in_flight():
+            if on_step:
+                on_step(r, r.step_count)
+            r.step()
+        torch.cuda.synchronize()
+        st = r.stats()
+        check(st["lost"] == 0 and st["completed"] == len(prompts),
+              f"{label}: {st['lost']} lost, {st['completed']} completed")
+        check(all(len(q.output) == max_new for q in r.finished),
+              f"{label}: outputs of the wrong length")
+        log(f"  {label}: {r.step_count} router steps in "
+            f"{time.perf_counter() - t0:.2f} s, kills {st['kills']}, "
+            f"rebuilds {st['rebuilds']}, step errors {st['step_errors']}, "
+            f"failover requests {st['failover_requests']}, lost "
+            f"{st['lost']}")
+        return r
+
+    plan = FaultPlan([FaultEvent(6, 0, "kill")])
+    seen = {}
+
+    def mark(r, step):
+        if step == 6:
+            seen["survivor_done"] = len(r.replicas[1].engine.finished)
+    r = serve(plan, "tp fleet planned", mark)
+    st = r.stats()
+    check(st["kills"] == 1 and st["failover_requests"] > 0,
+          f"tp fleet planned: kills {st['kills']}, failover requests "
+          f"{st['failover_requests']}")
+    after = len(r.replicas[1].engine.finished) - seen["survivor_done"]
+    check(after > 0, "tp fleet planned: the survivor stopped serving")
+    res["planned"] = {k: st[k] for k in ("kills", "failover_requests",
+                                         "lost", "completed", "step_errors")}
+    res["planned"]["survivor_finished_after_kill"] = after
+    del r
+
+    # a drain failure rebuilt from the factory
+    plan = FaultPlan([FaultEvent(6, 0, "raise")])
+    mem: dict = {}
+
+    def owned(eng) -> int:
+        base = {t.data_ptr() for t in leaves(sp)}
+        return sum(t.numel() * t.element_size() for p in eng.params
+                   for t in leaves(p) if t.data_ptr() not in base) + sum(
+            p.numel() * p.element_size() for c in eng.caches
+            for p in c["attn"].values())
+
+    def hooks(r, step):
+        rep = r.replicas[0]
+        if step is None:
+            def failed_drain():
+                raise RuntimeError("tp fleet rebuild: drain failed")
+            rep.engine.drain_requests = failed_drain
+            build = rep.factory
+
+            def factory():
+                mem["free"] = allocated()
+                mem["old_alive"] = mem["old"]() is not None
+                eng = build()
+                mem["new_owned"] = owned(eng)
+                return eng
+            rep.factory = factory
+            other = r.replicas[1].engine
+            mem["other_ptrs"] = [t.data_ptr() for p in other.params
+                                 for t in leaves(p)]
+            mem["other"] = other
+        elif step == 6:
+            mem["old"] = weakref.ref(rep.engine)
+            mem["old_owned"] = owned(rep.engine)
+            mem["before"] = allocated()
+    r = serve(plan, "tp fleet rebuild", hooks)
+    st = r.stats()
+    check(st["rebuilds"] == 1 and st["step_errors"] == 1,
+          f"tp fleet rebuild: rebuilds {st['rebuilds']}, step errors "
+          f"{st['step_errors']}")
+    check(not mem["old_alive"] and mem["old"]() is None,
+          "tp fleet rebuild: the old engine outlived its rebuild")
+    returned = mem["before"] - mem["free"]
+    check(returned >= mem["old_owned"],
+          f"tp fleet rebuild: {returned} bytes returned, the old engine "
+          f"owned {mem['old_owned']}")
+    other = r.replicas[1].engine
+    check(other is mem["other"] and [t.data_ptr() for p in other.params
+                                     for t in leaves(p)]
+          == mem["other_ptrs"],
+          "tp fleet rebuild: replica 1's engine or weights changed")
+    log(f"  tp fleet rebuild: the old engine's {mem['old_owned'] / 2**30:.2f}"
+        f" GiB of shard slices and pools returned ({returned / 2**30:.2f} GiB"
+        f" freed before the rebuild), the new engine owns "
+        f"{mem['new_owned'] / 2**30:.2f} GiB; replica 1 untouched")
+    res["rebuild"] = {"returned_bytes": returned,
+                      "old_owned_bytes": mem["old_owned"],
+                      "new_owned_bytes": mem["new_owned"],
+                      **{k: st[k] for k in ("rebuilds", "step_errors",
+                                            "lost", "completed")}}
+    res["launches_total"] = ops.all_launch_counters()
+    del r, mem
+    del sp
+    torch.cuda.empty_cache()
+    return res
+
+
 def _linears(tree, cls):
     if isinstance(tree, cls):
         return [tree]
@@ -4158,6 +4967,18 @@ INSTANCES = {("paged_planar_decode_attention", 96): ("phi3_serve",),
              ("flash_prefill_attention", 80): ("zamba2_dense",),
              ("flash_prefill_attention", 96): ("phi3_dense",)}
 
+# the per-token quantizer's two halves in front of K2 on a mesh's
+# row-parallel layers (entry points of the quantizer's source): they
+# replace GSPMD's reduction of quantize_act_per_token's amax
+TP_SOURCES = {name: ("src/repro_torch/csrc/quant_per_token.cu",
+                     "src/repro/core/quant.py:35")
+              for name in ("row_absmax", "quant_per_token_scaled")}
+# the kernels a mesh runs at per-shard shapes: an entry each
+# ("nestedfp16_matmul@tp4", ...), timed at llama3.1-8b's shard of 4,
+# their launches those of the tp phases
+TP_INSTANCES = ("nestedfp16_matmul", "nestedfp8_matmul", "f16_matmul",
+                "paged_planar_decode_attention")
+
 # which measured calls make up each kernel's numbers in the kernels line
 LINE_WEIGHTS = {
     # the seven GEMMs of one layer in one decode step (M = 8)
@@ -4199,6 +5020,17 @@ LINE_WEIGHTS = {
     ("flash_prefill_attention", 96): (
         lambda r: int((r["dtype"], r["b"], r["s"], r["d"])
                       == ("bfloat16", 8, 1600, 96))),
+    # one shard's calls in one layer of a decode step at 4 shards: its
+    # seven GEMMs (M = 8), its fp16-mode K4 call (8 / 2 heads), its two
+    # row-parallel quantizations (wo's K = 1024, down's 3584)
+    **{(name, "tp4"): (lambda r: LLAMA_TP_KN[4].count((r["k"], r["n"]))
+                       if r.get("model") == "llama3.1-8b tp4" else 0)
+       for name in ("nestedfp16_matmul", "nestedfp8_matmul", "f16_matmul")},
+    ("paged_planar_decode_attention", "tp4"): (
+        lambda r: int((r["h"], r["hkv"], r["d"]) == (8, 2, 128)
+                      and not r["fp8"] and r["window"] is None)),
+    **{name: (lambda r: int(r["model"] == "llama3.1-8b tp4"))
+       for name in TP_SOURCES},
 }
 
 
@@ -4271,11 +5103,20 @@ def k7_sass_ops(_build) -> dict:
 # mamba2_serve 0.64 of 64, tiered 0.62 of 32, mamba2_dense 0.48 of 64
 # and qwen3_serve 0.39 of 36; the fleet, 1.9 s a layer, keeps its depth:
 # its planned faults are placed by the token stream, and ds_serve keeps
-# its 62 layers: its point is the 67.6 GB load); every other phase runs
-# its model's full depth
+# its 62 layers: its point is the 67.6 GB load); then, to keep the whole
+# script clear of its limit on a slower host (one full run took 964 s,
+# the same code 1202 s on another machine), phi3_serve 1.02 s a layer of
+# 32, zamba2_dense 0.68 of 54, qwen3_dense 0.64 of 18, ds_dense 0.56 of
+# 62, gemma_dense 0.54 of 26 and phi3_dense 0.42 of 32; every other phase
+# runs its model's full depth
 DEPTH = {"granite_serve": 4, "granite_dense": 4, "spec": 8,
-         "qwen3_dense": 18, "qwen3_serve": 18, "tiered": 16,
-         "mamba2_serve": 16, "mamba2_dense": 16, "zamba2_serve": 18}
+         "qwen3_dense": 9, "qwen3_serve": 18, "tiered": 16,
+         "mamba2_serve": 16, "mamba2_dense": 16, "zamba2_serve": 18,
+         "phi3_serve": 16, "zamba2_dense": 18, "ds_dense": 31,
+         "gemma_dense": 13, "phi3_dense": 16,
+         # tensor-parallel serving: the per-shard shapes are a layer's, so
+         # depth buys nothing but time (tp_serve runs nine engines)
+         "tp_serve": 8, "tp_fleet": 4}
 
 
 def cut_depth(cfg, phase: str):
@@ -4297,7 +5138,7 @@ def main() -> int:
                             "mamba2_serve,mamba2_dense,zamba2_slice,"
                             "zamba2_serve,zamba2_dense,phi3_slice,"
                             "phi3_serve,phi3_dense,seamless_slice,"
-                            "seamless_dense")
+                            "seamless_dense,tp_serve,tp_gemma,tp_fleet")
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--serve-layers", type=int, default=32)
@@ -4402,6 +5243,18 @@ def main() -> int:
             torch, args.iters, **PHI3_K5)
         rows["nestedfp_encode"] = encode_phase(torch, args.iters)
         rows["quant_per_token"] = quant_phase(torch, args.iters)
+        log("== K1, K2, K3, K4 and the quantizer halves at the per-shard "
+            "shapes of tensor-parallel serving (llama3.1-8b at 4 and 2 "
+            "shards, gemma3-1b at 4)")
+        tp_iters = max(5, args.iters // 4)
+        label, kn = TP_GEMMS[0]
+        tp_gemm_phase(torch, rows, label, kn, tp_iters)
+        for label, kn in TP_GEMMS[1:]:
+            family_gemm_phase(torch, rows, label, kn, (8,))
+        for k4 in TP_K4:
+            rows["paged_planar_decode_attention"] += attention_phase(
+                torch, tp_iters, **k4)
+        rows.update(tp_quant_phase(torch, tp_iters))
         results["kernel_rows"] = rows
         results["kernels_s"] = time.time() - t_kernels
         log(f"  phase took {results['kernels_s']:.1f} s")
@@ -4417,11 +5270,12 @@ def main() -> int:
             torch, ds, ds.n_layers, args.host_tier == "on", label="ds serve",
             memory=True))
     if "ds_dense" in phases:
-        log(f"== ds dense: deepseek-coder-33b, {ds.n_layers} layers, "
+        c = cut_depth(ds, "ds_dense")
+        log(f"== ds dense: deepseek-coder-33b, {c.n_layers} layers, "
             f"dense-slot prefill and decode steps")
-        mem = memory_reckoning(torch, ds, "ds dense")
+        mem = memory_reckoning(torch, c, "ds dense")
         results["ds_dense"] = timed_phase(lambda: dense_phase(
-            torch, ds, "ds dense", long_ctx=False))
+            torch, c, "ds dense", long_ctx=False))
         results["ds_dense"]["memory"] = mem
     ds3 = get_arch("deepseek-v3-671b")
     if "ds3_mla" in phases:
@@ -4477,10 +5331,11 @@ def main() -> int:
         results["gemma_serve"] = timed_phase(lambda: gemma_serve_phase(
             torch, gemma, args.host_tier == "on"))
     if "gemma_dense" in phases:
-        log(f"== gemma dense: gemma3-1b, {gemma.n_layers} layers, dense-slot "
+        c = cut_depth(gemma, "gemma_dense")
+        log(f"== gemma dense: gemma3-1b, {c.n_layers} layers, dense-slot "
             f"prefill and decode steps")
         results["gemma_dense"] = timed_phase(lambda: dense_phase(
-            torch, gemma, "gemma dense", plant_layer=5))
+            torch, c, "gemma dense", plant_layer=5))
     if {"spec", "tiered", "fleet"} & phases:
         t0 = time.time()
         sp = make_serving_params(torch, cfg, 0, "cuda", plant_layer=0)
@@ -4518,11 +5373,11 @@ def main() -> int:
         results["qwen3_serve"] = timed_phase(lambda: serve_phase(
             torch, qwen3, n, args.host_tier == "on", label="qwen3 serve"))
     if "qwen3_dense" in phases:
-        n = DEPTH["qwen3_dense"]
-        log(f"== qwen3 dense: qwen3-8b, {n} layers, dense-slot prefill and "
-            f"decode steps")
+        c = cut_depth(qwen3, "qwen3_dense")
+        log(f"== qwen3 dense: qwen3-8b, {c.n_layers} layers, dense-slot "
+            f"prefill and decode steps")
         results["qwen3_dense"] = timed_phase(lambda: dense_phase(
-            torch, dataclasses.replace(qwen3, n_layers=n), "qwen3 dense"))
+            torch, c, "qwen3 dense"))
     mamba2 = get_arch("mamba2-2.7b")
     if "mamba2_slice" in phases:
         log("== mamba2 slice: mamba2-2.7b at full width, 2 layers, card vs "
@@ -4554,10 +5409,11 @@ def main() -> int:
         results["zamba2_serve"] = timed_phase(lambda: recurrent_serve_phase(
             torch, c, "zamba2 serve"))
     if "zamba2_dense" in phases:
-        log(f"== zamba2 dense: zamba2-2.7b, {zamba2.n_layers} layers, "
+        c = cut_depth(zamba2, "zamba2_dense")
+        log(f"== zamba2 dense: zamba2-2.7b, {c.n_layers} layers, "
             f"dense-slot prefill and decode steps (K6 and K5 at D = 80)")
         results["zamba2_dense"] = timed_phase(lambda: dense_phase(
-            torch, zamba2, "zamba2 dense"))
+            torch, c, "zamba2 dense"))
     phi3 = get_arch("phi-3-vision-4.2b")
     if "phi3_slice" in phases:
         log("== phi3 slice: phi-3-vision-4.2b at full width, 2 layers (FP8 "
@@ -4565,17 +5421,19 @@ def main() -> int:
         results["phi3_slice"] = timed_phase(
             lambda: family_slice_phase(torch, phi3, "phi3 slice", (4,)))
     if "phi3_serve" in phases:
-        log(f"== phi3 serve: phi-3-vision-4.2b, {phi3.n_layers} layers, "
+        n = DEPTH["phi3_serve"]
+        log(f"== phi3 serve: phi-3-vision-4.2b, {n} layers, "
             f"text only, 8 x (1024 + 64)")
         results["phi3_serve"] = timed_phase(lambda: serve_phase(
-            torch, phi3, phi3.n_layers, args.host_tier == "on",
+            torch, phi3, n, args.host_tier == "on",
             label="phi3 serve", capacity=1088, prompt_len=1024, max_new=64))
     if "phi3_dense" in phases:
-        log(f"== phi3 dense: phi-3-vision-4.2b, {phi3.n_layers} layers, "
+        c = cut_depth(phi3, "phi3_dense")
+        log(f"== phi3 dense: phi-3-vision-4.2b, {c.n_layers} layers, "
             f"dense-slot prefill of 8 x (576 patches + 1024 tokens) and "
             f"decode steps (K6 and K5 at D = 96)")
         results["phi3_dense"] = timed_phase(lambda: dense_phase(
-            torch, phi3, "phi3 dense", long_ctx=False))
+            torch, c, "phi3 dense", long_ctx=False))
     seamless = get_arch("seamless-m4t-large-v2")
     if "seamless_slice" in phases:
         log("== seamless slice: seamless-m4t-v2 at full width, 2 encoder + 2 "
@@ -4588,6 +5446,14 @@ def main() -> int:
             f"row, 64 replayed decode steps")
         results["seamless_dense"] = timed_phase(lambda: dense_phase(
             torch, seamless, "seamless dense", n_dec=64, long_ctx=False))
+    for name, fn, model in (("tp_serve", tp_serve_phase, cfg),
+                            ("tp_gemma", tp_gemma_phase, gemma),
+                            ("tp_fleet", tp_fleet_phase, cfg)):
+        if name in phases:
+            c = cut_depth(model, name)
+            log(f"== {name}: {c.arch_id}, {c.n_layers} layers, serving "
+                f"meshes ({TP_LABEL})")
+            results[name] = timed_phase(lambda: fn(torch, c))
     results["total_s"] = time.time() - t_start
     seconds = {"build": results["build_s"], "kernels": results.get("kernels_s"),
                **{k: round(v["seconds"], 1) for k, v in results.items()
@@ -4614,13 +5480,27 @@ def main() -> int:
                            "qwen3_dense", "ds3_serve", "granite_serve",
                            "granite_dense", "mamba2_serve", "mamba2_dense",
                            "zamba2_serve", "zamba2_dense", "phi3_serve",
-                           "phi3_dense", "seamless_dense")]
+                           "phi3_dense", "seamless_dense",
+                           *TP_PHASES)]
         kernels = []
         for name, (src, replaces) in SOURCES.items():
             kernels.append({"name": name, "route": "cuda", "source": src,
                             "replaces": replaces,
                             "launches": sum(p.get(name, 0) for p in paths),
                             **summarize(rows[name], LINE_WEIGHTS[name])})
+        for name, (src, replaces) in TP_SOURCES.items():
+            kernels.append({"name": name, "route": "cuda", "source": src,
+                            "replaces": replaces,
+                            "launches": sum(p.get(name, 0) for p in paths),
+                            **summarize(rows[name], LINE_WEIGHTS[name])})
+        for name in TP_INSTANCES:
+            src, replaces = SOURCES[name]
+            kernels.append({
+                "name": f"{name}@tp4", "route": "cuda", "source": src,
+                "replaces": replaces,
+                "launches": sum(results.get(o, {}).get("launches_total", {})
+                                .get(name, 0) for o in TP_PHASES),
+                **summarize(rows[name], LINE_WEIGHTS[name, "tp4"])})
         for (name, d), owners in INSTANCES.items():
             src, replaces = SOURCES[name]
             kernels.append({

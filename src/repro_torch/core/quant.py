@@ -50,9 +50,22 @@ def quantize_act_per_token(x: torch.Tensor
     """Dynamic per-token absmax E4M3 quant. x: (..., tokens, features);
     returns (q, dequant scale (..., tokens, 1))."""
     xf = x.to(torch.float32)
-    amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=_EPS)
-    scale = _dequant_scale(amax)
-    return _to_e4m3(xf / scale), scale
+    scale = scale_from_amax(xf.abs().amax(dim=-1, keepdim=True))
+    return quantize_act_scaled(xf, scale), scale
+
+
+def scale_from_amax(amax: torch.Tensor) -> torch.Tensor:
+    """The per-token dequant scale from a row's f32 absmax: max(amax,
+    1e-12) / 448. A serving mesh's row-parallel layer takes the max of
+    its shards' slice absmaxes first, so each shard quantizes its slice
+    under the whole row's scale."""
+    return _dequant_scale(torch.clamp(amax, min=_EPS))
+
+
+def quantize_act_scaled(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """e4m3(clip(x / scale)) under given row scales (..., tokens, 1):
+    `quantize_act_per_token`'s codes, for a column slice of the rows too."""
+    return _to_e4m3(x.to(torch.float32) / scale)
 
 
 # -- weights (baseline only; NestedFP weights come from nestedfp.encode) ------

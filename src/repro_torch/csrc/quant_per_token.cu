@@ -27,6 +27,15 @@
 // (K > 16384) take a two-pass variant that reads the row again from L1.
 // abs and max are exact, so the order of the reduction does not matter,
 // and a row's result does not depend on the other rows.
+//
+// A serving mesh's row-parallel layers (wo, down) hold a column slice of
+// each row a shard, while the scale is the whole row's (GSPMD reduces the
+// amax across shards in the JAX package). Two more entry points split the
+// launch at that reduction: `row_absmax` writes each row's absmax of the
+// slice, the mesh takes the max across shards and the scale from it
+// (quant.scale_from_amax), and `quant_per_token_scaled` writes the slice's
+// codes under that scale: bitwise the unsharded codes at those columns.
+// Each moves the slice's bytes once, as the one-launch quantizer does.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -81,8 +90,17 @@ __device__ __forceinline__ void store8(uint8_t* qr, const float (&v)[8],
   }
 }
 
+// What a launch does with a row. kFull: its absmax, then its scale and
+// codes (quant.quantize_act_per_token). The two halves of kFull for a row
+// cut into column slices (a row-parallel layer of a serving mesh): kAmax
+// writes the slice's absmax alone (not clamped) into `scale`; kScaled
+// reads the row's scale from `scale` (computed from every slice's absmax)
+// and writes the slice's codes, which are then bitwise kFull's codes of
+// the whole row at those columns.
+enum Stage { kFull = 0, kAmax = 1, kScaled = 2 };
+
 // HOLD: K <= kHeld, the row stays in registers between the passes
-template <typename T, bool VEC, bool HOLD>
+template <typename T, bool VEC, bool HOLD, int STAGE>
 __global__ void __launch_bounds__(kThreads)
 quant_per_token_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
                        float* __restrict__ scale, int K) {
@@ -105,27 +123,38 @@ quant_per_token_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
         for (int j = 0; j < 8; ++j) v[c][j] = 0.f;
       }
     }
+    if constexpr (STAGE != kScaled) {
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c)
+      for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[c][j]));
-  } else {
+        for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[c][j]));
+    }
+  } else if constexpr (STAGE != kScaled) {
     for (int k = chunk(0); k < K; k += kThreads * 8) {
       load8<T, VEC>(v[0], xr, k, K);
 #pragma unroll
       for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[0][j]));
     }
   }
+  float s;
+  if constexpr (STAGE == kScaled) {
+    s = scale[row];
+  } else {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if (lane == 0) red[warp] = m;
-  __syncthreads();
-  float amax = red[0];
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) red[warp] = m;
+    __syncthreads();
+    float amax = red[0];
 #pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) amax = fmaxf(amax, red[w]);
-  const float s = __fdiv_rn(fmaxf(amax, 1e-12f), 448.f);
-  if (threadIdx.x == 0) scale[row] = s;
+    for (int w = 1; w < kThreads / 32; ++w) amax = fmaxf(amax, red[w]);
+    if constexpr (STAGE == kAmax) {
+      if (threadIdx.x == 0) scale[row] = amax;
+      return;
+    }
+    s = __fdiv_rn(fmaxf(amax, 1e-12f), 448.f);
+    if (threadIdx.x == 0) scale[row] = s;
+  }
 
   if constexpr (HOLD) {
 #pragma unroll
@@ -139,27 +168,47 @@ quant_per_token_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
   }
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, int STAGE>
 void launch_rows(const T* x, uint8_t* q, float* scale, int M, int K,
                  cudaStream_t s) {
   if (K <= kHeld)
-    quant_per_token_kernel<T, VEC, true>
+    quant_per_token_kernel<T, VEC, true, STAGE>
         <<<M, kThreads, 0, s>>>(x, q, scale, K);
   else
-    quant_per_token_kernel<T, VEC, false>
+    quant_per_token_kernel<T, VEC, false, STAGE>
         <<<M, kThreads, 0, s>>>(x, q, scale, K);
 }
 
-template <typename T>
+template <typename T, int STAGE>
 cudaError_t launch(const void* x, uint8_t* q, float* scale, int M, int K,
                    cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
-  // every row's base 16-byte (x) and 8-byte (q) aligned
-  if (K % 8 == 0 && nfp::aligned(x, 16) && nfp::aligned(q, 8))
-    launch_rows<T, true>(xt, q, scale, M, K, s);
+  // every row's base 16-byte (x) and 8-byte (q) aligned (kAmax writes no
+  // codes: q is null there)
+  if (K % 8 == 0 && nfp::aligned(x, 16) && (STAGE == kAmax || nfp::aligned(q, 8)))
+    launch_rows<T, true, STAGE>(xt, q, scale, M, K, s);
   else
-    launch_rows<T, false>(xt, q, scale, M, K, s);
+    launch_rows<T, false, STAGE>(xt, q, scale, M, K, s);
   return cudaGetLastError();
+}
+
+template <int STAGE>
+int dispatch(const void* x, int x_type, void* q, void* scale, int M, int K,
+             void* stream) {
+  uint8_t* qc = static_cast<uint8_t*>(q);
+  float* sc = static_cast<float*>(scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || K <= 0) return (int)cudaGetLastError();
+  switch (x_type) {
+    case 0:
+      return (int)launch<float, STAGE>(x, qc, sc, M, K, s);
+    case 1:
+      return (int)launch<__half, STAGE>(x, qc, sc, M, K, s);
+    case 2:
+      return (int)launch<__nv_bfloat16, STAGE>(x, qc, sc, M, K, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace nfp_qt
@@ -168,18 +217,22 @@ cudaError_t launch(const void* x, uint8_t* q, float* scale, int M, int K,
 // scale (M,) f32.
 extern "C" int quant_per_token(const void* x, int x_type, void* q,
                                void* scale, int M, int K, void* stream) {
-  uint8_t* qc = static_cast<uint8_t*>(q);
-  float* sc = static_cast<float*>(scale);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || K <= 0) return (int)cudaGetLastError();
-  switch (x_type) {
-    case 0:
-      return (int)nfp_qt::launch<float>(x, qc, sc, M, K, s);
-    case 1:
-      return (int)nfp_qt::launch<__half>(x, qc, sc, M, K, s);
-    case 2:
-      return (int)nfp_qt::launch<__nv_bfloat16>(x, qc, sc, M, K, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return nfp_qt::dispatch<nfp_qt::kFull>(x, x_type, q, scale, M, K, stream);
+}
+
+// amax (M,) f32 <- max_k |x[m,k]| of a column slice x (M,K), not clamped
+extern "C" int row_absmax(const void* x, int x_type, void* amax, int M,
+                          int K, void* stream) {
+  return nfp_qt::dispatch<nfp_qt::kAmax>(x, x_type, nullptr, amax, M, K,
+                                         stream);
+}
+
+// q (M,K) u8 codes of a column slice x (M,K) under the row scales given,
+// scale (M,) f32 (= max(row absmax, 1e-12) / 448 of the whole row)
+extern "C" int quant_per_token_scaled(const void* x, int x_type, void* q,
+                                      const void* scale, int M, int K,
+                                      void* stream) {
+  return nfp_qt::dispatch<nfp_qt::kScaled>(x, x_type, q,
+                                           const_cast<void*>(scale), M, K,
+                                           stream);
 }

@@ -23,14 +23,18 @@ from repro_torch.kernels.planar_decode_attention import (
     paged_planar_decode_attention)
 from repro_torch.kernels.planar_decode_attention import (
     planar_decode_attention as _planar_decode_attention)
-from repro_torch.kernels.quant_per_token import quant_per_token
+from repro_torch.kernels.quant_per_token import (quant_per_token,
+                                                 quant_per_token_scaled,
+                                                 row_absmax)
 
 # the eight kernels that replace a Pallas kernel, then the per-token
-# quantizer in front of K2 (which replaces an XLA-fused function)
+# quantizer in front of K2 (which replaces an XLA-fused function) and its
+# two halves for a mesh's row-parallel layers
 KERNEL_FNS = (nestedfp16_matmul, nestedfp8_matmul, f16_matmul,
               paged_planar_decode_attention, _planar_decode_attention,
               _flash_prefill_attention, nestedfp8_matmul_fused_quant,
-              nestedfp_encode, quant_per_token)
+              nestedfp_encode, quant_per_token, row_absmax,
+              quant_per_token_scaled)
 
 
 def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -53,6 +57,23 @@ def quantize_act_per_token(x: torch.Tensor
     k = x.shape[-1]
     q, s = quant_per_token(_rows(x, k))
     return q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)
+
+
+def act_row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """Each row's f32 absmax of x (..., K) -> (..., 1), not clamped, in one
+    launch (a row-parallel layer's slice, before the mesh's max)."""
+    k = x.shape[-1]
+    return row_absmax(_rows(x, k)).reshape(*x.shape[:-1], 1)
+
+
+def quantize_act_scaled(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """e4m3 codes of x (..., K) under given row scales (..., 1) f32, in one
+    launch, bitwise `quant.quantize_act_scaled`."""
+    k = x.shape[-1]
+    q = quant_per_token_scaled(_rows(x, k),
+                               scale.to(torch.float32).reshape(-1, 1)
+                               .contiguous())
+    return q.reshape(x.shape)
 
 
 def matmul_nested_fp8(x_q: torch.Tensor, upper: torch.Tensor,

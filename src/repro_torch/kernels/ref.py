@@ -55,6 +55,18 @@ def quantize_per_token_ref(x: torch.Tensor
     return quant.quantize_act_per_token(x)
 
 
+def row_absmax_ref(x: torch.Tensor) -> torch.Tensor:
+    """(M,K) x -> (M,1) f32 max |x| of each row, not clamped: the first
+    half of the per-token quantizer, for a column slice of the rows."""
+    return x.to(torch.float32).abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_scaled_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(M,K) x, (M,1) f32 row scales -> (M,K) e4m3 codes, exactly
+    `quant.quantize_act_scaled`."""
+    return quant.quantize_act_scaled(x, scale)
+
+
 def fused_quant_codes(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
     """The e4m3 codes (as u8) that K7 quantizes x to, elementwise:
     e4m3(clip(x * (448/amax))) — a multiply by the inverse, where

@@ -36,6 +36,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import quant
 from repro_torch.core.linear import NestedLinearParams, nested_linear
 from repro_torch.core.nestedfp import e5m2_view, join_bytes, split_bytes
 from repro_torch.kernels import ops, ref
@@ -224,12 +225,17 @@ def attn_core_decode(q, k_cache, v_cache, kv_len, *, window=None):
     return o.reshape(b, 1, h, v_cache.shape[-1])
 
 
-def _qkv(rt, p, cfg, x, positions):
+def _qkv(rt, p, cfg, x, positions, project=None):
+    """q, k, v (B, S, heads, D) of one layer: the three projections (or
+    `project(name)`'s results, a mesh's reduced ones), then the q/k norms
+    and RoPE. The head counts come from the projections' widths, so a
+    shard's column slices give its own heads."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = apply_linear(rt, p["wq"], x).reshape(b, s, h, hd)
-    k = apply_linear(rt, p["wk"], x).reshape(b, s, hkv, hd)
-    v = apply_linear(rt, p["wv"], x).reshape(b, s, hkv, hd)
+    hd = cfg.resolved_head_dim
+    if project is None:
+        def project(name):
+            return apply_linear(rt, p[name], x)
+    q, k, v = (project(n).reshape(b, s, -1, hd) for n in ("wq", "wk", "wv"))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -252,9 +258,20 @@ def attention_paged(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
     the trash block; they lie wholly before the window of every query of
     the step, so K4 never reads them (it reads only the kept keys) and
     the gathered path masks them out."""
-    b, c = x.shape[0], x.shape[1]
-    phys_write, phys_read, q_offset, tables = paged
     q, k, v = _qkv(rt, p, cfg, x, positions)
+    o = _attend_paged(rt, q, k, v, cache=cache, kv_len=kv_len, paged=paged,
+                      window=window)
+    return apply_linear(rt, p["wo"], o)
+
+
+def _attend_paged(rt: Runtime, q, k, v, *, cache: dict, kv_len, paged,
+                  window=None) -> torch.Tensor:
+    """Write this chunk's k, v into the pool planes `cache` and attend q
+    over the pool: (B, C, H * D) in rt.dtype. Single-token decode over a
+    byte-planar pool runs K4 on the planes in place; everything else
+    gathers the keys in logical order (`attn_core_paged`)."""
+    b, c = q.shape[0], q.shape[1]
+    phys_write, phys_read, q_offset, tables = paged
     wf = phys_write.reshape(-1)
 
     def flat(a):     # (NB, BS, ...) pool -> (NB*BS, ...) view
@@ -271,8 +288,7 @@ def attention_paged(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
             o = ops.paged_decode_attention(
                 q[:, 0], cache, tables, kv_len, fp8=rt.mode == "fp8",
                 window=window)[:, None]
-            o = o.reshape(b, c, -1).to(rt.dtype)
-            return apply_linear(rt, p["wo"], o)
+            return o.reshape(b, c, -1).to(rt.dtype)
         if rt.mode == "fp8":
             kc = e5m2_view(flat(cache["k_hi"])[phys_read], torch.float16)
             vc = e5m2_view(flat(cache["v_hi"])[phys_read], torch.float16)
@@ -288,8 +304,7 @@ def attention_paged(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
         kc, vc = kf[phys_read], vf[phys_read]
     o = attn_core_paged(q, kc, vc, q_offset=q_offset, kv_len=kv_len,
                         window=window)
-    o = o.reshape(b, c, -1).to(rt.dtype)
-    return apply_linear(rt, p["wo"], o)
+    return o.reshape(b, c, -1).to(rt.dtype)
 
 
 def attention_prefill(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
@@ -361,3 +376,132 @@ def attention_decode(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
         o = attn_core_decode(q, cache["k"], cache["v"], kv_len, window=window)
     o = o.reshape(b, 1, -1).to(rt.dtype)
     return apply_linear(rt, p["wo"], o)
+
+
+# ---------------------------------------------------------------------------
+# a serving mesh's layers (serving/shard.py drives them)
+# ---------------------------------------------------------------------------
+#
+# Each function takes one entry a shard: that shard's params (its slices,
+# `shard.shard_serving_params`), its input, its pool. An input that every
+# shard holds whole (the residual stream, its norms) is a list whose
+# entries are the same values; `lay` (`sharding.serving_layout`) says how
+# each weight is split, and the data flow follows it.
+
+def _col_slices(xs: list, m: int) -> list:
+    """Shard s's slice s of the last dim of each shard's whole input: the
+    operand of a row-parallel weight when the input is whole."""
+    c = xs[0].shape[-1] // m
+    return [x[..., s * c:(s + 1) * c] for s, x in enumerate(xs)]
+
+
+def linear_row_parallel(rt: Runtime, mesh, ps: list, xs: list) -> list:
+    """A row-parallel nested linear: shard s multiplies its slice of the
+    contraction, x_s (..., K/m), by its rows of the weight; the mesh sums
+    the f32 partials in shard order (`Mesh.all_reduce`), and the bias is
+    added once, after. Returns the whole output on every shard.
+
+    FP8 quantizes each activation row under the WHOLE row's scale, as the
+    unsharded layer does: per token, each shard's slice absmax (one
+    launch), their max across shards, then the slice's codes under the
+    scale from it (one launch), bitwise the unsharded codes at the
+    slice's columns; per tensor (the dense-slot scheme), the max of the
+    slices' absmax into K7. An exception tensor is one in every shard and
+    runs K3 in both modes."""
+    w0 = ps[0].weight
+    mode = "fp8" if rt.mode == "fp8" else "fp16"
+    if mode == "fp8" and not w0.is_exception:
+        if rt.act_quant == "per_token":
+            amax = mesh.all_reduce([ops.act_row_absmax(x) for x in xs],
+                                   op="max")
+            parts = []
+            for p, x, a in zip(ps, xs, amax):
+                scale = quant.scale_from_amax(a)
+                parts.append(ops.matmul_nested_fp8(
+                    ops.quantize_act_scaled(x, scale), p.weight.upper, scale))
+        elif rt.act_quant == "per_tensor":
+            amax = mesh.all_reduce([quant.absmax(x).reshape(1) for x in xs],
+                                   op="max")
+            parts = [ops.matmul_nested_fp8_fused_quant(x, p.weight.upper, a)
+                     for p, x, a in zip(ps, xs, amax)]
+        else:
+            raise ValueError(f"unknown act_quant {rt.act_quant!r}")
+    else:
+        parts = [nested_linear(NestedLinearParams(p.weight, None), x,
+                               mode=mode, out_dtype=torch.float32)
+                 for p, x in zip(ps, xs)]
+    out = []
+    for p, y in zip(ps, mesh.all_reduce(parts)):
+        if rt.fast_accum:
+            y = y.to(torch.bfloat16)
+        if p.bias is not None:
+            y = y + p.bias
+        out.append(y.to(rt.dtype))
+    return out
+
+
+def apply_linear_mesh(rt: Runtime, mesh, kind: str, ps: list,
+                      xs: list) -> list:
+    """One linear on a mesh, from the whole input on every shard: "col"
+    gives each shard its output columns, "row" the reduced whole output
+    (`linear_row_parallel` on the input's slices), "whole" each shard the
+    whole output from its whole weight."""
+    if kind == "row":
+        return linear_row_parallel(rt, mesh, ps, _col_slices(xs, mesh.size))
+    return [apply_linear(rt, p, x) for p, x in zip(ps, xs)]
+
+
+def attention_paged_mesh(rt: Runtime, mesh, lay, ps: list, cfg, xs: list, *,
+                         positions: list, caches: list, kv_len: list,
+                         paged: list, window=None) -> list:
+    """`attention_paged` on a mesh: the counterpart of the JAX package's
+    GSPMD-partitioned paged attention and of its `shard_map` around the
+    Pallas decode kernel. Returns the attention output, whole on every
+    shard.
+
+    Head-parallel (lay.q == "col"): shard s projects its q heads (qwen's
+    q/k/v bias sliced with its columns) and its kv heads, writes them into
+    its own pool, and attends over it: single-token decode over planar
+    pools runs K4 on the shard's pool planes and q heads, chunks the
+    gathered path; `wo` is then row-parallel and reduced. gemma3's kv
+    heads do not divide the axis (one kv head): every shard computes that
+    head whole and writes its own copy of the pool, and K4 runs per shard
+    over that copy (the JAX package's guard `hkv % msz == 0` sends this
+    case to its gathered path; over a whole pool of one kv head, K4 on a
+    shard's q heads computes the same function).
+
+    The row-parallel fallback (lay.q == "row": the head count does not
+    divide, d_model does): q, k and v are reduced whole on every shard,
+    each shard attends over its whole copy of the pool, and `wo` splits
+    its output columns, gathered after. lay.q == "whole" runs the layer
+    whole on every shard."""
+    if lay.q == "col":
+        qkv = [_qkv(rt, p, cfg, x, pos)
+               for p, x, pos in zip(ps, xs, positions)]
+    else:
+        red = {n: apply_linear_mesh(rt, mesh, getattr(lay, "q" if n == "wq"
+                                                      else "kv"),
+                                    [p[n] for p in ps], xs)
+               for n in ("wq", "wk", "wv")}
+        qkv = [_qkv(rt, p, cfg, x, pos, project=lambda n, s=s: red[n][s])
+               for s, (p, x, pos) in enumerate(zip(ps, xs, positions))]
+    outs = [_attend_paged(rt, q, k, v, cache=cache, kv_len=kv_len[s],
+                          paged=paged[s], window=window)
+            for s, ((q, k, v), cache) in enumerate(zip(qkv, caches))]
+    wo = [p["wo"] for p in ps]
+    if lay.wo == "row":
+        return linear_row_parallel(rt, mesh, wo, outs)
+    if lay.wo == "col":
+        return mesh.all_gather(
+            [apply_linear(rt, p, o) for p, o in zip(wo, outs)], dim=-1)
+    return [apply_linear(rt, p, o) for p, o in zip(wo, outs)]
+
+
+def swiglu_mesh(rt: Runtime, mesh, lay, ps: list, xs: list) -> list:
+    """`swiglu` on a mesh: gate and up by columns, down row-parallel and
+    reduced (lay.mlp == "col"), or whole on every shard."""
+    if lay.mlp == "whole":
+        return [swiglu(rt, p, x) for p, x in zip(ps, xs)]
+    h = [F.silu(apply_linear(rt, p["gate"], x)) * apply_linear(rt, p["up"], x)
+         for p, x in zip(ps, xs)]
+    return linear_row_parallel(rt, mesh, [p["down"] for p in ps], h)

@@ -352,14 +352,14 @@ def _recurrent_descriptor(cfg: ArchConfig, planar: bool) -> KV.CacheDescriptor:
         slot_planes=slot_planes, prefix_cacheable=False)
 
 
-_TORCH_DTYPES = {"uint8": torch.uint8, "float16": torch.float16,
+TORCH_DTYPES = {"uint8": torch.uint8, "float16": torch.float16,
                  "float32": torch.float32}
 
 
 def _state_planes(desc: KV.CacheDescriptor, n: int, device) -> dict:
     """Zero slot-resident state planes of `n` slots, (L, n, ...) each."""
     return {p.name: torch.zeros((p.shape[0], n) + tuple(p.shape[1:]),
-                                dtype=_TORCH_DTYPES[p.dtype], device=device)
+                                dtype=TORCH_DTYPES[p.dtype], device=device)
             for p in desc.slot_planes}
 
 
@@ -371,7 +371,7 @@ def paged_key(desc: KV.CacheDescriptor) -> str:
 
 def init_paged_cache(cfg: ArchConfig, n_total_blocks: int, block_size: int,
                      planar: bool = False, device=None,
-                     n_slots: int | None = None) -> dict:
+                     n_slots: int | None = None, mesh=None):
     """The serving caches a descriptor lays out. Paged planes are
     {plane: (L, NB, BS, *token_shape)}, with no batch dim: sequences own
     block ids (serving/kvcache.py BlockManager; block 0 is the trash
@@ -379,14 +379,41 @@ def init_paged_cache(cfg: ArchConfig, n_total_blocks: int, block_size: int,
     GQA planes are (Hkv, D) a token (planar=True: the byte planes of
     NestedKV), MLA planes (r,) and (d_rope,). Slot-resident state (ssm
     and hybrid) is {"ssm": {plane: (L, n_slots, ...)}}, zero, and needs
-    `n_slots`."""
+    `n_slots`.
+
+    mesh: one such dict a shard, on the shard's device, each plane cut as
+    `sharding.paged_cache_spec` says (GQA planes by kv heads when they
+    divide, else whole: every shard then holds its own copy). `device`
+    is not read then."""
     desc = cache_descriptor(cfg, planar=planar)
+    if mesh is not None:
+        from repro_torch.launch import sharding as SH
+        out = []
+        for dev in mesh.devices:
+            shard = {}
+            if desc.planes:
+                key = paged_key(desc)
+                shard[key] = {}
+                for p in desc.planes:
+                    shape = (p.n_layers, n_total_blocks, block_size) \
+                        + p.token_shape
+                    spec = SH.paged_cache_spec((key, p.name), shape, cfg,
+                                               mesh)
+                    shard[key][p.name] = torch.zeros(
+                        SH.local_shape(shape, spec, mesh.size),
+                        dtype=TORCH_DTYPES[p.dtype], device=dev)
+            if desc.slot_planes:
+                raise NotImplementedError(
+                    "slot-resident state on a mesh (head-sharded SSM "
+                    "state) is ROADMAP §1's next item")
+            out.append(shard)
+        return out
     device = resolve_device(device)
     out = {}
     if desc.planes:
         out[paged_key(desc)] = {
             p.name: torch.zeros((p.n_layers, n_total_blocks, block_size)
-                                + p.token_shape, dtype=_TORCH_DTYPES[p.dtype],
+                                + p.token_shape, dtype=TORCH_DTYPES[p.dtype],
                                 device=device)
             for p in desc.planes}
     if desc.slot_planes:
@@ -710,6 +737,54 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
     the (B, V) f32 logits."""
     if cfg.family == "encdec":
         raise ValueError("paged_step serves decoder-only archs")
+    ix = paged_indices(cfg, tokens, block_tables, q_offset=q_offset,
+                       kv_len=kv_len, block_size=block_size, rows=rows)
+    desc = ix.desc
+    if slot is not None:
+        slot = slot.to(torch.int64)
+    h = embed_tokens(rt, params, cfg, tokens)
+    if desc.slot_planes:
+        h = run_ssm_stack(rt, params["layers"], cfg, h, phase="paged",
+                          positions=ix.positions, caches=caches,
+                          kv_len=ix.kv_len, slot=slot,
+                          shared_params=params.get("shared_attn"),
+                          paged=(ix.phys_write[0], ix.phys_read[0],
+                                 ix.q_offset, ix.tables[0]))
+    else:
+        h = run_decoder_stack(rt, params["layers"], cfg, h, phase="paged",
+                              positions=ix.positions, caches=caches["attn"],
+                              kv_len=ix.kv_len,
+                              paged=(ix.phys_write, ix.phys_read,
+                                     ix.q_offset, ix.tables),
+                              paged_groups=desc.layer_group_map(cfg.n_layers),
+                              aux=aux)
+    if not sample_all:
+        h = logit_rows(h, logit_position)
+    logits = lm_logits(rt, params, cfg, h)
+    if not sample_all:
+        logits = logits[:, 0]
+    if return_logits:
+        return logits
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+@dataclasses.dataclass
+class PagedIndices:
+    """A paged step's positions and pool indices (`paged_indices`)."""
+    desc: KV.CacheDescriptor
+    positions: torch.Tensor    # (B, C) int64
+    phys_write: torch.Tensor   # (G, B, C) flat pool rows of the writes
+    phys_read: torch.Tensor    # (G, B, MB * BS) flat pool rows in order
+    q_offset: torch.Tensor     # (B,) int64
+    kv_len: torch.Tensor       # (B,) int32
+    tables: torch.Tensor       # (G, B, MB) int32
+
+
+def paged_indices(cfg, tokens, block_tables, *, q_offset, kv_len,
+                  block_size: int, rows=None) -> PagedIndices:
+    """The positions and flat pool indices of a `paged_step`, one set a
+    window group, from its block tables (see `paged_step` for the
+    arguments)."""
     b, c = tokens.shape
     dev = tokens.device
     desc = cache_descriptor(cfg)
@@ -724,8 +799,6 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
         tables = tables.expand(ngrp, -1, -1)
     q_offset = q_offset.to(torch.int64)
     kv_len = kv_len.to(torch.int32)
-    if slot is not None:
-        slot = slot.to(torch.int64)
     mb = tables.shape[2]
     positions = q_offset[:, None] + torch.arange(c, device=dev)[None, :]
     real = positions < kv_len[:, None]
@@ -738,34 +811,94 @@ def paged_step(rt, params, cfg, tokens, caches, block_tables, *,
     offs = torch.arange(block_size, device=dev)
     phys_read = (tables.long()[..., None] * block_size
                  + offs).reshape(ngrp, b, mb * block_size)
-    h = embed_tokens(rt, params, cfg, tokens)
-    if desc.slot_planes:
-        h = run_ssm_stack(rt, params["layers"], cfg, h, phase="paged",
-                          positions=positions, caches=caches, kv_len=kv_len,
-                          slot=slot, shared_params=params.get("shared_attn"),
-                          paged=(phys_write[0], phys_read[0], q_offset,
-                                 tables[0]))
-    else:
-        h = run_decoder_stack(rt, params["layers"], cfg, h, phase="paged",
-                              positions=positions, caches=caches["attn"],
-                              kv_len=kv_len,
-                              paged=(phys_write, phys_read, q_offset, tables),
-                              paged_groups=desc.layer_group_map(cfg.n_layers),
-                              aux=aux)
-    if sample_all:
-        logits = lm_logits(rt, params, cfg, h)             # (B, C, V)
-        if return_logits:
-            return logits
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return PagedIndices(desc, positions, phys_write, phys_read, q_offset,
+                        kv_len, tables)
+
+
+def logit_rows(h: torch.Tensor, logit_position=None) -> torch.Tensor:
+    """(B, 1, D): each row's hidden state at its `logit_position` (default
+    the last column)."""
     if logit_position is None:
-        hsel = h[:, -1:]
-    else:
-        lp = logit_position.to(torch.int64)
-        hsel = torch.gather(h, 1, lp[:, None, None].expand(-1, 1, h.shape[-1]))
-    logits = lm_logits(rt, params, cfg, hsel)[:, 0]
-    if return_logits:
-        return logits
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+        return h[:, -1:]
+    lp = logit_position.to(torch.int64)
+    return torch.gather(h, 1, lp[:, None, None].expand(-1, 1, h.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# a serving mesh's model-level pieces (serving/shard.py drives them): one
+# list entry a shard, as in `layers.attention_paged_mesh`
+# ---------------------------------------------------------------------------
+
+def embed_tokens_mesh(rt, mesh, lay, params: list, cfg, tokens: list) -> list:
+    """`embed_tokens` on a mesh. A vocab-split embedding (lay.vocab):
+    shard s gathers the rows of the ids in its slice of the vocab and
+    zeros for the rest, and the mesh sums the shards (each id's row comes
+    from one shard, so the sum is that row). Gathering before the cast to
+    rt.dtype gives the cast-then-gather's bits."""
+    if not lay.vocab:
+        return [embed_tokens(rt, p, cfg, t) for p, t in zip(params, tokens)]
+    parts = []
+    for s, (p, t) in enumerate(zip(params, tokens)):
+        w = p["embed"]["tok"]
+        n = w.shape[0]
+        local = t.long() - s * n
+        hit = (local >= 0) & (local < n)
+        rows = w[local.clamp(0, n - 1)].to(rt.dtype)
+        parts.append(torch.where(hit[..., None], rows, torch.zeros(
+            (), dtype=rows.dtype, device=rows.device)))
+    return mesh.all_reduce(parts)
+
+
+def sharded_argmax(mesh, parts: list) -> torch.Tensor:
+    """torch.argmax over the last dim of the logits that `parts` hold in
+    vocab slices, one a shard in vocab order: each shard's first maximum
+    and its value, then, in shard order, a later shard wins only with a
+    strictly larger value, so the first index of the whole row's maximum
+    wins as torch.argmax's does. On the first shard's device, int32."""
+    root = mesh.devices[0]
+    best_v = best_i = None
+    off = 0
+    for part in parts:
+        i = torch.argmax(part, dim=-1, keepdim=True)
+        v = torch.gather(part, -1, i).to(root)
+        i = (i + off).to(root)
+        off += part.shape[-1]
+        if best_v is None:
+            best_v, best_i = v, i
+            continue
+        take = v > best_v
+        best_v = torch.where(take, v, best_v)
+        best_i = torch.where(take, i, best_i)
+    return best_i[..., 0].to(torch.int32)
+
+
+def run_decoder_stack_mesh(rt, mesh, lay, params: list, cfg, hs: list, *,
+                           caches: list, idx: list) -> list:
+    """`run_decoder_stack`'s paged phase on a mesh: layer i of every shard
+    in turn, each shard's attention over its own pool (its slice i of
+    `caches[s]["attn"]`) through its window group's indices (`idx[s]`, a
+    `PagedIndices`), the residual stream whole on every shard."""
+    windows = _layer_windows(cfg)
+    groups = idx[0].desc.layer_group_map(cfg.n_layers)
+    eps = cfg.norm_eps
+    for i in range(cfg.n_layers):
+        g = int(groups[i])
+        ps = [p["layers"][i] for p in params]
+        hn = [L.rms_norm(h, p["ln1"], eps) for h, p in zip(hs, ps)]
+        a = L.attention_paged_mesh(
+            rt, mesh, lay, [p["attn"] for p in ps], cfg, hn,
+            positions=[ix.positions for ix in idx],
+            caches=[{n: pl[i] for n, pl in c["attn"].items()}
+                    for c in caches],
+            kv_len=[ix.kv_len for ix in idx],
+            paged=[(ix.phys_write[g], ix.phys_read[g], ix.q_offset,
+                    ix.tables[g]) for ix in idx],
+            window=windows[i])
+        hs = [h + y for h, y in zip(hs, a)]
+        hn = [L.rms_norm(h, p["ln2"], eps) for h, p in zip(hs, ps)]
+        f = L.swiglu_mesh(rt, mesh, lay, [p["mlp"] for p in ps], hn)
+        hs = [h + y for h, y in zip(hs, f)]
+    return hs
 
 
 def _frontend_tokens(rt, params, cfg, batch):

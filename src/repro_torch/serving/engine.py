@@ -90,14 +90,26 @@ time (the controller reacts to it) and reported as `last_stall_ms`, and
 `last_mode` is the step's precision. `drain_requests()` exports every
 in-flight request for failover, releasing its blocks and slot.
 
-Not ported yet, and refused with NotImplementedError when asked for:
-serving meshes.
+Serving meshes (`mesh=`, `launch.mesh.make_serving_mesh`): the engine
+drives a ("model",) mesh as one logical device. Weights are cut one
+piece a shard at construction (`shard.shard_serving_params`), each shard
+has its own pool (`model.init_paged_cache(mesh=)`), the block tables are
+replicated (one device copy a distinct device) and every dispatch is one
+call of `shard.sharded_paged_step`, captured as one CUDA graph where the
+shards share a card. The host scheduler is untouched, so `stats` count
+logical steps: dispatches, h2d bytes and every counter equal the
+unsharded engine's on the same requests. A host-tier entry is the
+logical block, every shard's planes put together (a pool kept whole is
+read from the first shard and written to all), so its checksum and the
+prefix store's format are the unsharded engine's. The dense families
+only: the moe, ssm and hybrid families raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -111,9 +123,11 @@ from repro_torch.core.policy import (AdaptiveKController,
                                      DualPrecisionController, RestorePolicy,
                                      SpeculationConfig, StepObservation)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import model as M
 from repro_torch.models.convert import params_to
 from repro_torch.models.layers import Runtime
+from repro_torch.serving import shard as SHARD
 from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.kvcache import (TRASH_BLOCK, BlockManager,
                                          HostPool, SlotManager)
@@ -189,12 +203,20 @@ class Engine:
                  restore_policy: RestorePolicy | None = None,
                  persist_dir: str | None = None, mesh=None,
                  fault_hook: Callable[["Engine"], None] | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Engine(mesh=...) is not ported to repro_torch yet")
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh: a launch.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
         self.cfg = cfg
-        self.params = params_to(serving_params, self.device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.params = params_to(serving_params, self.device)
+        else:
+            # the first shard's device holds the step's inputs, the
+            # primary block table and the host tier's staging buffers
+            self.device = mesh.devices[0]
+            self.params = SHARD.shard_serving_params(serving_params, cfg,
+                                                     mesh)
         self.controller = controller
         self.forced_mode = forced_mode
         self.clock = clock
@@ -295,7 +317,9 @@ class Engine:
                                    prefix_cache=prefix_cache,
                                    group_windows=gw, device=self.device,
                                    host_pool=HostPool(host_bytes)
-                                   if self._host_tier else None)
+                                   if self._host_tier else None,
+                                   mirror_devices=() if mesh is None
+                                   else SHARD.replicated(mesh))
         # the layers whose pool rows each group's block ids address (the
         # same id may be live in another group with other content)
         glayers = [g.layers for g in desc.groups] \
@@ -308,8 +332,11 @@ class Engine:
         self.slot_state = SlotManager(n_slots) if desc.slot_planes else None
         self.caches = M.init_paged_cache(
             cfg, self.blocks.n_total_blocks, block_size,
-            planar=self.kv_planar, device=self.device, n_slots=n_slots)
+            planar=self.kv_planar, device=self.device, n_slots=n_slots,
+            mesh=mesh)
         self._pool_key = M.paged_key(desc)
+        self._plane_dtypes = {p.name: M.TORCH_DTYPES[p.dtype]
+                              for p in desc.planes}
         # tiered KV: a host entry holds, for each plane, the group's layer
         # rows of one block, (group layers, block_size, *token_shape), as
         # in the JAX package. Planar pools upload the hi planes at restore
@@ -327,8 +354,15 @@ class Engine:
                                    for gi in self._entry_shapes}
         # the device block table exists from here on and is only ever
         # written in place: the captured steps read it at a fixed address
+        tables, step = self.blocks.device_tables(), M.paged_step
+        if mesh is not None:
+            # a table copy a shard (one a device) and the mesh's step; a
+            # mesh across cards runs eagerly (serving/graphs.py)
+            tables = [self.blocks.device_tables(d) for d in mesh.devices]
+            step = functools.partial(SHARD.sharded_paged_step, mesh)
         self.graphs = StepGraphs(self._rts, self.params, cfg, self.caches,
-                                 self.blocks.device_tables(), block_size)
+                                 tables, block_size, step=step,
+                                 capture=mesh is None or mesh.colocated)
         self.iteration = 0
         if self._host_tier and persist_dir:
             self._load_prefix_store(persist_dir)
@@ -471,24 +505,43 @@ class Engine:
 
     def _record_bytes(self, g: int, names) -> int:
         """Bytes of one block's host entry for planes `names` of group g."""
-        dt = {p.name: np.dtype(p.dtype).itemsize for p in self.desc.planes}
-        return sum(int(np.prod(self._entry_shapes[g][n])) * dt[n]
-                   for n in names)
+        return sum(int(np.prod(self._entry_shapes[g][n]))
+                   * self._plane_dtypes[n].itemsize for n in names)
 
     def _planes_of(self, g: int, names, rows: torch.Tensor):
         """For each plane of `names`, in order: (name, byte offset and
-        bytes of its part of one block's record, the pool plane, that
-        part of `rows` — a (blocks, record bytes) uint8 staging buffer —
-        viewed as (blocks, *entry shape) in the plane's dtype)."""
+        bytes of its part of one block's record, that part of `rows` — a
+        (blocks, record bytes) uint8 staging buffer — viewed as (blocks,
+        *entry shape) in the plane's dtype)."""
         off = 0
         for n in names:
-            plane = self.caches[self._pool_key][n]
             shape = self._entry_shapes[g][n]
-            nb = int(np.prod(shape)) * plane.element_size()
-            region = rows[:, off: off + nb].view(plane.dtype).view(
-                rows.shape[0], *shape)
-            yield n, off, nb, plane, region
+            dt = self._plane_dtypes[n]
+            nb = int(np.prod(shape)) * dt.itemsize
+            region = rows[:, off: off + nb].view(dt).view(rows.shape[0],
+                                                          *shape)
+            yield n, off, nb, region
             off += nb
+
+    def _pool_parts(self, name: str, write: bool):
+        """Where plane `name` of the logical pool lives: (a pool plane,
+        the slice of a record's kv-head axis it holds, None for all of
+        it). Unsharded, the one plane. On a mesh, each shard's plane: its
+        kv heads' slice, or the whole record where the pool is kept whole
+        on every shard (read from the first shard, written to all)."""
+        whole = self._entry_shapes[0][name][2]
+        parts = []
+        for c in self._shard_caches():
+            plane = c[self._pool_key][name]
+            h = plane.shape[3]
+            if h == whole:
+                parts.append((plane, None))
+                if not write:
+                    break
+            else:
+                i = len(parts)
+                parts.append((plane, slice(i * h, (i + 1) * h)))
+        return parts
 
     def _host_buffer(self, nbytes: int) -> torch.Tensor:
         """A host uint8 buffer for one tier transfer: page-locked on a card,
@@ -530,10 +583,12 @@ class Engine:
             rec = self._record_bytes(g, names)
             stage = torch.empty((kb, rec), dtype=torch.uint8,
                                 device=self.device)
-            for _n, _off, _nb, plane, region in self._planes_of(g, names,
-                                                                stage):
-                region.copy_(plane[li[:, None], ids_dev[None, :]]
-                             .transpose(0, 1))
+            for n, _off, _nb, region in self._planes_of(g, names, stage):
+                for plane, heads in self._pool_parts(n, write=False):
+                    d = plane.device
+                    got = plane[li.to(d)[:, None], ids_dev.to(d)[None, :]]
+                    dst = region if heads is None else region[..., heads, :]
+                    dst.copy_(got.transpose(0, 1))
             host = self._host_buffer(kb * rec).view(kb, rec)
             host.copy_(stage, non_blocking=on_card)
             done = None
@@ -561,7 +616,7 @@ class Engine:
                 # read landed bytes.
                 done.synchronize()
             layout = [(n, off, nb, r.numpy().dtype, r.shape[1:])
-                      for n, off, nb, _p, r in self._planes_of(g, names, host)]
+                      for n, off, nb, r in self._planes_of(g, names, host)]
             rows = host.numpy()
             entries = []
             for i in range(len(items)):
@@ -612,16 +667,19 @@ class Engine:
         nbytes = 0
         for i, (_b, h) in enumerate(items):
             entry = bm.host.get((g, h))
-            for n, off, nb, _p, _r in self._planes_of(g, names, rows):
+            for n, off, nb, _r in self._planes_of(g, names, rows):
                 hv[i, off: off + nb] = entry[n].reshape(-1).view(np.uint8)
                 nbytes += nb
         dev = host.to(self.device, non_blocking=on_card)
         ids_dev = dev[:kb * 8].view(torch.int64)
         li = self._group_layers[g]
-        for _n, _o, _nb, plane, region in self._planes_of(
+        for n, _o, _nb, region in self._planes_of(
                 g, names, dev[kb * 8:].view(kb, rec)):
-            plane.index_put_((li[:, None], ids_dev[None, :]),
-                             region.transpose(0, 1))
+            for plane, heads in self._pool_parts(n, write=True):
+                d = plane.device
+                src = region if heads is None else region[..., heads, :]
+                plane.index_put_((li.to(d)[:, None], ids_dev.to(d)[None, :]),
+                                 src.transpose(0, 1).to(d))
         self.stats["aux_dispatches"] += 1
         return nbytes
 
@@ -931,10 +989,15 @@ class Engine:
             self._upload_lo(self.blocks.take_lo_pending_for(
                 [(g, src) for g, src, _dst in triples]))
         for g, src, dst in triples:
-            layers = self._group_layers[g]
-            for plane in self.caches[self._pool_key].values():
-                plane[layers, dst] = plane[layers, src]
+            for c in self._shard_caches():
+                for plane in c[self._pool_key].values():
+                    layers = self._group_layers[g].to(plane.device)
+                    plane[layers, dst] = plane[layers, src]
             self.stats["aux_dispatches"] += 1
+
+    def _shard_caches(self) -> list[dict]:
+        """The caches, one dict a shard (one in all without a mesh)."""
+        return [self.caches] if self.mesh is None else self.caches
 
     def _cow_or_preempt(self, idx: int, start: int, end: int) -> bool:
         """Fork shared blocks covering the write range [start, end);

@@ -47,6 +47,14 @@ lifetimes are those of the card.
 
 `capture` and `replay` are that discipline on its own, for any step
 function; the dense-slot decode step (`launch/steps.py`) uses them too.
+
+Under a serving mesh (`Engine(mesh=...)`) the step is
+`shard.sharded_paged_step` over one entry a shard of params, pools and
+block tables. A mesh whose shards share one card is captured as one CUDA
+graph per key, like an unsharded engine, and its first replays are held
+bitwise against eager calls the same way. A mesh across several cards
+runs its steps eagerly (`capture=False`): a graph is captured on one
+device.
 """
 
 from __future__ import annotations
@@ -137,6 +145,11 @@ def _layout(key: tuple, n_slots: int
             ("kv_len", (rb,)), ("logit_position", (rb,))], (rb,)
 
 
+def _shards(x) -> list:
+    """A mesh's one-entry-a-shard list, or an unsharded value as one."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
 class StepGraphs:
     """The engine's step keys: static buffers, capture, replay, one pool.
 
@@ -144,18 +157,25 @@ class StepGraphs:
     them; caches: the engine's pool planes and slot-resident state;
     tables: its persistent
     (G, n_slots, MB) device block tables, one per window group
-    (`BlockManager.device_tables()`)."""
+    (`BlockManager.device_tables()`). step: the step function,
+    `model.paged_step` or a mesh's (`functools.partial(
+    shard.sharded_paged_step, mesh)`, with params, caches and tables one
+    entry a shard); capture: False runs a card's steps eagerly."""
 
-    def __init__(self, rts: dict, params, cfg, caches: dict,
-                 tables: torch.Tensor, block_size: int):
+    def __init__(self, rts: dict, params, cfg, caches, tables, block_size: int,
+                 step=M.paged_step, capture: bool = True):
         self.rts, self.params, self.cfg = rts, params, cfg
         self.caches, self.tables = caches, tables
+        self.step_fn = step
         self.block_size = block_size
-        self.n_slots = tables.shape[1]
-        self.device = tables.device
+        first = _shards(tables)[0]
+        self.n_slots = first.shape[1]
+        self.device = first.device
         self.on_card = self.device.type == "cuda"
+        self.capturing = self.on_card and capture
         self._steps: dict[tuple, _Step] = {}
-        self._pool = torch.cuda.graph_pool_handle() if self.on_card else None
+        self._pool = torch.cuda.graph_pool_handle() if self.capturing \
+            else None
         # with check_first_runs set, `run` holds each key's first run
         # against an eager call (`check_replay`) right after it, while
         # the tables are those the run read; results go to `checks`
@@ -228,7 +248,7 @@ class StepGraphs:
         mode = st.key[1]
         if st.key[0] == "spec":
             return self._verify(mode, caches, tables, inputs)
-        return M.paged_step(
+        return self.step_fn(
             self.rts[mode], self.params, self.cfg, inputs["tokens"], caches,
             tables, q_offset=inputs["q_offset"], kv_len=inputs["kv_len"],
             block_size=self.block_size,
@@ -244,7 +264,7 @@ class StepGraphs:
         earlier draft survived (the cumprod). Returns [ids | n_accepted],
         (n_slots, cb + 1) int32."""
         toks, dlen = inputs["tokens"], inputs["dlen"]
-        ids = M.paged_step(
+        ids = self.step_fn(
             self.rts[mode], self.params, self.cfg, toks, caches, tables,
             q_offset=inputs["q_offset"], kv_len=inputs["kv_len"],
             block_size=self.block_size, sample_all=True)
@@ -263,7 +283,7 @@ class StepGraphs:
         card; eager on the CPU. Returns the static ids, which the key's
         next run overwrites."""
         st = self._steps[key]
-        if not self.on_card:
+        if not self.capturing:
             self._call(st)
         elif st.graph is None:
             self._capture(st)
@@ -279,7 +299,7 @@ class StepGraphs:
         row has kv_len 0, so the warm-up call writes only to the trash
         block. A key already captured is left as it is."""
         st = self._entry(key)
-        if self.on_card and st.graph is None:
+        if self.capturing and st.graph is None:
             self.inputs(key)
             self.upload(key)
             self._capture(st)
@@ -312,21 +332,29 @@ class StepGraphs:
         afterwards."""
         st = self._steps[key]
         before = ops.all_launch_counters()
-        saved = {sub: {n: p.clone() for n, p in planes.items()}
-                 for sub, planes in self.caches.items()}
+        shards = _shards(self.caches)
+        saved = [{sub: {n: p.clone() for n, p in planes.items()}
+                  for sub, planes in c.items()} for c in shards]
         saved_ids = st.ids.clone()
-        clones = {sub: {n: p.clone() for n, p in planes.items()}
-                  for sub, planes in saved.items()}
-        want = self._step(st, clones, self.tables.clone(),
+        clones = [{sub: {n: p.clone() for n, p in planes.items()}
+                   for sub, planes in c.items()} for c in saved]
+        tables = [t.clone() for t in _shards(self.tables)]
+        if not isinstance(self.caches, (list, tuple)):
+            clones, tables = clones[0], tables[0]
+        want = self._step(st, clones, tables,
                           {n: v.clone() for n, v in st.views.items()})
         got = self.run(key)
         live = st.views["kv_len"] > 0
         same = {"ids": bool(torch.equal(got[live], want[live]))}
-        for sub, planes in self.caches.items():
-            cut = slice(None) if sub == "ssm" else slice(TRASH_BLOCK + 1, None)
-            for n, p in planes.items():
-                same[n] = bool(torch.equal(p[:, cut], clones[sub][n][:, cut]))
-                p.copy_(saved[sub][n])
+        for i, c in enumerate(shards):
+            tag = f"shard{i}/" if len(shards) > 1 else ""
+            for sub, planes in c.items():
+                cut = slice(None) if sub == "ssm" \
+                    else slice(TRASH_BLOCK + 1, None)
+                for n, p in planes.items():
+                    same[tag + n] = bool(torch.equal(
+                        p[:, cut], _shards(clones)[i][sub][n][:, cut]))
+                    p.copy_(saved[i][sub][n])
         st.ids.copy_(saved_ids)
         after = ops.all_launch_counters()
         ops.add_launches({k: before[k] - after[k] for k in after})

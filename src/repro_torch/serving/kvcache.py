@@ -46,7 +46,10 @@ This is the host side of the JAX package's `serving/kvcache.py`. The
 block tables keep a DEVICE mirror of shape (G, n_slots, MB): table
 mutations are recorded in a dirty set and flushed by one small in-place
 index write per step (`device_tables`), not by a re-upload of the whole
-table.
+table. Under a serving mesh (the JAX package's `mirror_sharding`) the
+table is replicated: one device copy a distinct device of the mesh
+(`mirror_devices`), shared by the shards on it, every copy written by the
+same one logical flush.
 """
 
 from __future__ import annotations
@@ -387,7 +390,8 @@ class BlockManager:
     def __init__(self, n_slots: int, block_size: int, n_blocks: int,
                  max_blocks_per_seq: int, prefix_cache: bool = False,
                  group_windows: tuple[int | None, ...] = (None,),
-                 device="cpu", host_pool: HostPool | None = None):
+                 device="cpu", host_pool: HostPool | None = None,
+                 mirror_devices=()):
         assert block_size > 0 and n_blocks > 0
         assert group_windows and all(w is None or w > 0
                                      for w in group_windows)
@@ -412,6 +416,10 @@ class BlockManager:
         self._tables = np.full((self.n_groups, n_slots, max_blocks_per_seq),
                                TRASH_BLOCK, np.int32)
         self._dev_tables: torch.Tensor | None = None
+        # the replicated table's other copies, one a further device
+        self._mirrors: dict[torch.device, torch.Tensor] = {}
+        self.mirror_devices = tuple(d for d in dict.fromkeys(
+            map(torch.device, mirror_devices)) if d != self.device)
         self._dirty: dict[tuple[int, int, int], int] = {}
         self.table_h2d_bytes = 0
         self.table_flushes = 0
@@ -495,28 +503,34 @@ class BlockManager:
             if self._dev_tables is not None:
                 self._dirty[(g, idx, j)] = int(b)
 
-    def device_tables(self) -> torch.Tensor:
+    def device_tables(self, device=None) -> torch.Tensor:
         """(n_groups, n_slots, max_blocks_per_seq) int32 table array on
-        the device. The first call uploads the whole host array; later
+        the device (or its copy on `device`, one of `mirror_devices`).
+        The first call uploads the whole host array to every copy; later
         calls write only the entries changed since the last flush, in
-        place."""
+        place, into every copy: one logical flush, whatever the number of
+        copies (the counters count it once)."""
         if self._dev_tables is None:
             self._dev_tables = torch.from_numpy(self._tables.copy()).to(
                 self.device)
+            for d in self.mirror_devices:
+                self._mirrors[d] = self._dev_tables.to(d)
             self.table_h2d_bytes += self._tables.nbytes
             self.table_flushes += 1
-            return self._dev_tables
-        if self._dirty:
+        elif self._dirty:
             upd = np.asarray([(g, s, j, b) for (g, s, j), b
                               in self._dirty.items()], np.int64)
-            dev = torch.from_numpy(upd).to(self.device)
-            self._dev_tables[dev[:, 0], dev[:, 1], dev[:, 2]] = \
-                dev[:, 3].to(torch.int32)
+            for tab in (self._dev_tables, *self._mirrors.values()):
+                dev = torch.from_numpy(upd).to(tab.device)
+                tab[dev[:, 0], dev[:, 1], dev[:, 2]] = dev[:, 3].to(
+                    torch.int32)
             self.table_h2d_bytes += upd.nbytes
             self.table_flushes += 1
             self.table_updates += len(self._dirty)
             self._dirty.clear()
-        return self._dev_tables
+        if device is None or torch.device(device) == self.device:
+            return self._dev_tables
+        return self._mirrors[torch.device(device)]
 
     # -- allocation core -------------------------------------------------------
     def _alloc_block(self, g: int) -> int | None:
@@ -1198,8 +1212,9 @@ class BlockManager:
                 "host checksum map out of sync with entries"
         if self._dev_tables is not None:
             # debug-only device read: overlay the pending dirty entries
-            mirror = self._dev_tables.cpu().numpy().copy()
-            for (g, s, j), b in self._dirty.items():
-                mirror[g, s, j] = b
-            assert (mirror == self._tables).all(), \
-                "device table mirror diverged from the host tables"
+            for tab in (self._dev_tables, *self._mirrors.values()):
+                mirror = tab.cpu().numpy().copy()
+                for (g, s, j), b in self._dirty.items():
+                    mirror[g, s, j] = b
+                assert (mirror == self._tables).all(), \
+                    "device table mirror diverged from the host tables"

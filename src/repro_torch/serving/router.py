@@ -488,16 +488,23 @@ class Router:
         """Build R identical engines, keeping their factories for the
         rebuild after a failed drain. Engines built from one serving tree
         on one device share its weights (`params_to` returns the same
-        storage); each has its own pool and graphs. One replica per mesh
-        slice (`meshes`) waits for the serving meshes."""
+        storage); each has its own pool and graphs. `meshes`: replica i
+        serves on mesh meshes[i] (`launch.mesh.make_replica_meshes`), with
+        its own shards' weight slices, pools and graphs, which a killed or
+        rebuilt replica frees without touching another's."""
         from repro_torch.serving.engine import Engine
-        if meshes is not None:
-            raise NotImplementedError(
-                "Router.build(meshes=...) is not ported to repro_torch yet")
         base = dict(engine_kwargs or {})
+        if meshes is not None and len(meshes) != n_replicas:
+            raise ValueError(f"{len(meshes)} meshes for {n_replicas} "
+                             f"replicas")
+        factories = []
+        for i in range(n_replicas):
+            kw = dict(base)
+            if meshes is not None:
+                kw["mesh"] = meshes[i]
 
-        def factory():
-            return Engine(cfg, serving_params, **base)
-        factories = [factory] * n_replicas
+            def factory(kw=kw):
+                return Engine(cfg, serving_params, **kw)
+            factories.append(factory)
         return cls([f() for f in factories], factories=factories,
                    **router_kwargs)

@@ -22,6 +22,7 @@ from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.kvcache import BlockManager as JBlockManager  # noqa: E402
 from repro_torch.core.policy import DualPrecisionController as TController  # noqa: E402
 from repro_torch.core.policy import SLOConfig as TSLO  # noqa: E402
+from repro_torch.launch.mesh import make_serving_mesh  # noqa: E402
 from repro_torch.serving.engine import Engine as TEngine  # noqa: E402
 from repro_torch.serving.engine import Request as TRequest  # noqa: E402
 from repro_torch.serving.kvcache import BlockManager as TBlockManager  # noqa: E402
@@ -149,12 +150,21 @@ def test_default_device_needs_a_gpu(qwen):
 
 @pytest.mark.parametrize("arg", [{"mesh": object()}, {"fault_hook": print}])
 def test_deferred_features_raise(qwen, arg):
-    """Serving meshes are still refused; the fault hook is ported (the
-    router's, serving/faults.py) and is kept as given."""
+    """Serving meshes are ported: a mesh that is not a `launch.mesh.Mesh`
+    is refused with a TypeError, and a Mesh is served (tokens of the
+    unsharded engine). The fault hook is ported (the router's,
+    serving/faults.py) and is kept as given."""
     _, tcfg, _, tsp = qwen
     if "mesh" in arg:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="Mesh"):
             TEngine(tcfg, tsp, n_slots=2, capacity=64, device="cpu", **arg)
+        outs = []
+        for mesh in (None, make_serving_mesh(2, devices=["cpu"] * 2)):
+            eng = TEngine(tcfg, tsp, n_slots=2, capacity=64, device="cpu",
+                          forced_mode="fp16", mesh=mesh)
+            eng.submit(TRequest("m", list(range(5, 17)), 4))
+            outs.append([r.output for r in eng.run()])
+        assert outs[0] == outs[1] and len(outs[0][0]) == 4
     else:
         eng = TEngine(tcfg, tsp, n_slots=2, capacity=64, device="cpu", **arg)
         assert eng.fault_hook is print

@@ -1789,3 +1789,136 @@ def test_readmission_zeroes_exactly_one_slot(dev, recurrent, arch):
         assert not p[:, 0].any(), n
         assert torch.equal(p[:, 1:], before[n][:, 1:]), n
 
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: the kernels at one shard's shapes, the
+# quantizer's halves for row-parallel layers, a mesh on the card
+# ---------------------------------------------------------------------------
+
+# (K, N) of one shard's GEMMs: llama3.1-8b at 4 and 2 shards, gemma3-1b
+# at 4 (N = 1728 is not a multiple of 128)
+TP_KN = sorted({(4096, 1024), (4096, 256), (1024, 4096), (4096, 3584),
+                (3584, 4096), (4096, 2048), (4096, 512), (2048, 4096),
+                (4096, 7168), (7168, 4096), (1152, 256), (256, 1152),
+                (1152, 1728), (1728, 1152)})
+
+
+@pytest.mark.parametrize("m", [8, 37])
+@pytest.mark.parametrize("kn", TP_KN)
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3"])
+def test_gemms_at_per_shard_shapes(dev, kernel, kn, m):
+    x, w = _gemm(dev, m, *kn, seed=7)
+    u, l = nf.encode(w)
+    if kernel == "k1":
+        got, want = (ops.matmul_nested_f16(x.half(), u, l),
+                     ref.nestedfp16_matmul_ref(x.half(), u, l))
+    elif kernel == "k3":
+        got, want = (ops.matmul_f16(x.half(), w),
+                     ref.matmul_f16_ref(x.half(), w))
+    else:
+        xq, s = ops.quantize_act_per_token(x)
+        got, want = (ops.matmul_nested_fp8(xq, u, s),
+                     ref.nestedfp8_matmul_ref(xq, u, s))
+    torch.testing.assert_close(got, want, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("k,parts", [(4096, 4), (14336, 4), (14336, 2),
+                                     (6912, 4), (40000, 2)])
+def test_row_parallel_quantizer_halves(dev, dtype, k, parts):
+    """`row_absmax` and `quant_per_token_scaled` bitwise their plain
+    versions, and a row's column slices quantized under the max of their
+    absmaxes give the one-launch quantizer's codes and scales, bitwise
+    (rows of zeros and a row whose max lies in the last slice; K = 20000 a
+    slice takes the two-pass body)."""
+    rng = np.random.default_rng(k + parts)
+    x = torch.from_numpy(rng.normal(size=(9, k)).astype(np.float32)).to(dev)
+    x[1] = 0.0
+    x[2, -1] = 1e3
+    x = x.to(dtype)
+    q, s = ops.quantize_act_per_token(x)
+    c = k // parts
+    sl = [x[:, i * c:(i + 1) * c].contiguous() for i in range(parts)]
+    n0 = ops.all_launch_counters()
+    amaxes = [ops.act_row_absmax(p) for p in sl]
+    for p, a in zip(sl, amaxes):
+        assert torch.equal(a, ref.row_absmax_ref(p))
+    scale = quant.scale_from_amax(torch.stack(amaxes).amax(0))
+    codes = [ops.quantize_act_scaled(p, scale) for p in sl]
+    for p, cd in zip(sl, codes):
+        assert torch.equal(cd.view(torch.uint8),
+                           ref.quantize_scaled_ref(p, scale).view(torch.uint8))
+    n1 = ops.all_launch_counters()
+    assert n1["row_absmax"] - n0["row_absmax"] == parts
+    assert n1["quant_per_token_scaled"] - n0["quant_per_token_scaled"] == parts
+    assert torch.equal(scale, s)
+    assert torch.equal(torch.cat(codes, 1).view(torch.uint8),
+                       q.view(torch.uint8))
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("h,hkv,d,window", [(8, 2, 128, None),
+                                            (16, 4, 128, None),
+                                            (1, 1, 256, None),
+                                            (1, 1, 256, 300),
+                                            (2, 1, 256, 300)])
+def test_paged_decode_attention_at_per_shard_heads(dev, fp8, h, hkv, d,
+                                                   window):
+    """K4 on one shard's q heads over its pool planes: llama3.1-8b's at 4
+    and 2 shards, gemma3-1b's at 4 and 2 (its one kv head whole on every
+    shard, G = 1 and 2)."""
+    q, planes, tab, ln = _paged_case(dev, 9, [0, 1, 511, 512, 513, 640],
+                                     16, 40, h=h, hkv=hkv, d=d)
+    got = ops.paged_decode_attention(q, planes, tab, ln, fp8=fp8,
+                                     window=window)
+    want = ref.paged_planar_decode_attention_ref(
+        q, planes["k_hi"], planes["k_lo"], planes["v_hi"], planes["v_lo"],
+        tab, ln, fp8=fp8, window=window)
+    live = ln > 0
+    torch.testing.assert_close(got[live], want[live], **ATTN_TOL)
+
+
+@pytest.mark.parametrize("mode", ["fp16", "fp8"])
+def test_colocated_mesh_engine_on_the_card(dev, mode):
+    """qwen1.5-0.5b reduced on 4 shards of one card (layer 1's wo an
+    exception tensor): every step key captured as one CUDA graph, its
+    first replay bitwise an eager call on clones (every shard's pool
+    planes), `stats` equal to the unsharded engine's (no prefix cache:
+    the schedule is the tokens' own), every request finished, and the
+    quantizer halves launched in FP8."""
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+
+    def plant(i, path, w):
+        if (i, path) == (1, "attn/wo/w"):
+            w[0, 0] = 2.0
+    sp = M.init_serving_params(cfg, seed=0, device="cuda", plant=plant)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (13, 29, 7, 40)]
+    runs = {}
+    for m in (1, 4):
+        mesh = None if m == 1 else make_serving_mesh(m,
+                                                     devices=[dev] * m)
+        eng = Engine(cfg, sp, n_slots=4, capacity=96, forced_mode=mode,
+                     kv_planar=True, prefix_cache=False, device="cuda",
+                     mesh=mesh)
+        eng.graphs.check_first_runs = True
+        n0 = ops.all_launch_counters()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(f"r{i}", p, 6))
+        fin = eng.run()
+        n1 = ops.all_launch_counters()
+        assert len(fin) == 4 and all(len(r.output) == 6 for r in fin)
+        assert eng.graphs.n_captured == len(eng.graphs.keys()) >= 2
+        for key, same in eng.graphs.checks.items():
+            assert all(same.values()), (key, same)
+        runs[m] = (eng.stats, {k: n1[k] - n0[k] for k in n1})
+    assert runs[4][0] == runs[1][0]
+    if mode == "fp8":
+        assert runs[4][1]["row_absmax"] > 0
+        assert runs[4][1]["quant_per_token_scaled"] > 0
+        assert runs[1][1]["row_absmax"] == 0

@@ -1493,8 +1493,12 @@ class TestRouting:
         qkv = torch.zeros((1, 8, 2, 64))
         tops.flash_prefill_attention(qkv, qkv, qkv)
         tops.quantize_act_per_token(_t(x))
+        amax = tops.act_row_absmax(_t(x))
+        tops.quantize_act_scaled(_t(x), tquant.scale_from_amax(amax))
         assert tops.all_launch_counters() == before
-        assert len(before) == 9         # eight TPU kernels, the quantizer
+        # eight TPU kernels, the quantizer and its two halves (a mesh's
+        # row-parallel layers)
+        assert len(before) == 11
 
     def test_mixed_devices_raise(self):
         x = torch.zeros((4, 64), dtype=torch.float16)

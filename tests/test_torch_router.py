@@ -33,6 +33,7 @@ from repro.serving import router as jrouter  # noqa: E402
 from repro.serving import simulate as jsim  # noqa: E402
 from repro.serving import trace as jtrace  # noqa: E402
 from repro_torch.core import policy as tpolicy  # noqa: E402
+from repro_torch.launch.mesh import make_replica_meshes  # noqa: E402
 from repro_torch.models.convert import leaves  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
 from repro_torch.serving import faults as tfaults  # noqa: E402
@@ -868,14 +869,25 @@ def test_corrupt_flips_a_port_entry_in_place(qwen, tmp_path, loaded):
 
 
 def test_meshes_are_still_refused(qwen):
+    """Serving meshes are ported: objects that are not a
+    `launch.mesh.Mesh` are refused with a TypeError, by the engine and by
+    `Router.build(meshes=)`, and replica meshes are served. The fault hook
+    is kept as given."""
     jcfg, tcfg, jsp, tsp = qwen
-    with pytest.raises(NotImplementedError, match="mesh"):
+    kw = dict(device="cpu", n_slots=2, capacity=64)
+    with pytest.raises(TypeError, match="Mesh"):
         trouter.Router.build(tcfg, tsp, 2, meshes=[object(), object()],
-                             engine_kwargs=dict(device="cpu", n_slots=2,
-                                                capacity=64))
-    with pytest.raises(NotImplementedError, match="mesh"):
+                             engine_kwargs=kw)
+    with pytest.raises(TypeError, match="Mesh"):
         tengine.Engine(tcfg, tsp, n_slots=2, capacity=64, device="cpu",
                        mesh=object())
+    meshes = make_replica_meshes(2, 2, devices=["cpu"] * 4)
+    r = trouter.Router.build(tcfg, tsp, 2, meshes=meshes,
+                             engine_kwargs=dict(kw, forced_mode="fp16"))
+    out = _serve(r, _shared_burst(SIDES["torch"], tcfg.vocab_size, n=2,
+                                  max_new=3))
+    assert len(out) == 2 and r.stats()["lost"] == 0
+    assert [rep.engine.mesh for rep in r.replicas] == meshes
     hook = tfaults.FaultInjector(tfaults.FaultPlan()).hook(0)
     eng = tengine.Engine(tcfg, tsp, n_slots=2, capacity=64, device="cpu",
                          fault_hook=hook)
