@@ -209,46 +209,134 @@ def _kind(spec: Spec) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class ServingLayout:
-    """How a dense decoder's layers run on a mesh, read off `param_spec`
-    and `paged_cache_spec`, so that the forward follows the weights:
+    """How a decoder's layers run on a mesh, read off `param_spec` and
+    `paged_cache_spec`, so that the forward follows the weights:
 
     q:    "col" (head-parallel: each shard its q heads), "row" (the
           row-parallel fallback: q, k and v reduced, whole on every
-          shard) or "whole";
-    kv:   wk / wv likewise; "whole" beside a "col" q is gemma3's case,
-          every shard computing the few kv heads whole;
+          shard) or "whole"; MLA's wq_b, whose heads are the q heads;
+    kv:   wk / wv likewise (MLA: wk_b / wv_b, split by the same heads);
+          "whole" beside a "col" q is gemma3's case, every shard
+          computing the few kv heads whole;
     wo:   "row" (head-parallel), "col" (the fallback's output columns,
           gathered after) or "whole";
-    mlp:  "col" (gate and up by columns, down by rows) or "whole";
+    mlp:  the dense SwiGLU (a hybrid's: its shared block's): "col" (gate
+          and up by columns, down by rows) or "whole"; None without one
+          (moe, ssm);
     vocab: the embedding and the LM head split by vocab rows / columns;
-    pool: the pool planes split by kv heads (else whole on every shard)."""
+    pool: the attention pool planes split by kv heads (else whole on
+          every shard; MLA's latent planes are always whole);
+    q_a:  MLA's wq_a: "col" (its q_lora_rank columns, the latent gathered
+          before its norm) or "whole"; None without MLA;
+    experts: the MoE banks: "ep" (expert-parallel: each shard E_pad / m
+          whole experts), "tp" (per-expert tensor parallel: w_gate and
+          w_up by F columns, w_down by F rows) or "whole"; None without
+          MoE;
+    shared: the MoE shared expert's SwiGLU, as `mlp`; None without one;
+    ssm:  Mamba2: "col" (in_z / in_x by columns, the conv_x channels and
+          the state by heads; in_bc, in_dt and the conv_bc channels
+          whole; out_proj by rows) or "whole"; None without Mamba2;
+    ssm_groups: per shard, the B/C group each of its SSM heads reads
+          (head h reads group h // (H / n_groups)); () without Mamba2."""
     m: int
     q: str
     kv: str
     wo: str
-    mlp: str
+    mlp: str | None
     vocab: bool
     pool: bool
+    q_a: str | None = None
+    experts: str | None = None
+    shared: str | None = None
+    ssm: str | None = None
+    ssm_groups: tuple = ()
+
+    @property
+    def ssm_heads(self) -> int:
+        """SSM heads a shard holds (all of them when "whole")."""
+        return len(self.ssm_groups[0]) if self.ssm_groups else 0
+
+
+def _expert_layout(cfg: ArchConfig, mesh) -> str:
+    moe = cfg.moe
+    ep, d, f = moe.n_experts_padded, cfg.d_model, moe.d_ff_expert
+    gate = param_spec(("layers", 0, "moe", "w_gate"), (ep, d, f), cfg, mesh)
+    down = param_spec(("layers", 0, "moe", "w_down"), (ep, f, d), cfg, mesh)
+    if gate[0] == "model":
+        return "ep"
+    if gate[2] == "model" and down[1] == "model":
+        return "tp"
+    return "whole"
+
+
+def _ssm_layout(cfg: ArchConfig, mesh, m: int) -> tuple[str, tuple]:
+    """("col" | "whole", the group of each SSM head a shard holds)."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.head_dim
+    rep = n_heads // s.n_groups
+    cols = param_spec(("layers", 0, "mamba", "in_x", "w"),
+                      (cfg.d_model, d_inner), cfg, mesh)[-1] == "model"
+    heads = paged_cache_spec(("ssm", "ssm"), (1, 1, n_heads, s.head_dim,
+                                              s.d_state), cfg, mesh)[2]
+    if cols and heads != "model":
+        raise NotImplementedError(
+            f"{cfg.arch_id} on {m} shards: the in_x columns split but its "
+            f"{n_heads} SSM heads do not")
+    if not cols:
+        return "whole", (tuple(h // rep for h in range(n_heads)),) * m
+    hs = n_heads // m
+    return "col", tuple(tuple((s_ * hs + j) // rep for j in range(hs))
+                        for s_ in range(m))
 
 
 def serving_layout(cfg: ArchConfig, mesh) -> ServingLayout:
+    """The layout of `cfg` on `mesh`, for every decoder-only family. An
+    MLA stack is served head-parallel only: its n_heads must divide the
+    axis (NotImplementedError otherwise)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, hkv, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    m = model_axis_size(mesh)
 
     def kind(path, shape):
         return _kind(param_spec(("layers", 0) + path, shape, cfg, mesh))
     vocab = param_spec(("embed", "tok"), (cfg.vocab_size, d), cfg,
                        mesh)[0] == "model"
-    pool = paged_cache_spec(("attn", "k"), (cfg.n_layers, 1, 1, hkv, hd),
-                            cfg, mesh)[3] == "model"
-    lay = ServingLayout(
-        m=model_axis_size(mesh),
-        q=kind(("attn", "wq", "w"), (d, h * hd)),
-        kv=kind(("attn", "wk", "w"), (d, hkv * hd)),
-        wo=kind(("attn", "wo", "w"), (h * hd, d)),
-        mlp=kind(("mlp", "gate", "w"), (d, ff)),
-        vocab=vocab, pool=pool)
-    if lay.q == "col" and not lay.pool and hkv > 1:
+    extra: dict = {}
+    if cfg.mla is not None:
+        ml = cfg.mla
+        q = kind(("attn", "wq_b", "w"),
+                 (ml.q_lora_rank, h * (ml.qk_nope_dim + ml.qk_rope_dim)))
+        kv = kind(("attn", "wk_b", "w"), (ml.kv_lora_rank, h * ml.qk_nope_dim))
+        wo = kind(("attn", "wo", "w"), (h * ml.v_head_dim, d))
+        if (q, kv, wo) != ("col", "col", "row"):
+            raise NotImplementedError(
+                f"{cfg.arch_id} on {m} shards: MLA is served head-parallel "
+                f"only, and its {h} heads do not divide the axis")
+        extra["q_a"] = kind(("attn", "wq_a", "w"), (d, ml.q_lora_rank))
+        pool = False
+    elif h:
+        q = kind(("attn", "wq", "w"), (d, h * hd))
+        kv = kind(("attn", "wk", "w"), (d, hkv * hd))
+        wo = kind(("attn", "wo", "w"), (h * hd, d))
+        key = "shared" if cfg.family == "hybrid" else "attn"
+        pool = paged_cache_spec((key, "k"), (cfg.n_layers, 1, 1, hkv, hd),
+                                cfg, mesh)[3] == "model"
+    else:                                    # attention-free (mamba2)
+        q = kv = wo = "whole"
+        pool = False
+    mlp = kind(("mlp", "gate", "w"), (d, ff)) if ff else None
+    if cfg.moe is not None:
+        extra["experts"] = _expert_layout(cfg, mesh)
+        if cfg.moe.n_shared_experts:
+            extra["shared"] = kind(
+                ("moe", "shared", "gate", "w"),
+                (d, cfg.moe.d_ff_expert * cfg.moe.n_shared_experts))
+    if cfg.ssm is not None:
+        extra["ssm"], extra["ssm_groups"] = _ssm_layout(cfg, mesh, m)
+    lay = ServingLayout(m=m, q=q, kv=kv, wo=wo, mlp=mlp, vocab=vocab,
+                        pool=pool, **extra)
+    if lay.q == "col" and cfg.mla is None and not lay.pool and hkv > 1:
         # a shard's q heads would not be whole GQA groups of the pool's
         # kv heads (no config of the port has this; gemma3's one kv head
         # does not)

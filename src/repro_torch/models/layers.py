@@ -497,10 +497,11 @@ def attention_paged_mesh(rt: Runtime, mesh, lay, ps: list, cfg, xs: list, *,
     return [apply_linear(rt, p, o) for p, o in zip(wo, outs)]
 
 
-def swiglu_mesh(rt: Runtime, mesh, lay, ps: list, xs: list) -> list:
+def swiglu_mesh(rt: Runtime, mesh, kind: str, ps: list, xs: list) -> list:
     """`swiglu` on a mesh: gate and up by columns, down row-parallel and
-    reduced (lay.mlp == "col"), or whole on every shard."""
-    if lay.mlp == "whole":
+    reduced (kind "col", `ServingLayout.mlp` or `.shared`), or whole on
+    every shard."""
+    if kind == "whole":
         return [swiglu(rt, p, x) for p, x in zip(ps, xs)]
     h = [F.silu(apply_linear(rt, p["gate"], x)) * apply_linear(rt, p["up"], x)
          for p, x in zip(ps, xs)]

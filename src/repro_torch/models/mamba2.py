@@ -196,34 +196,62 @@ def mamba2_block(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
 
     Returns (out (B, S, D) in rt.dtype, new state dict: conv planes f16,
     ssm f32)."""
-    s = cfg.ssm
-    d_inner, n_heads, _ = ssm_dims(cfg)
-    b, seq, _ = x.shape
-
     z = apply_linear(rt, p["in_z"], x)
+    y, new_cache = _mix(rt, p, cfg, x, phase=phase, cache=cache,
+                        kv_len=kv_len)
+    y = L.rms_norm(y * F.silu(z.float()).to(rt.dtype), p["norm"],
+                   cfg.norm_eps)
+    return apply_linear(rt, p["out_proj"], y), new_cache
+
+
+def _group_planes(bc: torch.Tensor, groups: tuple) -> torch.Tensor:
+    """The B (or C) planes (B, S, g, N) that heads reading `groups` (the
+    group of each head, in order) take: the groups' slice where the heads
+    cover whole groups alike (the SSD's repeat maps them), else one plane
+    a head."""
+    g0, g1 = groups[0], groups[-1] + 1
+    hs, n = len(groups), g1 - g0
+    if hs % n == 0 and groups == tuple(g0 + j // (hs // n) for j in range(hs)):
+        return bc[:, :, g0:g1]
+    return torch.cat([bc[:, :, g:g + 1] for g in groups], dim=2)
+
+
+def _mix(rt: Runtime, p: dict, cfg, x: torch.Tensor, *, phase: str, cache,
+         kv_len, heads: slice | None = None, groups: tuple | None = None):
+    """The block between its input projections and its gated norm: the
+    x and BC convs and the SSD over `heads` (all of them by default; a
+    shard's slice, with in_x, conv_wx / conv_bx and the x conv state
+    already cut to those heads' channels, and `groups` the B/C group of
+    each). Returns (y (B, S, heads * P) in rt.dtype, new state)."""
+    s = cfg.ssm
+    b, seq, _ = x.shape
+    heads = heads or slice(None)
     xp = apply_linear(rt, p["in_x"], x)
     bc = apply_linear(rt, p["in_bc"], x)
-    dt_raw = apply_linear(rt, p["in_dt"], x)
-    dt = _softplus(dt_raw.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    dt_raw = apply_linear(rt, p["in_dt"], x)[..., heads]
+    dt = _softplus(dt_raw.float() + p["dt_bias"][heads])
+    A = -torch.exp(p["A_log"][heads])
+    D = p["D"][heads]
 
     cx = cache["conv_x"] if cache is not None else None
     cb = cache["conv_bc"] if cache is not None else None
     xs, new_cx = _causal_conv(xp, p["conv_wx"], p["conv_bx"], cx)
     bc_conv, new_cb = _causal_conv(bc, p["conv_wbc"], p["conv_bbc"], cb)
     gn = s.n_groups * s.d_state
-    xh = xs.reshape(b, seq, n_heads, s.head_dim)
+    xh = xs.reshape(b, seq, -1, s.head_dim)
     Bm = bc_conv[..., :gn].reshape(b, seq, s.n_groups, s.d_state)
     Cm = bc_conv[..., gn:].reshape(b, seq, s.n_groups, s.d_state)
+    if groups is not None:
+        Bm, Cm = _group_planes(Bm, groups), _group_planes(Cm, groups)
 
     if phase == "prefill":
-        y, S_new = ssd_chunked(xh, dt, A, Bm, Cm, p["D"], chunk=s.chunk_size)
+        y, S_new = ssd_chunked(xh, dt, A, Bm, Cm, D, chunk=s.chunk_size)
     elif phase == "paged" and seq > 1:    # a prompt chunk resumes the scan
-        y, S_new = ssd_chunked(xh, dt, A, Bm, Cm, p["D"], chunk=s.chunk_size,
+        y, S_new = ssd_chunked(xh, dt, A, Bm, Cm, D, chunk=s.chunk_size,
                                initial_state=cache["ssm"])
     elif phase in ("paged", "decode"):    # one token
         y1, S_new = ssd_decode_step(cache["ssm"].float(), xh[:, 0], dt[:, 0],
-                                    A, Bm[:, 0], Cm[:, 0], p["D"])
+                                    A, Bm[:, 0], Cm[:, 0], D)
         y = y1[:, None]
     else:
         raise ValueError(f"unknown phase {phase!r}")
@@ -235,8 +263,54 @@ def mamba2_block(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
         new_cache = {k: torch.where(act.reshape((b,) + (1,) * (v.dim() - 1)),
                                     v, cache[k].to(v.dtype))
                      for k, v in new_cache.items()}
+    return y.reshape(b, seq, -1).to(rt.dtype), new_cache
 
-    y = y.reshape(b, seq, d_inner).to(rt.dtype)
-    y = L.rms_norm(y * F.silu(z.float()).to(rt.dtype), p["norm"],
-                   cfg.norm_eps)
-    return apply_linear(rt, p["out_proj"], y), new_cache
+
+def mamba2_block_mesh(rt: Runtime, mesh, lay, ps: list, cfg, xs: list, *,
+                      phase: str, caches: list, kv_len: list):
+    """`mamba2_block` on a mesh: the counterpart of the JAX package's
+    block under `param_spec` and `paged_cache_spec`'s "ssm" branch.
+    Returns (the output, whole on every shard; each shard's new state).
+
+    Head-parallel (lay.ssm "col"): shard s holds its H / m heads' columns
+    of in_z and in_x, their conv_x channels (weights and state) and their
+    SSM state; in_bc, in_dt, the BC conv and its state are whole, and the
+    shard narrows dt, A, D and dt_bias to its heads and reads the B/C
+    groups of its heads (lay.ssm_groups). The gated RMSNorm needs the
+    whole d_inner row: each shard's f32 sum of squares over its slice,
+    summed in shard order (`Mesh.all_reduce`, one (B, S, 1) value a shard
+    where gathering the gated output would move (B, S, d_inner / m)),
+    then each normalizes its slice. out_proj is row-parallel (in FP8
+    under the whole row's scale, `layers.linear_row_parallel`). "whole"
+    runs the block whole on every shard."""
+    if lay.ssm == "whole":
+        outs = [mamba2_block(rt, p, cfg, x, phase=phase, cache=c, kv_len=k)
+                for p, x, c, k in zip(ps, xs, caches, kv_len)]
+        return [o for o, _ in outs], [n for _, n in outs]
+    hs = lay.ssm_heads
+    gated, news = [], []
+    for i, (p, x, c, k) in enumerate(zip(ps, xs, caches, kv_len)):
+        y, new = _mix(rt, p, cfg, x, phase=phase, cache=c, kv_len=k,
+                      heads=slice(i * hs, (i + 1) * hs),
+                      groups=lay.ssm_groups[i])
+        gated.append(y * F.silu(apply_linear(rt, p["in_z"], x).float())
+                     .to(rt.dtype))
+        news.append(new)
+    width = hs * cfg.ssm.head_dim
+    normed = rms_norm_mesh(
+        mesh, gated, [p["norm"][i * width:(i + 1) * width]
+                      for i, p in enumerate(ps)], cfg.norm_eps)
+    return (L.linear_row_parallel(rt, mesh, [p["out_proj"] for p in ps],
+                                  normed), news)
+
+
+def rms_norm_mesh(mesh, xs: list, scales: list, eps: float) -> list:
+    """`layers.rms_norm` of rows cut into column slices, one a shard (xs,
+    with each slice's `scales`): the f32 sums of squares of the slices,
+    summed in shard order (`Mesh.all_reduce`), give the whole row's
+    variance; each shard normalizes its slice."""
+    sq = mesh.all_reduce([(x.float() * x.float()).sum(-1, keepdim=True)
+                          for x in xs])
+    width = sum(x.shape[-1] for x in xs)
+    return [((x.float() * torch.rsqrt(q / width + eps)) * (1.0 + sc)
+             ).to(x.dtype) for x, q, sc in zip(xs, sq, scales)]

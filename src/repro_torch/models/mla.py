@@ -49,13 +49,18 @@ def init_mla(gen, cfg, put=L.keep) -> dict:
     }
 
 
-def _project_q(rt, p, cfg, x, positions):
+def _project_q(rt, p, cfg, x, positions, latent=None):
+    """(q_nope, q_rope) (B, S, heads, .): the heads are wq_b's columns
+    (head-major), so a shard's column slice gives its own heads. latent:
+    the q latent (wq_a's output) when it was computed elsewhere (a mesh
+    gathers it whole from the shards' columns before its norm)."""
     m = cfg.mla
     b, s, _ = x.shape
+    if latent is None:
+        latent = apply_linear(rt, p["wq_a"], x)
     q = apply_linear(rt, p["wq_b"],
-                     L.rms_norm(apply_linear(rt, p["wq_a"], x), p["q_norm"],
-                                cfg.norm_eps))
-    q = q.reshape(b, s, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+                     L.rms_norm(latent, p["q_norm"], cfg.norm_eps))
+    q = q.reshape(b, s, -1, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     return q_nope, L.rope(q_rope, positions, cfg.rope_theta)
 
@@ -76,11 +81,12 @@ def _weight_f16(p) -> torch.Tensor:
     return p["w"]
 
 
-def _absorbed_weights(p, m, h):
-    """W_uk (r, H, nope) and W_uv (r, H, dv) in f32."""
-    wk_b = _weight_f16(p["wk_b"]).float().reshape(m.kv_lora_rank, h,
+def _absorbed_weights(p, m):
+    """W_uk (r, H, nope) and W_uv (r, H, dv) in f32; H is the heads the
+    weights' (head-major) columns hold."""
+    wk_b = _weight_f16(p["wk_b"]).float().reshape(m.kv_lora_rank, -1,
                                                   m.qk_nope_dim)
-    wv_b = _weight_f16(p["wv_b"]).float().reshape(m.kv_lora_rank, h,
+    wv_b = _weight_f16(p["wv_b"]).float().reshape(m.kv_lora_rank, -1,
                                                   m.v_head_dim)
     return wk_b, wv_b
 
@@ -100,6 +106,32 @@ def _absorbed_attend(q_nope, q_rope, c_kv, k_rope, wk_b, wv_b, m, mask):
     return torch.einsum("bqhr,rhd->bqhd", ctx_lat, wv_b)
 
 
+def _attend_paged(rt, p, cfg, x, q_nope, q_rope, *, positions, cache,
+                  kv_len, paged) -> torch.Tensor:
+    """The paged phase after the q projection: the chunk's latents
+    scattered into the pool planes `cache`, gathered back per row in
+    logical order, and the absorbed attention of q's heads over them.
+    Returns (B, S, heads * dv) in rt.dtype, before wo."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    phys_write, phys_read, q_offset = paged[:3]
+    c_new, kr_new = _project_kv_latent(rt, p, cfg, x, positions)
+    wf = phys_write.reshape(-1)
+    ckv = cache["c_kv"].view(-1, m.kv_lora_rank)
+    kr = cache["k_rope"].view(-1, m.qk_rope_dim)
+    ckv[wf] = c_new.reshape(-1, m.kv_lora_rank).to(ckv.dtype)
+    kr[wf] = kr_new.reshape(-1, m.qk_rope_dim).to(kr.dtype)
+    c_kv, k_rope = ckv[phys_read], kr[phys_read]            # (B, Cap, .)
+    cap = c_kv.shape[1]
+    qpos = q_offset[:, None] + torch.arange(s, device=x.device)[None, :]
+    kpos = torch.arange(cap, device=x.device)
+    mask = (kpos[None, None, :] <= qpos[..., None]) \
+        & (kpos[None, None, :] < kv_len[:, None, None])
+    wk_b, wv_b = _absorbed_weights(p, m)
+    o = _absorbed_attend(q_nope, q_rope, c_kv, k_rope, wk_b, wv_b, m, mask)
+    return o.reshape(b, s, -1).to(rt.dtype)
+
+
 def mla_attention(rt: Runtime, p: dict, cfg, x: torch.Tensor, *, phase: str,
                   positions, cache: dict | None = None, kv_len=None,
                   paged=None):
@@ -116,27 +148,14 @@ def mla_attention(rt: Runtime, p: dict, cfg, x: torch.Tensor, *, phase: str,
     the new token's latents written at kv_len - 1."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     q_nope, q_rope = _project_q(rt, p, cfg, x, positions)
+    h = q_nope.shape[2]
     new = None
     if phase == "paged":
-        phys_write, phys_read, q_offset = paged[:3]
-        c_new, kr_new = _project_kv_latent(rt, p, cfg, x, positions)
-        wf = phys_write.reshape(-1)
-        ckv = cache["c_kv"].view(-1, m.kv_lora_rank)
-        kr = cache["k_rope"].view(-1, m.qk_rope_dim)
-        ckv[wf] = c_new.reshape(-1, m.kv_lora_rank).to(ckv.dtype)
-        kr[wf] = kr_new.reshape(-1, m.qk_rope_dim).to(kr.dtype)
-        c_kv, k_rope = ckv[phys_read], kr[phys_read]        # (B, Cap, .)
-        cap = c_kv.shape[1]
-        qpos = q_offset[:, None] + torch.arange(s, device=x.device)[None, :]
-        kpos = torch.arange(cap, device=x.device)
-        mask = (kpos[None, None, :] <= qpos[..., None]) \
-            & (kpos[None, None, :] < kv_len[:, None, None])
-        wk_b, wv_b = _absorbed_weights(p, m, h)
-        o = _absorbed_attend(q_nope, q_rope, c_kv, k_rope, wk_b, wv_b, m,
-                             mask)
-    elif phase == "prefill":
+        o = _attend_paged(rt, p, cfg, x, q_nope, q_rope, positions=positions,
+                          cache=cache, kv_len=kv_len, paged=paged)
+        return apply_linear(rt, p["wo"], o), None
+    if phase == "prefill":
         c_kv, k_rope = _project_kv_latent(rt, p, cfg, x, positions)
         k_nope = apply_linear(rt, p["wk_b"], c_kv).reshape(
             b, s, h, m.qk_nope_dim)
@@ -155,10 +174,41 @@ def mla_attention(rt: Runtime, p: dict, cfg, x: torch.Tensor, *, phase: str,
         cap = cache["c_kv"].shape[1]
         mask = (torch.arange(cap, device=x.device)[None, None, :]
                 < kv_len[:, None, None])
-        wk_b, wv_b = _absorbed_weights(p, m, h)
+        wk_b, wv_b = _absorbed_weights(p, m)
         o = _absorbed_attend(q_nope, q_rope, cache["c_kv"], cache["k_rope"],
                              wk_b, wv_b, m, mask)
     else:
         raise ValueError(f"unknown phase {phase!r}")
     o = o.reshape(b, s, h * m.v_head_dim).to(rt.dtype)
     return apply_linear(rt, p["wo"], o), new
+
+
+def mla_attention_mesh(rt: Runtime, mesh, lay, ps: list, cfg, xs: list, *,
+                       positions: list, caches: list, kv_len: list,
+                       paged: list) -> list:
+    """The paged phase on a mesh, head-parallel (`sharding.serving_layout`
+    serves MLA so only): the counterpart of the JAX package's MLA under
+    `param_spec`. Returns the output, whole on every shard.
+
+    wq_a split by its q_lora_rank columns (lay.q_a "col"): each shard
+    computes its columns of the q latent, gathered whole in shard order
+    before the latent's RMSNorm, which needs the whole row. wq_b, wk_b
+    and wv_b are split by heads (their columns are head-major), so shard
+    s projects its q heads and reads its heads' absorbed weights. wkv_a
+    is whole: every shard computes the same latents and writes them into
+    its own copy of the pool (the latent planes are whole on every
+    shard). wo is row-parallel and reduced (`layers.
+    linear_row_parallel`). The absorbed attention of a shard's heads is
+    the unsharded one's plain torch ops."""
+    lat = [None] * mesh.size
+    if lay.q_a == "col":
+        lat = mesh.all_gather([apply_linear(rt, p["wq_a"], x)
+                               for p, x in zip(ps, xs)], dim=-1)
+    outs = []
+    for i, (p, x) in enumerate(zip(ps, xs)):
+        q_nope, q_rope = _project_q(rt, p, cfg, x, positions[i],
+                                    latent=lat[i])
+        outs.append(_attend_paged(rt, p, cfg, x, q_nope, q_rope,
+                                  positions=positions[i], cache=caches[i],
+                                  kv_len=kv_len[i], paged=paged[i]))
+    return L.linear_row_parallel(rt, mesh, [p["wo"] for p in ps], outs)

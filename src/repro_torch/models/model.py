@@ -382,46 +382,38 @@ def init_paged_cache(cfg: ArchConfig, n_total_blocks: int, block_size: int,
     `n_slots`.
 
     mesh: one such dict a shard, on the shard's device, each plane cut as
-    `sharding.paged_cache_spec` says (GQA planes by kv heads when they
-    divide, else whole: every shard then holds its own copy). `device`
-    is not read then."""
+    `sharding.paged_cache_spec` says (GQA planes, a hybrid's "shared"
+    ones too, by kv heads when they divide, else whole: every shard then
+    holds its own copy; MLA latents whole; the SSM state by heads and
+    conv_x by channels when they divide, conv_bc whole). `device` is not
+    read then."""
     desc = cache_descriptor(cfg, planar=planar)
-    if mesh is not None:
-        from repro_torch.launch import sharding as SH
-        out = []
-        for dev in mesh.devices:
-            shard = {}
-            if desc.planes:
-                key = paged_key(desc)
-                shard[key] = {}
-                for p in desc.planes:
-                    shape = (p.n_layers, n_total_blocks, block_size) \
-                        + p.token_shape
-                    spec = SH.paged_cache_spec((key, p.name), shape, cfg,
-                                               mesh)
-                    shard[key][p.name] = torch.zeros(
-                        SH.local_shape(shape, spec, mesh.size),
-                        dtype=TORCH_DTYPES[p.dtype], device=dev)
-            if desc.slot_planes:
-                raise NotImplementedError(
-                    "slot-resident state on a mesh (head-sharded SSM "
-                    "state) is ROADMAP §1's next item")
-            out.append(shard)
+    if desc.slot_planes and n_slots is None:
+        raise ValueError(f"{desc.kind} descriptor has slot-resident "
+                         "state; init_paged_cache needs n_slots")
+
+    def planes(device, cut) -> dict:
+        out = {}
+        if desc.planes:
+            key = paged_key(desc)
+            out[key] = {p.name: torch.zeros(
+                cut((key, p.name), (p.n_layers, n_total_blocks, block_size)
+                    + p.token_shape), dtype=TORCH_DTYPES[p.dtype],
+                device=device) for p in desc.planes}
+        if desc.slot_planes:
+            out["ssm"] = {p.name: torch.zeros(
+                cut(("ssm", p.name), (p.shape[0], n_slots)
+                    + tuple(p.shape[1:])), dtype=TORCH_DTYPES[p.dtype],
+                device=device) for p in desc.slot_planes}
         return out
-    device = resolve_device(device)
-    out = {}
-    if desc.planes:
-        out[paged_key(desc)] = {
-            p.name: torch.zeros((p.n_layers, n_total_blocks, block_size)
-                                + p.token_shape, dtype=TORCH_DTYPES[p.dtype],
-                                device=device)
-            for p in desc.planes}
-    if desc.slot_planes:
-        if n_slots is None:
-            raise ValueError(f"{desc.kind} descriptor has slot-resident "
-                             "state; init_paged_cache needs n_slots")
-        out["ssm"] = _state_planes(desc, n_slots, device)
-    return out
+    if mesh is None:
+        return planes(resolve_device(device), lambda path, shape: shape)
+    from repro_torch.launch import sharding as SH
+
+    def cut(path, shape):
+        return SH.local_shape(shape, SH.paged_cache_spec(path, shape, cfg,
+                                                         mesh), mesh.size)
+    return [planes(dev, cut) for dev in mesh.devices]
 
 
 # ---------------------------------------------------------------------------
@@ -872,32 +864,98 @@ def sharded_argmax(mesh, parts: list) -> torch.Tensor:
     return best_i[..., 0].to(torch.int32)
 
 
+def _block_mesh(rt, mesh, lay, ps: list, cfg, hs: list, attend) -> list:
+    """`apply_decoder_block` on a mesh (no cross-attention, no aux): x +
+    attend(norm(x)), then the MoE block (`moe.moe_block_mesh`) or the
+    SwiGLU (`layers.swiglu_mesh`), one entry a shard."""
+    eps = cfg.norm_eps
+    hn = [L.rms_norm(h, p["ln1"], eps) for h, p in zip(hs, ps)]
+    hs = [h + y for h, y in zip(hs, attend(hn))]
+    hn = [L.rms_norm(h, p["ln2"], eps) for h, p in zip(hs, ps)]
+    if "moe" in ps[0]:
+        f = MOE.moe_block_mesh(rt, mesh, lay, [p["moe"] for p in ps], cfg, hn)
+    else:
+        f = L.swiglu_mesh(rt, mesh, lay.mlp, [p["mlp"] for p in ps], hn)
+    return [h + y for h, y in zip(hs, f)]
+
+
+def _pool_mesh(caches: list, key: str, i: int, idx: list, g: int) -> dict:
+    """The paged-attention keywords of layer i (window group g) on a mesh:
+    each shard's layer-i pool planes under caches[s][key], and its pool
+    indices."""
+    return dict(positions=[ix.positions for ix in idx],
+                caches=[{n: pl[i] for n, pl in c[key].items()}
+                        for c in caches],
+                kv_len=[ix.kv_len for ix in idx],
+                paged=[(ix.phys_write[g], ix.phys_read[g], ix.q_offset,
+                        ix.tables[g]) for ix in idx])
+
+
 def run_decoder_stack_mesh(rt, mesh, lay, params: list, cfg, hs: list, *,
                            caches: list, idx: list) -> list:
     """`run_decoder_stack`'s paged phase on a mesh: layer i of every shard
-    in turn, each shard's attention over its own pool (its slice i of
-    `caches[s]["attn"]`) through its window group's indices (`idx[s]`, a
-    `PagedIndices`), the residual stream whole on every shard."""
+    in turn, each shard's attention (GQA, or MLA's latents) over its own
+    pool (its slice i of `caches[s]["attn"]`) through its window group's
+    indices (`idx[s]`, a `PagedIndices`), then its SwiGLU or MoE block,
+    the residual stream whole on every shard."""
     windows = _layer_windows(cfg)
     groups = idx[0].desc.layer_group_map(cfg.n_layers)
-    eps = cfg.norm_eps
     for i in range(cfg.n_layers):
-        g = int(groups[i])
         ps = [p["layers"][i] for p in params]
-        hn = [L.rms_norm(h, p["ln1"], eps) for h, p in zip(hs, ps)]
-        a = L.attention_paged_mesh(
-            rt, mesh, lay, [p["attn"] for p in ps], cfg, hn,
-            positions=[ix.positions for ix in idx],
-            caches=[{n: pl[i] for n, pl in c["attn"].items()}
-                    for c in caches],
-            kv_len=[ix.kv_len for ix in idx],
-            paged=[(ix.phys_write[g], ix.phys_read[g], ix.q_offset,
-                    ix.tables[g]) for ix in idx],
-            window=windows[i])
-        hs = [h + y for h, y in zip(hs, a)]
-        hn = [L.rms_norm(h, p["ln2"], eps) for h, p in zip(hs, ps)]
-        f = L.swiglu_mesh(rt, mesh, lay, [p["mlp"] for p in ps], hn)
-        hs = [h + y for h, y in zip(hs, f)]
+        kw = _pool_mesh(caches, "attn", i, idx, int(groups[i]))
+        if cfg.mla is not None:
+            def attend(hn, ps=ps, kw=kw):
+                return MLA.mla_attention_mesh(
+                    rt, mesh, lay, [p["attn"] for p in ps], cfg, hn, **kw)
+        else:
+            def attend(hn, ps=ps, kw=kw, w=windows[i]):
+                return L.attention_paged_mesh(
+                    rt, mesh, lay, [p["attn"] for p in ps], cfg, hn,
+                    window=w, **kw)
+        hs = _block_mesh(rt, mesh, lay, ps, cfg, hs, attend)
+    return hs
+
+
+def run_ssm_stack_mesh(rt, mesh, lay, params: list, cfg, hs: list, *,
+                       caches: list, idx: list, slot: list | None = None
+                       ) -> list:
+    """`run_ssm_stack`'s paged phase on a mesh: layer i's Mamba2 block
+    on every shard (`mamba2.mamba2_block_mesh`), each shard's state in
+    its slice i of `caches[s]["ssm"]`, written back in place (through
+    `slot[s]`, a (1,) int64 tensor, for a one-row chunk, as unsharded).
+    A hybrid applies its shared block after every attn_every-th layer:
+    the GQA attention on the mesh (`layers.attention_paged_mesh`) over
+    each shard's layer of its "shared" pools, through its window-less
+    indices, then the shared SwiGLU."""
+    shared = [p.get("shared_attn") for p in params]
+    every = cfg.attn_every if shared[0] is not None else 0
+    for i in range(cfg.n_layers):
+        ps = [p["layers"][i] for p in params]
+        planes = [{n: pl[i] for n, pl in c["ssm"].items()} for c in caches]
+        if slot is None:
+            state = planes
+        else:
+            state = [{n: pl.index_select(0, sl) for n, pl in pp.items()}
+                     for pp, sl in zip(planes, slot)]
+        hn = [L.rms_norm(h, p["ln1"], cfg.norm_eps) for h, p in zip(hs, ps)]
+        ys, news = M2.mamba2_block_mesh(
+            rt, mesh, lay, [p["mamba"] for p in ps], cfg, hn, phase="paged",
+            caches=state, kv_len=[ix.kv_len for ix in idx])
+        hs = [h + y for h, y in zip(hs, ys)]
+        for s, (pp, new) in enumerate(zip(planes, news)):
+            for n, pl in pp.items():
+                if slot is not None:
+                    pl.index_copy_(0, slot[s], new[n].to(pl.dtype))
+                else:
+                    pl.copy_(new[n])
+        if every and i % every == every - 1:
+            kw = _pool_mesh(caches, "shared", i // every, idx, 0)
+
+            def attend(hn, kw=kw):
+                return L.attention_paged_mesh(
+                    rt, mesh, lay, [p["attn"] for p in shared], cfg, hn,
+                    **kw)
+            hs = _block_mesh(rt, mesh, lay, shared, cfg, hs, attend)
     return hs
 
 

@@ -37,6 +37,7 @@ expert's product is the same sum over its own weights either way.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -98,14 +99,17 @@ def _experts(w, sl: slice):
     return w[sl]
 
 
-def _expert_ffn(rt: Runtime, p: dict, xb: torch.Tensor) -> torch.Tensor:
+def _expert_ffn(rt: Runtime, p: dict, xb: torch.Tensor,
+                partial: bool = False) -> torch.Tensor:
     """xb: (G, E, C, D) -> (G, E, C, D), SwiGLU batched over experts.
     Products in rt.dtype rounded to f32 (bf16 under fast_accum), as the
-    reference's preferred_element_type."""
+    reference's preferred_element_type. partial: the banks are a shard's
+    F slice (per-expert tensor parallel), and the down product stays the
+    f32 partial sum over those F rows, for the mesh to add up."""
     dt = rt.dtype
     acc = torch.bfloat16 if rt.fast_accum else torch.float32
 
-    def prod(eq, a, bank):
+    def prod(eq, a, bank, acc=acc):
         out = []
         for sl in _bank_slices(bank):
             w, ai = _read_bank(rt, _experts(bank, sl)), a[:, sl]
@@ -119,7 +123,8 @@ def _expert_ffn(rt: Runtime, p: dict, xb: torch.Tensor) -> torch.Tensor:
     gate = prod("gecd,edf->gecf", x, p["w_gate"])
     up = prod("gecd,edf->gecf", x, p["w_up"])
     h = (F.silu(gate.float()) * up.float()).to(dt)
-    return prod("gecf,efd->gecd", h, p["w_down"])
+    return prod("gecf,efd->gecd", h, p["w_down"],
+                torch.float32 if partial else acc)
 
 
 def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -127,6 +132,75 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     descending order, ties to the lower index (`jax.lax.top_k`'s order)."""
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+@dataclasses.dataclass
+class _Routing:
+    """One MoE step's routing (`_route`): the router's f32 logits and
+    probabilities, the top-k (renormalised gates, experts), each choice's
+    expert (flat_e, (G, S*K)), its capacity slot (clamped) and keep
+    mask, the capacity."""
+    logits: torch.Tensor
+    probs: torch.Tensor
+    gate_vals: torch.Tensor
+    expert_idx: torch.Tensor
+    flat_e: torch.Tensor
+    slot_c: torch.Tensor
+    keep: torch.Tensor
+    cap: int
+
+
+def _route(rt: Runtime, p: dict, cfg, x: torch.Tensor) -> _Routing:
+    """The router (f32 softmax of rt.dtype logits), top-k and the
+    per-group capacity slots of x (B, S, D)."""
+    m = cfg.moe
+    b, s, _ = x.shape
+    kk = m.top_k
+    logits = L.apply_linear(rt, p["router"], x).float()        # (G, S, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = top_k(probs, kk)                    # (G, S, K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    cap = max(int(kk * s * m.capacity_factor / m.n_experts), kk)
+    flat_e = expert_idx.reshape(b, s * kk)                      # (G, S*K)
+    onehot = F.one_hot(flat_e, m.n_experts)
+    # slot of each choice: how many earlier choices of the group picked
+    # the same expert (the reference's max over cumsum * onehot - 1)
+    slot = torch.gather(torch.cumsum(onehot, dim=1), 2,
+                        flat_e[..., None])[..., 0] - 1
+    keep = slot < cap
+    return _Routing(logits, probs, gate_vals, expert_idx, flat_e,
+                    torch.clamp(slot, max=cap - 1), keep, cap)
+
+
+def _dispatch(rt: Runtime, r: _Routing, x: torch.Tensor, n_banks: int
+              ) -> torch.Tensor:
+    """x (B, S, D) into its capacity buffer (G, E_pad, C, D); dropped
+    choices add exact zeros."""
+    b, s, d = x.shape
+    kk = r.flat_e.shape[1] // s
+    token_of_choice = torch.arange(s, device=x.device).repeat_interleave(kk)
+    vals = (x[:, token_of_choice] * r.keep[..., None]).to(rt.dtype)
+    gi = torch.arange(b, device=x.device)[:, None].expand(b, s * kk)
+    xb = torch.zeros((b, n_banks, r.cap, d), dtype=rt.dtype, device=x.device)
+    xb.index_put_((gi, r.flat_e, r.slot_c), vals, accumulate=True)
+    return xb
+
+
+def _combine(r: _Routing, yb: torch.Tensor, s: int) -> torch.Tensor:
+    """The expert outputs yb (G, E_pad, C, D) back to tokens, f32 (B, S,
+    D): each token's K terms weighted by its gates and summed in k
+    order."""
+    b, n = r.flat_e.shape
+    kk = n // s
+    gi = torch.arange(b, device=yb.device)[:, None].expand(b, n)
+    w = (r.gate_vals.reshape(b, -1) * r.keep).float()
+    terms = (yb[gi, r.flat_e, r.slot_c].float() * w[..., None]
+             ).reshape(b, s, kk, yb.shape[-1])
+    y = terms[:, :, 0]
+    for j in range(1, kk):
+        y = y + terms[:, :, j]
+    return y
 
 
 def moe_block(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
@@ -138,53 +212,71 @@ def moe_block(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
     (B, S, K) bool). The serving steps ignore the aux, as the JAX
     package's do, and skip computing it."""
     m = cfg.moe
-    b, s, d = x.shape
-    kk = m.top_k
-    dev = x.device
-    # --- router (f32 softmax of rt.dtype logits) ---
-    logits = L.apply_linear(rt, p["router"], x).float()        # (G, S, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = top_k(probs, kk)                    # (G, S, K)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
-    # --- per-group capacity slots ---
-    cap = max(int(kk * s * m.capacity_factor / m.n_experts), kk)
-    ep = m.n_experts_padded
-    flat_e = expert_idx.reshape(b, s * kk)                      # (G, S*K)
-    onehot = F.one_hot(flat_e, m.n_experts)
-    # slot of each choice: how many earlier choices of the group picked
-    # the same expert (the reference's max over cumsum * onehot - 1)
-    slot = torch.gather(torch.cumsum(onehot, dim=1), 2,
-                        flat_e[..., None])[..., 0] - 1
-    keep = slot < cap
-    slot_c = torch.clamp(slot, max=cap - 1)
-    # --- dispatch into (G, E_pad, C, D); dropped choices add exact zeros
-    token_of_choice = torch.arange(s, device=dev).repeat_interleave(kk)
-    vals = (x[:, token_of_choice] * keep[..., None]).to(rt.dtype)
-    gi = torch.arange(b, device=dev)[:, None].expand(b, s * kk)
-    xb = torch.zeros((b, ep, cap, d), dtype=rt.dtype, device=dev)
-    xb.index_put_((gi, flat_e, slot_c), vals, accumulate=True)
-    yb = _expert_ffn(rt, p, xb)                                 # (G,E,C,D)
-    # --- combine in f32, each token's K terms summed in k order ---
-    w = (gate_vals.reshape(b, -1) * keep).float()
-    terms = (yb[gi, flat_e, slot_c].float() * w[..., None]
-             ).reshape(b, s, kk, d)
-    y = terms[:, :, 0]
-    for j in range(1, kk):
-        y = y + terms[:, :, j]
+    b, s, _ = x.shape
+    r = _route(rt, p, cfg, x)
+    yb = _expert_ffn(rt, p, _dispatch(rt, r, x, m.n_experts_padded))
+    y = _combine(r, yb, s)
     if m.n_shared_experts:
         y = y + L.swiglu(rt, p["shared"], x).float()
     y = y.to(rt.dtype)
     if not with_aux:
         return y
-    density = F.one_hot(expert_idx, m.n_experts).float().mean(dim=(0, 1, 2))
-    router_prob = probs.mean(dim=(0, 1))
+    density = F.one_hot(r.expert_idx, m.n_experts).float().mean(dim=(0, 1, 2))
+    router_prob = r.probs.mean(dim=(0, 1))
     aux = {
         "moe_lb_loss": m.n_experts * torch.sum(density * router_prob)
         * m.load_balance_loss,
-        "moe_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+        "moe_z_loss": torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
         * m.router_z_loss,
-        "moe_drop_fraction": 1.0 - keep.float().mean(),
-        "router_logits": logits, "expert_idx": expert_idx,
-        "keep": keep.reshape(b, s, kk)}
+        "moe_drop_fraction": 1.0 - r.keep.float().mean(),
+        "router_logits": r.logits, "expert_idx": r.expert_idx,
+        "keep": r.keep.reshape(b, s, m.top_k)}
     return y, aux
+
+
+def moe_block_mesh(rt: Runtime, mesh, lay, ps: list, cfg, xs: list) -> list:
+    """`moe_block` on a mesh (the serving steps': no aux), its input and
+    output whole on every shard.
+
+    The router is replicated, so the routing, the capacity slots and the
+    dispatch into the whole (G, E_pad, C, D) buffer are the same on every
+    shard: they run once a device. Expert-parallel (lay.experts "ep"):
+    shard s runs its E_pad / m experts on their slice of the buffer, and
+    the expert outputs are gathered along E in shard order, so the
+    combine is the unsharded one on the whole buffer (a partial combine
+    all-reduced after would sum each token's K terms in another order).
+    Per-expert tensor parallel ("tp"): every shard runs every expert on
+    its F columns of w_gate / w_up and F rows of w_down, and the f32
+    partials are summed in shard order (`Mesh.all_reduce`). The shared
+    expert is a SwiGLU on the mesh (`layers.swiglu_mesh`); "whole" runs
+    the block whole on every shard."""
+    m = cfg.moe
+    if lay.experts == "whole":
+        return [moe_block(rt, p, cfg, x) for p, x in zip(ps, xs)]
+    s = xs[0].shape[1]
+    once: dict = {}
+    for dev, p, x in zip(mesh.devices, ps, xs):
+        if dev not in once:
+            r = _route(rt, p, cfg, x)
+            once[dev] = (r, _dispatch(rt, r, x, m.n_experts_padded))
+    routed = [once[dev] for dev in mesh.devices]
+    if lay.experts == "ep":
+        e = m.n_experts_padded // mesh.size
+        ybs = mesh.all_gather(
+            [_expert_ffn(rt, p, xb[:, i * e:(i + 1) * e])
+             for i, (p, (_, xb)) in enumerate(zip(ps, routed))], dim=1)
+    else:
+        ybs = mesh.all_reduce([_expert_ffn(rt, p, xb, partial=True)
+                               for p, (_, xb) in zip(ps, routed)])
+        if rt.fast_accum:
+            ybs = [y.to(torch.bfloat16) for y in ybs]
+    combined: dict = {}
+    for dev, (r, _), yb in zip(mesh.devices, routed, ybs):
+        if dev not in combined:
+            combined[dev] = _combine(r, yb, s)
+    ys = [combined[dev] for dev in mesh.devices]
+    if m.n_shared_experts:
+        sh = L.swiglu_mesh(rt, mesh, lay.shared, [p["shared"] for p in ps],
+                           xs)
+        ys = [y + z.float() for y, z in zip(ys, sh)]
+    return [y.to(rt.dtype) for y in ys]

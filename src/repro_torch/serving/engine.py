@@ -101,8 +101,11 @@ logical steps: dispatches, h2d bytes and every counter equal the
 unsharded engine's on the same requests. A host-tier entry is the
 logical block, every shard's planes put together (a pool kept whole is
 read from the first shard and written to all), so its checksum and the
-prefix store's format are the unsharded engine's. The dense families
-only: the moe, ssm and hybrid families raise NotImplementedError.
+prefix store's format are the unsharded engine's. Every family the
+engine serves is served on a mesh: a recurrent stack's slot-resident
+state is one dict a shard (the SSM state cut by heads), zeroed on every
+shard at (re-)admission, and its exact-length chunk keys are captured
+as unsharded.
 """
 
 from __future__ import annotations
@@ -1024,8 +1027,9 @@ class Engine:
 
     def _zero_slot(self, idx: int) -> None:
         """Zero one slot's recurrent state, in place, at (re-)admission."""
-        for plane in self.caches["ssm"].values():
-            plane[:, idx].zero_()
+        for c in self._shard_caches():
+            for plane in c["ssm"].values():
+                plane[:, idx].zero_()
         self.stats["aux_dispatches"] += 1
 
     def _run_chunks(self, mode: str, plan, pending, fresh):

@@ -13,21 +13,30 @@ Layout (`launch.sharding`):
   NestedFP weights   `param_spec`: attention head-parallel (q, k, v by
                      columns, wo by rows), the row-parallel fallback
                      where the head count does not divide, gemma3's K/V
-                     kept whole where the kv heads do not divide; the
-                     MLP's gate and up by columns and down by rows; the
-                     embedding and the LM head by vocab.
-  paged KV pool      `paged_cache_spec`: planes split by kv heads, or
-                     whole on every shard (its own copy).
+                     kept whole where the kv heads do not divide; MLA's
+                     wq_b / wk_b / wv_b by heads, wq_a by columns, wkv_a
+                     whole; the MLP's gate and up by columns and down by
+                     rows; MoE banks by experts (expert-parallel) or,
+                     where the padded expert count does not divide, by
+                     F (per-expert tensor parallel), the router whole;
+                     Mamba2's in_z / in_x / conv_x by heads' channels,
+                     out_proj by rows, in_bc / in_dt / the BC conv and
+                     the per-head scalars whole; the embedding and the
+                     LM head by vocab.
+  paged KV pool      `paged_cache_spec`: GQA planes (a hybrid's shared
+                     attention's too) split by kv heads, or whole on
+                     every shard (its own copy); MLA latents whole.
+  slot-resident state  the SSM state by heads, conv_x by channels,
+                     conv_bc whole; `kvcache.SlotManager` stays one
+                     host-side scheduler.
   block tables       replicated: the BlockManager keeps one device table
                      a device, all flushed by one logical flush a step.
-  step operands      replicated (tokens, rows, q_offset, kv_len,
+  step operands      replicated (tokens, rows, slot, q_offset, kv_len,
                      logit_position): `put_replicated`.
 
-Serving meshes cover the dense families (GQA attention and a dense
-SwiGLU: llama3.1-8b, qwen1.5-0.5b, qwen3-8b, deepseek-coder-33b,
-gemma3-1b, phi-3-vision's text path); the moe, ssm and hybrid families
-raise NotImplementedError (`check_family`), as does encdec, which the
-engine refuses anyway.
+Every decoder-only family is served: dense (GQA + SwiGLU), moe (with
+MLA), ssm and hybrid. encdec raises NotImplementedError
+(`check_family`), as the engine refuses it unsharded.
 """
 
 from __future__ import annotations
@@ -40,19 +49,11 @@ from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import model as M
 
-NEXT = ("serving meshes cover the dense families; the moe family "
-        "(expert-parallel banks, MLA's replicated latents) and the ssm and "
-        "hybrid families (head-sharded state) are ROADMAP §1's next item")
-
-
 def check_family(cfg) -> None:
-    """Raise unless a mesh can serve `cfg`: NotImplementedError for the
-    moe, ssm and hybrid families (and MLA), and encdec's refusal from
-    `model.cache_descriptor`."""
+    """Raise unless a mesh can serve `cfg`: encdec's refusal from
+    `model.cache_descriptor` (the paged engine serves decoder-only
+    stacks)."""
     M.cache_descriptor(cfg)
-    if cfg.family in ("moe", "ssm", "hybrid") or cfg.mla is not None \
-            or cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.arch_id}: {NEXT}")
 
 
 def replicated(mesh: Mesh) -> tuple[torch.device, ...]:
@@ -123,13 +124,19 @@ def _shard_tree(node, path: tuple, cfg, mesh: Mesh, s: int):
     return node
 
 
+def shard_subtree(node, path: tuple, cfg, mesh: Mesh) -> list:
+    """One piece a shard of the serving subtree at `path` (e.g. ("layers",
+    0, "moe")): every leaf cut as `sharding.param_spec` says of it."""
+    return [_shard_tree(node, path, cfg, mesh, s) for s in range(mesh.size)]
+
+
 def shard_serving_params(params, cfg, mesh: Mesh) -> list:
     """One serving tree a shard, from a port serving tree (`to_serving`,
     `init_serving_params`, `from_jax_serving`): every leaf cut as
     `sharding.param_spec` says, a nested weight's byte planes (or an
     exception tensor's raw f16) sliced as stored."""
     check_family(cfg)
-    return [_shard_tree(params, (), cfg, mesh, s) for s in range(mesh.size)]
+    return shard_subtree(params, (), cfg, mesh)
 
 
 def sharded_paged_step(mesh: Mesh, rt, params: list, cfg, tokens, caches: list,
@@ -142,20 +149,22 @@ def sharded_paged_step(mesh: Mesh, rt, params: list, cfg, tokens, caches: list,
     `block_tables` one tensor, or one a shard (the BlockManager's copy on
     each shard's device). The small operands are placed whole on every
     shard's device; each device computes the pool indices once for its
-    shards. Returns the sampled ids (or logits) on the first shard's
-    device, the same on every shard, so the engine's end-of-step sync
-    stays one host read of one array. Adds no host sync."""
+    shards. The stack follows the family, as `model.paged_step` does:
+    GQA and MLA stacks `model.run_decoder_stack_mesh`, recurrent ones
+    (their `slot` routing a one-row chunk) `model.run_ssm_stack_mesh`.
+    Returns the sampled ids (or logits) on the first shard's device, the
+    same on every shard, so the engine's end-of-step sync stays one host
+    read of one array. Adds no host sync."""
     check_family(cfg)
-    if slot is not None:
-        raise NotImplementedError(f"{cfg.arch_id}: {NEXT}")
     lay = SH.serving_layout(cfg, mesh)
     tables = list(block_tables) if isinstance(block_tables, (list, tuple)) \
         else mesh.replicate(block_tables)
 
     def pin(x):
         return None if x is None else put_replicated(mesh, x)
-    toks, qo, kl, lp, rw = map(pin, (tokens, q_offset, kv_len,
-                                     logit_position, rows))
+    toks, qo, kl, lp, rw, sl = map(pin, (
+        tokens, q_offset, kv_len, logit_position, rows,
+        None if slot is None else slot.to(torch.int64)))
     per_dev: dict = {}
     idx = []
     for s, dev in enumerate(mesh.devices):
@@ -165,8 +174,12 @@ def sharded_paged_step(mesh: Mesh, rt, params: list, cfg, tokens, caches: list,
                 block_size=block_size, rows=None if rw is None else rw[s])
         idx.append(per_dev[dev])
     hs = M.embed_tokens_mesh(rt, mesh, lay, params, cfg, toks)
-    hs = M.run_decoder_stack_mesh(rt, mesh, lay, params, cfg, hs,
-                                  caches=caches, idx=idx)
+    if idx[0].desc.slot_planes:
+        hs = M.run_ssm_stack_mesh(rt, mesh, lay, params, cfg, hs,
+                                  caches=caches, idx=idx, slot=sl)
+    else:
+        hs = M.run_decoder_stack_mesh(rt, mesh, lay, params, cfg, hs,
+                                      caches=caches, idx=idx)
     if not sample_all:
         hs = [M.logit_rows(h, None if lp is None else lp[s])
               for s, h in enumerate(hs)]

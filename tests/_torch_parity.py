@@ -168,3 +168,45 @@ def jax_router_logits(jrt, jsp, jcfg, tokens) -> list:
         m, _ = JMOE.moe_block(jrt, p["moe"], jcfg, h)
         x = x + m
     return out
+
+
+# ---------------------------------------------------------------------------
+# greedy streams against the JAX engine's (F-port-1, routing flips)
+# ---------------------------------------------------------------------------
+
+STREAM_TOL = {"fp16": 3e-3, "fp8": 0.25}        # ROADMAP (F-port-1)
+
+
+def assert_streams(pair, reqs, jout, tout, mode):
+    """Each port stream equal to the JAX engine's, or parting where the
+    reference's top-2 margin after the common prefix is below 2 *
+    STREAM_TOL[mode], or, for an MoE stack, at a routing near-tie of that
+    prefix (`routing_flips`). pair: (jcfg, tcfg, jsp, tsp); reqs: (rid,
+    prompt, max_new); jout / tout: rid -> output tokens."""
+    import jax.numpy as jnp
+    from repro.models.layers import Runtime as JRuntime
+    from repro_torch.models import model as TM
+    from repro_torch.models.layers import Runtime as TRuntime
+    jcfg, tcfg, jsp, tsp = pair
+    prompts = {rid: toks for rid, toks, _ in reqs}
+    jrt = JRuntime(mode=mode, backend="ref", dtype=jnp.float32)
+    for rid, want in jout.items():
+        got = tout[rid]
+        if got == want:
+            continue
+        assert len(got) == len(want), rid
+        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        seq = np.asarray([prompts[rid] + want[:i]], np.int32)
+        lg = np.asarray(JM.prefill(jrt, jsp, jcfg,
+                                   {"tokens": jnp.asarray(seq)})[0])[0]
+        top2 = np.sort(lg)[-2:]
+        if top2[1] - top2[0] < 2 * STREAM_TOL[mode]:
+            continue
+        assert tcfg.moe is not None, (rid, i, top2)
+        aux = []
+        TM.prefill(TRuntime(mode=mode, dtype=torch.float32), tsp, tcfg,
+                   {"tokens": torch.from_numpy(seq)}, aux=aux)
+        r = routing_flips([a["router_logits"].numpy() for a in aux],
+                          jax_router_logits(jrt, jsp, jcfg, seq),
+                          tcfg.moe.top_k)
+        assert r["flips"] and r["near_tie"], (rid, i, top2, r)

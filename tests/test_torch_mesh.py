@@ -9,8 +9,9 @@ device; the lifecycle is that file's: speculation, one-dispatch prefill,
 preemption, COW prefix forks, the incremental table mirror, gemma3's
 window reclaim, plus the host tier's spill and restore. Then the bitwise
 pieces (row-parallel FP8 codes, sharded exception tensors, the
-vocab-sharded argmax), the router over replica meshes, and the families a
-mesh refuses."""
+vocab-sharded argmax), the router over replica meshes, and what a mesh
+refuses (encdec, and q heads split over kv heads kept whole). The moe,
+ssm and hybrid families on a mesh are tests/test_torch_mesh_families.py."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from _torch_parity import (configs, one_torch_thread,  # noqa: E402,F401
-                           serving_pair)
+                           serving_pair, settled_jax_tables)
 from repro.core.quant import quantize_act_per_token as j_quant  # noqa: E402
 from repro.serving.engine import Engine as JEngine  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
@@ -223,6 +224,7 @@ def test_host_tier_spill_and_restore_under_mesh(qwen):
     assert got == _jax(qwen, reqs, **kw)
 
 
+@pytest.mark.usefixtures("settled_jax_tables")         # F-ref-3
 def test_gemma3_window_reclaim_under_mesh():
     """gemma3-1b reduced (4 q heads, 1 kv head) on 4 shards: q heads
     split, K/V and the pool whole on every shard (its own copy), K4 per
@@ -365,14 +367,23 @@ def test_replica_mesh_slices_failover(qwen):
     assert all(len(q.output) == 8 for q in r.finished)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v3-671b",
-                                  "mamba2-2.7b", "zamba2-2.7b"])
-def test_other_families_refuse_a_mesh(arch):
-    cfg = TARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(cfg, {}, n_slots=2, capacity=64, mesh=cpu_mesh(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SHARD.shard_serving_params({}, cfg, cpu_mesh(2))
+def test_only_encdec_is_refused_a_mesh():
+    """Every decoder-only family shards (tests/test_torch_mesh_families.py
+    serves the moe, ssm and hybrid ones); encdec is refused by
+    `shard_serving_params` and `sharded_paged_step`, as the engine
+    refuses it unsharded."""
+    mesh = cpu_mesh(2)
+    for arch in ("granite-moe-3b-a800m", "deepseek-v3-671b", "mamba2-2.7b",
+                 "zamba2-2.7b"):
+        SHARD.check_family(TARCHS[arch].reduced())
+    cfg = TARCHS["seamless-m4t-large-v2"].reduced()
+    with pytest.raises(NotImplementedError, match="decoder-only"):
+        SHARD.shard_serving_params({}, cfg, mesh)
+    with pytest.raises(NotImplementedError, match="decoder-only"):
+        SHARD.sharded_paged_step(
+            mesh, None, [{}, {}], cfg, torch.zeros((1, 1), dtype=torch.int32),
+            [{}, {}], torch.zeros((1, 1), dtype=torch.int32), q_offset=None,
+            kv_len=None, block_size=16)
 
 
 def test_q_heads_split_over_whole_kv_heads_is_refused(qwen):

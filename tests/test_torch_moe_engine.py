@@ -9,7 +9,7 @@ with the host tier spilling and restoring blocks, and with speculation;
 `kv_planar=True` on MLA falls back to f16 latent planes as the JAX
 engine does. The step keys equal the JAX engine's jit keys. Engine
 streams that part must part at a top-2 margin below twice the tolerance
-or at a routing near-tie (`_assert_streams`, the rule of
+or at a routing near-tie (`_torch_parity.assert_streams`, the rule of
 `_torch_parity.routing_flips`); the counters, modes, prefix stats and
 step counts are held equal either way. The dense-slot steps, the configs and
 the loaders are in test_torch_moe_load.py."""
@@ -22,26 +22,19 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-import jax.numpy as jnp  # noqa: E402
-
-from _torch_parity import (configs, jax_router_logits,  # noqa: E402,F401
-                           one_torch_thread, routing_flips, serving_pair)
+from _torch_parity import (assert_streams, configs,  # noqa: E402,F401
+                           one_torch_thread, serving_pair)
 from repro.core.policy import DualPrecisionController as JController  # noqa: E402
 from repro.core.policy import SLOConfig as JSLO  # noqa: E402
-from repro.models import model as JM  # noqa: E402
-from repro.models.layers import Runtime as JRuntime  # noqa: E402
 from repro.serving.engine import Engine as JEngine  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro_torch.core.policy import DualPrecisionController as TController  # noqa: E402
 from repro_torch.core.policy import SLOConfig as TSLO  # noqa: E402
-from repro_torch.models import model as TM  # noqa: E402
-from repro_torch.models.layers import Runtime as TRuntime  # noqa: E402
 from repro_torch.serving.engine import Engine as TEngine  # noqa: E402
 from repro_torch.serving.engine import Request as TRequest  # noqa: E402
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-TOL = {"fp16": 3e-3, "fp8": 0.25}                 # ROADMAP (F-port-1)
 ARCHS = ("granite-moe-3b-a800m", "deepseek-v3-671b")
 
 
@@ -71,32 +64,6 @@ def _fake_clock():
     return lambda: next(c) * 0.004
 
 
-def _assert_streams(pair, reqs, jout, tout, mode):
-    """Equal streams, or a parting at a top-2 margin of the reference's
-    below 2 * TOL[mode] or at a routing near-tie of its prefix."""
-    jcfg, tcfg, jsp, tsp = pair
-    prompts = {rid: toks for rid, toks, _ in reqs}
-    jrt = JRuntime(mode=mode, backend="ref", dtype=jnp.float32)
-    for rid, want in jout.items():
-        got = tout[rid]
-        if got == want:
-            continue
-        assert len(got) == len(want), rid
-        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
-        seq = np.asarray([prompts[rid] + want[:i]], np.int32)
-        lg = np.asarray(JM.prefill(jrt, jsp, jcfg,
-                                   {"tokens": jnp.asarray(seq)})[0])[0]
-        top2 = np.sort(lg)[-2:]
-        aux = []
-        TM.prefill(TRuntime(mode=mode, dtype=torch.float32), tsp, tcfg,
-                   {"tokens": torch.from_numpy(seq)}, aux=aux)
-        r = routing_flips([a["router_logits"].numpy() for a in aux],
-                          jax_router_logits(jrt, jsp, jcfg, seq),
-                          tcfg.moe.top_k)
-        assert top2[1] - top2[0] < 2 * TOL[mode] or \
-            (r["flips"] and r["near_tie"]), (rid, i, top2, r)
-
-
 def _run_both(pair, reqs, *, dual=False, **kw):
     jcfg, tcfg, jsp, tsp = pair
     jkw, tkw = dict(kw), dict(kw)
@@ -118,7 +85,7 @@ def _run_both(pair, reqs, *, dual=False, **kw):
     assert set(tfin) == set(jfin)
     jout = {k: r.output for k, r in jfin.items()}
     tout = {k: r.output for k, r in tfin.items()}
-    _assert_streams(pair, reqs, jout, tout, kw.get("forced_mode") or "fp16")
+    assert_streams(pair, reqs, jout, tout, kw.get("forced_mode") or "fp16")
     # held whether or not a stream parts: no request has a stop token, so
     # a parting changes no stream's length, step or mode (speculation's
     # acceptance would change, and fail here)

@@ -107,3 +107,70 @@ def test_mesh_shape_reads_as_jax():
     mesh = Mesh(["cpu"] * 4)
     assert mesh.shape == {"model": 4} and mesh.axis_names == ("model",)
     assert model_axis_size(mesh) == 4 == model_axis_size(FakeMesh(4))
+
+
+def _jax_leaf(param_shapes, arch: str, keys: tuple):
+    """The JAX leaf at `keys` of a config's parameter shapes, and its path
+    as the resolvers read it."""
+    node = param_shapes[arch]
+    for k in keys:
+        node = node[k]
+    return tuple(jax.tree_util.DictKey(k) for k in keys), node
+
+
+@pytest.mark.parametrize("m", (2, 3, 4))
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v3-671b",
+                                  "mamba2-2.7b", "zamba2-2.7b"])
+def test_serving_layout_reads_the_jax_specs(param_shapes, arch, m):
+    """The port's `serving_layout` of the moe, MLA, ssm and hybrid families
+    chooses what the JAX resolvers' specs say of the same leaves:
+    expert-parallel where the banks' expert axis is split, per-expert
+    tensor parallel where their F axis is, wq_a by columns, Mamba2 by
+    heads where in_x's columns and the state's head axis are split, the
+    hybrid's shared block as a dense layer."""
+    jcfg, tcfg = JARCHS[arch], TARCHS[arch]
+    fm = FakeMesh(m)
+
+    def jspec(*keys):
+        path, leaf = _jax_leaf(param_shapes, arch, keys)
+        return _spec(JSH.param_spec(path, leaf, jcfg, fm), len(leaf.shape))
+    try:
+        lay = TSH.serving_layout(tcfg, Mesh(["cpu"] * m))
+    except NotImplementedError:
+        # refused: MLA whose heads the JAX spec does not split (the port
+        # serves MLA head-parallel only), or GQA q heads split over kv
+        # heads kept whole
+        if jcfg.mla is not None:
+            assert jspec("layers", "attn", "wq_b", "w")[-1] is None
+        return
+    if jcfg.moe is not None:
+        gate, down = jspec("layers", "moe", "w_gate"), \
+            jspec("layers", "moe", "w_down")
+        want = "ep" if gate[1] == "model" else \
+            "tp" if (gate[3], down[2]) == ("model", "model") else "whole"
+        assert lay.experts == want
+        if jcfg.moe.n_shared_experts:
+            assert lay.shared == ("col" if jspec(
+                "layers", "moe", "shared", "gate", "w")[-1] == "model"
+                else "whole")
+    if jcfg.mla is not None:
+        assert lay.q == lay.kv == "col" and lay.wo == "row"
+        assert jspec("layers", "attn", "wq_b", "w")[-1] == "model"
+        assert lay.q_a == ("col" if jspec("layers", "attn", "wq_a",
+                                          "w")[-1] == "model" else "whole")
+    if jcfg.ssm is not None:
+        cols = jspec("layers", "mamba", "in_x", "w")[-1] == "model"
+        shapes = jax.eval_shape(lambda: JM.init_paged_cache(
+            jcfg, 5, 16, n_slots=3))
+        st = shapes["ssm"]["ssm"]
+        heads = JSH.paged_cache_spec(
+            (jax.tree_util.DictKey("ssm"), jax.tree_util.DictKey("ssm")), st,
+            jcfg, fm)
+        assert lay.ssm == ("col" if cols else "whole")
+        assert (tuple(heads) + (None,) * 5)[2] == ("model" if cols else None)
+        assert lay.ssm_heads * (m if cols else 1) == st.shape[2]
+    if jcfg.family == "hybrid":
+        assert lay.q == ("col" if jspec("shared_attn", "attn", "wq",
+                                        "w")[-1] == "model" else "whole")
+        assert lay.mlp == ("col" if jspec("shared_attn", "mlp", "gate",
+                                          "w")[-1] == "model" else "whole")

@@ -28,13 +28,9 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-import jax.numpy as jnp  # noqa: E402
-
-from _torch_parity import one_torch_thread  # noqa: E402,F401
+from _torch_parity import assert_streams, one_torch_thread  # noqa: E402,F401
 from repro.core.policy import DualPrecisionController as JController  # noqa: E402
 from repro.core.policy import SLOConfig as JSLO  # noqa: E402
-from repro.models import model as JM  # noqa: E402
-from repro.models.layers import Runtime as JRuntime  # noqa: E402
 from repro.serving.engine import Engine as JEngine  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro_torch.core.policy import DualPrecisionController as TController  # noqa: E402
@@ -43,7 +39,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serving.engine import Engine as TEngine  # noqa: E402
 from repro_torch.serving.engine import Request as TRequest  # noqa: E402
-from test_torch_ssm import ARCHS, TOL, ssm_pair  # noqa: E402
+from test_torch_ssm import ARCHS, ssm_pair  # noqa: E402
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -72,25 +68,6 @@ def _fake_clock():
     return lambda: next(c) * 0.004
 
 
-def _assert_streams(pair, reqs, jout, tout, mode):
-    """Equal streams, or a parting at a top-2 margin of the reference's
-    below 2 * TOL[mode]."""
-    jcfg, _, jsp, _ = pair
-    prompts = {rid: toks for rid, toks, _ in reqs}
-    jrt = JRuntime(mode=mode, backend="ref", dtype=jnp.float32)
-    for rid, want in jout.items():
-        got = tout[rid]
-        if got == want:
-            continue
-        assert len(got) == len(want), rid
-        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
-        seq = np.asarray([prompts[rid] + want[:i]], np.int32)
-        lg = np.asarray(JM.prefill(jrt, jsp, jcfg,
-                                   {"tokens": jnp.asarray(seq)})[0])[0]
-        top2 = np.sort(lg)[-2:]
-        assert top2[1] - top2[0] < 2 * TOL[mode], (rid, i, top2)
-
-
 def _run_both(pair, reqs, *, dual=False, **kw):
     jcfg, tcfg, jsp, tsp = pair
     jkw, tkw = dict(kw), dict(kw)
@@ -110,7 +87,7 @@ def _run_both(pair, reqs, *, dual=False, **kw):
     jfin = {r.request_id: r for r in jeng.run()}
     tfin = {r.request_id: r for r in teng.run()}
     assert set(tfin) == set(jfin) == {rid for rid, _, _ in reqs}
-    _assert_streams(pair, reqs, {k: r.output for k, r in jfin.items()},
+    assert_streams(pair, reqs, {k: r.output for k, r in jfin.items()},
                     {k: r.output for k, r in tfin.items()},
                     kw.get("forced_mode") or "fp16")
     for rid in jfin:
