@@ -85,7 +85,8 @@ The rest of the dense family runs in six more phases: the three of
 deepseek-coder-33b right after the kernels phase, while the card holds
 nothing else, the three of qwen3-8b last:
   ds_slice    deepseek-coder-33b at full width, 2 layers (one planted
-              exception tensor), card against CPU as phase 3: paged
+              exception tensor), card against CPU as phase 3 (a prefill
+              and 2 decode steps a run): paged
               steps FP16 and FP8 (gated), FP8 at 1 and 4 layers
               (readings, not gated), the dense-slot prefill (K6 at G = 7)
               and decode steps in f32 (gated)
@@ -214,6 +215,23 @@ kernels line has an entry "<kernel>@tp4" for each of K1-K4 at
 llama3.1-8b's shard of 4, one for each half, and "<kernel>@<model>-tp4"
 for K1-K3 at granite's, mamba2's, zamba2's and deepseek-v3's MLA shards
 of 4 and K4 at granite's.
+Training runs last, in three phases (no kernel runs in a train step: its
+products are plain bf16 / f32 torch ops, as the reference's are XLA's):
+  train_slice  qwen1.5-0.5b at full width, 2 layers: one train_loss and
+            backward in f32 activations on the card against the CPU on
+            the same weights and 2 x 128 tokens (loss within 1e-5,
+            every gradient within a relative L2 of 1e-4), one
+            apply_updates of those gradients on both (within 1e-6), and
+            the loss in bf16 activations (TRAIN_RT) within 2e-2 of f32
+  train     llama3.1-8b at full width, 4 layers (DEPTH): 10
+            make_train_step steps of 4 x 2048 tokens in 2 microbatches;
+            the reckoned bytes of params, gradients and moments beside
+            the peak allocated, the losses finite and falling by the
+            launcher's rule, step ms and tokens/s
+  train_serve  qwen1.5-0.5b at full width and depth: launch/train.py for
+            10 steps with --ckpt (5.6 GB, deleted after), {"params"}
+            restored nested (K8), one wo planted as an exception tensor
+            (K3), served through Engine in FP16, FP8 and dual as phase 4
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 GPU is present or the port is missing.
@@ -1240,10 +1258,12 @@ def slice_phase(torch, cfg) -> dict:
 
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     t0 = time.time()
-    sp_cpu = make_serving_params(torch, cfg2, 0, "cpu", plant_layer=1)
-    sp_gpu = params_to(sp_cpu, "cuda")
-    log(f"  2-layer full-width params made on the CPU in "
-        f"{time.time() - t0:.1f} s")
+    # made on the card (K8 nests them there) and copied to the CPU: the
+    # CPU's plain encode took 18.7 s of the phase (PR 29's final run)
+    sp_gpu = make_serving_params(torch, cfg2, 0, "cuda", plant_layer=1)
+    sp_cpu = params_to(sp_gpu, "cpu")
+    log(f"  2-layer full-width params made on the card and copied to the "
+        f"CPU in {time.time() - t0:.1f} s")
     params = {"cpu": sp_cpu, "cuda": sp_gpu}
     out = {mode: paged_slice(torch, cfg2, params, mode)
            for mode in ("fp16", "fp8")}
@@ -1399,7 +1419,10 @@ def family_slice_phase(torch, cfg, label: str, readings=()) -> dict:
     FP8 run at PHI3_DENSE_FP8_TOL, F-port-9). The weights
     are streamed onto the card (K8 nests them there) and copied to the
     CPU, whose plain GEMMs take one weight at a time (and sum in f64,
-    F-port-5). The CPU's plain versions take most of the phase's time."""
+    F-port-5). The CPU's plain versions take most of the phase's time:
+    the 2-layer runs take a prefill and 2 decode steps (3 paged steps,
+    `n_steps`), every gate and kernel kept (PR 30 cut them from 4 for
+    the training phases' time)."""
     from repro_torch.models.convert import params_to
 
     n = max((2, *readings))
@@ -1411,7 +1434,7 @@ def family_slice_phase(torch, cfg, label: str, readings=()) -> dict:
         f"in {time.time() - t0:.1f} s")
     params = {"cpu": sp_cpu, "cuda": sp_gpu}
     out = {mode: paged_slice(torch, cfg, params, mode, n_layers=2,
-                             label=label)
+                             label=label, n_steps=3)
            for mode in ("fp16", "fp8")}
     for n_l in readings:
         out[f"fp8_{n_l}l"] = paged_slice(torch, cfg, params, "fp8",
@@ -1430,7 +1453,7 @@ def family_slice_phase(torch, cfg, label: str, readings=()) -> dict:
         runs=[("fp16", "f32", 2, True),
               ("fp8", "f32", 2, PHI3_DENSE_FP8_TOL
                if cfg.frontend == "vision" else True)],
-        label=f"{label} dense")
+        label=f"{label} dense", n_dec=2)
     out["dense"]["seconds"] = time.time() - t0
     del params, sp_gpu, sp_cpu
     torch.cuda.empty_cache()
@@ -1477,10 +1500,10 @@ class LogitCheck:
 
 
 def dense_slice(torch, cfg, params, *, s=48, cap=56, runs=None,
-                label="dense slice") -> dict:
+                label="dense slice", n_dec: int = 4) -> dict:
     """The dense-slot path on a cut of the model, card against CPU:
     prefill of 2 x s tokens (K6 on the global layers; K1 or K7),
-    planarize at `cap` (plus a vlm's patches), 4 decode steps (K5), with
+    planarize at `cap` (plus a vlm's patches), n_dec decode steps (K5), with
     the per-tensor FP8 scale. Each run is (mode, act, n_layers, gate): f32 activations at
     SLICE_TOL or `steps.serve_rt` (bf16 activations, bf16-rounded GEMM
     outputs) at BF16_TOL, on the first n_layers layers of `params`; gate
@@ -1526,7 +1549,7 @@ def dense_slice(torch, cfg, params, *, s=48, cap=56, runs=None,
         cmp.add(res["cuda"][0], res["cpu"][0], "dense prefill")
         want, n = res["cpu"][0], res["cpu"][2]
         caches = {d: M.planarize_cache(res[d][1]) for d in res}
-        for i in range(4):
+        for i in range(n_dec):
             nxt = want.argmax(-1).to(torch.int32)[:, None]  # teacher forcing
             before = ops.all_launch_counters()
             want, _ = M.decode_step(rt, prm["cpu"], cut, nxt,
@@ -1581,7 +1604,7 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
                 n_slots: int = 8, capacity: int = 256, prompt_len: int = 128,
                 max_new: int = 32, sys_len: int = 0,
                 policies=("fp16", "fp8", "dual"), plant_layer: int = 0,
-                need: dict | None = None) -> dict:
+                need: dict | None = None, params=None) -> dict:
     """The paged engine at full width and depth, forced FP16, forced FP8
     and dual. Each engine first serves 8 other prompts of the same
     shapes (the warm pass: it captures every step key and holds each
@@ -1598,7 +1621,9 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
     prompt shared by every request, max_new), the policies, the layer
     whose wo is planted as an exception tensor and the kernels each mode
     must launch
-    (`need`) default to llama3.1-8b's serve phase."""
+    (`need`) default to llama3.1-8b's serve phase. `params`: serving
+    params already on the card (a restored checkpoint), served as given
+    in place of random ones."""
     from repro_torch.core.policy import DualPrecisionController, SLOConfig
     from repro_torch.kernels import ops
     from repro_torch.models.convert import serving_memory_bytes
@@ -1612,7 +1637,8 @@ def serve_phase(torch, cfg, n_layers: int, host_tier: bool = True,
     alloc0 = torch.cuda.memory_allocated()
     req0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
     t0 = time.time()
-    sp = make_serving_params(torch, cfgn, 0, "cuda", plant_layer=plant_layer)
+    sp = params if params is not None else make_serving_params(
+        torch, cfgn, 0, "cuda", plant_layer=plant_layer)
     torch.cuda.synchronize()
     load_s = time.time() - t0
     mem = serving_memory_bytes(sp)
@@ -5314,6 +5340,285 @@ def tp_family_phase(torch, cfg, label: str, *, engine_shards=(2, 4),
     return res
 
 
+# ---------------------------------------------------------------------------
+# training (PR 30): the train loss, AdamW, the train step and the CLI
+# ---------------------------------------------------------------------------
+
+TRAIN_LOSS_RTOL = 1e-5      # card against CPU, f32 activations
+TRAIN_GRAD_RTOL = 1e-4      # each gradient leaf, relative L2
+TRAIN_UPDATE_RTOL = 1e-6    # apply_updates on the same gradients
+TRAIN_BF16_RTOL = 2e-2      # the bf16 loss against the f32 loss
+
+
+def _grad_leaves(tree, path=""):
+    """(path, leaf) of a port tree, a list's entries by index."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _grad_leaves(v, f"{path}/{k}" if path else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _grad_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def train_slice_phase(torch, cfg) -> dict:
+    """qwen1.5-0.5b at full width, 2 layers: one `train_loss` and its
+    backward in f32 activations on the card against the port's CPU path
+    on the same weights and batch (2 x 128 tokens from `SyntheticLM`):
+    the loss within TRAIN_LOSS_RTOL, each parameter's gradient within a
+    relative L2 of TRAIN_GRAD_RTOL; then the same step in TRAIN_RT (bf16
+    activations) on the card, its loss within TRAIN_BF16_RTOL of the f32
+    loss and its gradients finite; then one `apply_updates` of the card's
+    f32 gradients on both devices, params and moments within
+    TRAIN_UPDATE_RTOL of each leaf's largest value."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import TRAIN_RT
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.layers import Runtime
+    from repro_torch.optim import adamw
+
+    cut = dataclasses.replace(cfg, n_layers=2)
+    t0 = time.time()
+    prm = {"cpu": M.init_params(cut, seed=0, device="cpu")}
+    prm["cuda"] = params_to(prm["cpu"], "cuda")
+    batch = next(SyntheticLM(cut, DataConfig(seq_len=128, global_batch=2))
+                 .batches(1))
+    log(f"  train slice: 2-layer full-width f32 params "
+        f"({sum(p.numel() for p, _ in adamw.leaves(prm['cpu'])) / 1e6:.1f}M)"
+        f" made on the CPU and copied in {time.time() - t0:.1f} s")
+    rt = Runtime(mode="train", dtype=torch.float32)
+    loss, dt = {}, {}
+    for dev in ("cpu", "cuda"):
+        for p, _ in adamw.leaves(prm[dev]):
+            p.requires_grad_(True)
+        t0 = time.time()
+        lv, _ = M.train_loss(rt, prm[dev], cut, {
+            k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        lv.backward()
+        loss[dev] = float(lv.detach())
+        dt[dev] = time.time() - t0
+    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    worst, worst_at = 0.0, ""
+    for (path, pc), (_, pg) in zip(_grad_leaves(prm["cpu"]),
+                                   _grad_leaves(prm["cuda"])):
+        want, got = pc.grad.double(), pg.grad.double().cpu()
+        den = float(torch.linalg.norm(want))
+        e = float(torch.linalg.norm(got - want)) / den if den else \
+            float(torch.linalg.norm(got))
+        if e >= worst:
+            worst, worst_at = e, path
+    log(f"  train slice f32: loss card {loss['cuda']:.7f} CPU "
+        f"{loss['cpu']:.7f} (rel {rel:.2e}, tol {TRAIN_LOSS_RTOL}); worst "
+        f"gradient rel L2 {worst:.2e} at {worst_at} (tol {TRAIN_GRAD_RTOL});"
+        f" loss + backward card {dt['cuda']:.2f} s, CPU {dt['cpu']:.2f} s")
+    check(math.isfinite(loss["cuda"]) and rel <= TRAIN_LOSS_RTOL,
+          f"train slice: card loss {loss['cuda']} against CPU {loss['cpu']}")
+    check(worst <= TRAIN_GRAD_RTOL,
+          f"train slice: gradient {worst_at} rel L2 {worst:.2e}")
+    grads = adamw.tree_map(lambda p: p.grad.detach().clone(), prm["cuda"])
+    # the same step in bf16 activations on the card, on the same weights
+    for p, _ in adamw.leaves(prm["cuda"]):
+        p.grad = None
+    lv, _ = M.train_loss(TRAIN_RT, prm["cuda"], cut, {
+        k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    lv.backward()
+    lb, lf = float(lv.detach()), loss["cuda"]
+    brel = abs(lb - lf) / abs(lf)
+    finite = all(bool(torch.isfinite(p.grad).all())
+                 for p, _ in adamw.leaves(prm["cuda"]))
+    log(f"  train slice bf16 (TRAIN_RT): loss {lb:.6f} against f32 {lf:.6f}"
+        f" (rel {brel:.2e}, tol {TRAIN_BF16_RTOL}); gradients finite: "
+        f"{finite}")
+    check(math.isfinite(lb) and finite and brel <= TRAIN_BF16_RTOL,
+          f"train slice: bf16 loss {lb} against f32 {lf}")
+    ocfg = adamw.AdamWConfig(warmup_steps=1)
+    state, om = {}, {}
+    for dev in ("cpu", "cuda"):
+        state[dev] = adamw.init_state(ocfg, prm[dev])
+        g = grads if dev == "cuda" else params_to(grads, "cpu")
+        _, state[dev], om[dev] = adamw.apply_updates(ocfg, prm[dev], g,
+                                                     state[dev])
+    upd = 0.0
+    for a, b in ((prm["cpu"], prm["cuda"]), (state["cpu"]["m"],
+                                             state["cuda"]["m"]),
+                 (state["cpu"]["v"], state["cuda"]["v"])):
+        for (_, x), (_, y) in zip(_grad_leaves(a), _grad_leaves(b)):
+            scale = float(x.detach().abs().max()) or 1.0
+            upd = max(upd, float((y.detach().cpu() - x.detach()).abs().max())
+                      / scale)
+    log(f"  train slice apply_updates: params and moments card against CPU "
+        f"within {upd:.2e} of each leaf's largest value (tol "
+        f"{TRAIN_UPDATE_RTOL}); grad_norm {float(om['cuda']['grad_norm']):.6f}"
+        f" / {float(om['cpu']['grad_norm']):.6f}, lr "
+        f"{float(om['cuda']['lr']):.3e}")
+    check(upd <= TRAIN_UPDATE_RTOL, f"train slice: apply_updates {upd:.2e}")
+    del prm, grads, state
+    torch.cuda.empty_cache()
+    return {"loss_cuda": loss["cuda"], "loss_cpu": loss["cpu"],
+            "loss_rel": rel, "grad_rel_l2_max": worst,
+            "grad_rel_l2_worst_leaf": worst_at, "update_rel_max": upd,
+            "bf16_loss": lb, "f32_loss": lf, "bf16_rel": brel,
+            "card_s": dt["cuda"], "cpu_s": dt["cpu"]}
+
+
+def train_phase(torch, cfg, n_steps: int = 10, batch: int = 4,
+                seq: int = 2048, n_micro: int = 2) -> dict:
+    """llama3.1-8b at full width, cut to DEPTH["train"] layers (f32
+    params, gradients and two moments of all 32 layers are ~128 GB):
+    n_steps `make_train_step` steps in TRAIN_RT on `SyntheticLM` batches
+    of batch x seq tokens in n_micro microbatches. The reckoned bytes of
+    params, gradients and moments (16 B a parameter) beside the peak
+    allocated; every loss and grad_norm finite and the launcher's exit
+    rule met (mean of the first 5 losses above the mean of the last 5);
+    step ms and tokens/s as readings, then one more step profiled (device
+    ms by kernel, bf16 and f32 GEMMs apart)."""
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLM,
+                                           microbatch_split)
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    n_params = sum(p.numel() for p, _ in adamw.leaves(
+        steps.param_structs(cfg, serving=False)))
+    reckoned = 16 * n_params
+    log(f"  train: {cfg.n_layers} layers, {n_params / 1e9:.3f} B params; "
+        f"params + gradients + two moments reckoned at {reckoned / 1e9:.2f} "
+        f"GB (f32 each)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    ocfg = adamw.AdamWConfig(total_steps=n_steps,
+                             warmup_steps=max(n_steps // 20, 5))
+    opt = adamw.init_state(ocfg, params)
+    step = steps.make_train_step(cfg, ocfg)
+    data = SyntheticLM(cfg, DataConfig(seq_len=seq, global_batch=batch))
+    losses, gnorms, ms = [], [], []
+    for b in data.batches(n_steps):
+        b = microbatch_split(b, n_micro)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    improved = sum(losses[:5]) / 5 - sum(losses[-5:]) / 5
+    warm = sorted(ms[1:])
+    med = warm[len(warm) // 2]
+    tok_s = batch * seq / (med / 1e3)
+    log(f"  train: losses {[round(x, 4) for x in losses]}; grad_norm "
+        f"{[round(x, 3) for x in gnorms]}")
+    log(f"  train: first step {ms[0]:.1f} ms, later steps median "
+        f"{med:.1f} ms ({tok_s:.0f} tokens/s of {batch} x {seq}); held after "
+        f"the run {held / 1e9:.2f} GB (params, gradients, moments: reckoned "
+        f"{reckoned / 1e9:.2f}), peak allocated {peak / 1e9:.2f} GB; "
+        f"improvement {improved:.4f}")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          "train: a non-finite loss or grad_norm")
+    check(improved > 0, f"train: the loss did not fall ({improved:.4f})")
+    # one more step under the profiler, after the run: device ms by kernel
+    wall, by_name = device_ms_by_kernel(
+        torch, lambda: step(params, opt, b), 1)
+    prof = profile_summary("train profile: 1 step", wall, med, by_name)
+    # cuBLAS names: f32 GEMMs "sgemm" / "gemm_f32f32..."; the bf16 ones
+    # "nvjet_..." (cuBLASLt) or "...gemm_bf16..."
+    gemm = {"bf16": 0.0, "f32": 0.0}
+    for k, v in by_name.items():
+        kl = k.lower()
+        if "sgemm" in kl or "gemm_f32" in kl:
+            gemm["f32"] += v
+        elif "nvjet" in kl or ("gemm" in kl and "bf16" in kl):
+            gemm["bf16"] += v
+    prof["gemm_ms_by_dtype"] = gemm
+    log(f"  train profile: GEMMs bf16 {gemm['bf16']:.1f} ms, f32 (the LM "
+        f"head, attention's score and value products) {gemm['f32']:.1f} ms "
+        f"of {prof['device_ms_per_step']:.1f} ms device time a step")
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": gnorms, "step_ms": ms,
+            "step_ms_median": med, "tokens_per_s": tok_s,
+            "n_params": n_params, "reckoned_bytes": reckoned,
+            "held_bytes": held, "peak_bytes": peak, "improvement": improved,
+            "profile": prof}
+
+
+def train_serve_phase(torch, cfg, n_steps: int = 10) -> dict:
+    """qwen1.5-0.5b at full width and depth: `repro_torch.launch.train`
+    for n_steps steps (8 x 128 tokens, 2 microbatches) with --ckpt into
+    a temporary directory (deleted after), which must exit 0; its
+    {"params"} restored with
+    serving=True (every weight slice nested on the card by K8), layer 0's
+    wo then re-nested with one weight set to 2.0 (an exception tensor,
+    K3); served through `Engine` in FP16, FP8 and dual as `serve_phase`
+    serves (8 x (128 + 32), every first replay bitwise its eager call;
+    K1, K2, K3, K4 and the quantizer launched). Launches: the
+    restore's and the serve's, each counted from 0 at its start."""
+    import contextlib
+    import io as stdio
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import io
+    from repro_torch.core.nestedfp import NestedTensor
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import model as M
+
+    ckpt = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
+    out = stdio.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = train_cli.main([
+                "--arch", cfg.arch_id, "--steps", str(n_steps), "--batch",
+                "8", "--seq", "128", "--micro", "2", "--ckpt", str(ckpt),
+                "--log-every", "3"])
+        train_s = time.time() - t0
+        for line in out.getvalue().splitlines():
+            log(f"  train serve | {line}")
+        check(rc == 0, f"train serve: the launcher exited {rc}")
+        ck_bytes = sum(f.stat().st_size for f in ckpt.iterdir())
+        log(f"  train serve: {n_steps} steps and the checkpoint "
+            f"({ck_bytes / 1e9:.2f} GB) in {train_s:.1f} s")
+        torch.cuda.empty_cache()
+        ops.reset_launch_counters()        # the restore starts here
+        t0 = time.time()
+        restored, step = io.restore(
+            str(ckpt), {"params": M.init_params(cfg, device="meta")},
+            device="cuda", serving=True)
+        torch.cuda.synchronize()
+        restore_s = time.time() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(step == n_steps, f"train serve: checkpoint step {step}")
+    sp = restored["params"]
+    wo = sp["layers"][0]["attn"]["wo"]
+    w16 = wo.weight.read_f16().clone()
+    w16[0, 0] = 2.0
+    wo.weight = NestedTensor.from_f16(w16)
+    check(wo.weight.is_exception, "train serve: planted wo was nested")
+    restore_launches = ops.all_launch_counters()
+    log(f"  train serve: restored and nested in {restore_s:.1f} s "
+        f"(K8 launches {restore_launches['nestedfp_encode']}, the planted "
+        f"exception tensor's included)")
+    check(restore_launches["nestedfp_encode"] > 0,
+          "train serve: the restore never launched K8")
+    res = serve_phase(torch, cfg, cfg.n_layers, label="train serve",
+                      params=sp)
+    res["launches_total"] = {k: v + restore_launches[k] for k, v in
+                             res["launches_total"].items()}
+    res.update(train_s=train_s, restore_s=restore_s,
+               checkpoint_bytes=ck_bytes, restore_launches=restore_launches)
+    del sp, restored
+    torch.cuda.empty_cache()
+    return res
+
+
 def _linears(tree, cls):
     if isinstance(tree, cls):
         return [tree]
@@ -5513,7 +5818,10 @@ DEPTH = {"granite_serve": 4, "granite_dense": 4, "spec": 4,
          # depth buys nothing but time (tp_serve runs nine engines);
          # zamba2's 12 hold two shared-attention applications
          "tp_serve": 8, "tp_fleet": 4, "tp_moe": 4, "tp_ssm": 8,
-         "tp_hybrid": 12}
+         "tp_hybrid": 12,
+         # training: f32 params, gradients and two moments of llama3.1-8b's
+         # 32 layers are ~128 GB; 4 layers (1.92 B params) ~31 GB
+         "train": 4}
 
 
 def cut_depth(cfg, phase: str):
@@ -5536,7 +5844,8 @@ def main() -> int:
                             "zamba2_serve,zamba2_dense,phi3_slice,"
                             "phi3_serve,phi3_dense,seamless_slice,"
                             "seamless_dense,tp_serve,tp_gemma,tp_fleet,"
-                            "tp_moe,tp_ssm,tp_hybrid")
+                            "tp_moe,tp_ssm,tp_hybrid,train_slice,train,"
+                            "train_serve")
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--serve-layers", type=int, default=32)
@@ -5867,6 +6176,22 @@ def main() -> int:
             log(f"== {name}: {c.arch_id}, {c.n_layers} layers, serving "
                 f"meshes ({TP_LABEL})")
             results[name] = timed_phase(lambda: fn(torch, c))
+    qwen = get_arch("qwen1.5-0.5b")
+    if "train_slice" in phases:
+        log("== train slice: qwen1.5-0.5b at full width, 2 layers, train_loss"
+            " + backward and apply_updates, card vs CPU plain versions")
+        results["train_slice"] = timed_phase(
+            lambda: train_slice_phase(torch, qwen))
+    if "train" in phases:
+        c = cut_depth(cfg, "train")
+        log(f"== train: llama3.1-8b at full width, {c.n_layers} layers, 10 "
+            f"make_train_step steps of 4 x 2048 tokens (2 microbatches)")
+        results["train"] = timed_phase(lambda: train_phase(torch, c))
+    if "train_serve" in phases:
+        log(f"== train serve: qwen1.5-0.5b, {qwen.n_layers} layers, trained "
+            f"by launch/train.py, checkpointed, restored nested and served")
+        results["train_serve"] = timed_phase(
+            lambda: train_serve_phase(torch, qwen))
     results["total_s"] = time.time() - t_start
     seconds = {"build": results["build_s"], "kernels": results.get("kernels_s"),
                **{k: round(v["seconds"], 1) for k, v in results.items()
@@ -5894,7 +6219,8 @@ def main() -> int:
                            "granite_dense", "mamba2_serve", "mamba2_dense",
                            "zamba2_serve", "zamba2_dense", "phi3_serve",
                            "phi3_dense", "seamless_dense",
-                           *TP_PHASES, *TP_FAMILY_PHASES, "ds3_mla")]
+                           *TP_PHASES, *TP_FAMILY_PHASES, "ds3_mla",
+                           "train_serve")]
         kernels = []
         for name, (src, replaces) in SOURCES.items():
             kernels.append({"name": name, "route": "cuda", "source": src,

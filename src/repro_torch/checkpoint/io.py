@@ -8,7 +8,11 @@ arrays keyed by their `jax.tree_util.keystr` path, such as
 
 The JAX package stacks a decoder's layers as (L, ...) arrays; the port
 keeps a list of per-layer dicts. So a list in a port tree is one stacked
-node of the JAX tree: `save` stacks it, `restore` slices it again.
+node of the JAX tree: `save` stacks it, `restore` slices it again. A
+train state {"params": ..., "opt": {"step", "m", "v"}} is such a tree
+too. A bf16 leaf (AdamW's low_mem moments) is stored as the JAX package
+stores it, a 2-byte void array ("|V2") of its bits, and read back the
+same way, without ml_dtypes.
 
 `restore` streams: it reads one key at a time, and a stacked key one
 layer's slice at a time straight from its npz member, so the host never
@@ -31,8 +35,8 @@ import torch
 from repro_torch.core.linear import NestedLinearParams, keystr
 from repro_torch.core.nestedfp import NestedTensor
 from repro_torch.device import resolve_device
-from repro_torch.models.convert import (_BANK_KEYS, _EXCLUDE,
-                                        wrap_nested_linears)
+from repro_torch.models.convert import (_BANK_KEYS, _EXCLUDE, numpy_to_torch,
+                                        torch_to_numpy, wrap_nested_linears)
 
 _SHARD_BYTES = 1 << 30     # 1 GiB per shard, as the JAX package's
 
@@ -73,7 +77,7 @@ def flatten(tree) -> dict[str, np.ndarray]:
     lists = _stacked_len(tree)
     for path, t in _leaves(tree):
         key = keystr(path)
-        groups.setdefault(key, []).append(t.detach().cpu().numpy())
+        groups.setdefault(key, []).append(torch_to_numpy(t))
         if any(path[:len(p)] == p for p in lists):
             stacked.add(key)
     return {k: np.stack(v) if k in stacked else v[0]
@@ -188,8 +192,8 @@ def restore(path: str, template, *, device=None, serving: bool = False):
                                          f"{shape} vs {tuple(leaf.shape)}"
                                          + ("" if n is None else
                                             f" in each of {n} layers"))
-                    t = torch.from_numpy(arr).to(device=device,
-                                                 dtype=leaf.dtype)
+                    t = numpy_to_torch(arr, copy=False).to(
+                        device=device, dtype=leaf.dtype)
                     if nest:
                         t = NestedTensor.from_f16(t)
                     dest = p if n is None else lp + (i,) + p[len(lp):]

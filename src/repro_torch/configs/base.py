@@ -1,5 +1,6 @@
 """Architecture configs for the PyTorch port (dense, MoE, SSM, hybrid,
-vision-language and encoder-decoder models).
+vision-language and encoder-decoder models), and the four workload
+shapes (`INPUT_SHAPES`).
 
 A copy of the fields of `repro.configs.base.ArchConfig` (and of its
 `MoEConfig`, `MLAConfig` and `SSMConfig`) that the ported decoders read,
@@ -161,3 +162,21 @@ class ArchConfig:
             frontend_len=min(self.frontend_len, 16) if self.frontend_len else 0,
             max_seq_len=4096,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """A workload shape: `seq_len` tokens a row, `global_batch` rows."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+# the JAX package's four shapes
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

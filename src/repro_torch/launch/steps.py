@@ -1,8 +1,19 @@
-"""Step functions of the dense-slot serving path (prefill_32k / decode_32k).
+"""Step functions of training (train_4k) and of the dense-slot serving
+path (prefill_32k / decode_32k), and the shapes of their inputs.
 
+  make_train_step   -> step(params, opt_state, batch(n_micro, mb, ...))
+                       -> (params, opt_state, metrics)
   make_prefill_step -> step(params, batch) -> (logits, caches)
   make_decode_step  -> step(params, caches, tokens, cache_len)
                        -> (logits, caches)
+
+The train step runs `model.train_loss` in `TRAIN_RT` (bf16 activations,
+f32 params) once a microbatch, sums the f32 gradients over the
+microbatches (autograd's accumulation into each param's `.grad`),
+divides by their count and applies AdamW (`optim/adamw.py`) in place.
+`batch_specs`, `param_structs` and `opt_structs` give the inputs' shapes
+and dtypes as meta tensors (nothing allocated), as the JAX package's
+ShapeDtypeStruct stand-ins do.
 
 As in the JAX package, serving steps run bf16 activations with bf16-
 rounded GEMM outputs (`fast_accum`) and the paper's per-tensor FP8
@@ -39,16 +50,55 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
+from repro_torch.models.convert import to_serving
 from repro_torch.models.layers import Runtime
+from repro_torch.optim import adamw
 from repro_torch.serving import graphs
+
+TRAIN_RT = Runtime(mode="train", dtype=torch.bfloat16)
 
 
 def serve_rt(mode: str) -> Runtime:
     return Runtime(mode=mode, dtype=torch.bfloat16, fast_accum=True)
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig):
+    """step(params, opt_state, batch) -> (params, opt_state, metrics), in
+    TRAIN_RT (read when the step runs, as the reference's trace reads it).
+    batch: {name: (n_micro, mb, ...)} arrays or tensors (`data.pipeline.
+    microbatch_split`), moved to the params' device. The params (f32
+    leaves of a `model.init_params` tree) are updated in place and keep
+    their last gradients in `.grad`; metrics: "loss" (the mean over the
+    microbatches), "grad_norm" and "lr", f32 device scalars."""
+
+    def step(params, opt_state, batch):
+        leaves = [p for p, _ in adamw.leaves(params)]
+        dev = leaves[0].device
+        for p in leaves:
+            p.requires_grad_(True)
+            p.grad = None
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        n_micro = next(iter(batch.values())).shape[0]
+        lsum = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(n_micro):
+            loss, _ = M.train_loss(TRAIN_RT, params, cfg,
+                                   {k: v[i] for k, v in batch.items()})
+            loss.backward()
+            lsum = lsum + loss.detach()
+        for p in leaves:
+            if p.grad is None:              # a leaf the loss does not read
+                p.grad = torch.zeros_like(p)
+            p.grad.div_(n_micro)
+        grads = adamw.tree_map(lambda p: p.grad, params)
+        params, opt_state, om = adamw.apply_updates(opt_cfg, params, grads,
+                                                    opt_state)
+        return params, opt_state, {"loss": lsum / n_micro, **om}
+
+    return step
 
 
 def stub_frontend(cfg: ArchConfig, batch: int, seq: int, *, generator=None,
@@ -237,3 +287,54 @@ class DecodeStep:
         for n, p in _planes(caches).items():
             same[n] = bool(torch.equal(p, want_planes[n]))
         return same
+
+
+# ---------------------------------------------------------------------------
+# input shapes (meta tensors: shapes and dtypes, nothing allocated)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def micro_layout(shape: InputShape, data_size: int) -> tuple[int, int]:
+    """(n_micro, micro_batch): one sample a data shard a microbatch, as
+    in the JAX package (whose set of archs that run the whole global
+    batch in one shot is empty)."""
+    mb = min(shape.global_batch, data_size)
+    return shape.global_batch // mb, mb
+
+
+def batch_specs(cfg: ArchConfig, shape: InputShape, *,
+                data_size: int = 1) -> dict:
+    """The model inputs of a workload shape as meta tensors: a train
+    shape's microbatched (n_micro, mb, ...) tokens of seq + 1 (and a
+    vlm's patch_embeds or an encdec's frames, bf16), a prefill's (B, S)
+    tokens (and the same extras), a decode's (B, 1) tokens and a scalar
+    cache_len."""
+    s, b = shape.seq_len, shape.global_batch
+    if shape.kind == "decode":
+        return {"tokens": _meta((b, 1), torch.int32),
+                "cache_len": _meta((), torch.int32)}
+    lead, n = ((micro_layout(shape, data_size), s + 1)
+               if shape.kind == "train" else ((b,), s))
+    out = {"tokens": _meta(lead + (n,), torch.int32)}
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = _meta(lead + (cfg.frontend_len,
+                                            cfg.frontend_dim), torch.bfloat16)
+    if cfg.family == "encdec":
+        out["frames"] = _meta(lead + (M.encdec_enc_len(s), cfg.frontend_dim),
+                              torch.bfloat16)
+    return out
+
+
+def param_structs(cfg: ArchConfig, *, serving: bool):
+    """The params' tree on the meta device (training form, or nested as
+    `to_serving` nests it)."""
+    spec = M.init_params(cfg, device="meta")
+    return to_serving(spec, structural=True) if serving else spec
+
+
+def opt_structs(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, params_spec):
+    """The AdamW state of `params_spec` on the meta device."""
+    return adamw.init_state(opt_cfg, params_spec)

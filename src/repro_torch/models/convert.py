@@ -10,7 +10,8 @@ ShapeDtypeStruct tree: `serving_memory_bytes` of it reckons a model's
 serving bytes without allocating them. `from_jax_serving` builds the
 port's serving params from the JAX package's serving tree, flattened to
 numpy arrays by the caller (the port imports nothing of JAX), keeping
-every byte plane exactly.
+every byte plane exactly; it carries a training-form tree across as
+well, and `from_jax_opt_state` an AdamW state.
 """
 
 from __future__ import annotations
@@ -115,9 +116,34 @@ def serving_memory_bytes(tree) -> dict[str, int]:
 _PLANES = {"upper", "lower", "raw"}
 
 
+def numpy_to_torch(a: np.ndarray, copy: bool = True) -> torch.Tensor:
+    """A CPU tensor of a numpy array's values (sharing a writable array's
+    memory with copy=False). A 2-byte void array (how numpy holds and
+    stores a bf16 array of the JAX package, ml_dtypes' bfloat16, whose
+    descr is "|V2") is read as the bf16 bits it holds, so no ml_dtypes is
+    needed."""
+    if copy:
+        a = np.array(a, copy=True)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def torch_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array on the host; a bf16 tensor as
+    the 2-byte void array of its bits ("|V2"), the bytes the JAX package
+    stores for a bf16 leaf."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
 def from_jax_serving(flat: dict[str, np.ndarray], n_layers: int,
                      device=None) -> dict:
-    """Port serving params from the JAX serving tree, flattened by path.
+    """Port serving params from the JAX serving tree, flattened by path
+    (or training-form params from the JAX `M.init_params` tree: its
+    linear dicts {"w"[, "b"]} stay dicts).
 
     Keys are "/"-joined dict paths of the JAX tree (`M.init_params` +
     `to_serving`); a NestedLinearParams at path P contributes
@@ -152,7 +178,7 @@ def from_jax_serving(flat: dict[str, np.ndarray], n_layers: int,
         if isinstance(node, dict):
             return {k: build(v, layer) for k, v in node.items()}
         arr = np.asarray(node) if layer is None else np.asarray(node)[layer]
-        return torch.from_numpy(np.array(arr, copy=True)).to(device)
+        return numpy_to_torch(arr).to(device)
 
     stacked = nested.pop("layers")
     enc = nested.pop("enc_layers", None)
@@ -162,4 +188,18 @@ def from_jax_serving(flat: dict[str, np.ndarray], n_layers: int,
                          if k.startswith("enc_layers/")))
         out["enc_layers"] = [build(enc, i) for i in range(n_enc)]
     out["layers"] = [build(stacked, i) for i in range(n_layers)]
+    return out
+
+
+def from_jax_opt_state(flat: dict[str, np.ndarray], n_layers: int,
+                       device=None) -> dict:
+    """An AdamW state {"step", "m", "v"} from the JAX package's, flattened
+    by path ("step", "m/...", "v/..."): the moments split per layer as
+    `from_jax_serving` splits params (bf16 moments kept bitwise)."""
+    device = resolve_device(device)
+    out = {"step": numpy_to_torch(np.asarray(flat["step"])).to(device)}
+    for name in ("m", "v"):
+        sub = {k[len(name) + 1:]: v for k, v in flat.items()
+               if k.startswith(name + "/")}
+        out[name] = from_jax_serving(sub, n_layers, device)
     return out

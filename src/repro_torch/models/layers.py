@@ -18,11 +18,13 @@ package's `attention(phase=...)`):
   caches K5 (`ops.planar_decode_attention`), over f16 caches the plain
   `attn_core_decode`, as in the JAX package.
 
-An encoder-decoder (seamless) adds two more, both plain torch ops over
-materialized scores (`attn_core_train`), as the JAX package computes them
-outside any Pallas kernel: `attention_encode`, the encoder's
-bidirectional self-attention, and `cross_attention`, the decoder's
-attention over the encoder's memory or over its cached projections.
+Training runs a fourth, `attention_train`: causal (within a window)
+or, for an encoder, bidirectional attention over materialized scores
+(`attn_core_train`), as plain torch ops, as the JAX package computes it
+outside any Pallas kernel; an encoder-decoder (seamless) adds
+`cross_attention`, the decoder's attention over the encoder's memory or
+over its cached projections, computed the same way. No cache is written
+while training.
 
 Caches and pools are updated IN PLACE (the JAX package returned new ones
 from donated buffers). The `attn_core_*` functions are the plain torch
@@ -91,19 +93,36 @@ def init_swiglu(gen, d_model: int, d_ff: int, put=keep) -> dict:
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     """Execution context threaded through all apply functions."""
-    mode: str = "fp16"                   # "fp16" | "fp8"
+    mode: str = "fp16"                   # "train" | "fp16" | "fp8"
     dtype: torch.dtype = torch.float32   # activation dtype
     act_quant: str = "per_tensor"        # fp8 scale granularity
     fast_accum: bool = False             # bf16-rounded GEMM outputs
 
+    @property
+    def serving(self) -> bool:
+        return self.mode in ("fp16", "fp8")
+
 
 def apply_linear(rt: Runtime, p, x: torch.Tensor) -> torch.Tensor:
-    """Dispatch a linear layer: plain (LM head) or NestedFP (serving)."""
+    """Dispatch a linear layer: plain (training form, the LM head) or
+    NestedFP (serving). A plain product takes both operands in rt.dtype
+    and sums in f32. On the card in bf16 training that is a bf16 cuBLAS
+    GEMM with f32 accumulation (under PyTorch's default, split-K partials
+    may be reduced in bf16), whose output is rounded to bf16 before the
+    bias is added (the reference adds the bias to the f32 sum, then
+    rounds: qwen1.5's qkv biases round twice here); everywhere else, the
+    serving steps' plain linears (router, frontend_proj) included, the
+    operands are upcast and multiplied in f32."""
     if isinstance(p, NestedLinearParams):
         mode = "fp8" if rt.mode == "fp8" else "fp16"
         return nested_linear(p, x, mode=mode, out_dtype=rt.dtype,
                              fast_accum=rt.fast_accum,
                              act_quant=rt.act_quant)
+    if rt.mode == "train" and rt.dtype == torch.bfloat16 and x.is_cuda:
+        y = x.to(rt.dtype) @ p["w"].to(rt.dtype)
+        if p.get("b") is not None:
+            y = (y.float() + p["b"]).to(rt.dtype)
+        return y
     y = x.to(rt.dtype).float() @ p["w"].to(rt.dtype).float()
     if p.get("b") is not None:
         y = y + p["b"]
@@ -323,14 +342,16 @@ def attention_prefill(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
     return apply_linear(rt, p["wo"], o), {"k": k, "v": v}
 
 
-def attention_encode(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
-                     positions):
-    """An encoder layer's bidirectional self-attention over the whole
-    input (the JAX package's "train" phase with causal=False)."""
+def attention_train(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
+                    positions, window=None, causal: bool = True):
+    """One layer's GQA attention over the whole input, for training (the
+    JAX package's "train" phase): causal within `window` (None: global),
+    or bidirectional with `causal=False` (an encoder's), over
+    materialized scores. No cache."""
     b, s = x.shape[0], x.shape[1]
     q, k, v = _qkv(rt, p, cfg, x, positions)
-    o = attn_core_train(q, k, v, causal=False).reshape(b, s, -1).to(rt.dtype)
-    return apply_linear(rt, p["wo"], o)
+    o = attn_core_train(q, k, v, window=window, causal=causal)
+    return apply_linear(rt, p["wo"], o.reshape(b, s, -1).to(rt.dtype))
 
 
 def cross_attention(rt: Runtime, p: dict, cfg, x: torch.Tensor,

@@ -185,7 +185,8 @@ def mamba2_block(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
     """x: (B, S, D). cache: this layer's state {"conv_x": (B, W-1, d_inner),
     "conv_bc": (B, W-1, 2 g n), "ssm": (B, H, P, N)}, read only.
 
-    Phases: "prefill" (a fresh sequence; the new state is returned),
+    Phases: "train" (a fresh sequence; no state returned, the chunked
+    SSD alone), "prefill" (a fresh sequence; the new state is returned),
     "decode" (one token), and "paged", the engine's chunk and decode
     entry: S tokens continue the recurrence from the cache's state (S == 1
     takes `ssd_decode_step`, so a batched decode computes what the
@@ -195,7 +196,7 @@ def mamba2_block(rt: Runtime, p: dict, cfg, x: torch.Tensor, *,
     state.
 
     Returns (out (B, S, D) in rt.dtype, new state dict: conv planes f16,
-    ssm f32)."""
+    ssm f32; None in the train phase)."""
     z = apply_linear(rt, p["in_z"], x)
     y, new_cache = _mix(rt, p, cfg, x, phase=phase, cache=cache,
                         kv_len=kv_len)
@@ -244,8 +245,10 @@ def _mix(rt: Runtime, p: dict, cfg, x: torch.Tensor, *, phase: str, cache,
     if groups is not None:
         Bm, Cm = _group_planes(Bm, groups), _group_planes(Cm, groups)
 
-    if phase == "prefill":
+    if phase in ("prefill", "train"):
         y, S_new = ssd_chunked(xh, dt, A, Bm, Cm, D, chunk=s.chunk_size)
+        if phase == "train":               # no state out
+            return y.reshape(b, seq, -1).to(rt.dtype), None
     elif phase == "paged" and seq > 1:    # a prompt chunk resumes the scan
         y, S_new = ssd_chunked(xh, dt, A, Bm, Cm, D, chunk=s.chunk_size,
                                initial_state=cache["ssm"])

@@ -1,13 +1,15 @@
 """Multi-head Latent Attention (DeepSeek-V2/V3) [arXiv:2412.19437].
 
-Port of the JAX package's `models/mla.py`, in three phases:
+Port of the JAX package's `models/mla.py`, in four phases:
 
 - "paged": the serving engine's chunks and decode steps over the block
   pool, in the ABSORBED form (one arithmetic path for both);
 - "prefill": the dense-slot prompt pass, per-head K/V materialized from
   the latent, then the plain `attn_core_prefill` (q/k head dim
   nope + rope, v head dim v_head_dim), as the reference does;
-- "decode": the dense-slot decode step, absorbed.
+- "decode": the dense-slot decode step, absorbed;
+- "train": per-head K/V materialized as in "prefill", then the plain
+  `attn_core_train` over materialized scores, with no cache.
 
 The cache holds only the compressed latent c_kv (kv_lora_rank) and the
 shared RoPE key (qk_rope_dim) per token, in f16, never byte-planar.
@@ -145,7 +147,8 @@ def mla_attention(rt: Runtime, p: dict, cfg, x: torch.Tensor, *, phase: str,
     phase "prefill": returns the prompt's latents {"c_kv", "k_rope"}
     (B, S, .) for the caller's cache. phase "decode": cache = this
     layer's dense per-slot {"c_kv": (B,Cap,r), "k_rope": (B,Cap,d_rope)},
-    the new token's latents written at kv_len - 1."""
+    the new token's latents written at kv_len - 1. phase "train":
+    returns None for the latents."""
     m = cfg.mla
     b, s, _ = x.shape
     q_nope, q_rope = _project_q(rt, p, cfg, x, positions)
@@ -155,7 +158,7 @@ def mla_attention(rt: Runtime, p: dict, cfg, x: torch.Tensor, *, phase: str,
         o = _attend_paged(rt, p, cfg, x, q_nope, q_rope, positions=positions,
                           cache=cache, kv_len=kv_len, paged=paged)
         return apply_linear(rt, p["wo"], o), None
-    if phase == "prefill":
+    if phase in ("prefill", "train"):
         c_kv, k_rope = _project_kv_latent(rt, p, cfg, x, positions)
         k_nope = apply_linear(rt, p["wk_b"], c_kv).reshape(
             b, s, h, m.qk_nope_dim)
@@ -163,8 +166,11 @@ def mla_attention(rt: Runtime, p: dict, cfg, x: torch.Tensor, *, phase: str,
         k_rope_h = k_rope[:, :, None, :].expand(b, s, h, m.qk_rope_dim)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         k_full = torch.cat([k_nope, k_rope_h], dim=-1)
-        o = L.attn_core_prefill(q_full, k_full, v)
-        new = {"c_kv": c_kv, "k_rope": k_rope}
+        if phase == "train":
+            o = L.attn_core_train(q_full, k_full, v)
+        else:
+            o = L.attn_core_prefill(q_full, k_full, v)
+            new = {"c_kv": c_kv, "k_rope": k_rope}
     elif phase == "decode":
         rows = torch.arange(b, device=x.device)
         at = kv_len.to(torch.int64) - 1

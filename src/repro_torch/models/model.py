@@ -1,6 +1,12 @@
-"""Every family of the JAX package: init, caches, and the three serving
-entry points.
+"""Every family of the JAX package: init, caches, the training loss and
+the three serving entry points.
 
+- `train_loss`: next-token cross-entropy with a z-loss, the MoE layers'
+  aux losses and deepseek-v3's multi-token-prediction loss, for every
+  family (`launch/steps.py::make_train_step` differentiates it). Each
+  layer (a hybrid's group: attn_every Mamba2 layers and one shared
+  block) is recomputed in backward (`torch.utils.checkpoint`, the
+  reference's `jax.checkpoint`); no cache is written.
 - `paged_step`: the serving engine's step over the block-paged pool
   (every family but encdec, as in the JAX package).
 - `prefill` and `decode_step`: the dense-slot steps (`launch/steps.py`)
@@ -58,6 +64,7 @@ import functools
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.nestedfp import split_bytes
@@ -526,8 +533,25 @@ def _attention(cfg, phase: str):
     if cfg.mla is not None:
         return functools.partial(MLA.mla_attention, phase=phase)
     return {"paged": L.attention_paged, "prefill": L.attention_prefill,
-            "decode": L.attention_decode,
-            "encode": L.attention_encode}[phase]
+            "decode": L.attention_decode, "train": L.attention_train}[phase]
+
+
+def _remat(fn, x):
+    """fn(x), its activations recomputed in backward when a backward will
+    run (the reference's `jax.checkpoint` around a scanned layer)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
+
+
+_AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_fraction")
+
+
+def _add_aux(acc: dict, got: list) -> dict:
+    """acc plus the _AUX_KEYS of each aux dict in `got`, in order."""
+    for a in got:
+        acc = {k: acc[k] + a[k] for k in _AUX_KEYS}
+    return acc
 
 
 def _prefill_into(cache: dict, kv: dict) -> None:
@@ -540,13 +564,17 @@ def _prefill_into(cache: dict, kv: dict) -> None:
 
 def run_decoder_stack(rt, layers, cfg, x, *, phase, positions, caches=None,
                       kv_len=None, paged=None, paged_groups=None, aux=None,
-                      memory=None, cross_caches=None):
+                      memory=None, cross_caches=None, causal: bool = True):
     """The decoder stack as a loop over layers, for the "paged", "prefill",
-    "decode" and "encode" phases; layer i reads and writes slice i of
+    "decode" and "train" phases; layer i reads and writes slice i of
     every cache plane in place, within its window (`window_schedule`).
     Prefill copies each layer's k/v (MLA: c_kv/k_rope) into its f16 cache
-    (the first min(S, Cap) positions; the rest stay zero). "encode" is an
-    encoder stack's bidirectional pass, with no cache.
+    (the first min(S, Cap) positions; the rest stay zero). "train" writes
+    no cache: a decoder's training pass (cross-attention over `memory`,
+    projected afresh), or with `causal=False` an encoder stack's
+    bidirectional pass (training's and serving's); each layer is
+    recomputed in backward (`_remat`), and an MoE layer's aux dict goes
+    to `aux` (one append a layer) as the checkpointed block returns it.
 
     paged: (phys_write (G,B,C), phys_read (G,B,Cap), q_offset (B,),
     tables (G,B,MB)), one index set per window group; paged_groups:
@@ -561,9 +589,17 @@ def run_decoder_stack(rt, layers, cfg, x, *, phase, positions, caches=None,
     windows = _layer_windows(cfg)
     attn = _attention(cfg, phase)
     mla = cfg.mla is not None
+    if phase == "train":
+        for i, p in enumerate(layers):
+            x, got = _remat(functools.partial(
+                _train_block, rt, p, cfg, positions=positions,
+                window=windows[i], memory=memory, causal=causal), x)
+            if aux is not None and got is not None:
+                aux.append(got)
+        return x
     for i, p in enumerate(layers):
         cache = {name: plane[i] for name, plane in (caches or {}).items()}
-        wkw = {} if mla or phase == "encode" else {"window": windows[i]}
+        wkw = {} if mla else {"window": windows[i]}
         if phase == "paged":
             g = 0 if paged_groups is None else int(paged_groups[i])
             pg = (paged[0][g], paged[1][g], paged[2], paged[3][g])
@@ -583,9 +619,6 @@ def run_decoder_stack(rt, layers, cfg, x, *, phase, positions, caches=None,
                 out = attn(rt, p["attn"], cfg, h, positions=positions,
                            cache=cache, kv_len=kv_len, **wkw)
                 return out[0] if mla else out
-        elif phase == "encode":
-            def attend(h):
-                return attn(rt, p["attn"], cfg, h, positions=positions)
         else:
             raise ValueError(f"unknown phase {phase!r}")
 
@@ -602,6 +635,27 @@ def run_decoder_stack(rt, layers, cfg, x, *, phase, positions, caches=None,
     return x
 
 
+def _train_block(rt, p: dict, cfg: ArchConfig, x, *, positions,
+                 window=None, memory=None, causal: bool = True):
+    """One decoder layer's training pass: (x, the MoE layer's aux dict or
+    None). Attention is GQA's `attention_train` (causal within `window`,
+    or bidirectional) or MLA's "train" phase; a layer with
+    cross-attention attends over `memory`."""
+    mla = cfg.mla is not None
+    attn = _attention(cfg, "train")
+    kw = {} if mla else {"window": window, "causal": causal}
+
+    def attend(h):
+        out = attn(rt, p["attn"], cfg, h, positions=positions, **kw)
+        return out[0] if mla else out
+
+    def cross(h):
+        return L.cross_attention(rt, p["cross"], cfg, h, memory)[0]
+    got = [] if "moe" in p else None
+    x = apply_decoder_block(rt, p, cfg, x, attend, got, cross)
+    return x, (got[0] if got else None)
+
+
 def apply_ssm_block(rt, p: dict, cfg: ArchConfig, x, *, phase: str,
                     cache=None, kv_len=None):
     """x + mamba2(norm(x)); returns (x, the layer's new state)."""
@@ -609,6 +663,33 @@ def apply_ssm_block(rt, p: dict, cfg: ArchConfig, x, *, phase: str,
     y, new_cache = M2.mamba2_block(rt, p["mamba"], cfg, h, phase=phase,
                                    cache=cache, kv_len=kv_len)
     return x + y, new_cache
+
+
+def train_ssm_stack(rt, layers, cfg, x, *, positions, shared_params=None):
+    """The Mamba2 stack's training pass (no state in or out): a hybrid
+    (`shared_params`) applies its shared decoder block after every
+    attn_every-th layer. Each group of layers up to and including a
+    shared application (a pure ssm stack: each layer) is recomputed in
+    backward, as the reference checkpoints its grouped scan's body."""
+    every = cfg.attn_every if shared_params is not None else 0
+
+    def group(x, ps, shared):
+        for p in ps:
+            x, _ = apply_ssm_block(rt, p, cfg, x, phase="train")
+        if shared:
+            x = apply_decoder_block(
+                rt, shared_params, cfg, x,
+                lambda h: L.attention_train(rt, shared_params["attn"], cfg,
+                                            h, positions=positions))
+        return x
+    start = 0
+    for i in range(len(layers)):
+        shared = bool(every) and i % every == every - 1
+        if shared or not every or i == len(layers) - 1:
+            x = _remat(functools.partial(group, ps=layers[start:i + 1],
+                                         shared=shared), x)
+            start = i + 1
+    return x
 
 
 def run_ssm_stack(rt, layers, cfg, x, *, phase, positions, caches,
@@ -968,12 +1049,83 @@ def _frontend_tokens(rt, params, cfg, batch):
 
 def encode_memory(rt, params, cfg, frames):
     """encdec: the bidirectional encoder over stub frame embeddings
-    (B, Senc, frontend_dim) -> memory (B, Senc, D) in rt.dtype."""
+    (B, Senc, frontend_dim) -> memory (B, Senc, D) in rt.dtype (the
+    stack's "train" phase with causal=False, as in the JAX package,
+    serving and training alike)."""
     h = _frontend_tokens(rt, params, cfg, {"frames": frames})
     pos = torch.arange(h.shape[1], device=h.device)[None, :]
-    h = run_decoder_stack(rt, params["enc_layers"], cfg, h, phase="encode",
-                          positions=pos)
+    h = run_decoder_stack(rt, params["enc_layers"], cfg, h, phase="train",
+                          positions=pos, causal=False)
     return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def backbone(rt, params, cfg, h, *, positions, memory=None):
+    """The training pass of the family's stack over h (B, S, D) -> (h,
+    aux): the _AUX_KEYS summed over the MoE layers in layer order (zeros
+    for a stack without MoE)."""
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    acc = {k: zero for k in _AUX_KEYS}
+    if cfg.family in ("ssm", "hybrid"):
+        return train_ssm_stack(rt, params["layers"], cfg, h,
+                               positions=positions,
+                               shared_params=params.get("shared_attn")), acc
+    got: list = []
+    h = run_decoder_stack(rt, params["layers"], cfg, h, phase="train",
+                          positions=positions, aux=got, memory=memory)
+    return h, _add_aux(acc, got)
+
+
+def _ce(logits, labels):
+    """(mean cross-entropy, logz): logits (B, S, V) f32, labels (B, S)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return (logz - gold).mean(), logz
+
+
+def train_loss(rt, params, cfg, batch):
+    """batch: {"tokens": (B, S+1)} and a vlm's "patch_embeds" (B, P,
+    frontend_dim) or an encdec's "frames" (B, Senc, frontend_dim), torch
+    tensors. Returns (loss, metrics): the next-token cross-entropy of
+    the text, a 1e-4 z-loss on its log-partition, the MoE aux losses and,
+    for deepseek-v3, 0.1 of the multi-token-prediction loss; metrics hold
+    loss, ce, acc and the _AUX_KEYS."""
+    tokens = batch["tokens"].long()
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    h = embed_tokens(rt, params, cfg, inp)
+    memory, n_prefix = None, 0
+    if cfg.family == "encdec":
+        memory = encode_memory(rt, params, cfg, batch["frames"])
+    elif cfg.frontend == "vision":
+        front = _frontend_tokens(rt, params, cfg, batch)
+        n_prefix = front.shape[1]
+        h = torch.cat([front, h], dim=1)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    h, aux = backbone(rt, params, cfg, h, positions=positions, memory=memory)
+    h = h[:, n_prefix:]
+    logits = lm_logits(rt, params, cfg, h)               # (B, S, V) f32
+    ce, logz = _ce(logits, labels)
+    zloss = 1e-4 * (logz ** 2).mean()
+    loss = ce + zloss + aux["moe_lb_loss"] + aux["moe_z_loss"]
+    if cfg.mtp_heads and "mtp" in params:
+        loss = loss + 0.1 * _mtp_loss(rt, params, cfg, h, tokens)
+    metrics = {"loss": loss, "ce": ce,
+               "acc": (logits.argmax(-1) == labels).float().mean(), **aux}
+    return loss, metrics
+
+
+def _mtp_loss(rt, params, cfg, h, tokens):
+    """deepseek-v3's single-depth multi-token prediction: predict t+2
+    from [norm(h_t); emb(t+1)] through one extra block with a dense MLP
+    of 2 d_model (arXiv:2412.19437 §2.2)."""
+    p = params["mtp"]
+    emb_next = embed_tokens(rt, params, cfg, tokens[:, 1:-1])
+    h_in = torch.cat([L.rms_norm(h[:, :-1], p["norm"], cfg.norm_eps),
+                      emb_next], dim=-1)
+    h2 = L.apply_linear(rt, p["proj"], h_in)
+    pos = torch.arange(h2.shape[1], device=h2.device)[None, :]
+    mtp_cfg = dataclasses.replace(cfg, moe=None, d_ff=2 * cfg.d_model)
+    h2, _ = _train_block(rt, p["block"], mtp_cfg, h2, positions=pos)
+    return _ce(lm_logits(rt, params, cfg, h2), tokens[:, 2:])[0]
 
 
 def prefill(rt, params, cfg, batch, *, capacity: int | None = None,

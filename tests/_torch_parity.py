@@ -210,3 +210,93 @@ def assert_streams(pair, reqs, jout, tout, mode):
                           jax_router_logits(jrt, jsp, jcfg, seq),
                           tcfg.moe.top_k)
         assert r["flips"] and r["near_tie"], (rid, i, top2, r)
+
+
+# ---------------------------------------------------------------------------
+# training: the same loss and gradients on both sides
+# ---------------------------------------------------------------------------
+
+TRAIN_LOSS_RTOL = 1e-5     # train_loss and its metrics, f32 activations
+TRAIN_GRAD_RTOL = 1e-4     # each gradient leaf, relative L2
+
+
+def train_pair(arch: str, seq: int, batch: int = 2, seed: int = 0):
+    """JAX `M.train_loss` with its gradients (jitted value_and_grad in f32
+    activations) and the port's on a copy of the same weights and the
+    same `SyntheticLM` batch: {"jcfg", "tcfg", "batch", "jloss",
+    "jmetrics", "jgrads" (flattened by path), "tparams" (leaves with
+    .grad), "tloss", "tmetrics"}."""
+    import jax.numpy as jnp
+    from repro.data.pipeline import DataConfig, SyntheticLM
+    from repro.models.layers import Runtime as JRuntime
+    from repro_torch.models import model as TM
+    from repro_torch.models.layers import Runtime as TRuntime
+    from repro_torch.optim.adamw import leaves
+    jcfg, tcfg = configs(arch)
+    jp = JM.init_params(jax.random.PRNGKey(seed), jcfg)
+    b = next(SyntheticLM(jcfg, DataConfig(seq_len=seq, global_batch=batch,
+                                          seed=seed)).batches(1))
+    jrt = JRuntime(mode="train", dtype=jnp.float32)
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p, x: JM.train_loss(jrt, p, jcfg, x), has_aux=True))(
+        jp, {k: jnp.asarray(v) for k, v in b.items()})
+    tp = from_jax_serving(flatten_serving(jp), jcfg.n_layers, device="cpu")
+    for t, _ in leaves(tp):
+        t.requires_grad_(True)
+    tl, tm = TM.train_loss(TRuntime(mode="train", dtype=torch.float32), tp,
+                           tcfg, {k: torch.from_numpy(v) for k, v in b.items()})
+    tl.backward()
+    return {"jcfg": jcfg, "tcfg": tcfg, "batch": b, "jparams": jp,
+            "jloss": float(jl), "jmetrics": {k: float(v) for k, v in jm.items()},
+            "jgrads": flatten_serving(jg), "tparams": tp,
+            "tloss": float(tl.detach()),
+            "tmetrics": {k: float(v.detach()) for k, v in tm.items()}}
+
+
+def flatten_port(tree, get=lambda t: t.detach().float().numpy()
+                 ) -> dict[str, np.ndarray]:
+    """get(leaf) of every leaf of a port tree, flattened by path as
+    `flatten_serving` flattens the JAX tree: a list's (a stack's)
+    per-layer values stacked along a new first axis."""
+    out: dict[str, list] = {}
+
+    def walk(node, path, stacked):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}" if path else k, stacked)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v, path, True)
+        else:
+            out.setdefault(path, []).append(get(node))
+            if not stacked:
+                out[path] = out[path][0]
+    walk(tree, "", False)
+    return {k: np.stack(v) if isinstance(v, list) else v
+            for k, v in out.items()}
+
+
+def assert_train_pair(r: dict) -> float:
+    """The port's loss and metrics within TRAIN_LOSS_RTOL of the JAX
+    package's and every gradient leaf within TRAIN_GRAD_RTOL (relative
+    L2; a stacked leaf per layer). Returns the worst gradient reading."""
+    assert abs(r["tloss"] - r["jloss"]) <= TRAIN_LOSS_RTOL * abs(r["jloss"])
+    assert set(r["tmetrics"]) == set(r["jmetrics"])
+    for k, want in r["jmetrics"].items():
+        got = r["tmetrics"][k]
+        assert abs(got - want) <= TRAIN_LOSS_RTOL * max(abs(want), 1.0), \
+            (k, got, want)
+    got = flatten_port(r["tparams"], lambda t: t.grad.numpy())
+    assert set(got) == set(r["jgrads"])
+    worst = 0.0
+    for path, want in r["jgrads"].items():
+        g = np.asarray(got[path], np.float64)
+        w = np.asarray(want, np.float64)
+        pairs = zip(g, w) if path.split("/")[0] in ("layers", "enc_layers") \
+            else [(g, w)]
+        for gi, wi in pairs:
+            den = np.linalg.norm(wi)
+            rel = np.linalg.norm(gi - wi) / den if den else np.linalg.norm(gi)
+            assert rel <= TRAIN_GRAD_RTOL, (path, rel)
+            worst = max(worst, float(rel))
+    return worst
