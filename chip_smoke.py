@@ -1948,7 +1948,8 @@ def prefill_attention_layers(cfg) -> int:
 
 
 def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
-                n_dec: int = 32, long_ctx: bool = True) -> dict:
+                n_dec: int = 32, long_ctx: bool = True,
+                reckon: bool = False) -> dict:
     """The dense-slot serving steps at full width and depth: weights
     nested on the card (K8), 8 x 1024-token prefill (K6 on every global
     layer or shared-attention application, K1 / K7, K3; a vlm's 576
@@ -1960,7 +1961,9 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
     eager call on cloned caches (`check_replay`), then n_dec greedy steps
     replay it, timed (none may capture) — fp16, then fp8. Launch counts
     are read over this whole run. Then profiles (the eager prefill, the
-    decode replays) and the step at long context."""
+    decode replays) and the step at long context; with `reckon`, the dry
+    run's reckoning of the same decode step held to what the card holds
+    and to the replayed step (`dense_reckoning`)."""
     from repro_torch.core.linear import NestedLinearParams
     from repro_torch.core.nestedfp import NestedTensor
     from repro_torch.kernels import ops
@@ -2129,6 +2132,10 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
             torch.cuda.synchronize()
             eager_ms.append((time.monotonic() - t0) * 1e3)
         res[mode]["eager_decode_ms_median"] = sorted(eager_ms)[2]
+        if reckon:
+            res[mode]["reckoning"] = dense_reckoning(
+                torch, cfg, sp, caches, nxt, n + n_dec - 1, mode,
+                res[mode]["decode_ms_per_step_median"])
         wall, by_name = device_ms_by_kernel(
             torch, lambda: decode(sp, caches, nxt, n + n_dec - 1), 4)
         prof = profile_summary(f"profile {label} decode {mode}: 4 replays",
@@ -2160,6 +2167,64 @@ def dense_phase(torch, cfg, label: str = "dense", plant_layer: int = 0,
             f"{weights / 1e9:.1f} GB of weights on a card of "
             f"{total / 1e9:.1f} GB")
     return res
+
+
+def dense_reckoning(torch, cfg, sp, caches, nxt, pos: int, mode: str,
+                    step_ms: float) -> dict:
+    """The dry run (`launch/dryrun.py::reckon`, on meta tensors) of the
+    dense-slot decode step that `dense_phase` just replayed, on a
+    one-device layout (`make_debug_mesh(1, 1)`): its reckoned arguments
+    against the bytes the params, planar caches, tokens and cache_len
+    hold on the card (gate: within 1 %), its temporaries against one
+    eager step's peak above what was allocated before it (a reading),
+    and its roofline bound (H100 SXM5 data-sheet rates) against the
+    replayed step's median (gate: bound / step <= 1.05; a bound above
+    the measured time is a counting fault)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import serving_memory_bytes
+
+    b, cap = nxt.shape[0], M.cache_capacity(caches)
+    t0 = time.time()
+    rec = dryrun.reckon(cfg, InputShape("dense decode", cap, b, "decode"),
+                        make_debug_mesh(1, 1), mode=mode, kv="planar")
+    reckon_s = time.time() - t0
+    held = serving_memory_bytes(sp)["total_bytes"] + sum(
+        p.numel() * p.element_size() for planes in caches.values()
+        for p in planes.values()) + 4 * b + 4      # + tokens, cache_len
+    args = rec["memory"]["argument_gib"] * 2**30
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    M.decode_step(steps.serve_rt(mode), sp, cfg, nxt, caches, pos)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - base
+    roof = rec["roofline"]
+    share = roof["bound_step_s"] * 1e3 / step_ms
+    log(f"  dense reckoning {mode} ({reckon_s:.1f} s on meta tensors): "
+        f"arguments {args:.0f} B reckoned, {held} B held on the card "
+        f"({args / held - 1:+.2e}); temp {rec['memory']['temp_gib']:.3f} "
+        f"GiB reckoned, an eager step peaked {step_peak / 2**30:.3f} GiB "
+        f"above the {base / 2**30:.3f} GiB allocated; bound "
+        f"{roof['bound_step_s'] * 1e3:.3f} ms ({roof['dominant']}: compute "
+        f"{roof['compute_s'] * 1e3:.3f}, memory {roof['memory_s'] * 1e3:.3f}"
+        f" ms) against the replayed step's {step_ms:.3f} ms: share "
+        f"{share:.3f}; FLOPs by class "
+        f"{rec['cost']['flops_global_by_class']}")
+    check(abs(args - held) <= 0.01 * held,
+          f"dense reckoning {mode}: {args:.0f} B reckoned against {held} B "
+          f"held")
+    check(share <= 1.05, f"dense reckoning {mode}: bound "
+          f"{roof['bound_step_s'] * 1e3:.3f} ms above the measured "
+          f"{step_ms:.3f} ms")
+    return {"reckon_s": reckon_s, "argument_bytes": args, "held_bytes": held,
+            "temp_gib": rec["memory"]["temp_gib"],
+            "eager_step_peak_bytes": step_peak, "roofline": roof,
+            "share": share, "flops_by_class": rec["cost"][
+                "flops_global_by_class"],
+            "analytic_traffic": rec["analytic_traffic"]}
 
 
 def memory_reckoning(torch, cfg, label: str) -> dict:
@@ -4542,11 +4607,10 @@ def tp_want_shapes(cfg, m: int) -> dict:
     D) over a planar pool, the row-parallel layers' widths for the
     quantizer halves. For llama3.1-8b these are LLAMA_TP_KN[m]'s; an MoE
     stack's banks are einsums, not kernels."""
-    import types
-
     from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import Layout
 
-    lay = SH.serving_layout(cfg, types.SimpleNamespace(shape={"model": m}))
+    lay = SH.serving_layout(cfg, Layout(("model",), (m,)))
     d = cfg.d_model
 
     def cut(k, n, kind):
@@ -5521,6 +5585,7 @@ def train_phase(torch, cfg, n_steps: int = 10, batch: int = 4,
     check(all(math.isfinite(x) for x in losses + gnorms),
           "train: a non-finite loss or grad_norm")
     check(improved > 0, f"train: the loss did not fall ({improved:.4f})")
+    reckoning = train_reckoning(cfg, batch, seq, held, peak - held, med)
     # one more step under the profiler, after the run: device ms by kernel
     wall, by_name = device_ms_by_kernel(
         torch, lambda: step(params, opt, b), 1)
@@ -5544,7 +5609,49 @@ def train_phase(torch, cfg, n_steps: int = 10, batch: int = 4,
             "step_ms_median": med, "tokens_per_s": tok_s,
             "n_params": n_params, "reckoned_bytes": reckoned,
             "held_bytes": held, "peak_bytes": peak, "improvement": improved,
-            "profile": prof}
+            "profile": prof, "reckoning": reckoning}
+
+
+def train_reckoning(cfg, batch: int, seq: int, held: int, above: int,
+                    step_ms: float) -> dict:
+    """The dry run of the train step `train_phase` timed (batch x seq
+    tokens; the dry run's microbatches are one row each, as the JAX
+    package lays them out on one data shard) on a one-device layout: its
+    reckoned held bytes (params and moments, updated in place, and the
+    f32 gradients kept in .grad) against what stayed allocated (gate:
+    within 1 %), its temporaries beside the measured peak above that (a
+    reading), its FLOPs by class, and its roofline bound against the
+    measured step (gate: bound / step <= 1.05)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    t0 = time.time()
+    rec = dryrun.reckon(cfg, InputShape("train", seq, batch, "train"),
+                        make_debug_mesh(1, 1))
+    reckon_s = time.time() - t0
+    got = rec["memory"]["held_after_gib"] * 2**30
+    roof = rec["roofline"]
+    share = roof["bound_step_s"] * 1e3 / step_ms
+    by = rec["cost"]["flops_global_by_class"]
+    dots = rec["cost"]["dot_flops_global_by_class"]
+    log(f"  train reckoning ({reckon_s:.1f} s on meta tensors): held "
+        f"{got:.0f} B reckoned, {held} B measured ({got / held - 1:+.2e}); "
+        f"temp {rec['memory']['temp_gib']:.2f} GiB reckoned (1-row "
+        f"microbatches), peak {above / 2**30:.2f} GiB above the held bytes "
+        f"measured; FLOPs by class {by} (dots {dots}); bound "
+        f"{roof['bound_step_s'] * 1e3:.1f} ms ({roof['dominant']}: compute "
+        f"{roof['compute_s'] * 1e3:.1f}, memory {roof['memory_s'] * 1e3:.1f}"
+        f" ms) against the measured {step_ms:.1f} ms: share {share:.3f}")
+    check(abs(got - held) <= 0.01 * held,
+          f"train reckoning: {got:.0f} B reckoned against {held} B held")
+    check(share <= 1.05, f"train reckoning: bound "
+          f"{roof['bound_step_s'] * 1e3:.1f} ms above the measured "
+          f"{step_ms:.1f} ms")
+    return {"reckon_s": reckon_s, "held_bytes_reckoned": got,
+            "temp_gib": rec["memory"]["temp_gib"], "roofline": roof,
+            "share": share, "flops_by_class": by,
+            "dot_flops_by_class": rec["cost"]["dot_flops_global_by_class"]}
 
 
 def train_serve_phase(torch, cfg, n_steps: int = 10) -> dict:
@@ -6009,7 +6116,8 @@ def main() -> int:
     if "dense" in phases:
         log(f"== dense: llama3.1-8b, {cfg.n_layers} layers, dense-slot "
             f"prefill and decode steps")
-        results["dense"] = timed_phase(lambda: dense_phase(torch, cfg))
+        results["dense"] = timed_phase(lambda: dense_phase(torch, cfg,
+                                                           reckon=True))
     granite = get_arch("granite-moe-3b-a800m")
     if "granite_slice" in phases:
         log("== granite slice: granite-moe-3b at full width, 2 layers (1 and "
@@ -6197,7 +6305,8 @@ def main() -> int:
                **{k: round(v["seconds"], 1) for k, v in results.items()
                   if isinstance(v, dict) and "seconds" in v}}
     log(f"== seconds a phase: {json.dumps(seconds)}")
-    log(f"== done in {results['total_s']:.1f} s")
+    log(f"== done in {results['total_s']:.1f} s (the previous full runs took "
+        f"906.8-975.3 s)")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))

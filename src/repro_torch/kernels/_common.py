@@ -1,8 +1,17 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks shared by the kernel wrappers, and the scope through
+which a FLOP count sees them."""
 
 from __future__ import annotations
 
+import contextvars
+
 import torch
+
+# Set by a FLOP count (`roofline.flops.count`) while it runs a step on
+# meta tensors: the public wrappers of `kernels/ops.py` hand each call to
+# it, to be charged as its kernel's work and not as the plain version's.
+KERNEL_SCOPE: contextvars.ContextVar = contextvars.ContextVar(
+    "kernel_scope", default=None)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

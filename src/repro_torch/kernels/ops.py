@@ -5,12 +5,26 @@ its CUDA kernel for CUDA tensors and takes its plain version for CPU
 tensors (`kernels/ref.py`). There is no backend switch and no fallback.
 The CUDA kernels mask ragged M, N and K themselves, so nothing is padded
 here (the JAX package padded to the Pallas block shape).
+
+On meta tensors (a reckoning's run, `launch/dryrun.py`) a public
+wrapper runs nothing: it returns its kernel's outputs as meta tensors,
+and under a FLOP count (`roofline/flops.py`) charges one call of its
+kernel: its own FLOPs, in the dtype class the kernel computes in (K1 /
+K3 / K4 / K5 / K6 f16 tensor-core work, K2 / K7 e4m3), and whether the
+JAX package computes the same as a dot.
+The attention kernels are charged every position the JAX step's masked
+full-score einsums compute: K5 the cache's capacity, K4 the block
+table's, K6 the whole S x S square.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
+from repro_torch.kernels import _common
 from repro_torch.kernels.f16_matmul import f16_matmul
 from repro_torch.kernels.flash_prefill_attention import (
     flash_prefill_attention as _flash_prefill_attention)
@@ -41,6 +55,69 @@ def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
     return x.reshape(-1, k).contiguous()
 
 
+def dtype_class(dtype: torch.dtype) -> str:
+    """The FLOP class of work on `dtype`: "f16" (f16 and bf16), "e4m3",
+    "f32" or "other"."""
+    return {torch.float16: "f16", torch.bfloat16: "f16",
+            torch.float8_e4m3fn: "e4m3", torch.float32: "f32"}.get(dtype,
+                                                                   "other")
+
+
+def _charged(flops, meta):
+    """A public wrapper that meta tensors do not run (its first argument
+    on the meta device; the kernel wrapper raises on a mix): meta(*args,
+    **kwargs) gives its outputs' shapes and dtypes, the kernel's, and a
+    FLOP count (`_common.KERNEL_SCOPE`) charges the call as one launch of
+    its kernel, flops(*args, **kwargs) -> (FLOPs, class, is a dot)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not args[0].is_meta:
+                return fn(*args, **kwargs)
+            scope = _common.KERNEL_SCOPE.get()
+            if scope is None:
+                return meta(*args, **kwargs)
+            return scope(fn.__name__, flops(*args, **kwargs),
+                         lambda: meta(*args, **kwargs))
+        return call
+    return wrap
+
+
+def _empty(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _gemm_out(x, w, *_, **__):
+    return _empty((*x.shape[:-1], w.shape[1]), torch.float32)
+
+
+def _like_q(q, *_, **__):
+    return _empty(q.shape, torch.float32)
+
+
+def _gemm(x, w, *_, **__):
+    k, n = w.shape
+    return 2 * (x.numel() // k) * k * n
+
+
+def _gemm_f16(*a, **kw):
+    return _gemm(*a, **kw), "f16", True
+
+
+def _gemm_e4m3(*a, **kw):
+    return _gemm(*a, **kw), "e4m3", True
+
+
+def _elementwise(x, *_, **__):
+    return x.numel(), dtype_class(x.dtype), False
+
+
+def _decode_attention(q, planes: dict, keys_of, **_):
+    b, h, d = q.shape
+    return 4 * b * h * keys_of(planes) * d, "f16", True
+
+
+@_charged(_gemm_f16, _gemm_out)
 def matmul_nested_f16(x: torch.Tensor, upper: torch.Tensor,
                       lower: torch.Tensor) -> torch.Tensor:
     """FP16-mode GEMM: x (..., K) f16 @ nested[(K, N)] -> (..., N) f32."""
@@ -49,6 +126,9 @@ def matmul_nested_f16(x: torch.Tensor, upper: torch.Tensor,
     return out.reshape(*x.shape[:-1], n)
 
 
+@_charged(lambda x: (2 * x.numel(), dtype_class(x.dtype), False),
+          lambda x: (_empty(x.shape, torch.float8_e4m3fn),
+                     _empty((*x.shape[:-1], 1), torch.float32)))
 def quantize_act_per_token(x: torch.Tensor
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token absmax e4m3 quant in one kernel launch: x (..., K)
@@ -59,6 +139,8 @@ def quantize_act_per_token(x: torch.Tensor
     return q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)
 
 
+@_charged(_elementwise,
+          lambda x: _empty((*x.shape[:-1], 1), torch.float32))
 def act_row_absmax(x: torch.Tensor) -> torch.Tensor:
     """Each row's f32 absmax of x (..., K) -> (..., 1), not clamped, in one
     launch (a row-parallel layer's slice, before the mesh's max)."""
@@ -66,6 +148,8 @@ def act_row_absmax(x: torch.Tensor) -> torch.Tensor:
     return row_absmax(_rows(x, k)).reshape(*x.shape[:-1], 1)
 
 
+@_charged(_elementwise,
+          lambda x, scale: _empty(x.shape, torch.float8_e4m3fn))
 def quantize_act_scaled(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """e4m3 codes of x (..., K) under given row scales (..., 1) f32, in one
     launch, bitwise `quant.quantize_act_scaled`."""
@@ -76,6 +160,7 @@ def quantize_act_scaled(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.reshape(x.shape)
 
 
+@_charged(_gemm_e4m3, _gemm_out)
 def matmul_nested_fp8(x_q: torch.Tensor, upper: torch.Tensor,
                       x_scale: torch.Tensor) -> torch.Tensor:
     """FP8-mode GEMM: x_q (..., K) e4m3 @ upper (K, N) -> (..., N) f32.
@@ -90,6 +175,7 @@ def matmul_nested_fp8(x_q: torch.Tensor, upper: torch.Tensor,
     return out.reshape(*x_q.shape[:-1], n)
 
 
+@_charged(_gemm_f16, _gemm_out)
 def matmul_f16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain f16 GEMM (exception tensors): (..., K) @ (K, N) -> (..., N)."""
     k, n = w.shape
@@ -97,6 +183,8 @@ def matmul_f16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], n)
 
 
+@_charged(lambda q, planes, tables, lens, **kw: _decode_attention(
+    q, planes, lambda p: tables.shape[1] * p["k_hi"].shape[1]), _like_q)
 def paged_decode_attention(q, planes: dict, tables, lens, *, fp8: bool,
                            window=None) -> torch.Tensor:
     """Single-query decode over a paged planar pool: q (B, H, D); planes
@@ -107,6 +195,7 @@ def paged_decode_attention(q, planes: dict, tables, lens, *, fp8: bool,
         window=window)
 
 
+@_charged(_gemm_e4m3, _gemm_out)
 def matmul_nested_fp8_fused_quant(x: torch.Tensor, upper: torch.Tensor,
                                   amax: torch.Tensor) -> torch.Tensor:
     """FP8-mode GEMM with per-tensor activation quantization inside the
@@ -117,11 +206,15 @@ def matmul_nested_fp8_fused_quant(x: torch.Tensor, upper: torch.Tensor,
     return out.reshape(*x.shape[:-1], n)
 
 
+@_charged(lambda w: (w.numel(), "other", False),
+          lambda w: (_empty(w.shape, torch.uint8), _empty(w.shape, torch.uint8)))
 def encode(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """NestedFP encode of an applicable f16 tensor -> (upper, lower) u8."""
     return nestedfp_encode(w.to(torch.float16).contiguous())
 
 
+@_charged(lambda q, planes, lens, **kw: _decode_attention(
+    q, planes, lambda p: p["k_hi"].shape[1]), _like_q)
 def planar_decode_attention(q, planes: dict, lens, *, fp8: bool,
                             window=None) -> torch.Tensor:
     """Single-query decode over dense per-slot planes: q (B, H, D); planes
@@ -133,6 +226,8 @@ def planar_decode_attention(q, planes: dict, lens, *, fp8: bool,
         fp8=fp8, window=window)
 
 
+@_charged(lambda q, k, v: (4 * math.prod(q.shape) * k.shape[1],
+                           dtype_class(q.dtype), True), _like_q)
 def flash_prefill_attention(q, k, v) -> torch.Tensor:
     """Causal prefill attention: q (B, S, H, D), k/v (B, S, Hkv, D) ->
     (B, S, H, D) f32."""

@@ -1,7 +1,8 @@
-"""Serving meshes: a 1-D ("model",) axis of tensor-parallel shards.
+"""Serving meshes, and the layouts of the training meshes.
 
-The port of the JAX package's `launch/mesh.py` serving half
-(`make_serving_mesh`, `make_replica_meshes`, `model_axis_size`). A JAX
+The port of the JAX package's `launch/mesh.py`. Its serving half
+(`make_serving_mesh`, `make_replica_meshes`, `model_axis_size`) builds a
+`Mesh`, a 1-D ("model",) axis of tensor-parallel shards. A JAX
 mesh lays its axis over devices and GSPMD runs one program on each; here
 one process drives every shard of a `Mesh` in turn and the mesh does the
 one collective the layers need, `all_reduce` (and `all_gather` for a
@@ -18,12 +19,20 @@ step's bits do not depend on where the shards sit, and the code that runs
 with every shard on one card is the code a mesh across cards runs.
 NCCL is not used: it refuses two ranks on one GPU.
 
-`make_production_mesh`, `make_debug_mesh` and the data axes are
-training's; they come with that slice.
+Its training half (`make_production_mesh`, `make_debug_mesh`,
+`data_axes`, `data_axis_size`) returns a `Layout`: axis names and sizes
+and no devices, which is all the dry run (`launch/dryrun.py`) and the
+spec resolvers (`launch/sharding.py`) read. The production layouts are
+the JAX package's: (data 16, model 16), 256 devices, and (pod 2, data
+16, model 16), 512; on H100s a 16-way model axis spans two 8-GPU boards
+(`roofline/analysis.py` prices its collectives accordingly). A serving
+`Mesh` has no data axis: `data_axes` gives () and `data_axis_size` 1.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Sequence
 
 import torch
@@ -150,3 +159,41 @@ def make_replica_meshes(n_replicas: int, model: int,
 
 def model_axis_size(mesh) -> int:
     return mesh.shape["model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A mesh's axes and sizes, without devices: `shape` and `axis_names`
+    read as a JAX mesh's do."""
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Layout:
+    """(data 16, model 16), or with multi_pod (pod 2, data 16, model 16):
+    `pod` is an outer data-parallel axis."""
+    if multi_pod:
+        return Layout(("pod", "data", "model"), (2, 16, 16))
+    return Layout(("data", "model"), (16, 16))
+
+
+def make_debug_mesh(data: int = 2, model: int = 2) -> Layout:
+    """A small (data, model) layout (`make_debug_mesh(1, 1)`: one card)."""
+    return Layout(("data", "model"), (data, model))
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """All batch-parallel axes of a mesh (pod folds into data)."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def data_axis_size(mesh) -> int:
+    return math.prod(mesh.shape[a] for a in data_axes(mesh))

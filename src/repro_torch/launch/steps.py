@@ -11,9 +11,11 @@ The train step runs `model.train_loss` in `TRAIN_RT` (bf16 activations,
 f32 params) once a microbatch, sums the f32 gradients over the
 microbatches (autograd's accumulation into each param's `.grad`),
 divides by their count and applies AdamW (`optim/adamw.py`) in place.
-`batch_specs`, `param_structs` and `opt_structs` give the inputs' shapes
-and dtypes as meta tensors (nothing allocated), as the JAX package's
-ShapeDtypeStruct stand-ins do.
+`batch_specs`, `param_structs`, `opt_structs` and `cache_structs` give
+the inputs' shapes and dtypes as meta tensors (nothing allocated), as
+the JAX package's ShapeDtypeStruct stand-ins do; `shape_supported` is
+its shape policy. The dry run (`launch/dryrun.py`) runs these steps on
+them.
 
 As in the JAX package, serving steps run bf16 activations with bf16-
 rounded GEMM outputs (`fast_accum`) and the paper's per-tensor FP8
@@ -338,3 +340,20 @@ def param_structs(cfg: ArchConfig, *, serving: bool):
 def opt_structs(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, params_spec):
     """The AdamW state of `params_spec` on the meta device."""
     return adamw.init_state(opt_cfg, params_spec)
+
+
+def cache_structs(cfg: ArchConfig, shape: InputShape, planar: bool = False):
+    """A decode shape's caches (`model.init_cache` of global_batch rows of
+    seq_len) on the meta device."""
+    return M.init_cache(cfg, shape.global_batch, shape.seq_len,
+                        planar=planar, device="meta")
+
+
+def shape_supported(cfg: ArchConfig, shape: InputShape) -> tuple[bool, str]:
+    """The shape policy of the JAX package: long_500k only for sub-
+    quadratic archs. (ok, the reason when not)."""
+    if shape.name == "long_500k" and not cfg.is_sub_quadratic:
+        return False, ("full-attention arch: 500k dense-cache serving is "
+                       "quadratic at prefill; skipped per DESIGN.md shape "
+                       "policy")
+    return True, ""

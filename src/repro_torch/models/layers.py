@@ -118,7 +118,9 @@ def apply_linear(rt: Runtime, p, x: torch.Tensor) -> torch.Tensor:
         return nested_linear(p, x, mode=mode, out_dtype=rt.dtype,
                              fast_accum=rt.fast_accum,
                              act_quant=rt.act_quant)
-    if rt.mode == "train" and rt.dtype == torch.bfloat16 and x.is_cuda:
+    # (on meta tensors, a reckoning of the card's run: the card's branch)
+    if rt.mode == "train" and rt.dtype == torch.bfloat16 \
+            and x.device.type in ("cuda", "meta"):
         y = x.to(rt.dtype) @ p["w"].to(rt.dtype)
         if p.get("b") is not None:
             y = (y.float() + p["b"]).to(rt.dtype)

@@ -419,7 +419,7 @@ def init_paged_cache(cfg: ArchConfig, n_total_blocks: int, block_size: int,
 
     def cut(path, shape):
         return SH.local_shape(shape, SH.paged_cache_spec(path, shape, cfg,
-                                                         mesh), mesh.size)
+                                                         mesh), mesh)
     return [planes(dev, cut) for dev in mesh.devices]
 
 

@@ -84,7 +84,7 @@ def _piece(t: torch.Tensor | None, spec, mesh: Mesh, s: int):
     if t is None:
         return None
     dev = mesh.devices[s]
-    cut = SH.shard_bounds(spec, t.shape, mesh.size, s)
+    cut = SH.shard_bounds(spec, t.shape, mesh, s)
     if cut is None:
         return t.to(dev)
     d, start, n = cut

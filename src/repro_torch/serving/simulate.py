@@ -21,12 +21,13 @@ import numpy as np
 
 from repro_torch.core.policy import (DualPrecisionController, SLOConfig,
                                      StepObservation)
+from repro_torch.roofline.analysis import HBM_BYTES_S, PEAK_FLOPS
 from repro_torch.serving.trace import TraceRequest
 
-# NVIDIA H100 SXM5 80GB HBM3 data sheet, at its 700 W power limit: HBM3
-# bandwidth and the dense FP16 tensor-core peak (no sparsity)
-H100_HBM_BYTES_S = 3.35e12
-H100_FP16_FLOPS = 989e12
+# one H100 SXM5 80GB's HBM3 rate and dense FP16 tensor-core peak, from
+# the roofline's data-sheet constants
+H100_HBM_BYTES_S = HBM_BYTES_S
+H100_FP16_FLOPS = PEAK_FLOPS["f16"]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,7 +21,8 @@ pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_parity import configs, flatten_serving, serving_pair  # noqa: E402
+from _torch_parity import (configs, flatten_serving, serving_pair,  # noqa: E402,F401
+                           one_torch_thread)
 from repro.launch import steps as JS  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
@@ -33,6 +34,10 @@ from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.convert import from_jax_serving  # noqa: E402
 from repro_torch.models.layers import Runtime as TRuntime  # noqa: E402
+
+# many small CPU ops: one intra-op thread keeps a test's time its own under
+# several workers (`_torch_parity.one_torch_thread`)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FP16_TOL = 3e-3
 FP8_TOL = 0.25

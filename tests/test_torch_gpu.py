@@ -1922,3 +1922,35 @@ def test_colocated_mesh_engine_on_the_card(dev, mode):
         assert runs[4][1]["row_absmax"] > 0
         assert runs[4][1]["quant_per_token_scaled"] > 0
         assert runs[1][1]["row_absmax"] == 0
+
+
+def test_reckoned_arguments_are_what_the_dense_decode_holds(dev):
+    """The dry run's reckoned `argument_gib` of qwen1.5-0.5b's dense-slot
+    decode step on one card (`make_debug_mesh(1, 1)`) against the bytes
+    that its params, planar caches, tokens and cache_len hold on the
+    card, within 1 %."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.convert import serving_memory_bytes
+    cfg = get_arch("qwen1.5-0.5b")
+    b, cap = 4, 256
+    shape = InputShape("decode", cap, b, "decode")
+    want = dryrun.argument_bytes(cfg, shape, make_debug_mesh(1, 1),
+                                 kv="planar")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    sp = M.init_serving_params(cfg, seed=0, device="cuda")
+    caches = M.init_cache(cfg, b, cap, planar=True, device="cuda")
+    tokens = torch.ones((b, 1), dtype=torch.int32, device=dev)
+    cache_len = torch.tensor(7, dtype=torch.int32, device=dev)
+    held = serving_memory_bytes(sp)["total_bytes"] + sum(
+        p.numel() * p.element_size() for planes in caches.values()
+        for p in planes.values()) + 4 * b + 4
+    assert held == pytest.approx(want, rel=1e-2)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base
+    assert allocated == pytest.approx(want, rel=1e-2)
+    logits, _ = steps.make_decode_step(cfg, "fp16")(sp, caches, tokens,
+                                                    cache_len)
+    assert bool(torch.isfinite(logits).all())

@@ -13,7 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-from _torch_parity import configs, serving_pair  # noqa: E402
+from _torch_parity import (configs, serving_pair,  # noqa: E402,F401
+                           one_torch_thread)
 from repro.core.policy import DualPrecisionController as JController  # noqa: E402
 from repro.core.policy import SLOConfig as JSLO  # noqa: E402
 from repro.serving.engine import Engine as JEngine  # noqa: E402
@@ -25,6 +26,10 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import Runtime  # noqa: E402
 from repro_torch.serving.engine import Engine as TEngine  # noqa: E402
 from repro_torch.serving.engine import Request as TRequest  # noqa: E402
+
+# many small CPU ops: one intra-op thread keeps a test's time its own under
+# several workers (`_torch_parity.one_torch_thread`)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

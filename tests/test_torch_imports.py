@@ -42,3 +42,10 @@ def test_scan_catches_forbidden_imports(tmp_path):
                  "from repro_torch.core import quant as q2\n")
     mods = [m for m in _imported_modules(f) if m.split(".")[0] in FORBIDDEN]
     assert mods == ["jax.numpy", "repro.core"]
+
+
+def test_scan_covers_the_roofline_and_the_dry_run():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/roofline/flops.py",
+            "src/repro_torch/roofline/analysis.py",
+            "src/repro_torch/launch/dryrun.py"} <= names

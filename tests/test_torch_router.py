@@ -502,7 +502,7 @@ def test_cost_model_defaults_are_the_h100s():
     """`from_model`'s defaults are one H100 SXM5 80GB's data-sheet rates."""
     got = tsim.CostModel.from_model(8e9)
     assert got == tsim.CostModel.from_model(8e9, hbm_bw=3.35e12,
-                                            peak_flops=989e12)
+                                            peak_flops=989.4e12)
     assert got.weight_read_ms_fp16 == pytest.approx(8e9 * 2 / 3.35e12 * 1e3)
     assert dataclasses.asdict(tsim.CostModel()) \
         == dataclasses.asdict(jsim.CostModel())
