@@ -42,7 +42,8 @@ Phases, in order; any failed check exits non-zero before the last line:
               dense-slot prefill (2 x 600 tokens) and 4 decode steps:
               fp16 at 6 layers (the global layer runs K6 at D = 256),
               fp8 at 2 layers, and fp8 at 4 and 6 layers as readings
-  7. gemma_serve  gemma3-1b at full width and depth through `Engine`: 8
+  7. gemma_serve  gemma3-1b at full width, 12 of its 26 layers (DEPTH),
+              through `Engine`: 8
               requests of 1024 prompt tokens and 64 new tokens in forced
               fp16, forced fp8 and dual mode, then forced fp16 with window
               reclaim off, each after a warm pass; local-layer blocks must
@@ -182,16 +183,17 @@ its own in the kernels line ("flash_prefill_attention@D80", ...), its
 launches those of the phase whose model alone has that head dim.
 Serving meshes run last, every shard on the one card (their times are
 those of shards sharing a card, not of tensor parallelism across cards):
-  tp_serve  llama3.1-8b at full width, 8 layers (DEPTH, layer 0's wo an
+  tp_serve  llama3.1-8b at full width, 6 layers (DEPTH, layer 0's wo an
             exception tensor) through `Engine(mesh=...)` on 2 and 4
             shards and unsharded, 8 x (128 + 32) after a warm pass, FP16,
             FP8 and dual: first-decode logits against the unsharded model
-            (FP16 at 8 layers, FP8 at 2 / 4 / 8 layers within 0.25 /
-            0.35 / 0.50, the 8-layer limit set by F-port-10 beside its
-            CPU control's reading), tokens under the
+            (FP16 at 6 layers, FP8 at 2 / 4 / 6 layers within 0.25 /
+            0.35 / 0.50, the deep limit set by F-port-10 at 8 layers
+            beside its CPU control's reading), tokens under the
             margin rule, stats equal, every first replay bitwise, K1-K4
             and the quantizer halves launched at every per-shard shape
-  tp_gemma  gemma3-1b at full width and depth on 4 shards (one q head
+  tp_gemma  gemma3-1b at full width, 12 of its 26 layers (DEPTH), on 4
+            shards (one q head
             each, the kv head and its pool whole on every shard, K4 at
             G = 1), 8 x (640 + 32), window reclaim on, FP16 and FP8,
             held as tp_serve holds its meshes
@@ -201,7 +203,7 @@ those of shards sharing a card, not of tensor parallelism across cards):
             engine's shard slices and pools freed, the other replica
             untouched)
   tp_moe    granite-moe-3b at full width, 4 layers, on 2 and 4 shards
-            (expert-parallel banks), tp_ssm mamba2-2.7b, 8 layers, and
+            (expert-parallel banks), tp_ssm mamba2-2.7b, 6 layers, and
             tp_hybrid zamba2-2.7b, 12 layers (two shared-attention
             applications), on 4 (logits on 2 and 4): each beside the
             unsharded engine, FP16 and FP8, held as tp_serve holds its
@@ -228,10 +230,24 @@ products are plain bf16 / f32 torch ops, as the reference's are XLA's):
             the reckoned bytes of params, gradients and moments beside
             the peak allocated, the losses finite and falling by the
             launcher's rule, step ms and tokens/s
-  train_serve  qwen1.5-0.5b at full width and depth: launch/train.py for
-            10 steps with --ckpt (5.6 GB, deleted after), {"params"}
+  train_serve  qwen1.5-0.5b at full width, 12 of its 24 layers (DEPTH):
+            launch/train.py for
+            10 steps with --ckpt (deleted after), {"params"}
             restored nested (K8), one wo planted as an exception tensor
             (K3), served through Engine in FP16, FP8 and dual as phase 4
+The examples run last, in one phase:
+  examples  the five scripts of examples_torch/ (quickstart, slo_trace_sim,
+            serve_dual_precision, router_failover, train_tiny --fast):
+            each `main` on the card at the JAX example's own sizes must
+            return 0 (router_failover holds its fault run to the no-fault
+            run under MARGIN_RULE itself); then serve_dual_precision's
+            traffic at llama3.1-8b's full width, 4 layers (DEPTH), planar
+            KV, weights from init_serving_params: warm passes forced FP16
+            and FP8 capture every step key (first replays bitwise), then
+            the example's own dual run, timed, captures none (TPOT, mode
+            trace); K8, K1, the quantizer, K2 and K4 must launch; the
+            port's lint (`repro_torch.analysis`) exits 0 against
+            nfp-torch-baseline.json, timed
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 GPU is present or the port is missing.
@@ -2510,7 +2526,8 @@ def gemma_slice_phase(torch, cfg) -> dict:
 
 
 def gemma_serve_phase(torch, cfg, host_tier: bool = True) -> dict:
-    """gemma3-1b at full width and depth (26 layers) through `Engine`,
+    """gemma3-1b at full width (DEPTH["gemma_serve"] layers: two groups
+    of five local layers and a global one) through `Engine`,
     planar KV, window groups: 8 requests of 1024 prompt tokens and 64 new
     tokens in forced FP16, forced FP8 and dual mode, then forced FP16 with
     window reclaim off; each engine after a warm pass of 8 other prompts
@@ -5058,8 +5075,8 @@ def tp_serve_phase(torch, cfg) -> dict:
 
 
 def tp_gemma_phase(torch, cfg) -> dict:
-    """gemma3-1b at full width and depth (26 layers, 4 q heads and 1 kv
-    head of 256, windows of 512 on five layers of six; layer 5's wo an
+    """gemma3-1b at full width (DEPTH["tp_gemma"] layers, 4 q heads and 1
+    kv head of 256, windows of 512 on five layers of six; layer 5's wo an
     exception tensor) on 4 shards of one card: each shard one q head, the
     kv head and the pool whole on every shard (its own copy, K4 per shard
     at G = 1), window reclaim on. 8 x (640 + 32), capacity 704, FP16 and
@@ -5655,7 +5672,8 @@ def train_reckoning(cfg, batch: int, seq: int, held: int, above: int,
 
 
 def train_serve_phase(torch, cfg, n_steps: int = 10) -> dict:
-    """qwen1.5-0.5b at full width and depth: `repro_torch.launch.train`
+    """qwen1.5-0.5b at full width (DEPTH["train_serve"] layers):
+    `repro_torch.launch.train`
     for n_steps steps (8 x 128 tokens, 2 microbatches) with --ckpt into
     a temporary directory (deleted after), which must exit 0; its
     {"params"} restored with
@@ -5682,9 +5700,9 @@ def train_serve_phase(torch, cfg, n_steps: int = 10) -> dict:
     try:
         with contextlib.redirect_stdout(out):
             rc = train_cli.main([
-                "--arch", cfg.arch_id, "--steps", str(n_steps), "--batch",
-                "8", "--seq", "128", "--micro", "2", "--ckpt", str(ckpt),
-                "--log-every", "3"])
+                "--arch", cfg.arch_id, "--layers", str(cfg.n_layers),
+                "--steps", str(n_steps), "--batch", "8", "--seq", "128",
+                "--micro", "2", "--ckpt", str(ckpt), "--log-every", "3"])
         train_s = time.time() - t0
         for line in out.getvalue().splitlines():
             log(f"  train serve | {line}")
@@ -5734,6 +5752,177 @@ def _linears(tree, cls):
     if isinstance(tree, list):
         return [p for v in tree for p in _linears(v, cls)]
     return []
+
+
+# the kernels the examples' run must launch: K8 nests the weights,
+# K1 / the quantizer + K2 run the engine's FP16 / FP8 linears, K4 the
+# full-width planar serve's decode attention
+EXAMPLES_NEED = ("nestedfp_encode", "nestedfp16_matmul", "quant_per_token",
+                 "nestedfp8_matmul", "paged_planar_decode_attention")
+EXAMPLES = (("quickstart", []), ("slo_trace_sim", []),
+            ("serve_dual_precision", []), ("router_failover", []),
+            ("train_tiny", ["--fast"]))
+
+
+def load_example(name: str):
+    """An `examples_torch/` script as a module (its `main` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(torch, name: str, argv: list) -> tuple[int | str, float, str]:
+    """`main(argv)` of an example on the card (its default device), its
+    printout captured; train_tiny runs in a temporary working directory
+    (its checkpoint goes to out/ there), deleted after. Returns (exit
+    code, or the assertion that failed; wall s; printout)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    out, cwd = io.StringIO(), os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="train_tiny_") if name == "train_tiny" \
+        else None
+    t0 = time.time()
+    try:
+        if tmp:
+            os.chdir(tmp)
+        with contextlib.redirect_stdout(out):
+            rc = load_example(name).main(list(argv))
+    except AssertionError as e:
+        rc = f"assertion failed: {e}"
+    finally:
+        os.chdir(cwd)
+        if tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    return rc, time.time() - t0, out.getvalue()
+
+
+def examples_phase(torch, cfg) -> dict:
+    """The examples of `examples_torch/` on the card: each script's
+    `main` at the JAX example's own sizes (train_tiny --fast), then
+    serve_dual_precision's traffic once more at full width, cfg cut to
+    DEPTH["examples"] layers, planar KV, weights from
+    `init_serving_params`: one engine serves the traffic forced FP16,
+    then forced FP8 (the warm passes, other prompts of the same shapes:
+    every step key captured, each first replay held bitwise against an
+    eager call), then the example's own dual run as the timed pass, in
+    which no key may be captured. Every example must return 0, every
+    kernel of EXAMPLES_NEED launch in the phase, and the port lint clean
+    against its committed baseline (`repro_torch.analysis`, timed)."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis import cli as lint
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    res = {"examples": {}}
+    ops.reset_launch_counters()          # the main path's run starts here
+    for name, argv in EXAMPLES:
+        rc, wall, text = run_example(torch, name, argv)
+        for line in text.splitlines():
+            log(f"  {name}: {line}")
+        res["examples"][name] = {"rc": rc, "wall_s": wall}
+        log(f"  examples {name}: exit {rc} in {wall:.2f} s")
+        check(rc == 0, f"examples {name}: {rc}")
+        if name == "router_failover":
+            res["examples"][name]["partings"] = text.count(
+                "parts from the no-fault run")
+
+    cfgn = cut_depth(cfg, "examples")
+    t0 = time.time()
+    sp = M.init_serving_params(cfgn, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  examples serve: {cfgn.arch_id} at full width, {cfgn.n_layers} "
+        f"layers, params on the card in {time.time() - t0:.1f} s")
+    ex = load_example("serve_dual_precision")
+    eng, ctrl = ex.make_engine(cfgn, sp, kv_planar=True,
+                               device=torch.device("cuda"))
+    g = eng.graphs
+    t0 = time.monotonic()
+    g.check_first_runs = True
+    for w, mode in enumerate(("fp16", "fp8")):
+        eng.forced_mode = mode
+        ex.run_traffic(eng, seed=101 + w, tag=f"w{w}.")
+    eng.forced_mode = None
+    g.check_first_runs = False
+    warm_s = time.monotonic() - t0
+    for key, same in sorted(g.checks.items(), key=str):
+        check(all(same.values()),
+              f"examples serve {key}: replay differs from the eager call "
+              f"{same}")
+    check(len(g.checks) == len(g.keys()) == g.n_captured,
+          f"examples serve: {len(g.checks)} keys checked of "
+          f"{len(g.keys())}")
+    n_graphs, n_fin, n_hist = g.n_captured, len(eng.finished), \
+        len(ctrl.history)
+    lines: list[str] = []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    try:
+        ex.serve(cfgn, sp, kv_planar=True, device=torch.device("cuda"),
+                 engine=(eng, ctrl), log=lines.append)
+        ok = True
+    except AssertionError as e:
+        ok = f"assertion failed: {e}"
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for line in lines:
+        log(f"  examples serve: {line}")
+    check(ok is True, f"examples serve: {ok}")
+    check(g.n_captured == n_graphs,
+          "examples serve: a step key was captured inside the timed pass")
+    fin = eng.finished[n_fin:]
+    check(len(fin) == 15 and all(
+        0 < len(r.output) <= r.max_new
+        and all(0 <= t < cfgn.vocab_size for t in r.output) for r in fin),
+        "examples serve: outputs missing, too long or out of vocab")
+    n_tok = sum(len(r.output) for r in fin)
+    tpot = [(r.finished_s - r.first_token_s) / (len(r.output) - 1)
+            for r in fin if len(r.output) > 1]
+    trace = "".join("H" if m == "fp16" else "8"
+                    for m in ctrl.history[n_hist:])
+    res["serve"] = {
+        "arch": cfgn.arch_id, "layers": cfgn.n_layers, "warm_pass_s": warm_s,
+        "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+        "tpot_ms_mean": 1e3 * sum(tpot) / len(tpot),
+        "tpot_ms_median": 1e3 * sorted(tpot)[len(tpot) // 2],
+        "mode_trace": trace, "fp16_fraction": trace.count("H") / len(trace),
+        "graphs": n_graphs, "graph_pool_bytes": g.pool_bytes()}
+    log(f"  examples serve: timed pass {n_tok} tokens in {wall:.3f} s "
+        f"({n_tok / wall:.1f} tok/s), TPOT mean "
+        f"{res['serve']['tpot_ms_mean']:.2f} ms median "
+        f"{res['serve']['tpot_ms_median']:.2f} ms, mode trace {trace}; "
+        f"{n_graphs} graphs captured in the warm passes ({warm_s:.2f} s), "
+        f"none in the timed pass; pool "
+        f"{res['serve']['graph_pool_bytes'] / 2**20:.1f} MiB")
+    del eng, ctrl, g, sp
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    res["launches_total"] = ops.all_launch_counters()   # the run ends
+    log(f"  examples: launches {res['launches_total']}")
+    for name in EXAMPLES_NEED:
+        check(res["launches_total"][name] > 0,
+              f"examples: {name} never launched")
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = lint.main(["--repo-root", str(ROOT), "--baseline",
+                        str(ROOT / "nfp-torch-baseline.json")])
+    res["lint"] = {"rc": rc, "s": time.perf_counter() - t0,
+                   "summary": out.getvalue().strip().splitlines()[-1]}
+    log(f"  examples lint: {res['lint']['summary']}, exit {rc} in "
+        f"{res['lint']['s']:.2f} s")
+    check(rc == 0, f"examples lint: active findings\n{out.getvalue()}")
+    return res
 
 
 SOURCES = {
@@ -5915,7 +6104,13 @@ def k7_sass_ops(_build) -> dict:
 # mamba2_serve, zamba2_dense, mamba2_dense, phi3_dense and qwen3_serve to
 # 6 layers (zamba2's 6 hold one shared-attention application), ds_dense
 # to 8, gemma_dense to 6 (its one global layer), tiered and spec to 8 and
-# 4, qwen3_dense to 4; every other phase runs its model's full depth
+# 4, qwen3_dense to 4; then, to make room for the examples phase (31.0 s
+# on an H100), tp_serve and tp_ssm from 8 to 6 (their FP8 logits still
+# held at 2, 4 and, deeper than 4, at TP_DEEP_FP8_TOL), tp_gemma,
+# gemma_serve and train_serve to 12 (gemma3-1b's two windowed groups,
+# each with its global layer; the tp and serve phases of the final run
+# before took tp_serve 41.1 s, tp_gemma 24.6, tp_ssm 24.3, gemma_serve
+# 12.3, train_serve 26.0); every other phase runs its model's full depth
 DEPTH = {"granite_serve": 4, "granite_dense": 4, "spec": 4,
          "qwen3_dense": 4, "qwen3_serve": 6, "tiered": 8,
          "mamba2_serve": 6, "mamba2_dense": 6, "zamba2_serve": 6,
@@ -5924,11 +6119,15 @@ DEPTH = {"granite_serve": 4, "granite_dense": 4, "spec": 4,
          # tensor-parallel serving: the per-shard shapes are a layer's, so
          # depth buys nothing but time (tp_serve runs nine engines);
          # zamba2's 12 hold two shared-attention applications
-         "tp_serve": 8, "tp_fleet": 4, "tp_moe": 4, "tp_ssm": 8,
-         "tp_hybrid": 12,
+         "tp_serve": 6, "tp_fleet": 4, "tp_moe": 4, "tp_ssm": 6,
+         "tp_hybrid": 12, "tp_gemma": 12, "gemma_serve": 12,
+         "train_serve": 12,
          # training: f32 params, gradients and two moments of llama3.1-8b's
          # 32 layers are ~128 GB; 4 layers (1.92 B params) ~31 GB
-         "train": 4}
+         "train": 4,
+         # the examples' full-width serve: llama3.1-8b's layer shapes; depth
+         # buys nothing but time
+         "examples": 4}
 
 
 def cut_depth(cfg, phase: str):
@@ -5952,7 +6151,7 @@ def main() -> int:
                             "phi3_serve,phi3_dense,seamless_slice,"
                             "seamless_dense,tp_serve,tp_gemma,tp_fleet,"
                             "tp_moe,tp_ssm,tp_hybrid,train_slice,train,"
-                            "train_serve")
+                            "train_serve,examples")
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--serve-layers", type=int, default=32)
@@ -6145,10 +6344,11 @@ def main() -> int:
         results["gemma_slice"] = timed_phase(
             lambda: gemma_slice_phase(torch, gemma))
     if "gemma_serve" in phases:
-        log(f"== gemma serve: gemma3-1b, {gemma.n_layers} layers, window "
+        c = cut_depth(gemma, "gemma_serve")
+        log(f"== gemma serve: gemma3-1b, {c.n_layers} layers, window "
             f"groups")
         results["gemma_serve"] = timed_phase(lambda: gemma_serve_phase(
-            torch, gemma, args.host_tier == "on"))
+            torch, c, args.host_tier == "on"))
     if "gemma_dense" in phases:
         c = cut_depth(gemma, "gemma_dense")
         log(f"== gemma dense: gemma3-1b, {c.n_layers} layers, dense-slot "
@@ -6296,17 +6496,24 @@ def main() -> int:
             f"make_train_step steps of 4 x 2048 tokens (2 microbatches)")
         results["train"] = timed_phase(lambda: train_phase(torch, c))
     if "train_serve" in phases:
-        log(f"== train serve: qwen1.5-0.5b, {qwen.n_layers} layers, trained "
+        c = cut_depth(qwen, "train_serve")
+        log(f"== train serve: qwen1.5-0.5b, {c.n_layers} layers, trained "
             f"by launch/train.py, checkpointed, restored nested and served")
         results["train_serve"] = timed_phase(
-            lambda: train_serve_phase(torch, qwen))
+            lambda: train_serve_phase(torch, c))
+    if "examples" in phases:
+        c = cut_depth(cfg, "examples")
+        log(f"== examples: the five scripts of examples_torch/ on the card, "
+            f"then serve_dual_precision's traffic at {c.arch_id}'s full "
+            f"width, {c.n_layers} layers, planar KV; the port's lint")
+        results["examples"] = timed_phase(lambda: examples_phase(torch, cfg))
     results["total_s"] = time.time() - t_start
     seconds = {"build": results["build_s"], "kernels": results.get("kernels_s"),
                **{k: round(v["seconds"], 1) for k, v in results.items()
                   if isinstance(v, dict) and "seconds" in v}}
     log(f"== seconds a phase: {json.dumps(seconds)}")
     log(f"== done in {results['total_s']:.1f} s (the previous full runs took "
-        f"906.8-975.3 s)")
+        f"972.5-1042.6 s)")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))
@@ -6317,7 +6524,8 @@ def main() -> int:
         # dense-slot steps, speculation (llama3.1-8b, gemma3-1b), the
         # tiered KV cache, the fleet, deepseek-coder-33b's and qwen3-8b's
         # serve and dense-slot steps, the MoE family's, mamba2-2.7b's and
-        # zamba2-2.7b's, phi-3-vision's and seamless-m4t-v2's, each
+        # zamba2-2.7b's, phi-3-vision's and seamless-m4t-v2's, the
+        # launcher-trained serve and the examples, each
         # counted from 0 at its start; an instance's launches are those of
         # the phases whose model has that head dim alone
         paths = [results.get(p, {}).get("launches_total", {})
@@ -6329,7 +6537,7 @@ def main() -> int:
                            "zamba2_serve", "zamba2_dense", "phi3_serve",
                            "phi3_dense", "seamless_dense",
                            *TP_PHASES, *TP_FAMILY_PHASES, "ds3_mla",
-                           "train_serve")]
+                           "train_serve", "examples")]
         kernels = []
         for name, (src, replaces) in SOURCES.items():
             kernels.append({"name": name, "route": "cuda", "source": src,

@@ -46,6 +46,7 @@ def nestedfp8_matmul(x_q: torch.Tensor, upper: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     fn = _build.function("nestedfp8_matmul", "nestedfp8_matmul", _ARGS)
     with torch.cuda.device(x_q.device):
+        # nfp: ignore[NFP004] x_scale's dtype, contiguity and its two legal shapes (one element or (M, 1)) are checked above
         err = fn(x_q.data_ptr(), upper.data_ptr(), x_scale.data_ptr(), stride,
                  out.data_ptr(), m, n, k, _common.stream_handle(x_q.device))
     _build.check(err, "nestedfp8_matmul")

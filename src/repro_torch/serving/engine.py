@@ -617,6 +617,7 @@ class Engine:
                 # (work enqueued before the step's graph), never for the
                 # step's sampled ids. The copies and checksums below must
                 # read landed bytes.
+                # nfp: ignore[NFP001] tiered-KV spill capture: waits for the evicted cold blocks' copy, enqueued before the step's graph, never for the step's ids
                 done.synchronize()
             layout = [(n, off, nb, r.numpy().dtype, r.shape[1:])
                       for n, off, nb, r in self._planes_of(g, names, host)]
@@ -1304,6 +1305,7 @@ class Engine:
             return ids, drafts
         return ids, None
 
+    # nfp: sync-point
     def _finalize_step(self, mode: str, pending, decode_ids, chunk_ids,
                        drafts=None) -> None:
         """The step's ONLY device->host sync: pull the sampled token ids

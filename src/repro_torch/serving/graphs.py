@@ -228,6 +228,7 @@ class StepGraphs:
         host buffer."""
         st = self._entry(key)
         if st.uploaded is not None:
+            # nfp: ignore[NFP001] the key's pinned host buffer is reused: waits for its previous upload to have left it; one step old unless the same key runs twice in a step
             st.uploaded.synchronize()
         st.host.zero_()
         return st.host_views
@@ -352,6 +353,7 @@ class StepGraphs:
                 cut = slice(None) if sub == "ssm" \
                     else slice(TRASH_BLOCK + 1, None)
                 for n, p in planes.items():
+                    # nfp: ignore[NFP001] opt-in replay check (check_first_runs): comparing a replay with an eager call IS the sync
                     same[tag + n] = bool(torch.equal(
                         p[:, cut], _shards(clones)[i][sub][n][:, cut]))
                     p.copy_(saved[i][sub][n])

@@ -1213,6 +1213,7 @@ class BlockManager:
         if self._dev_tables is not None:
             # debug-only device read: overlay the pending dirty entries
             for tab in (self._dev_tables, *self._mirrors.values()):
+                # nfp: ignore[NFP001] opt-in debug sanitizer: auditing the device mirror IS the sync
                 mirror = tab.cpu().numpy().copy()
                 for (g, s, j), b in self._dirty.items():
                     mirror[g, s, j] = b

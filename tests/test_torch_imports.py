@@ -10,7 +10,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -49,3 +49,11 @@ def test_scan_covers_the_roofline_and_the_dry_run():
     assert {"src/repro_torch/roofline/flops.py",
             "src/repro_torch/roofline/analysis.py",
             "src/repro_torch/launch/dryrun.py"} <= names
+
+
+def test_scan_covers_the_examples_and_the_linter():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"examples_torch/{n}.py" for n in (
+        "quickstart", "serve_dual_precision", "router_failover",
+        "slo_trace_sim", "train_tiny")} <= names
+    assert "src/repro_torch/analysis/rules.py" in names
